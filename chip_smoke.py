@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch/CUDA port's serving data plane once on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero; nothing is caught to carry on):
+
+1. env       card name and power limit, torch/CUDA versions, and the build
+             of every kernel under src/repro_torch/kernels/csrc with nvcc;
+2. kernels   each CUDA kernel against its plain PyTorch version on the card,
+             over the shape grids of tests/test_kernels.py in f32 and bf16
+             and at this run's own shapes;
+3. serving   the engine at the full qwen3-1.7b KV geometry admits three
+             tenants over a 16384-block pool and takes 1024 requests; pages
+             are written once when allocated, and every 64 requests the
+             resident ones decode one token through paged attention (K1);
+4. grouped   8 prefix groups of 16 resident requests decode through
+             shared-prefix attention (K2) + suffix attention + LSE merge,
+             held to the plain version and to K1 over each full table;
+5. admission the working-set virtual allocations on the card against the
+             port's own CPU solve;
+6. timing    each kernel, its plain version and a PyTorch yardstick at the
+             main path's shapes (CUDA events, L2 flushed between launches).
+
+The line before the last lists each kernel as JSON (launches on the main
+path, phases 3-4; max error; times; bound); the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.cacheblocks import layout_for  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import admission, irm  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention,
+    paged_attention_plain,
+)
+from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
+    shared_prefix_attention,
+    shared_prefix_attention_plain,
+)
+from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
+
+# Tolerances of tests/test_kernels.py: out f32 / bf16, lse f32 / bf16.
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# NVIDIA H100 SXM data sheet: HBM rate, dense peaks (f32 outside the
+# tensor cores, bf16 on them).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+ADMISSION_RTOL = 1e-4   # card vs CPU float32 solve: sums in another order
+
+KERNELS = {
+    "paged_attention": dict(
+        fn=paged_attention,
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:38",
+    ),
+    "shared_prefix_attention": dict(
+        fn=shared_prefix_attention,
+        source="src/repro_torch/kernels/csrc/shared_prefix_attention.cu",
+        replaces="src/repro/kernels/shared_prefix_attention.py:37",
+    ),
+}
+
+
+@dataclass(frozen=True)
+class Sizes:
+    """The run's scale. The defaults are the full one: qwen3-1.7b's KV
+    geometry (H=16, KV=8, D=128) over a 16384-block pool of 16 tokens."""
+
+    arch: str = "qwen3-1.7b"
+    reduced: bool = False           # the arch's small config (CPU rehearsal)
+    pool_blocks: int = 16384
+    block_tokens: int = 16
+    n_requests: int = 1024
+    n_prompts: int = 8              # shared system prompts of tenants A, B
+    prefix_tokens: int = 1024
+    user_tokens: int = 256
+    decode_every: int = 64
+    groups: int = 8                 # P prefix groups ...
+    group_size: int = 16            # ... of M resident requests
+    n_objects: int = 1024           # admission catalogue (engine.py's N)
+
+    def arch_config(self):
+        cfg = get_config(self.arch)
+        return cfg.reduced() if self.reduced else cfg
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+class Errors:
+    """Largest kernel-vs-plain difference seen per kernel."""
+
+    def __init__(self) -> None:
+        self.max = {name: 0.0 for name in KERNELS}
+
+    def check(self, name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+              what: str) -> float:
+        if got.shape != want.shape:
+            _fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        g, w = got.float(), want.float()
+        if not bool(torch.isfinite(g).all()):
+            _fail(f"{what}: non-finite values")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        if not err <= atol:
+            _fail(f"{what}: max abs err {err:.3e} > atol {atol:.1e}")
+        self.max[name] = max(self.max[name], err)
+        return err
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: k["fn"].launches for name, k in KERNELS.items()}
+
+
+# -- phase 1: env --------------------------------------------------------
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_env() -> str:
+    card = nvidia_smi()
+    _log(f"[env] card: {card}")
+    _log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    reports = _build.build()
+    for name in KERNELS:
+        _build.load(name)
+    _log(f"[env] kernels built from csrc/ with nvcc in {time.perf_counter() - t0:.2f} s "
+         f"(set-up; {len(reports)} compiled, {len(KERNELS) - len(reports)} cached)")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"[env] ptxas {name}: {line.strip()}")
+    return card
+
+
+# -- phase 2: kernels against their plain versions ----------------------
+
+K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py)
+    (4, 8, 4, 64, 16, 32, 6), (2, 4, 1, 128, 8, 16, 4), (3, 6, 6, 64, 32, 12, 3),
+]
+K2_GRID = [  # P, M, H, KV, D, S
+    (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
+]
+K1_WIDE = [(3, 8, 1, 256, 64, 8, 3)]   # G=8, D=256, pages wider than a warp's 32 tokens
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cfg = sizes.arch_config()
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pps = (sizes.prefix_tokens + sizes.user_tokens) // sizes.block_tokens
+    k1 = K1_GRID + K1_WIDE + [(sizes.decode_every, H, KV, D, sizes.block_tokens,
+                     sizes.decode_every * pps, pps)]
+    k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H_, KV_, D_, page, P, pps_ in k1:
+            q = _randn(gen, (B, H_, D_), dtype, device)
+            kp = _randn(gen, (KV_, P, page, D_), dtype, device)
+            vp = _randn(gen, (KV_, P, page, D_), dtype, device)
+            bt = torch.randint(0, P, (B, pps_), generator=gen, device=device, dtype=torch.int32)
+            cl = torch.randint(1, pps_ * page + 1, (B,), generator=gen, device=device,
+                               dtype=torch.int32)
+            cl[0] = 0                                     # the ctx = 0 row
+            got = paged_attention(q, kp, vp, bt, cl)
+            err = errs.check("paged_attention", got, paged_attention_plain(q, kp, vp, bt, cl),
+                             ATOL[dtype], f"K1 {dtype} B={B} H={H_} KV={KV_} D={D_} page={page}")
+            if float(got[0].float().abs().max()) != 0.0:
+                _fail("K1: ctx = 0 must give zeros")
+            _log(f"[kernels] K1 {str(dtype)[6:]:8s} B={B:3d} H={H_:2d} KV={KV_} D={D_:3d} "
+                 f"page={page:2d} pps={pps_:2d}: max abs err {err:.3e}")
+        for P, M, H_, KV_, D_, S in k2:
+            q = _randn(gen, (P, M, H_, D_), dtype, device)
+            pk = _randn(gen, (P, S, KV_, D_), dtype, device)
+            pv = _randn(gen, (P, S, KV_, D_), dtype, device)
+            pl = torch.randint(1, S + 1, (P,), generator=gen, device=device, dtype=torch.int32)
+            pl[0] = 0                                     # the prefix_len = 0 row
+            go, gl = shared_prefix_attention(q, pk, pv, pl, block_s=32 if S <= 256 else 128)
+            wo, wl = shared_prefix_attention_plain(q, pk, pv, pl)
+            what = f"K2 {dtype} P={P} M={M} H={H_} KV={KV_} D={D_} S={S}"
+            err = errs.check("shared_prefix_attention", go, wo, ATOL[dtype], what + " out")
+            lerr = errs.check("shared_prefix_attention", gl, wl, LSE_ATOL[dtype], what + " lse")
+            if float(go[0].float().abs().max()) != 0.0 or float(gl[0].max()) > -1e29:
+                _fail("K2: prefix_len = 0 must give out = 0, lse = -1e30")
+            _log(f"[kernels] K2 {str(dtype)[6:]:8s} P={P} M={M:2d} H={H_:2d} KV={KV_} "
+                 f"D={D_:3d} S={S:4d}: max abs err out {err:.3e} lse {lerr:.3e}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# -- phase 3: serving ------------------------------------------------------
+
+def phase_serving(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
+    cfg = sizes.arch_config()
+    ecfg = EngineConfig(block_tokens=sizes.block_tokens, pool_blocks=sizes.pool_blocks)
+    layout = layout_for(cfg, block_tokens=sizes.block_tokens)
+    pool_bytes = sizes.pool_blocks * layout.bytes_per_block
+    engine = ServingEngine(
+        cfg,
+        [TenantSpec("tenantA", 0.35 * pool_bytes), TenantSpec("tenantB", 0.35 * pool_bytes),
+         TenantSpec("tenantC", 0.20 * pool_bytes)],
+        ecfg,
+        device=device,
+    )
+    pool, cache = engine.pool, engine.cache
+    k_pages, v_pages = pool.layer_pool(0)
+    KV, D, bt = cfg.n_kv_heads, cfg.head_dim, sizes.block_tokens
+    n_blocks = (sizes.prefix_tokens + sizes.user_tokens) // bt
+    ctx = n_blocks * bt
+    _log(f"[serving] {cfg.name}: H={cfg.n_heads} KV={KV} D={D}, pool {sizes.pool_blocks} "
+         f"blocks x {bt} tokens = {2 * k_pages.numel() * k_pages.element_size() / 2**30:.3f} "
+         f"GiB of {str(k_pages.dtype)[6:]} K+V (layer 0) on {device}")
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, sizes.prefix_tokens) for _ in range(sizes.n_prompts)]
+    written: Dict[int, bytes] = {}       # page -> object key it holds
+    requests: List[tuple] = []           # (tenant, prompt index or -1, tokens)
+    decoded = dropped = pages_written = 0
+    last = None
+    spent = {"submit": 0.0, "writes": 0.0, "decode": 0.0}   # host seconds
+    t0 = time.perf_counter()
+    for i in range(sizes.n_requests):
+        t = int(rng.choice(3, p=[0.4, 0.4, 0.2]))
+        tenant = ("tenantA", "tenantB", "tenantC")[t]
+        pi = int(rng.integers(0, sizes.n_prompts)) if t < 2 else -1
+        prefix = prompts[pi] if t < 2 else rng.integers(0, cfg.vocab_size, sizes.prefix_tokens)
+        tokens = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, sizes.user_tokens)])
+        t1 = time.perf_counter()
+        engine.submit(tenant, tokens)
+        t2 = time.perf_counter()
+        spent["submit"] += t2 - t1
+        requests.append((tenant, pi, tokens))
+        # write K/V once into each page this request newly allocated
+        new = [(key, cache.pages[key]) for key in cache._keys_for(tokens)
+               if key in cache.pages and written.get(cache.pages[key]) != key]
+        if new:
+            kv = torch.randn((2, len(new), bt, KV, D), generator=gen, device=device)
+            for j, (key, page) in enumerate(new):
+                pool.write_block(0, page, kv[0, j], kv[1, j])
+                written[page] = key
+            pages_written += len(new)
+        t3 = time.perf_counter()
+        spent["writes"] += t3 - t2
+        if (i + 1) % sizes.decode_every == 0:
+            tables = [cache.block_table(tn, tk) for tn, _, tk in requests[-sizes.decode_every:]]
+            tables = [tb for tb in tables if len(tb) == n_blocks]   # fully resident
+            dropped += sizes.decode_every - len(tables)
+            if tables:
+                B = len(tables)
+                q = _randn(gen, (B, cfg.n_heads, D), k_pages.dtype, device)
+                bt_t = torch.as_tensor(np.stack(tables), device=device)
+                cl = torch.full((B,), ctx, dtype=torch.int32, device=device)
+                out = ops.paged_attention(q, k_pages, v_pages, bt_t, cl)
+                errs.check("paged_attention", out,
+                           paged_attention_plain(q, k_pages, v_pages, bt_t, cl),
+                           ATOL[q.dtype], f"serving decode after request {i + 1}")
+                decoded += B
+                last = (q, bt_t, cl)
+            spent["decode"] += time.perf_counter() - t3
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    _log(f"[serving] {sizes.n_requests} requests in {wall:.2f} s (host clock): submit "
+         f"{spent['submit']:.2f} s, page writes {spent['writes']:.2f} s (enqueue), decode + "
+         f"check {spent['decode']:.2f} s (synchronised by the check); pages written "
+         f"{pages_written}")
+    _log(f"[serving] prefix-hit token ratio {st['prefix_hit_token_ratio']:.4f}, evictions "
+         f"{st['evictions']}, ripple evictions {st['ripple_evictions']}, sharing ratio "
+         f"{st['sharing_ratio']:.4f}, pool used {st['pool_used_blocks']}/{sizes.pool_blocks}")
+    _log(f"[serving] decoded {decoded} requests through K1, dropped {dropped} not resident")
+    if last is None:
+        _fail("serving: no request was resident at any decode step")
+    return dict(engine=engine, requests=requests, n_blocks=n_blocks, last=last,
+                stats=st, decoded=decoded, dropped=dropped)
+
+
+# -- phase 4: grouped decode ----------------------------------------------
+
+def _gather(pages: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """(KV, P, page, D) pool, table of n pages -> (n * page, KV, D)."""
+    KV, _, page, D = pages.shape
+    idx = torch.as_tensor(table, device=pages.device, dtype=torch.long)
+    return pages[:, idx].reshape(KV, len(table) * page, D).transpose(0, 1)
+
+
+def phase_grouped(device, sizes: Sizes, served: dict, errs: Errors, seed: int) -> dict:
+    engine, n_blocks = served["engine"], served["n_blocks"]
+    cache, pool = engine.cache, engine.pool
+    k_pages, v_pages = pool.layer_pool(0)
+    n_pre = sizes.prefix_tokens // sizes.block_tokens
+    groups: Dict[int, List[np.ndarray]] = {}
+    for tenant, pi, tokens in reversed(served["requests"]):     # most recent first
+        if pi < 0 or len(groups.get(pi, [])) == sizes.group_size:
+            continue
+        table = cache.block_table(tenant, tokens)
+        if len(table) == n_blocks:
+            groups.setdefault(pi, []).append(table)
+    full = sorted(pi for pi, g in groups.items() if len(g) == sizes.group_size)
+    if len(full) < sizes.groups:
+        _fail(f"grouped: only {len(full)} prompts have {sizes.group_size} resident requests")
+    tables = np.stack([np.stack(groups[pi]) for pi in full[: sizes.groups]])  # (P, M, n_blocks)
+    if not (tables[:, :, :n_pre] == tables[:, :1, :n_pre]).all():
+        _fail("grouped: requests of one prompt do not share its prefix pages")
+    P, M = tables.shape[:2]
+    cfg = engine.cfg
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    q = _randn(gen, (P, M, cfg.n_heads, cfg.head_dim), k_pages.dtype, device)
+    pk = torch.stack([_gather(k_pages, tables[p, 0, :n_pre]) for p in range(P)]).contiguous()
+    pv = torch.stack([_gather(v_pages, tables[p, 0, :n_pre]) for p in range(P)]).contiguous()
+    sk = torch.stack([torch.stack([_gather(k_pages, tables[p, m, n_pre:]) for m in range(M)])
+                      for p in range(P)]).contiguous()
+    sv = torch.stack([torch.stack([_gather(v_pages, tables[p, m, n_pre:]) for m in range(M)])
+                      for p in range(P)]).contiguous()
+    plens = torch.full((P,), sizes.prefix_tokens, dtype=torch.int32, device=device)
+    slens = torch.full((P, M), sizes.user_tokens, dtype=torch.int32, device=device)
+
+    out = ops.shared_prefix_decode(q, pk, pv, plens, sk, sv, slens)
+    # the plain version: plain K2, the same suffix attention and merge
+    wo, wl = shared_prefix_attention_plain(q, pk, pv, plens)
+    sb, lb = ref.reference_attention_with_lse(
+        q.reshape(P * M, 1, *q.shape[2:]), sk.flatten(0, 1), sv.flatten(0, 1),
+        kv_valid_len=slens.reshape(P * M),
+    )
+    want = ref.lse_merge(wo.float(), wl, sb.reshape(out.shape), lb.reshape(P, M, -1)).to(q.dtype)
+    err = errs.check("shared_prefix_attention", out, want, ATOL[q.dtype],
+                     "grouped decode vs plain")
+    # sharing-aware decode must equal per-request decode over the same pages
+    ctx = torch.full((P * M,), n_blocks * sizes.block_tokens, dtype=torch.int32, device=device)
+    bt_t = torch.as_tensor(tables.reshape(P * M, n_blocks), device=device)
+    per_req = ops.paged_attention(q.reshape(P * M, *q.shape[2:]), k_pages, v_pages, bt_t, ctx)
+    errs.check("paged_attention", per_req,
+               paged_attention_plain(q.reshape(P * M, *q.shape[2:]), k_pages, v_pages, bt_t, ctx),
+               ATOL[q.dtype], "grouped: per-request K1 vs plain")
+    gap = float((out.float() - per_req.reshape(out.shape).float()).abs().max())
+    if not gap <= ATOL[q.dtype]:
+        _fail(f"grouped decode differs from per-request K1 decode by {gap:.3e}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _log(f"[grouped] P={P} prefix groups x M={M} requests, prefix {sizes.prefix_tokens} + "
+         f"suffix {sizes.user_tokens} tokens: max abs err vs plain {err:.3e}, vs per-request "
+         f"K1 {gap:.3e}")
+    return dict(q=q, pk=pk, pv=pv, plens=plens)
+
+
+# -- phase 5: admission ----------------------------------------------------
+
+def phase_admission(device, sizes: Sizes) -> float:
+    cfg = sizes.arch_config()
+    bpb = layout_for(cfg, block_tokens=sizes.block_tokens).bytes_per_block
+    lam = irm.rate_matrix(sizes.n_objects, (0.8, 0.6, 1.0))
+    lengths = np.full(sizes.n_objects, float(bpb))
+    b_star = np.array([0.20, 0.20, 0.10]) * lengths.sum()
+    t0 = time.perf_counter()
+    b, sol = admission.virtual_allocations(lam, lengths, b_star, device=device)
+    wall = time.perf_counter() - t0
+    b_cpu, sol_cpu = admission.virtual_allocations(lam, lengths, b_star, device="cpu")
+    if not (np.all(np.isfinite(b)) and np.all(b > 0) and np.all(b <= b_star * (1 + 1e-6))):
+        _fail(f"admission: virtual allocations {b} outside (0, b*]")
+    rel = float(np.max(np.abs(b - b_cpu) / b_cpu))
+    rel_t = float(np.max(np.abs(sol.t - sol_cpu.t) / sol_cpu.t))
+    if not (rel <= ADMISSION_RTOL and rel_t <= ADMISSION_RTOL):
+        _fail(f"admission: card vs CPU rel err b {rel:.2e}, t {rel_t:.2e} > {ADMISSION_RTOL}")
+    gain = float(b_star.sum() / b.sum())
+    _log(f"[admission] J=3 N={sizes.n_objects} objects of {bpb} B, b* = (0.20, 0.20, 0.10) x "
+         f"catalogue: b/b* = {np.round(b / b_star, 4).tolist()}, overbooking gain {gain:.4f}; "
+         f"card vs CPU float32 rel err b {rel:.2e} t {rel_t:.2e}; solve {wall:.3f} s "
+         f"({sol.iterations} outer steps)")
+    return gain
+
+
+# -- phase 6: timing -------------------------------------------------------
+
+def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
+    """Median of n launches, each timed with CUDA events, the L2 cache
+    flushed (a 256 MiB write) before each."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(device, served: dict, grouped: dict) -> Dict[str, dict]:
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    k_pages, v_pages = served["engine"].pool.layer_pool(0)
+    q, bt_t, cl = served["last"]
+    B, H, D = q.shape
+    KV, _, page, _ = k_pages.shape
+    es = k_pages.element_size()
+    pages = int(torch.unique(bt_t).numel())    # pages this batch needs; shared ones once
+    ctx = int(cl[0])
+    k1_bytes = 2 * pages * KV * page * D * es + 2 * q.numel() * es + 4 * (bt_t.numel() + B)
+    k1_flops = 4.0 * B * H * ctx * D
+    res = {"paged_attention": dict(
+        ms=median_ms(lambda: paged_attention(q, k_pages, v_pages, bt_t, cl), flush),
+        plain_ms=median_ms(lambda: paged_attention_plain(q, k_pages, v_pages, bt_t, cl), flush),
+        library_ms=None,   # no single PyTorch call reads KV through block tables
+        shape=f"B={B} H={H} KV={KV} D={D} ctx={ctx} page={page}, {pages} distinct pages",
+    )}
+    res["paged_attention"]["bound_ms"], res["paged_attention"]["bound_by"] = bound_ms(
+        k1_bytes, k1_flops, q.dtype)
+
+    gq, pk, pv, pl = grouped["q"], grouped["pk"], grouped["pv"], grouped["plens"]
+    P, M, H, D = gq.shape
+    S, KV = pk.shape[1], pk.shape[2]
+    valid = int(pl.sum())
+    k2_bytes = (2 * valid * KV * D * es + 2 * gq.numel() * es + 4 * P
+                + 4 * P * M * H)
+    k2_flops = 4.0 * M * H * valid * D
+    # yardstick: one SDPA call on the same q and prefix K/V (heads expanded
+    # beforehand, outside the timed region), without the lse output
+    qs = gq.permute(0, 2, 1, 3)
+    ks = pk.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    vs = pv.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    res["shared_prefix_attention"] = dict(
+        ms=median_ms(lambda: shared_prefix_attention(gq, pk, pv, pl), flush),
+        plain_ms=median_ms(lambda: shared_prefix_attention_plain(gq, pk, pv, pl), flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), flush),
+        shape=f"P={P} M={M} H={H} KV={KV} D={D} S={S}",
+    )
+    res["shared_prefix_attention"]["bound_ms"], res["shared_prefix_attention"]["bound_by"] = (
+        bound_ms(k2_bytes, k2_flops, gq.dtype))
+    for name, r in res.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+             f"({r['bound_by']})")
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    sizes = Sizes()
+    errs = Errors()
+
+    card = phase_env()
+    phase_kernels(device, sizes, errs, args.seed)
+    reset_launches()                                  # the main path starts here
+    served = phase_serving(device, sizes, errs, args.seed)
+    served_launches = launches()
+    grouped = phase_grouped(device, sizes, served, errs, args.seed)
+    main_launches = launches()                        # ... and ends here
+    _log(f"[serving] launches: {served_launches}")
+    _log(f"[grouped] launches: { {k: main_launches[k] - served_launches[k] for k in KERNELS} }")
+    if served_launches["paged_attention"] == 0 or (
+            main_launches["shared_prefix_attention"] == 0):
+        _fail(f"a kernel of the main path was not launched: {main_launches}")
+    phase_admission(device, sizes)
+    timing = phase_timing(device, served, grouped)
+
+    rows = []
+    for name, k in KERNELS.items():
+        t = timing[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
+            "launches": main_launches[name], "max_abs_err": errs.max[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

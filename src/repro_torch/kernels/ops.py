@@ -1,0 +1,57 @@
+"""Public entry points of the attention kernels.
+
+Each takes tensors and runs where they lie: CUDA tensors launch the
+hand-written kernel (``csrc/``), CPU tensors run its plain PyTorch
+version. Nothing else chooses between the two, and a kernel that fails
+to build or launch raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import ref
+from .paged_attention import paged_attention as _paged
+from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens) -> torch.Tensor:
+    """Decode attention through block tables over the shared physical
+    KV pool. (B,H,D) -> (B,H,D)."""
+    return _paged(q, k_pages, v_pages, block_tables, context_lens)
+
+
+def shared_prefix_attention(
+    q, prefix_k, prefix_v, prefix_lens, *, block_s: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped attention of all requests sharing a prefix against its one
+    physical KV copy. Returns (out, lse) for merging."""
+    return _shared_prefix(q, prefix_k, prefix_v, prefix_lens, block_s=block_s)
+
+
+def shared_prefix_decode(
+    q,                 # (P, M, H, D) grouped queries
+    prefix_k, prefix_v, prefix_lens,       # shared objects (one copy each)
+    suffix_k, suffix_v,                    # (P, M, Ss, KV, D) per-request
+    suffix_lens,                           # (P, M)
+) -> torch.Tensor:
+    """Full object-sharing decode: shared-prefix kernel + per-request
+    suffix attention, LSE-merged. The physical prefix KV is read once per
+    GROUP (not once per request) — the compute analogue of the paper's
+    l_n/|P(n)| apportioning. The suffix attention and the merge are plain
+    PyTorch, as in the reference, where they lie outside any kernel."""
+    out_a, lse_a = _shared_prefix(q, prefix_k, prefix_v, prefix_lens)
+    P, M, H, D = q.shape
+    qf = q.reshape(P * M, 1, H, D)
+    Ss, KV = suffix_k.shape[2], suffix_k.shape[3]
+    out_b, lse_b = ref.reference_attention_with_lse(
+        qf,
+        suffix_k.reshape(P * M, Ss, KV, D),
+        suffix_v.reshape(P * M, Ss, KV, D),
+        kv_valid_len=suffix_lens.reshape(P * M),
+    )
+    out_b = out_b.reshape(P, M, H, D)
+    lse_b = lse_b.reshape(P, M, H)
+    return ref.lse_merge(out_a.float(), lse_a, out_b, lse_b).to(q.dtype)

@@ -1,0 +1,250 @@
+"""The port's attention entry points against the reference package.
+
+Inputs are made with numpy from a seed and handed to both packages; bf16
+inputs are cast from the same f32 arrays on both sides, which gives the
+same bits. The reference kernels run in Pallas interpret mode, as
+``tests/test_kernels.py`` runs them. Tolerances are those of
+``tests/test_kernels.py``: out atol 2e-5 (f32) / 2e-2 (bf16), lse atol
+1e-4 / 5e-2.
+
+The cases marked ``cuda`` run each CUDA kernel against its plain version
+on the card and skip without one. They need no JAX (the card's machine
+has none): only the cases that compare with the reference import it,
+through the ``jax_ref`` fixture. On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.shared_prefix_attention import (
+    shared_prefix_attention,
+    shared_prefix_attention_plain,
+)
+
+DTYPES = ["float32", "bfloat16"]
+K1_GRID = [                      # B, H, KV, D, page, P, pps (tests/test_kernels.py)
+    (4, 8, 4, 64, 16, 32, 6),
+    (2, 4, 1, 128, 8, 16, 4),    # MQA
+    (3, 6, 6, 64, 32, 12, 3),    # MHA
+]
+K2_GRID = [                      # P, M, H, KV, D, S
+    (3, 4, 8, 4, 64, 64),
+    (2, 2, 4, 1, 128, 100),      # MQA + non-aligned prefix blocks
+    (1, 8, 4, 4, 64, 256),
+]
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _lse_tol(dtype):
+    return 5e-2 if dtype == "bfloat16" else 1e-4
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """(jax.numpy, the reference's kernels.ops, its kernels.ref)."""
+    jnp = pytest.importorskip("jax.numpy", reason="the reference package needs JAX")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    return jnp, jops, jref
+
+
+def _t(a, dtype=None):
+    """numpy -> torch; float arrays in ``dtype``, cast from f32."""
+    t = torch.from_numpy(np.array(a))
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _j(jnp, a, dtype=None):
+    """numpy -> JAX, the same values (and bits) as :func:`_t`."""
+    j = jnp.asarray(np.array(a))
+    return j.astype(jnp.bfloat16) if dtype == "bfloat16" else j
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _k1_inputs(seed, B, H, KV, D, page, P, pps, zero_ctx=False):
+    """q, k_pages, v_pages (f32) and block_tables, context_lens (int32)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
+    vp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
+    bt = rng.integers(0, P, (B, pps)).astype(np.int32)
+    cl = rng.integers(1, pps * page + 1, B).astype(np.int32)
+    if zero_ctx:
+        cl[0] = 0
+    return q, kp, vp, bt, cl
+
+
+def _k2_inputs(seed, P, M, H, KV, D, S, zero_len=False):
+    """q, prefix_k, prefix_v (f32) and prefix_lens (int32)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((P, M, H, D)).astype(np.float32)
+    pk = rng.standard_normal((P, S, KV, D)).astype(np.float32)
+    pv = rng.standard_normal((P, S, KV, D)).astype(np.float32)
+    plens = rng.integers(1, S + 1, P).astype(np.int32)
+    if zero_len:
+        plens[0] = 0
+    return q, pk, pv, plens
+
+
+def _both(jnp, arrays, dtype):
+    """Float arrays in ``dtype``, int arrays as they are, for each side."""
+    pick = lambda a: dtype if a.dtype == np.float32 else None  # noqa: E731
+    return ([_j(jnp, a, pick(a)) for a in arrays], [_t(a, pick(a)) for a in arrays])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,KV,D,page,P,pps", K1_GRID)
+def test_paged_attention_matches_pallas(jax_ref, B, H, KV, D, page, P, pps, dtype):
+    jnp, jops, _ = jax_ref
+    ja, ta = _both(jnp, _k1_inputs(0, B, H, KV, D, page, P, pps), dtype)
+    want = jops.paged_attention(*ja, interpret=True)
+    got = ops.paged_attention(*ta)
+    assert got.dtype == ta[0].dtype and got.shape == (B, H, D)
+    np.testing.assert_allclose(_np(got), _np(want), atol=_tol(dtype))
+
+
+def test_paged_attention_zero_context_follows_the_pallas_kernel(jax_ref):
+    """ctx = 0: the Pallas kernel returns zeros (its oracle a uniform mean
+    of V); the port's plain path follows the kernel."""
+    jnp, jops, _ = jax_ref
+    ja, ta = _both(jnp, _k1_inputs(1, 3, 4, 2, 64, 8, 16, 4, zero_ctx=True), "float32")
+    want = jops.paged_attention(*ja, interpret=True)
+    got = ops.paged_attention(*ta)
+    np.testing.assert_array_equal(_np(got)[0], 0.0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    oracle = ref.reference_paged_attention(*ta)
+    assert np.abs(_np(oracle)[0]).max() > 0.1   # the oracle's own semantics
+
+
+def test_paged_attention_oracle_matches_reference_oracle(jax_ref):
+    jnp, _, jref = jax_ref
+    ja, ta = _both(jnp, _k1_inputs(2, 3, 8, 4, 64, 16, 32, 6, zero_ctx=True), "float32")
+    want = jref.reference_paged_attention(*ja)
+    got = ref.reference_paged_attention(*ta)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,M,H,KV,D,S", K2_GRID)
+def test_shared_prefix_attention_matches_pallas(jax_ref, P, M, H, KV, D, S, dtype):
+    jnp, jops, _ = jax_ref
+    ja, ta = _both(jnp, _k2_inputs(0, P, M, H, KV, D, S), dtype)
+    want_o, want_l = jops.shared_prefix_attention(*ja, block_s=32, interpret=True)
+    got_o, got_l = ops.shared_prefix_attention(*ta, block_s=32)
+    assert got_o.dtype == ta[0].dtype and got_l.dtype == torch.float32
+    np.testing.assert_allclose(_np(got_o), _np(want_o), atol=_tol(dtype))
+    np.testing.assert_allclose(_np(got_l), _np(want_l), atol=_lse_tol(dtype))
+
+
+def test_shared_prefix_zero_length_follows_the_pallas_kernel(jax_ref):
+    """prefix_len = 0: the Pallas kernel gives out = 0 and lse = -1e30."""
+    jnp, jops, _ = jax_ref
+    ja, ta = _both(jnp, _k2_inputs(1, 2, 3, 4, 2, 64, 48, zero_len=True), "float32")
+    want_o, want_l = jops.shared_prefix_attention(*ja, block_s=16, interpret=True)
+    got_o, got_l = ops.shared_prefix_attention(*ta, block_s=16)
+    np.testing.assert_array_equal(_np(got_o)[0], 0.0)
+    np.testing.assert_allclose(_np(got_o), _np(want_o), atol=2e-5)
+    assert np.all(_np(got_l)[0] <= -1e29) and np.all(_np(want_l)[0] <= -1e29)
+    np.testing.assert_allclose(_np(got_l)[1:], _np(want_l)[1:], atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shared_prefix_decode_matches_reference(jax_ref, dtype):
+    jnp, jops, _ = jax_ref
+    P, M, H, KV, D, S, Ss = 2, 3, 8, 4, 64, 48, 24
+    rng = np.random.default_rng(3)
+    floats = [rng.standard_normal(shape).astype(np.float32) for shape in (
+        (P, M, H, D), (P, S, KV, D), (P, S, KV, D), (P, M, Ss, KV, D), (P, M, Ss, KV, D))]
+    plens = np.array([S, 17], np.int32)
+    slens = rng.integers(1, Ss + 1, (P, M)).astype(np.int32)
+    ja, ta = _both(jnp, floats[:3] + [plens] + floats[3:] + [slens], dtype)
+    want = jops.shared_prefix_decode(*ja)
+    got = ops.shared_prefix_decode(*ta)
+    assert got.dtype == ta[0].dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=_tol(dtype))
+
+
+def test_lse_merge_equals_joint_attention(jax_ref):
+    """Merging prefix + suffix partials == attention over concatenated KV,
+    in the port, and the merge equals the reference's."""
+    jnp, _, jref = jax_ref
+    B, T, H, KV, D, S1, S2 = 2, 1, 4, 2, 32, 24, 16
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in (
+        (B, T, H, D), (B, S1, KV, D), (B, S1, KV, D), (B, S2, KV, D), (B, S2, KV, D))]
+    (jq, jk1, jv1, jk2, jv2), (q, k1, v1, k2, v2) = _both(jnp, arrays, "float32")
+    o1, l1 = ref.reference_attention_with_lse(q, k1, v1)
+    o2, l2 = ref.reference_attention_with_lse(q, k2, v2)
+    merged = ref.lse_merge(o1, l1, o2, l2)
+    joint = ref.reference_attention(q, torch.cat([k1, k2], 1), torch.cat([v1, v2], 1),
+                                    causal=False)
+    np.testing.assert_allclose(_np(merged), _np(joint), atol=1e-5)
+    jo1, jl1 = jref.reference_attention_with_lse(jq, jk1, jv1)
+    jo2, jl2 = jref.reference_attention_with_lse(jq, jk2, jv2)
+    np.testing.assert_allclose(_np(merged), _np(jref.lse_merge(jo1, jl1, jo2, jl2)), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_attention_matches_reference_oracle(jax_ref, causal):
+    jnp, _, jref = jax_ref
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32))]
+    ja, ta = _both(jnp, arrays + [np.array([40, 13], np.int32)], "float32")
+    want = jref.reference_attention(*ja[:3], causal=causal, kv_valid_len=ja[3])
+    got = ref.reference_attention(*ta[:3], causal=causal, kv_valid_len=ta[3])
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+# -- CUDA kernels against their plain versions (skip without a card) -------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+def _on(dev, arrays, dtype):
+    return [_t(a, dtype if a.dtype == np.float32 else None).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,KV,D,page,P,pps", K1_GRID)
+def test_paged_attention_kernel_matches_plain(cuda_device, B, H, KV, D, page, P, pps, dtype):
+    args = _on(cuda_device, _k1_inputs(6, B, H, KV, D, page, P, pps, zero_ctx=True), dtype)
+    before = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_plain(*args)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,M,H,KV,D,S", K2_GRID)
+def test_shared_prefix_kernel_matches_plain(cuda_device, P, M, H, KV, D, S, dtype):
+    args = _on(cuda_device, _k2_inputs(6, P, M, H, KV, D, S, zero_len=True), dtype)
+    before = shared_prefix_attention.launches
+    got_o, got_l = shared_prefix_attention(*args, block_s=32)
+    torch.cuda.synchronize()
+    assert shared_prefix_attention.launches == before + 1
+    want_o, want_l = shared_prefix_attention_plain(*args)
+    np.testing.assert_allclose(_np(got_o.cpu()), _np(want_o.cpu()), atol=_tol(dtype))
+    np.testing.assert_allclose(_np(got_l.cpu()), _np(want_l.cpu()), atol=_lse_tol(dtype))
