@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving data plane once on one NVIDIA card.
+"""Runs the PyTorch/CUDA port's serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. env       card name and power limit, torch/CUDA versions, and the build
-             of every kernel under src/repro_torch/kernels/csrc with nvcc;
+             of every kernel under src/repro_torch/kernels/csrc with nvcc
+             (one nvcc per source, all started together);
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              over the shape grids of tests/test_kernels.py in f32 and bf16
              and at this run's own shapes;
@@ -17,14 +18,20 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 4. grouped   8 prefix groups of 16 resident requests decode through
              shared-prefix attention (K2) + suffix attention + LSE merge,
              held to the plain version and to K1 over each full table;
-5. admission the working-set virtual allocations on the card against the
+5. live      the engine in live mode with qwen3-1.7b at full width and
+             depth (bf16 weights from --seed) serves 8 requests of 1280
+             tokens, 16 new tokens each: each prompt is prefilled with its
+             attention in flash attention (K3), then decoded greedily on
+             dense caches; the first prefill is held to the same prefill
+             with K3's plain version;
+6. admission the working-set virtual allocations on the card against the
              port's own CPU solve;
-6. timing    each kernel, its plain version and a PyTorch yardstick at the
+7. timing    each kernel, its plain version and a PyTorch yardstick at the
              main path's shapes (CUDA events, L2 flushed between launches).
 
-The line before the last lists each kernel as JSON (launches on the main
-path, phases 3-4; max error; times; bound); the last line is
-{"ok": true, "device": {...}}.
+The line before the last lists each kernel as JSON (launches on its path:
+K1 and K2 in phases 3-4, K3 in phase 5; max error; times; bound); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
@@ -48,6 +56,10 @@ from repro_torch.cacheblocks import layout_for  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import admission, irm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
@@ -56,6 +68,7 @@ from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
     shared_prefix_attention,
     shared_prefix_attention_plain,
 )
+from repro_torch.models import make_model  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
 
 # Tolerances of tests/test_kernels.py: out f32 / bf16, lse f32 / bf16.
@@ -66,6 +79,12 @@ LSE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 ADMISSION_RTOL = 1e-4   # card vs CPU float32 solve: sums in another order
+# Full-depth bf16 prefill, K3 against its plain version: last-token logits
+# within 5% of their largest magnitude. Both round each layer's attention
+# output to bf16 (relative step 2^-8), K3 its probabilities too, from
+# values that differ in the last bits; 28 layers carry those differences
+# down the residual stream: 28 x 2^-9 = 0.055 if none cancelled.
+LIVE_LOGITS_RTOL = 0.05
 
 KERNELS = {
     "paged_attention": dict(
@@ -77,6 +96,11 @@ KERNELS = {
         fn=shared_prefix_attention,
         source="src/repro_torch/kernels/csrc/shared_prefix_attention.cu",
         replaces="src/repro/kernels/shared_prefix_attention.py:37",
+    ),
+    "flash_attention": dict(
+        fn=flash_attention,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:34",
     ),
 }
 
@@ -98,6 +122,9 @@ class Sizes:
     groups: int = 8                 # P prefix groups ...
     group_size: int = 16            # ... of M resident requests
     n_objects: int = 1024           # admission catalogue (engine.py's N)
+    live_requests: int = 8          # phase 5: requests served by the model ...
+    live_prompts: int = 2           # ... shared prompts of tenants A, B ...
+    new_tokens: int = 16            # ... and tokens decoded for each
 
     def arch_config(self):
         cfg = get_config(self.arch)
@@ -178,6 +205,11 @@ K2_GRID = [  # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
 ]
 K1_WIDE = [(3, 8, 1, 256, 64, 8, 3)]   # G=8, D=256, pages wider than a warp's 32 tokens
+K3_GRID = [  # B, T, S, H, KV, D, causal (tests/test_kernels.py, then causal T < S)
+    (2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 128, True),
+    (2, 100, 100, 4, 1, 64, False), (1, 64, 192, 4, 4, 64, False),
+    (1, 128, 128, 4, 4, 256, True), (1, 64, 192, 4, 2, 64, True),
+]
 
 
 def _randn(gen, shape, dtype, device):
@@ -192,6 +224,8 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
     k1 = K1_GRID + K1_WIDE + [(sizes.decode_every, H, KV, D, sizes.block_tokens,
                      sizes.decode_every * pps, pps)]
     k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens)]
+    T = sizes.prefix_tokens + sizes.user_tokens
+    k3 = K3_GRID + [(1, T, T, H, KV, D, True)]    # the live phase's prefill
     for dtype in (torch.float32, torch.bfloat16):
         for B, H_, KV_, D_, page, P, pps_ in k1:
             q = _randn(gen, (B, H_, D_), dtype, device)
@@ -223,6 +257,15 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
                 _fail("K2: prefix_len = 0 must give out = 0, lse = -1e30")
             _log(f"[kernels] K2 {str(dtype)[6:]:8s} P={P} M={M:2d} H={H_:2d} KV={KV_} "
                  f"D={D_:3d} S={S:4d}: max abs err out {err:.3e} lse {lerr:.3e}")
+        for B, T_, S, H_, KV_, D_, causal in k3:
+            q = _randn(gen, (B, T_, H_, D_), dtype, device)
+            k = _randn(gen, (B, S, KV_, D_), dtype, device)
+            v = _randn(gen, (B, S, KV_, D_), dtype, device)
+            err = errs.check("flash_attention", flash_attention(q, k, v, causal=causal),
+                             flash_attention_plain(q, k, v, causal=causal), ATOL[dtype],
+                             f"K3 {dtype} B={B} T={T_} S={S} H={H_} KV={KV_} D={D_} causal={causal}")
+            _log(f"[kernels] K3 {str(dtype)[6:]:8s} B={B} T={T_:4d} S={S:4d} H={H_:2d} KV={KV_} "
+                 f"D={D_:3d} causal={int(causal)}: max abs err {err:.3e}")
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -383,7 +426,209 @@ def phase_grouped(device, sizes: Sizes, served: dict, errs: Errors, seed: int) -
     return dict(q=q, pk=pk, pv=pv, plens=plens)
 
 
-# -- phase 5: admission ----------------------------------------------------
+# -- phase 5: live serving -------------------------------------------------
+
+class TimedModel:
+    """The model as the engine sees it, with each prefill and decode step
+    timed on the host clock between two synchronisations, and the first
+    prefill's logits kept. It computes nothing of its own."""
+
+    def __init__(self, model, device) -> None:
+        self.model, self.device = model, device
+        self.prefill_s: List[float] = []
+        self.decode_s: List[float] = []
+        self.first_logits = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def prefill(self, params, batch, cache_len):
+        self._sync()
+        t0 = time.perf_counter()
+        logits, caches = self.model.prefill(params, batch, cache_len)
+        self._sync()
+        self.prefill_s.append(time.perf_counter() - t0)
+        if self.first_logits is None:
+            self.first_logits = logits.float().clone()
+        return logits, caches
+
+    def decode_step(self, params, tokens, caches, position):
+        self._sync()
+        t0 = time.perf_counter()
+        out = self.model.decode_step(params, tokens, caches, position)
+        self._sync()
+        self.decode_s.append(time.perf_counter() - t0)
+        return out
+
+
+@contextmanager
+def plain_prefill_attention():
+    """Within the block, the models' prefill attention runs K3's plain
+    version (this script only; the port has no such switch)."""
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True: flash_attention_plain(
+        q, k, v, causal=causal)
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def phase_live(device, sizes: Sizes, seed: int) -> dict:
+    cfg = sizes.arch_config()
+    model = make_model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    _log(f"[live] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, H={cfg.n_heads} "
+         f"KV={cfg.n_kv_heads} D={cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+         f"bf16 parameters ({2 * n_params / 1e9:.2f} GB) drawn on {device} from seed {seed} in "
+         f"{time.perf_counter() - t0:.2f} s (set-up)")
+    layout = layout_for(cfg, block_tokens=sizes.block_tokens)
+    pool_bytes = sizes.pool_blocks * layout.bytes_per_block
+    timed = TimedModel(model, device)
+    engine = ServingEngine(
+        cfg,
+        [TenantSpec("tenantA", 0.35 * pool_bytes), TenantSpec("tenantB", 0.35 * pool_bytes),
+         TenantSpec("tenantC", 0.20 * pool_bytes)],
+        EngineConfig(block_tokens=sizes.block_tokens, pool_blocks=sizes.pool_blocks),
+        model=timed, params=params, device=device,
+    )
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, sizes.prefix_tokens)
+               for _ in range(sizes.live_prompts)]
+    results, requests = [], []
+    t0 = time.perf_counter()
+    for i in range(sizes.live_requests):
+        t = i % 3                        # A, B, C in turn; A and B share the prompts
+        pi = (i // 3) % sizes.live_prompts if t < 2 else -1
+        head = prompts[pi] if t < 2 else rng.integers(0, cfg.vocab_size, sizes.prefix_tokens)
+        tokens = np.concatenate([head, rng.integers(0, cfg.vocab_size, sizes.user_tokens)])
+        tenant = ("tenantA", "tenantB", "tenantC")[t]
+        res = engine.submit(tenant, tokens, max_new_tokens=sizes.new_tokens)
+        out = res.output
+        if out is None or out.shape != (1, sizes.new_tokens) or out.dtype != np.int32:
+            _fail(f"live: request {i} gave {None if out is None else (out.shape, out.dtype)}")
+        if not (0 <= out.min() and out.max() < cfg.vocab_size):
+            _fail(f"live: request {i} decoded a token outside the vocabulary")
+        results.append(res)
+        requests.append(tokens)
+        _log(f"[live] request {i} {tenant} prompt {pi:2d}: {len(tokens)} tokens, cached "
+             f"{res.cached_tokens}, prefill {1e3 * timed.prefill_s[-1]:.2f} ms, decode "
+             f"{1e3 * np.mean(timed.decode_s[-(sizes.new_tokens - 1):]):.2f} ms/token, "
+             f"tokens {out[0, :6].tolist()}...")
+    wall = time.perf_counter() - t0
+    # a request of tenant B whose prompt tenant A sent first finds it cached
+    if results[1].cached_tokens != sizes.prefix_tokens:
+        _fail(f"live: tenant B's shared prompt was not served from the cache "
+              f"({results[1].cached_tokens} of {sizes.prefix_tokens} tokens)")
+    st = engine.stats()
+    _log(f"[live] {sizes.live_requests} requests in {wall:.2f} s (host clock): prefill "
+         f"{1e3 * np.median(timed.prefill_s[1:]):.2f} ms per request (median of requests "
+         f"1-{sizes.live_requests - 1}; the first took {1e3 * timed.prefill_s[0]:.2f} ms), decode "
+         f"{1e3 * np.median(timed.decode_s):.2f} ms per token (median of {len(timed.decode_s)} "
+         f"steps); prefix-hit token ratio {st['prefix_hit_token_ratio']:.4f}, sharing ratio "
+         f"{st['sharing_ratio']:.4f}")
+    return dict(cfg=cfg, model=model, params=params, timed=timed, results=results,
+                requests=requests)
+
+
+def check_live_against_plain(live: dict, sizes: Sizes) -> float:
+    """The first request's prefill again, with K3's plain version: the
+    last-token logits within LIVE_LOGITS_RTOL of their scale and the same
+    first greedy token."""
+    tokens = live["requests"][0]
+    dev = live["params"]["embed"].device
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=dev)}
+    with torch.inference_mode(), plain_prefill_attention():
+        want, _ = live["model"].prefill(live["params"], batch, len(tokens) + sizes.new_tokens)
+    got, want = live["timed"].first_logits, want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and err <= LIVE_LOGITS_RTOL * scale):
+        _fail(f"live: K3 prefill logits differ from the plain prefill by {err:.3e} "
+              f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
+    first = int(live["results"][0].output[0, 0])
+    top2 = torch.topk(want[0, -1], 2).values
+    if first != int(torch.argmax(want[0, -1])):
+        _fail(f"live: first greedy token {first} != plain prefill's "
+              f"{int(torch.argmax(want[0, -1]))}")
+    _log(f"[live] first prefill, K3 vs plain attention: last-token logits max abs err "
+         f"{err:.3e} (scale {scale:.3e}, limit {LIVE_LOGITS_RTOL * scale:.3e}); first greedy "
+         f"token {first} in both (plain top-2 margin {float(top2[0] - top2[1]):.3e})")
+    return err
+
+
+def _device_profile(fn, device) -> dict:
+    """Host-clock ms of ``fn()`` under torch.profiler, the card's busy ms
+    (the sum of kernel and copy times; one stream, so they do not
+    overlap) and the largest device consumers. Device figures are None
+    where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    return dict(wall_ms=wall, busy_ms=busy if rows else None, top=rows[:6])
+
+
+def profile_live(live: dict, sizes: Sizes) -> dict:
+    """One more prefill of the first request and one decode step on its
+    caches, each under torch.profiler: where the time goes, and the
+    card's idle share (1 - busy / host-clock time, the profiler's own
+    overhead included)."""
+    tokens, model, params = live["requests"][0], live["model"], live["params"]
+    dev = params["embed"].device
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=dev)}
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = model.prefill(
+            params, batch, len(tokens) + sizes.new_tokens)
+
+    def decode():
+        tok = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        model.decode_step(params, tok, state["caches"],
+                          torch.full((1,), len(tokens), dtype=torch.int32, device=dev))
+
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("prefill", prefill), ("decode step", decode)):
+            r = out[name] = _device_profile(fn, dev)
+            if r["busy_ms"] is None:
+                _log(f"[live] profile {name}: {r['wall_ms']:.2f} ms (host clock); device time "
+                     f"not measured (the profiler saw no device activity)")
+                continue
+            top = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in r["top"])
+            _log(f"[live] profile {name}: {r['wall_ms']:.2f} ms (host clock), card busy "
+                 f"{r['busy_ms']:.2f} ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; "
+                 f"largest: {top}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# -- phase 6: admission ----------------------------------------------------
 
 def phase_admission(device, sizes: Sizes) -> float:
     cfg = sizes.arch_config()
@@ -409,7 +654,7 @@ def phase_admission(device, sizes: Sizes) -> float:
     return gain
 
 
-# -- phase 6: timing -------------------------------------------------------
+# -- phase 7: timing -------------------------------------------------------
 
 def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
     """Median of n launches, each timed with CUDA events, the L2 cache
@@ -433,7 +678,8 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(device, served: dict, grouped: dict) -> Dict[str, dict]:
+def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -> Dict[str, dict]:
+    cfg = sizes.arch_config()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     k_pages, v_pages = served["engine"].pool.layer_pool(0)
     q, bt_t, cl = served["last"]
@@ -473,6 +719,25 @@ def phase_timing(device, served: dict, grouped: dict) -> Dict[str, dict]:
     )
     res["shared_prefix_attention"]["bound_ms"], res["shared_prefix_attention"]["bound_by"] = (
         bound_ms(k2_bytes, k2_flops, gq.dtype))
+    # K3 at the live phase's prefill: one prompt of T tokens, causal
+    B, T = 1, sizes.prefix_tokens + sizes.user_tokens
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    q3 = _randn(gen, (B, T, H, D), torch.bfloat16, device)
+    k3, v3 = (_randn(gen, (B, T, KV, D), torch.bfloat16, device) for _ in range(2))
+    k3_bytes = 2 * (q3.numel() + k3.numel() + v3.numel() + q3.numel())
+    k3_flops = 4.0 * B * H * D * T * (T + 1) / 2         # the (t, s <= t) pairs only
+    # yardstick: one SDPA call, layouts permuted beforehand (not timed)
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q3, k3, v3))
+    res["flash_attention"] = dict(
+        ms=median_ms(lambda: flash_attention(q3, k3, v3, causal=True), flush),
+        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=True), flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), flush),
+        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal",
+    )
+    res["flash_attention"]["bound_ms"], res["flash_attention"]["bound_by"] = bound_ms(
+        k3_bytes, k3_flops, q3.dtype)
     for name, r in res.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
@@ -506,16 +771,33 @@ def main(argv=None) -> int:
     _log(f"[grouped] launches: { {k: main_launches[k] - served_launches[k] for k in KERNELS} }")
     if served_launches["paged_attention"] == 0 or (
             main_launches["shared_prefix_attention"] == 0):
-        _fail(f"a kernel of the main path was not launched: {main_launches}")
+        _fail(f"a kernel of the serving path was not launched: {main_launches}")
+    reset_launches()                                  # the live path starts here
+    live = phase_live(device, sizes, args.seed)
+    live_launches = launches()                        # ... and ends here
+    _log(f"[live] launches: {live_launches}")
+    want = live["cfg"].n_layers * sizes.live_requests
+    if live_launches["flash_attention"] != want:
+        _fail(f"live: K3 launched {live_launches['flash_attention']} times, not "
+              f"{live['cfg'].n_layers} layers x {sizes.live_requests} prefills = {want}")
+    check_live_against_plain(live, sizes)
+    profile_live(live, sizes)
+    prefill_ms = 1e3 * float(np.median(live["timed"].prefill_s[1:]))
+    del live
     phase_admission(device, sizes)
-    timing = phase_timing(device, served, grouped)
+    timing = phase_timing(device, sizes, served, grouped, args.seed)
+    k3_ms = timing["flash_attention"]["ms"]
+    _log(f"[live] K3 share of prefill: {live_launches['flash_attention'] // sizes.live_requests}"
+         f" x {k3_ms:.4f} ms / {prefill_ms:.2f} ms = "
+         f"{live_launches['flash_attention'] / sizes.live_requests * k3_ms / prefill_ms:.4f}")
+    path_launches = dict(main_launches, flash_attention=live_launches["flash_attention"])
 
     rows = []
     for name, k in KERNELS.items():
         t = timing[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-            "launches": main_launches[name], "max_abs_err": errs.max[name],
+            "launches": path_launches[name], "max_abs_err": errs.max[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -13,8 +13,15 @@ from typing import Tuple
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash
 from .paged_attention import paged_attention as _paged
 from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """(B,T,H,D) x (B,S,KV,D) -> (B,T,H,D); FA2 with GQA, top-left causal
+    mask, kv tiles past the diagonal skipped."""
+    return _flash(q, k, v, causal=causal)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens) -> torch.Tensor:

@@ -1,0 +1,101 @@
+"""Foundational layers of the dense transformer: RMSNorm, RoPE, linear and
+embedding initializers, the SwiGLU MLP. Functional, as in the reference
+(``repro.models.layers``): parameters are plain dicts of tensors and the
+apply functions take them explicitly.
+
+Products follow JAX's type promotion: ``x @ W`` with a bf16 ``x`` and an
+f32 ``W`` is an f32 product (``torch.matmul`` refuses mixed types, so
+:func:`matmul` casts both sides to the promoted type first).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the type JAX promotes the pair to (bf16 @ f32 -> f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Initializers. The same distributions as the reference; a torch.Generator
+# does not give jax.random's bits, so tests carry JAX parameters across
+# (repro_torch.models.convert) instead of comparing inits.
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype=torch.float32,
+               device=None, lead: tuple = ()) -> torch.Tensor:
+    """Truncated-normal fan-in init: N(0, 1) truncated at +-2, times
+    1/sqrt(in_dim). ``lead`` prepends axes (a stack of layers)."""
+    w = torch.empty(lead + (in_dim, out_dim), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    # 1/sqrt(dim) scale keeps tied-head logits O(1) at init.
+    w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32, device=device)
+    return (w / math.sqrt(dim)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (+ per-head qk-norm)
+# ---------------------------------------------------------------------------
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None, lead: tuple = ()) -> Params:
+    return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer.
+
+    Split-half convention (as Llama/Qwen): rotate (x1, x2) ->
+    (x1 cos - x2 sin, x2 cos + x1 sin).
+    """
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions.to(x.device)[..., None].float() * freqs   # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]                       # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP (the FFN of every dense arch)
+# ---------------------------------------------------------------------------
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
+             device=None, lead: tuple = ()) -> Params:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype, device, lead),
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device, lead),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device, lead),
+    }
+
+
+def mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
+    gate = F.silu(matmul(x, p["w_gate"]))
+    return matmul(gate * matmul(x, p["w_up"]), p["w_down"])

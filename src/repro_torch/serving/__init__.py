@@ -1,4 +1,5 @@
-"""Multi-tenant serving: the engine, in accounting mode."""
+"""Multi-tenant serving: the engine (accounting and live mode) and the
+sampler of its live decode."""
 
 from .engine import (  # noqa: F401
     EngineConfig,
@@ -7,3 +8,4 @@ from .engine import (  # noqa: F401
     ServingEngine,
     TenantSpec,
 )
+from .sampler import greedy_decode, sample_token  # noqa: F401

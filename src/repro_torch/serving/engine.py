@@ -10,17 +10,24 @@ the shared paged KV pool. Requests flow:
   2. prefill of the remaining suffix (compute priced per token);
   3. write-back (``set`` per new block) — may ripple-evict other
      tenants' blocks exactly per Section III;
-  4. decode: none inside the engine. ``submit`` does the accounting of
-     steps 1-3 only; a caller that decodes reads the pool itself,
-     composing ``cache.block_table``, ``pool.layer_pool`` and the kernels
-     of :mod:`repro_torch.kernels.ops` (``chip_smoke.py`` does so).
+  4. decode (live mode only): the model prefills the whole prompt into
+     dense per-request KV caches, its windowless causal attention running
+     K3 (:func:`repro_torch.kernels.ops.flash_attention`), and
+     :func:`~repro_torch.serving.sampler.greedy_decode` decodes
+     ``max_new_tokens`` tokens on them.
 
-The port runs the engine in accounting mode (``model=None``): the full
-cache behaviour with a FLOPs/latency cost model, over a :class:`BlockPool`
-on ``device`` (the CUDA card unless the caller names another). The
-reference's live mode, where a reduced model decodes on dense caches,
-waits for the models slice of the port (ROADMAP.md, slice 3); passing
-``model``/``params`` raises ``NotImplementedError``.
+The engine runs in two modes, both over a :class:`BlockPool` on
+``device`` (the CUDA card unless the caller names another):
+* accounting mode (``model=None``): the full cache behaviour with a
+  FLOPs/latency cost model. Nothing decodes; a caller that decodes from
+  the shared pool reads it itself, composing ``cache.block_table``,
+  ``pool.layer_pool`` and the kernels of :mod:`repro_torch.kernels.ops`
+  (``chip_smoke.py`` does so);
+* live mode (``model=``, ``params=`` of :mod:`repro_torch.models`, the
+  parameters on ``device``): each request is also prefilled and decoded,
+  and its result carries the generated tokens. As in the reference, the
+  whole prompt is prefilled even when a prefix of it hit the cache: the
+  hit is accounted (``cached_tokens``, ``flops_saved``), not skipped.
 """
 
 from __future__ import annotations
@@ -29,10 +36,13 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.cacheblocks import BlockPool, SharedPrefixCache, layout_for
 from repro_torch.core.admission import AdmissionController
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
+
+from .sampler import greedy_decode
 
 
 @dataclass
@@ -81,12 +91,7 @@ class ServingEngine:
         params=None,
         device: DeviceLike = None,
     ) -> None:
-        if model is not None or params is not None:
-            raise NotImplementedError(
-                "live decode (model=/params=) waits for the models slice of "
-                "the port (ROADMAP.md, slice 3); the port's engine runs in "
-                "accounting mode"
-            )
+        self.device = resolve_device(device)
         self.cfg = arch_cfg
         self.engine_cfg = engine_cfg
         self.layout = layout_for(arch_cfg, block_tokens=engine_cfg.block_tokens)
@@ -98,14 +103,14 @@ class ServingEngine:
             arch_cfg.n_kv_heads,
             arch_cfg.head_dim,
             1,  # accounting pool tracks layer-0 pages; bytes scale by L
-            device=device,
+            device=self.device,
         )
         # Admission control (Section IV-C): conservative eq. (13) +
         # working-set refresh once popularities are observed.
         self.admission = AdmissionController(
             physical_capacity=float(pool_bytes),
             lengths=np.full(1024, float(bpb)),  # refreshed with real stats
-            device=device,
+            device=self.device,
         )
         self.tenants: Dict[str, TenantSpec] = {}
         admitted = {}
@@ -132,6 +137,8 @@ class ServingEngine:
             ghost_retention=engine_cfg.ghost_retention,
             ripple_allocations=ripple,
         )
+        self.model = model
+        self.params = params
         self._next_id = 0
         self.results: List[RequestResult] = []
 
@@ -140,8 +147,9 @@ class ServingEngine:
         return 2.0 * self.cfg.n_active_params
 
     def submit(self, tenant: str, tokens, max_new_tokens: int = 16) -> RequestResult:
-        """Account one request: prefix lookup, prefill of the rest, and
-        write-back of its blocks. No tokens are decoded, so
+        """Process one request: prefix lookup, write-back of its blocks and,
+        in live mode, prefill + greedy decode of ``max_new_tokens`` tokens
+        (``output``: (1, max_new_tokens) int32). In accounting mode
         ``new_tokens`` is 0 and ``output`` is None."""
         if tenant not in self.tenants:
             raise KeyError(f"tenant {tenant!r} not admitted")
@@ -155,15 +163,26 @@ class ServingEngine:
         evict = look.evictions + st.total_evictions
         ripple = look.ripple_evictions + st.total_ripple
 
+        output = None
+        if self.model is not None and self.params is not None:
+            with torch.inference_mode():
+                batch = {"tokens": torch.as_tensor(tokens[None, :], device=self.device)}
+                cache_len = len(tokens) + max_new_tokens
+                logits, caches = self.model.prefill(self.params, batch, cache_len)
+                output = greedy_decode(
+                    self.model, self.params, logits, caches,
+                    start_pos=len(tokens), n_steps=max_new_tokens,
+                ).cpu().numpy()
         res = RequestResult(
             req_id=self._next_id,
             tenant=tenant,
             cached_tokens=cached,
             prefill_tokens=suffix,
-            new_tokens=0,
+            new_tokens=max_new_tokens if output is not None else 0,
             flops_saved=cached * self.flops_per_token_prefill(),
             evictions=evict,
             ripple_evictions=ripple,
+            output=output,
         )
         self.results.append(res)
         return res

@@ -1,0 +1,234 @@
+"""The port's dense transformer against the reference's, on the CPU.
+
+Reduced configs: qwen3-1.7b with ``n_kv_heads=2`` (G = 2, qk-norm, tied
+embeddings) and stablelm-1.6b (MHA, untied head). The reference's
+parameters are carried across with ``from_jax_params``; inputs are numpy
+arrays from a seed. In f32 both packages do the same arithmetic with sums
+in another order (the port's prefill attention is the dense plain version
+of K3, the reference's a chunked scan), so they are held to atol 1e-4 on
+logits of scale ~4 (observed ~3e-6).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import make_model as jmake_model
+from repro_torch.configs import get_config
+from repro_torch.models import attention, from_jax_params, layers, make_model
+from repro_torch.models.convert import param_shapes
+
+ARCHS = {"qwen3-1.7b": {"n_kv_heads": 2}, "stablelm-1.6b": {}}
+F32_ATOL = 1e-4
+B, T = 2, 24
+
+
+def _cfgs(name):
+    kw = ARCHS[name]
+    return (dataclasses.replace(jget_config(name).reduced(), **kw),
+            dataclasses.replace(get_config(name).reduced(), **kw))
+
+
+def _models(name, dtype="float32"):
+    """(reference model, its params, port model, port params)."""
+    jcfg, cfg = _cfgs(name)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jm = jmake_model(jcfg, param_dtype=jdt, compute_dtype=jdt)
+    jp = jm.init(jax.random.PRNGKey(0))
+    m = make_model(cfg, param_dtype=tdt, compute_dtype=tdt)
+    return jm, jp, m, from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+
+
+def _tokens(cfg, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, T))
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+# -- layers -------------------------------------------------------------------
+
+def test_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32)
+    pos = np.array([[0, 1, 2, 7, 100]] * 2, np.int32)
+    np.testing.assert_allclose(
+        _np(layers.rmsnorm(torch.from_numpy(x), {"scale": torch.from_numpy(scale)}, 1e-6)),
+        _np(jlayers.rmsnorm(jnp.asarray(x), {"scale": jnp.asarray(scale)}, 1e-6)), atol=1e-6)
+    np.testing.assert_allclose(
+        _np(layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)),
+        _np(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)), atol=2e-5)
+    w = {n: rng.standard_normal(s).astype(np.float32) / 4
+         for n, s in (("w_gate", (16, 32)), ("w_up", (16, 32)), ("w_down", (32, 16)))}
+    h = rng.standard_normal((3, 16)).astype(np.float32)
+    # a bf16 activation against f32 weights: both promote the product to f32
+    got = layers.mlp_apply(torch.from_numpy(h).bfloat16(), {n: torch.from_numpy(a) for n, a in w.items()})
+    want = jlayers.mlp_apply(jnp.asarray(h).astype(jnp.bfloat16), {n: jnp.asarray(a) for n, a in w.items()})
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+def test_initializers_follow_the_reference_distributions():
+    gen = torch.Generator().manual_seed(0)
+    w = layers.dense_init(gen, 256, 512)
+    assert w.shape == (256, 512) and w.dtype == torch.float32
+    assert float(w.abs().max()) <= 2.0 / 16 + 1e-7          # truncated at +-2 sigma
+    # std of N(0, 1) truncated at +-2 is 0.8796; 131072 draws: +-1%
+    assert abs(float(w.std()) * 16 / 0.8796 - 1) < 0.01
+    e = layers.embed_init(gen, 1000, 64, torch.bfloat16)
+    assert e.dtype == torch.bfloat16 and abs(float(e.float().std()) * 8 - 1) < 0.02
+
+
+@pytest.mark.parametrize("causal,window,q_offset,valid", [
+    (True, 0, 0, None),
+    (True, 8, 0, None),                 # local window
+    (False, 0, 0, [40, 13]),            # decode-style valid lengths
+    (True, 0, 5, [40, 30]),             # offset queries
+])
+def test_chunked_attention_matches_reference(causal, window, q_offset, valid):
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 12, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_chunk=16)
+    want = jattn.chunked_attention(*map(jnp.asarray, (q, k, v)), **kw,
+                                   kv_valid_len=None if valid is None else jnp.asarray(valid))
+    got = attention.chunked_attention(*map(torch.from_numpy, (q, k, v)), **kw,
+                                      kv_valid_len=None if valid is None else torch.tensor(valid))
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_gqa_prefill_and_decode_match_the_reference(window):
+    """bf16 activations through f32 weights: q/k/v, the attention output
+    and the cache are f32 in both packages, with the same values; then
+    decode steps on that cache (a ring buffer when windowed)."""
+    jcfg, cfg = _cfgs("qwen3-1.7b")
+    jp = jattn.gqa_init(jax.random.PRNGKey(1), jcfg)
+    p = {n: ({k: torch.from_numpy(np.array(a)) for k, a in v.items()} if isinstance(v, dict)
+             else torch.from_numpy(np.array(v))) for n, v in jp.items()}
+    x = np.random.default_rng(2).standard_normal((2, 13, cfg.d_model)).astype(np.float32)
+    jout, jc = jattn.gqa_prefill(jnp.asarray(x[:, :10]).astype(jnp.bfloat16), jp, jcfg, 13,
+                                 window=window)
+    out, c = attention.gqa_prefill(torch.from_numpy(x[:, :10]).bfloat16(), p, cfg, 13,
+                                   window=window)
+    assert out.dtype == c["k"].dtype == torch.float32 and jc["k"].dtype == jnp.float32
+    np.testing.assert_allclose(_np(out), _np(jout), atol=1e-5)
+    np.testing.assert_allclose(_np(c["k"]), _np(jc["k"]), atol=1e-5)
+    np.testing.assert_allclose(_np(c["v"]), _np(jc["v"]), atol=1e-5)
+    if window:      # the transformer's ring-buffer alignment is not ported: start empty
+        jc = {n: jnp.zeros_like(a) for n, a in jc.items()}
+        c = {n: torch.zeros_like(a) for n, a in c.items()}
+    for t in range(10, 13):
+        pos = np.full(2, t, np.int32)
+        jd, jc = jattn.gqa_decode_step(jnp.asarray(x[:, t:t + 1]), jp, jcfg, jc,
+                                       jnp.asarray(pos), window=window)
+        d, c = attention.gqa_decode_step(torch.from_numpy(x[:, t:t + 1].copy()), p, cfg, c,
+                                         torch.from_numpy(pos), window=window)
+        np.testing.assert_allclose(_np(d), _np(jd), atol=1e-5)
+        np.testing.assert_allclose(_np(c["k"]), _np(jc["k"]), atol=1e-5)
+
+
+# -- the model --------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_param_tree_matches_reference_init(name):
+    jcfg, cfg = _cfgs(name)
+    jtree = jax.eval_shape(jmake_model(jcfg).init, jax.random.PRNGKey(0))
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jtree)
+    assert shapes == param_shapes(cfg)
+    port = make_model(cfg).init(torch.Generator().manual_seed(0))
+    assert jax.tree.map(lambda a: tuple(a.shape), port) == shapes
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_forward_prefill_decode_match_reference_f32(name):
+    jm, jp, m, p = _models(name)
+    toks = _tokens(m.cfg)
+    full_j = jm.forward_logits(jp, {"tokens": jnp.asarray(toks)})
+    full = m.forward_logits(p, {"tokens": torch.as_tensor(toks)})
+    assert full.shape == (B, T, m.cfg.vocab_size)
+    np.testing.assert_allclose(_np(full), _np(full_j), atol=F32_ATOL)
+
+    zeros, jzeros = m.init_cache(B, T + 8, device="cpu"), jm.init_cache(B, T + 8)
+    for n in ("k", "v"):
+        assert zeros["blocks"]["g0"][n].shape == jzeros["blocks"]["g0"][n].shape
+        assert zeros["blocks"]["g0"][n].dtype == torch.float32 and not zeros["blocks"]["g0"][n].any()
+
+    jlast, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :-1])}, T + 8)
+    last, c = m.prefill(p, {"tokens": torch.as_tensor(toks[:, :-1])}, T + 8)
+    assert last.shape == (B, 1, m.cfg.vocab_size)
+    np.testing.assert_allclose(_np(last), _np(jlast), atol=F32_ATOL)
+    for n in ("k", "v"):
+        assert c["blocks"]["g0"][n].shape == jc["blocks"]["g0"][n].shape
+        np.testing.assert_allclose(_np(c["blocks"]["g0"][n]), _np(jc["blocks"]["g0"][n]),
+                                   atol=F32_ATOL)
+
+    pos = np.full(B, T - 1, np.int32)
+    jd, jc2 = jm.decode_step(jp, jnp.asarray(toks[:, -1:]), jc, jnp.asarray(pos))
+    d, c2 = m.decode_step(p, torch.as_tensor(toks[:, -1:]), c, torch.as_tensor(pos))
+    np.testing.assert_allclose(_np(d), _np(jd), atol=F32_ATOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(_np(c2["blocks"]["g0"][n]), _np(jc2["blocks"]["g0"][n]),
+                                   atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_decode_consistency(name):
+    """prefill(T-1) + decode(token T-1) == forward logits at T-1, within
+    3e-3 of the logits' scale (tests/test_models.py's check)."""
+    _, _, m, p = _models(name)
+    toks = torch.as_tensor(_tokens(m.cfg, seed=3))
+    full = m.forward_logits(p, {"tokens": toks})
+    last, caches = m.prefill(p, {"tokens": toks[:, : T - 1]}, cache_len=T + 8)
+    lg, _ = m.decode_step(p, toks[:, T - 1:], caches, torch.full((B,), T - 1))
+    scale = float(full[:, T - 1].abs().max()) + 1e-6
+    assert float((last[:, 0] - full[:, T - 2]).abs().max()) < 3e-3 * max(scale, 1)
+    assert float((lg[:, 0] - full[:, T - 1]).abs().max()) < 3e-3 * max(scale, 1)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_bf16_model_matches_reference(name):
+    """bf16 parameters and compute, as on the card. Both round every
+    product to bf16 (relative spacing 2^-8), at different points, so the
+    logits agree to a few of those steps of their scale: 3% (observed ~1%)."""
+    jm, jp, m, p = _models(name, "bfloat16")
+    toks = _tokens(m.cfg, seed=4)
+    jlast, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, T + 4)
+    last, c = m.prefill(p, {"tokens": torch.as_tensor(toks)}, T + 4)
+    assert last.dtype == c["blocks"]["g0"]["k"].dtype == torch.bfloat16
+    scale = float(np.abs(_np(jlast)).max())
+    np.testing.assert_allclose(_np(last), _np(jlast), atol=0.03 * scale)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "deepseek-v2-236b",
+                                  "recurrentgemma-2b", "xlstm-125m", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
+def test_unported_architectures_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_model(get_config(name).reduced())
+
+
+def test_from_jax_params_checks_the_tree():
+    jm, jp, m, _ = _models("qwen3-1.7b", "bfloat16")
+    tree = jax.tree.map(np.asarray, jp)
+    p = from_jax_params(tree, m.cfg, device="cpu")
+    wq = p["blocks"]["g0"]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(wq.view(torch.int16).numpy(),
+                                  tree["blocks"]["g0"]["attn"]["wq"].view(np.int16))
+    bad = dict(tree, lm_head=tree["embed"].T)
+    with pytest.raises(ValueError, match="expected keys"):
+        from_jax_params(bad, m.cfg, device="cpu")
+    bad = dict(tree, embed=tree["embed"][:10])
+    with pytest.raises(ValueError, match="embed: expected shape"):
+        from_jax_params(bad, m.cfg, device="cpu")

@@ -5,7 +5,8 @@ decode through paged attention (K1) and grouped shared-prefix decode (K2
 + suffix + LSE merge) agree within the bf16 tolerance of
 ``tests/test_kernels.py`` (2e-2). The reference kernels run in Pallas
 interpret mode. Also runs ``chip_smoke.py``'s phases on the CPU at a
-small size, so the script the card runs stays exercised here.
+small size, so the script the card runs stays exercised here, its live
+phase (the reduced model served by the engine in live mode) included.
 """
 
 import dataclasses
@@ -136,3 +137,19 @@ def test_chip_smoke_phases_on_cpu_at_small_size():
     cs.phase_grouped(dev, sizes, served, errs, seed=0)
     assert served["decoded"] > 0 and served["stats"]["requests"] == 64
     assert cs.phase_admission(dev, sizes) > 1.0       # sharing frees memory
+
+
+def test_chip_smoke_live_phase_on_cpu_at_small_size():
+    """The live phase with the reduced qwen3 (K3's plain version on the
+    CPU), and its check against the plain prefill."""
+    import chip_smoke as cs
+
+    sizes = cs.Sizes(reduced=True, pool_blocks=256, block_tokens=4, prefix_tokens=16,
+                     user_tokens=8, new_tokens=4)
+    live = cs.phase_live(torch.device("cpu"), sizes, seed=0)
+    assert len(live["results"]) == sizes.live_requests == 8
+    assert [r.output.shape for r in live["results"]] == [(1, 4)] * 8
+    assert len(live["timed"].prefill_s) == 8 and len(live["timed"].decode_s) == 8 * 3
+    assert cs.check_live_against_plain(live, sizes) == 0.0   # plain against itself here
+    prof = cs.profile_live(live, sizes)
+    assert prof["prefill"]["wall_ms"] > 0 and prof["decode step"]["busy_ms"] is None
