@@ -5,12 +5,15 @@
 
 Phases (any failure exits non-zero; nothing is caught to carry on):
 
-1. env       card name and power limit, torch/CUDA versions, and the build
+1. env       card name and power limit, torch/CUDA versions, the build
              of every kernel under src/repro_torch/kernels/csrc with nvcc
-             (one nvcc per source, all started together);
+             (one nvcc per source, all started together), each kernel's
+             ptxas report (registers, spills) and the launch K2 and K3 get
+             at this run's shapes (cluster size, stages, shared memory);
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
-             over the shape grids of tests/test_kernels.py in f32 and bf16
-             and at this run's own shapes;
+             over the shape grids of tests/test_kernels.py and the port's
+             tests in f32 and bf16 and at this run's own shapes, K2 also at
+             a 4096-token prefix with lengths from 0 to S;
 3. serving   the engine at the full qwen3-1.7b KV geometry admits three
              tenants over a 16384-block pool and takes 1024 requests; pages
              are written once when allocated, and every 64 requests the
@@ -27,7 +30,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 6. admission the working-set virtual allocations on the card against the
              port's own CPU solve;
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
-             main path's shapes (CUDA events, L2 flushed between launches).
+             main path's shapes (CUDA events, L2 flushed between launches),
+             K2 first at a long prefix with a small group; K2 and K3 also
+             after a read-only flush.
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phase 5; max error; times; bound); the last
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +62,8 @@ from repro_torch.cacheblocks import layout_for  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import admission, irm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as k3_module  # noqa: E402
+from repro_torch.kernels import shared_prefix_attention as k2_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
@@ -190,10 +198,56 @@ def phase_env() -> str:
     _log(f"[env] kernels built from csrc/ with nvcc in {time.perf_counter() - t0:.2f} s "
          f"(set-up; {len(reports)} compiled, {len(KERNELS) - len(reports)} cached)")
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"[env] ptxas {name}: {line.strip()}")
+        for fn, info in ptxas_report(log):
+            _log(f"[env] ptxas {name}: {fn}: {info}")
     return card
+
+
+def _demangle(mangled: str) -> str:
+    """repro::<kernel><template args> from an Itanium-mangled name, enough
+    for this directory's kernels."""
+    m = re.match(r"_ZN5repro(\d+)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), mangled[m.end():]
+    name, rest = rest[:n], rest[n:]
+    if rest.startswith("I"):
+        args = rest[1:rest.index("EE") + 1]
+        vals = [v or {"f": "float", "13__nv_bfloat16": "bf16"}.get(t, t)
+                for v, t in re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)", args)]
+        name += "<" + ",".join(vals) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> List[tuple]:
+    """(kernel, "registers, spills, static shared memory, barriers") for
+    each entry function in an nvcc -Xptxas -v log."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = _demangle(m.group(1)), ""
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            used = line.split("Used", 1)[1].strip()
+            out.append((fn, f"{used}; {spill}"))
+            fn = None
+    return out
+
+
+def launch_plans(sizes: Sizes) -> None:
+    """The launch of K2 (cluster, tiles, stages, shared memory) at the
+    grouped phase's and the long-prefix timing shapes, and of K3 at the
+    model's head size."""
+    cfg = sizes.arch_config()
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for P, M, S in ((sizes.groups, sizes.group_size, sizes.prefix_tokens),
+                    (LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S)):
+        _log(f"[env] launch K2 bf16 P={P} M={M} H={H} KV={KV} D={D} S={S}: "
+             f"{k2_module.launch_plan(P, M, H, KV, D, S)}")
+    for dtype in (torch.bfloat16, torch.float32):
+        _log(f"[env] launch K3 {str(dtype)[6:]} D={D}: {k3_module.launch_plan(D, dtype)}")
 
 
 # -- phase 2: kernels against their plain versions ----------------------
@@ -203,13 +257,19 @@ K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py)
 ]
 K2_GRID = [  # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
+    (2, 32, 8, 2, 64, 300), (1, 3, 6, 3, 128, 520),
 ]
 K1_WIDE = [(3, 8, 1, 256, 64, 8, 3)]   # G=8, D=256, pages wider than a warp's 32 tokens
 K3_GRID = [  # B, T, S, H, KV, D, causal (tests/test_kernels.py, then causal T < S)
     (2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 128, True),
     (2, 100, 100, 4, 1, 64, False), (1, 64, 192, 4, 4, 64, False),
     (1, 128, 128, 4, 4, 256, True), (1, 64, 192, 4, 2, 64, True),
+    (1, 200, 200, 8, 2, 128, True),
 ]
+# K2's long-prefix, small-group shape (with the model's heads): many chunks
+# of S per (p, h), and in the kernels phase lengths from 0 to S, so that
+# some chunks, or all of a prefix's, are empty
+LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S = 8, 4, 4096
 
 
 def _randn(gen, shape, dtype, device):
@@ -223,7 +283,8 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
     pps = (sizes.prefix_tokens + sizes.user_tokens) // sizes.block_tokens
     k1 = K1_GRID + K1_WIDE + [(sizes.decode_every, H, KV, D, sizes.block_tokens,
                      sizes.decode_every * pps, pps)]
-    k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens)]
+    k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens),
+                    (4, LONG_PREFIX_M, H, KV, D, LONG_PREFIX_S)]
     T = sizes.prefix_tokens + sizes.user_tokens
     k3 = K3_GRID + [(1, T, T, H, KV, D, True)]    # the live phase's prefill
     for dtype in (torch.float32, torch.bfloat16):
@@ -247,13 +308,14 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
             pk = _randn(gen, (P, S, KV_, D_), dtype, device)
             pv = _randn(gen, (P, S, KV_, D_), dtype, device)
             pl = torch.randint(1, S + 1, (P,), generator=gen, device=device, dtype=torch.int32)
-            pl[0] = 0                                     # the prefix_len = 0 row
+            if P > 1:
+                pl[0] = 0                                 # the prefix_len = 0 row
             go, gl = shared_prefix_attention(q, pk, pv, pl, block_s=32 if S <= 256 else 128)
             wo, wl = shared_prefix_attention_plain(q, pk, pv, pl)
             what = f"K2 {dtype} P={P} M={M} H={H_} KV={KV_} D={D_} S={S}"
             err = errs.check("shared_prefix_attention", go, wo, ATOL[dtype], what + " out")
             lerr = errs.check("shared_prefix_attention", gl, wl, LSE_ATOL[dtype], what + " lse")
-            if float(go[0].float().abs().max()) != 0.0 or float(gl[0].max()) > -1e29:
+            if P > 1 and (float(go[0].float().abs().max()) != 0.0 or float(gl[0].max()) > -1e29):
                 _fail("K2: prefix_len = 0 must give out = 0, lse = -1e30")
             _log(f"[kernels] K2 {str(dtype)[6:]:8s} P={P} M={M:2d} H={H_:2d} KV={KV_} "
                  f"D={D_:3d} S={S:4d}: max abs err out {err:.3e} lse {lerr:.3e}")
@@ -656,14 +718,20 @@ def phase_admission(device, sizes: Sizes) -> float:
 
 # -- phase 7: timing -------------------------------------------------------
 
-def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
+def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5,
+              clean: bool = False) -> float:
     """Median of n launches, each timed with CUDA events, the L2 cache
-    flushed (a 256 MiB write) before each."""
+    flushed before each: by a 256 MiB write, which leaves the cache full of
+    dirty lines that the launch pays to write back as it evicts them, or
+    with ``clean`` by a 256 MiB read, which leaves it full of clean ones."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
-        flush.zero_()
+        if clean:
+            flush.sum(dtype=torch.int64)
+        else:
+            flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -676,6 +744,49 @@ def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_k2(gq, pk, pv, pl, flush) -> dict:
+    """K2, its plain version and an SDPA yardstick on one input; the bound
+    counts the prefix rows below each length once, q, out and lse."""
+    P, M, H, D = gq.shape
+    S, KV = pk.shape[1], pk.shape[2]
+    es = gq.element_size()
+    valid = int(pl.clamp(0, S).sum())
+    k2_bytes = 2 * valid * KV * D * es + 2 * gq.numel() * es + 4 * P + 4 * P * M * H
+    k2_flops = 4.0 * M * H * valid * D
+    # yardstick: one SDPA call on the same q and prefix K/V (heads expanded
+    # beforehand, outside the timed region), without the lse output
+    qs = gq.permute(0, 2, 1, 3)
+    ks = pk.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    vs = pv.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
+    r = dict(
+        ms=median_ms(lambda: shared_prefix_attention(gq, pk, pv, pl), flush),
+        plain_ms=median_ms(lambda: shared_prefix_attention_plain(gq, pk, pv, pl), flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), flush),
+        shape=f"P={P} M={M} H={H} KV={KV} D={D} S={S}",
+    )
+    r["bound_ms"], r["bound_by"] = bound_ms(k2_bytes, k2_flops, gq.dtype)
+    _clean_times(r, lambda: shared_prefix_attention(gq, pk, pv, pl),
+                 lambda: F.scaled_dot_product_attention(qs, ks, vs), flush)
+    return r
+
+
+def _clean_times(r: dict, fn, lib, flush) -> None:
+    """The kernel and its yardstick again after a read-only flush: what the
+    write-back of the dirty flush lines costs each."""
+    r["clean_ms"] = median_ms(fn, flush, clean=True)
+    r["clean_library_ms"] = median_ms(lib, flush, clean=True)
+
+
+def _log_timing(name: str, r: dict) -> None:
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    clean = ("" if "clean_ms" not in r else
+             f"; after a read-only flush kernel {r['clean_ms']:.4f} ms, library "
+             f"{r['clean_library_ms']:.4f} ms")
+    _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+         f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+         f"({r['bound_by']}){clean}")
 
 
 def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -> Dict[str, dict]:
@@ -699,29 +810,20 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     res["paged_attention"]["bound_ms"], res["paged_attention"]["bound_by"] = bound_ms(
         k1_bytes, k1_flops, q.dtype)
 
-    gq, pk, pv, pl = grouped["q"], grouped["pk"], grouped["pv"], grouped["plens"]
-    P, M, H, D = gq.shape
-    S, KV = pk.shape[1], pk.shape[2]
-    valid = int(pl.sum())
-    k2_bytes = (2 * valid * KV * D * es + 2 * gq.numel() * es + 4 * P
-                + 4 * P * M * H)
-    k2_flops = 4.0 * M * H * valid * D
-    # yardstick: one SDPA call on the same q and prefix K/V (heads expanded
-    # beforehand, outside the timed region), without the lse output
-    qs = gq.permute(0, 2, 1, 3)
-    ks = pk.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
-    vs = pv.permute(0, 2, 1, 3).repeat_interleave(H // KV, dim=1)
-    res["shared_prefix_attention"] = dict(
-        ms=median_ms(lambda: shared_prefix_attention(gq, pk, pv, pl), flush),
-        plain_ms=median_ms(lambda: shared_prefix_attention_plain(gq, pk, pv, pl), flush),
-        library_ms=median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), flush),
-        shape=f"P={P} M={M} H={H} KV={KV} D={D} S={S}",
-    )
-    res["shared_prefix_attention"]["bound_ms"], res["shared_prefix_attention"]["bound_by"] = (
-        bound_ms(k2_bytes, k2_flops, gq.dtype))
+    # K2 first at the long-prefix, small-group shape (a line of its own),
+    # then at the grouped phase's shape (the kernels row)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    Pl, Ml, Sl = LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    long = _time_k2(_randn(gen, (Pl, Ml, H, D), torch.bfloat16, device),
+                    _randn(gen, (Pl, Sl, KV, D), torch.bfloat16, device),
+                    _randn(gen, (Pl, Sl, KV, D), torch.bfloat16, device),
+                    torch.full((Pl,), Sl, dtype=torch.int32, device=device), flush)
+    _log_timing("shared_prefix_attention, long prefix", long)
+    res["shared_prefix_attention"] = _time_k2(grouped["q"], grouped["pk"], grouped["pv"],
+                                              grouped["plens"], flush)
     # K3 at the live phase's prefill: one prompt of T tokens, causal
     B, T = 1, sizes.prefix_tokens + sizes.user_tokens
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     q3 = _randn(gen, (B, T, H, D), torch.bfloat16, device)
     k3, v3 = (_randn(gen, (B, T, KV, D), torch.bfloat16, device) for _ in range(2))
@@ -738,11 +840,11 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     )
     res["flash_attention"]["bound_ms"], res["flash_attention"]["bound_by"] = bound_ms(
         k3_bytes, k3_flops, q3.dtype)
+    _clean_times(res["flash_attention"], lambda: flash_attention(q3, k3, v3, causal=True),
+                 lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                        enable_gqa=True), flush)
     for name, r in res.items():
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
-             f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
-             f"({r['bound_by']})")
+        _log_timing(name, r)
     return res
 
 
@@ -761,6 +863,7 @@ def main(argv=None) -> int:
     errs = Errors()
 
     card = phase_env()
+    launch_plans(sizes)
     phase_kernels(device, sizes, errs, args.seed)
     reset_launches()                                  # the main path starts here
     served = phase_serving(device, sizes, errs, args.seed)

@@ -1,8 +1,10 @@
 // Helpers shared by the attention kernels of this directory.
 //
-// Both kernels stage K/V tiles in shared memory as f32 and do all of their
-// arithmetic in f32 FMA (never TF32), whatever the input type: f32 inputs
-// must agree with the plain PyTorch version to 2e-5.
+// The f32 paths (and K1, and K2 at head sizes its tensor-core kernel is
+// not built for) stage K/V tiles in shared memory as f32 and do all of
+// their arithmetic in f32 FMA (never TF32): f32 inputs must agree with the
+// plain PyTorch version to 2e-5. The bf16 tensor-core paths of K2 and K3
+// use mma.cuh and hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

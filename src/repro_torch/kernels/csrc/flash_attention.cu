@@ -11,35 +11,45 @@
 // Bound: operations. A causal prefill does 4 * D flops for each of the
 // T (T + 1) / 2 (query, key) pairs of each head, and reads each q, k, v
 // element once: at T = 1280, D = 128 that is about 430 flops per byte,
-// above the card's ~295 (bf16 tensor cores against HBM).
+// above the card's ~295 (bf16 tensor cores against HBM). wgmma is the only
+// way to the tensor cores' full rate.
 //
 // The TPU grid (B, H, n_q, n_kv) runs in order and carries (m, l, acc)
 // in VMEM across the kv axis; Hopper blocks run in no order, so here one
 // block owns a query tile and loops over the kv tiles itself, stopping at
 // the last tile that meets the diagonal (the TPU kernel's `run` test).
-// Query tiles are handed out heaviest first (the last tiles of a causal
-// prefill see the most keys).
 //
 // Two paths, by input type:
 //
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
-//   f32 accumulation. A block of four warps owns 64 query rows of one
-//   (b, h); each warp 16 rows. K and V tiles (BK, D) are copied into
-//   shared memory with cp.async, two stages deep, so the next tile's loads
-//   run under this tile's arithmetic; rows are padded by 8 elements so
-//   that the ldmatrix reads of 8 rows hit distinct banks. Fragments come
-//   out of shared memory through ldmatrix (V's transposed on the way, so
-//   V is stored as it lies in memory). S = Q K^T stays in registers, the
-//   online softmax (base 2) runs on the accumulator fragments with two
-//   quad shuffles per row, and P is repacked in registers as the A operand
-//   of P V. A warp skips the tiles wholly above its rows' diagonal. Left
-//   for later: TMA and wgmma, and one K/V tile shared by the G heads of a
-//   group.
+// * bf16 (the serving path), D in {64, 128, 256}: warp-specialised, in
+//   the shape of FlashAttention-3. A block of 384 threads owns 128 query
+//   rows of one (b, h): one producer warpgroup, whose one thread keeps TMA
+//   loads of the K and V tiles (128 keys; 64 at D = 256) in flight into a
+//   ring of three stages (two at D = 256) behind mbarriers, and two
+//   consumer warpgroups of 64 rows each (chosen over one consumer
+//   warpgroup and over 64-key tiles at D = 128, by measurement). Q comes in
+//   once by TMA. Tiles land with the 128-byte swizzle that wgmma reads.
+//   S = Q K^T runs as wgmma with both operands K-major in shared memory;
+//   the online softmax (base 2; exp2 on the MUFU unit, the score scale
+//   folded into one FMA) runs on the accumulator registers, masking only
+//   the tiles that reach past S or the diagonal; O += P V runs as wgmma
+//   with P from registers (bf16, the accumulator layout is already the A
+//   fragment layout) and V MN-major from shared memory as it lies (the
+//   descriptor transposes it). Within a warpgroup S of tile i + 1 and P V
+//   of tile i go to the tensor cores together, and the softmax of tile
+//   i + 1 runs while P V of tile i does. The producer drops its registers
+//   to 40 and the consumers take 232 (setmaxnreg). The tensor maps are
+//   per batch (4-D: D, heads, rows, batch), so a box never runs from batch
+//   b into b + 1 and rows past T or S arrive as zeros, V's included. The
+//   query tile is the grid's slowest axis, heaviest (last, causal) tiles
+//   first across all heads; a warpgroup skips the tiles wholly above its
+//   rows' diagonal.
 // * f32 (held to 2e-5): f32 FMA on CUDA cores, never TF32, as in K1 and
 //   K2. A block owns 16 rows (t, g) of one (b, kv head): the G heads of
 //   a group share each staged K/V tile. The layout is K2's: each warp 4
 //   rows, each lane 2 keys for the scores and D/32 columns for P V.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cstdint>
 
@@ -192,255 +202,294 @@ inline size_t k3f_smem_bytes(int D) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: mma.sync m16n8k16, f32 accumulation
+// bf16 path: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
-constexpr int K3M_WARPS = 4;
-constexpr int K3M_THREADS = K3M_WARPS * 32;
-constexpr int K3M_BQ = 16 * K3M_WARPS;   // query rows per block
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l names row l % 8 of
-// matrix l / 8. With .trans each lane receives a column pair instead.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// `valid` false nothing is read and the 16 bytes are zeroed.
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Round two f32 to bf16 (nearest even) and pack them, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-template <int D, int BK>
-struct K3MLayout {
-  static constexpr int RS = D + 8;    // row stride (elements) of Q, K and V in shared memory
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * ((size_t)K3M_BQ * RS + 4 * (size_t)BK * RS);   // Q + 2 x (K, V)
+template <int D, int BK, int NC>
+struct K3TLayout {
+  static constexpr int NB = D / 64;                              // 64-column boxes (128 B rows)
+  static constexpr int THREADS = 128 * (NC + 1);                 // NC consumer warpgroups + producer
+  static constexpr int BQ = 64 * NC;                             // query rows per block
+  static constexpr size_t Q_BYTES = (size_t)BQ * D * 2;
+  static constexpr size_t KV_TILE = (size_t)BK * D * 2;          // one K or V tile
+  static constexpr size_t MAX_SMEM = 232448;                     // per block on an H100
+  // K/V ring depth: three stages where they fit beside Q, else two
+  static constexpr int NS = Q_BYTES + 6 * KV_TILE + 2048 <= MAX_SMEM ? 3 : 2;
+  static constexpr size_t BAR = Q_BYTES + 2 * NS * KV_TILE;
+  static constexpr size_t smem_bytes = 1024 + BAR + 8 * (1 + 3 * NS);
 };
 
-// Stage `rows` rows of D bf16 (row r from src + r * stride) into shared
-// memory rows of stride RS with cp.async; rows at or past n_valid are
-// zeroed and not read.
-template <int D, int RS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long stride, int rows, int n_valid) {
-  constexpr int VEC = 8;   // bf16 per 16 bytes
-  for (int i = threadIdx.x; i < rows * (D / VEC); i += K3M_THREADS) {
-    const int r = i / (D / VEC), c = (i - r * (D / VEC)) * VEC;
-    const bool valid = r < n_valid;
-    cp_async_16(dst + r * RS + c, src + (valid ? r : 0) * stride + c, valid);
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D, int BK>
-__global__ void __launch_bounds__(K3M_THREADS)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Tq,
-                 int S, int H, int KV, int causal, float sm_scale) {
-  constexpr int RS = K3MLayout<D, BK>::RS;
-  constexpr int NT = BK / 8;          // score n-tiles of 8 keys
-  constexpr int ND = D / 8;           // output n-tiles of 8 columns
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * K3M_BQ;   // heaviest tiles first
+template <int D, int BK, int NC>
+__global__ void __launch_bounds__(K3TLayout<D, BK, NC>::THREADS, 1)
+flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                 int Tq, int S, int H, int KV, int causal, float scale2) {
+  using L = K3TLayout<D, BK, NC>;
+  constexpr int NS = L::NS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);   // warpgroup c: NB boxes (64, 64)
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(base + L::Q_BYTES);   // NS x NB boxes (BK, 64)
+  __nv_bfloat16* v_s = k_s + NS * (size_t)BK * D;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + NS;
+  uint64_t* empty = bars + 1 + 2 * NS;
+
+  // the query tile is the grid's slowest axis, heaviest (last) tiles first
+  // across all heads: the first wave takes the longest causal rows
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::BQ;
   const int kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // (BQ, RS)
-  __nv_bfloat16* kv_s = q_s + K3M_BQ * RS;         // stage st: K at st * 2 BK RS, V after it
-
-  const long long q_stride = (long long)H * D;       // between query positions
-  const long long kv_stride = (long long)KV * D;     // between key positions
-  const __nv_bfloat16* kb = k + ((long long)b * S * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((long long)b * S * KV + kvh) * D;
-
-  const int q_last = min(q0 + K3M_BQ, Tq) - 1;
+  const int q_last = min(q0 + L::BQ, Tq) - 1;
   const int kv_end = causal ? min(S, q_last + 1) : S;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  auto stage_kv = [&](int tile) {
-    __nv_bfloat16* ks = kv_s + (tile & 1) * 2 * BK * RS;
-    const int s0 = tile * BK, rows = min(BK, S - s0);   // rows past S: zeros, V included
-    stage_rows<D, RS>(ks, kb + s0 * kv_stride, kv_stride, BK, rows);
-    stage_rows<D, RS>(ks + BK * RS, vb + s0 * kv_stride, kv_stride, BK, rows);
-  };
-  stage_rows<D, RS>(q_s, q + ((long long)b * Tq * H + h) * D + q0 * q_stride, q_stride, K3M_BQ,
-                    Tq - q0);
-  if (n_tiles > 0) stage_kv(0);
-  cp_async_commit();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);   // warp-uniform to the compiler
 
-  const int row_a = q0 + warp * 16 + g;   // this thread's two rows
-  const int row_b = row_a + 8;
-  const float scale2 = sm_scale * LOG2E;  // softmax in base 2: exp2(s log2e) = exp(s)
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;   // l: this thread's columns only
-  // ldmatrix lane addressing: row (l % 8) + 8 ((l / 8) % 2), column block l / 16
-  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {   // the next tile's loads overlap this tile's arithmetic
-      stage_kv(tile + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&empty[i], 4 * NC);   // one arrival per consumer warp
     }
-    __syncthreads();
-    const __nv_bfloat16* k_s = kv_s + (tile & 1) * 2 * BK * RS;
-    const __nv_bfloat16* v_s = k_s + BK * RS;
-    const int s0 = tile * BK;
-    const bool needed = !causal || s0 <= q0 + warp * 16 + 15;   // else wholly above the diagonal
-    if (needed) {
-      // S = Q K^T for the warp's 16 rows: NT fragments of 16 x 8
-      float s[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t a[4];
-        ldmatrix_x4(a, q_s + (warp * 16 + lr) * RS + kc * 16 + lc);
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {   // B fragments of key tiles n and n + 1
-          uint32_t bk[4];
-          ldmatrix_x4(bk, k_s + (n * 8 + (lane & 7) + (lane >> 4) * 8) * RS + kc * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[n], a, bk[0], bk[1]);
-          mma_bf16_16816(s[n + 1], a, bk[2], bk[3]);
-        }
-      }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-      // online softmax of rows a (fragment elements 0, 1) and b (2, 3),
-      // keys past S and, if causal, past the row masked
-      float mx_a = NEG_INF, mx_b = NEG_INF;
+  if (wg == NC) {
+    // producer warpgroup: one thread keeps the ring's TMA loads in flight
+    if constexpr (NC > 1) setmaxnreg_dec40();
+    if (threadIdx.x == NC * 128) {
+      mbar_expect_tx(q_full, (uint32_t)L::Q_BYTES);
+      for (int c = 0; c < NC; ++c)
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load_4d(q_s + (c * L::NB + bx) * 64 * 64, &tm_q, q_full, bx * 64, h, q0 + 64 * c, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % NS;
+        if (i >= NS) mbar_wait(&empty[st], ((i / NS) - 1) & 1);   // consumers done with it
+        __nv_bfloat16* ks = k_s + (size_t)st * BK * D;
+        __nv_bfloat16* vs = v_s + (size_t)st * BK * D;
+        mbar_expect_tx(&k_full[st], (uint32_t)L::KV_TILE);
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load_4d(ks + bx * BK * 64, &tm_k, &k_full[st], bx * 64, kvh, i * BK, b);
+        mbar_expect_tx(&v_full[st], (uint32_t)L::KV_TILE);
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load_4d(vs + bx * BK * 64, &tm_v, &v_full[st], bx * 64, kvh, i * BK, b);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg .. + 63
+    if constexpr (NC > 1) setmaxnreg_inc232();
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31, tq = lane & 3;
+    const int row_base = q0 + 64 * wg;
+    const int row_a = row_base + 16 * w + (lane >> 2), row_b = row_a + 8;
+    const __nv_bfloat16* qw = q_s + (size_t)wg * 64 * D;
+    // the tiles this warpgroup reads: the rest lie wholly above its diagonal
+    const int n_wg = causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK) : n_tiles;
+
+    float o[D / 2];        // O (64 x D), f32
+    float s[BK / 2];       // S = Q K^T of one tile, then its probabilities
+    uint32_t pa[BK / 16][4];   // P in bf16 as the A operand of P V, 16 keys per step
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;   // m in log2 units; l: own columns
+
+    auto issue_s = [&](int i) {   // S = Q K_i^T, both K-major and 128-byte swizzled
+      const __nv_bfloat16* ks = k_s + (size_t)(i % NS) * BK * D;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_ss<BK>(s, gmma_desc(qw + (kc / 4) * 64 * 64 + (kc % 4) * 16, 16, 1024),
+                     gmma_desc(ks + (kc / 4) * BK * 64 + (kc % 4) * 16, 16, 1024), kc > 0);
+      wgmma_commit();
+    };
+    // online softmax (base 2) of tile i in s: rows a (elements 4j, 4j + 1)
+    // and b (4j + 2, 4j + 3). Keys past S and, if causal, past the row are
+    // masked, on the tiles where that can happen. Leaves exp2 values in s
+    // and returns the factors by which the older O rows shrink.
+    auto softmax = [&](int i, float& al_a, float& al_b) {
+      const int s0 = i * BK;
+      // key s0 + 2 tq + c (c = 8 j + e) is masked for row a when c > lim_a:
+      // past S, or past the row if causal; interior tiles mask nothing.
+      // Selects, not branches: s is a wgmma operand.
+      const int last_a = causal ? min(S - 1, row_a) : S - 1;
+      const int last_b = causal ? min(S - 1, row_b) : S - 1;
+      const int lim_a = last_a - s0 - 2 * tq, lim_b = last_b - s0 - 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int key = s0 + n * 8 + tig * 2 + e;
-          const bool in = key < S;
-          s[n][e] = (in && !(causal && key > row_a)) ? s[n][e] * scale2 : NEG_INF;
-          s[n][2 + e] = (in && !(causal && key > row_b)) ? s[n][2 + e] * scale2 : NEG_INF;
-          mx_a = fmaxf(mx_a, s[n][e]);
-          mx_b = fmaxf(mx_b, s[n][2 + e]);
+          s[4 * j + e] = j * 8 + e > lim_a ? NEG_INF : s[4 * j + e];
+          s[4 * j + 2 + e] = j * 8 + e > lim_b ? NEG_INF : s[4 * j + 2 + e];
         }
+      float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
 #pragma unroll
       for (int o_ = 1; o_ <= 2; o_ <<= 1) {   // the 4 lanes of a quad share a row
         mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
       }
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+      const float mn_a = fmaxf(m_a, mx_a * scale2), mn_b = fmaxf(m_b, mx_b * scale2);
+      al_a = ex2(m_a - mn_a);
+      al_b = ex2(m_b - mn_b);
       m_a = mn_a;
       m_b = mn_b;
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[n][e] = exp2f(s[n][e] - mn_a);
-          s[n][2 + e] = exp2f(s[n][2 + e] - mn_b);
-          sum_a += s[n][e];
-          sum_b += s[n][2 + e];
+          s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale2, -mn_a));
+          s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], scale2, -mn_b));
+          sum_a += s[4 * j + e];
+          sum_b += s[4 * j + 2 + e];
         }
       }
       l_a = l_a * al_a + sum_a;
       l_b = l_b * al_b + sum_b;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][0] *= al_a;
-        o[n][1] *= al_a;
-        o[n][2] *= al_b;
-        o[n][3] *= al_b;
-      }
-
-      // O += P V: P's accumulator fragments, repacked as bf16, are the A
-      // operand; V's B fragments come transposed out of ldmatrix
+    };
+    auto pack_p = [&]() {   // two accumulator tiles of 8 keys make one A fragment of 16
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                               pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {   // B fragments of column tiles n and n + 1
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, v_s + (kc * 16 + lr) * RS + n * 8 + lc);
-          mma_bf16_16816(o[n], a, bv[0], bv[1]);
-          mma_bf16_16816(o[n + 1], a, bv[2], bv[3]);
-        }
+        pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+        pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+        pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+        pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
       }
+    };
+
+    // P_i V_i on the tensor cores: V (BK x D) is MN-major as it lies, 16 key
+    // rows (2048 B) per k-step and BK * 128 B between its 64-column boxes
+    auto issue_pv = [&](int i) {
+      const __nv_bfloat16* vs = v_s + (size_t)(i % NS) * BK * D;
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        wgmma_rs<D>(o, pa[kc], gmma_desc(vs + kc * 16 * 64, BK * 128, 1024));
+      wgmma_commit();
+    };
+    // S > 0 here, so the warpgroup reads tile 0 at least. No wgmma and no
+    // register it touches sits under a branch: the compiler would serialise
+    // the wgmmas.
+    float al_a, al_b;
+    mbar_wait(q_full, 0);
+    mbar_wait(&k_full[0], 0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0, al_a, al_b);   // O is still zero
+    pack_p();
+    // Tile i: S of tile i + 1 and O += P_i V_i go to the tensor cores
+    // together, and the softmax of tile i + 1 runs while P_i V_i does.
+    for (int i = 0; i + 1 < n_wg; ++i) {
+      const int st = i % NS;
+      mbar_wait(&k_full[(i + 1) % NS], ((i + 1) / NS) & 1);
+      mbar_wait(&v_full[st], (i / NS) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_s(i + 1);
+      issue_pv(i);
+      wgmma_wait<1>();   // S of tile i + 1 is in
+      fence_regs(s);
+      softmax(i + 1, al_a, al_b);
+      wgmma_wait<0>();   // P_i V_i is in: stage st and pa are free
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= al_a;
+        o[4 * j + 1] *= al_a;
+        o[4 * j + 2] *= al_b;
+        o[4 * j + 3] *= al_b;
+      }
+      pack_p();
     }
-    __syncthreads();   // this stage is refilled two tiles on
-  }
-  cp_async_wait<0>();  // no copy outlives the block (S = 0 issues Q's alone)
+    {  // the last tile: P V only
+      const int i = n_wg - 1, st = i % NS;
+      mbar_wait(&v_full[st], (i / NS) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(i);
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    for (int i = n_wg; i < n_tiles; ++i) {   // loaded for the other warpgroup only
+      const int st = i % NS;
+      mbar_wait(&k_full[st], (i / NS) & 1);
+      mbar_wait(&v_full[st], (i / NS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
 
 #pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o_);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
-  }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  __nv_bfloat16* ob = out + ((long long)b * Tq * H + h) * D;
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, o_);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
+    }
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    const long long q_stride = (long long)H * D;
+    __nv_bfloat16* ob = out + ((long long)b * Tq * H + h) * D;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (row_a < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_a * q_stride + col) =
-          __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
-    if (row_b < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_b * q_stride + col) =
-          __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tq * 2;
+      if (row_a < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_a * q_stride + col) =
+            __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      if (row_b < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_b * q_stride + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
   }
 }
 
-template <int D, int BK>
-cudaError_t launch_k3_mma(const void* q, const void* k, const void* v, void* out, int B, int T,
+template <int D, int BK, int NC>
+void k3t_plan(int (&v)[5]) {
+  using L = K3TLayout<D, BK, NC>;
+  v[0] = L::THREADS;
+  v[1] = L::BQ;
+  v[2] = BK;
+  v[3] = L::NS;
+  v[4] = (int)L::smem_bytes;
+}
+
+template <int D, int BK, int NC>
+cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out, int B, int T,
                           int S, int H, int KV, int causal, float sm_scale, cudaStream_t stream) {
-  const size_t smem = K3MLayout<D, BK>::smem_bytes;
-  cudaError_t err = prepare_smem(flash_mma_kernel<D, BK>, smem);
+  using L = K3TLayout<D, BK, NC>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  // per batch (4-D): a box never runs from batch b into b + 1, and rows
+  // past T or S arrive as zeros
+  const uint64_t qd[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t qs[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2, (uint64_t)T * H * D * 2};
+  const uint32_t qbox[4] = {64, 1, 64, 1};
+  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)KV, (uint64_t)S, (uint64_t)B};
+  const uint64_t kst[3] = {(uint64_t)D * 2, (uint64_t)KV * D * 2, (uint64_t)S * KV * D * 2};
+  const uint32_t kbox[4] = {64, 1, (uint32_t)BK, 1};
+  cudaError_t err = make_tensor_map_bf16(&tm_q, q, 4, qd, qs, qbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&tm_k, k, 4, kd, kst, kbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&tm_v, v, 4, kd, kst, kbox, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + K3M_BQ - 1) / K3M_BQ, H, B);
-  flash_mma_kernel<D, BK><<<grid, K3M_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T, S, H, KV,
-      causal, sm_scale);
+  err = allow_smem_once<flash_tma_kernel<D, BK, NC>>(L::smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (T + L::BQ - 1) / L::BQ);
+  flash_tma_kernel<D, BK, NC><<<grid, L::THREADS, L::smem_bytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), T, S, H, KV, causal,
+      sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -473,12 +522,38 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     case repro::F32:
       return repro::launch_k3_fma(q, k, v, out, B, T, S, H, KV, D, causal, sm_scale, st);
     case repro::BF16:
-      if (D == 64) return repro::launch_k3_mma<64, 64>(q, k, v, out, B, T, S, H, KV, causal,
-                                                       sm_scale, st);
-      if (D == 128) return repro::launch_k3_mma<128, 64>(q, k, v, out, B, T, S, H, KV, causal,
-                                                         sm_scale, st);
-      return repro::launch_k3_mma<256, 32>(q, k, v, out, B, T, S, H, KV, causal, sm_scale, st);
+      if (S == 0)   // no key: out = acc / max(l, 1e-30) = 0
+        return cudaMemsetAsync(out, 0, (size_t)B * T * H * D * sizeof(__nv_bfloat16), st);
+      if (D == 64)
+        return repro::launch_k3_tma<64, 128, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale, st);
+      if (D == 128)
+        return repro::launch_k3_tma<128, 128, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale,
+                                                 st);
+      return repro::launch_k3_tma<256, 64, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The launch a call of head size D and this dtype gets: out = {threads per
+// block, query rows per block, keys per tile, K/V stages, dynamic shared
+// memory in bytes}. Returns 0, or cudaErrorInvalidValue for a size or type
+// the kernels do not take.
+extern "C" int repro_flash_attention_plan(int D, int dtype, int* out) {
+  int v[5];
+  if (dtype == repro::F32 && (D == 64 || D == 128 || D == 256)) {
+    const int f[5] = {repro::THREADS, repro::K3F_ROWS, repro::K3F_KEYS, 1,
+                      (int)repro::k3f_smem_bytes(D)};
+    for (int i = 0; i < 5; ++i) v[i] = f[i];
+  } else if (dtype == repro::BF16 && D == 64) {
+    repro::k3t_plan<64, 128, 2>(v);
+  } else if (dtype == repro::BF16 && D == 128) {
+    repro::k3t_plan<128, 128, 2>(v);
+  } else if (dtype == repro::BF16 && D == 256) {
+    repro::k3t_plan<256, 64, 2>(v);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return cudaSuccess;
 }

@@ -52,6 +52,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_plan(D: int, dtype: torch.dtype) -> dict:
+    """How the kernel launches for head size D and this dtype: threads and
+    query rows per block, keys per tile, K/V stages and dynamic shared
+    memory. Loads (and if need be builds) the library."""
+    fn = _lib().repro_flash_attention_plan
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 5)()
+    rc = fn(D, _DTYPES[dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"no flash_attention kernel for D={D}, {dtype}")
+    keys = ("threads", "rows_per_block", "keys_per_tile", "stages", "smem_bytes")
+    return dict(zip(keys, out))
+
+
 def _check(q, k, v) -> None:
     dev = q.device
     for name, t in (("k", k), ("v", v)):

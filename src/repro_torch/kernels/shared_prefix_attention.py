@@ -64,6 +64,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_plan(P: int, M: int, H: int, KV: int, D: int, S: int,
+                block_s: int = 128) -> Optional[dict]:
+    """How the bf16 kernel launches at these sizes: the cluster size (the
+    chunks S is split into), tiles per chunk, pipeline stages, row passes,
+    dynamic shared memory and keys per tile. None where the CUDA-core
+    kernel takes the call. Loads (and if need be builds) the library."""
+    fn = _lib().repro_shared_prefix_attention_plan
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    block_s = max(1, min(int(block_s), S, _MAX_KEYS))
+    if not fn(P, M, H, KV, D, S, block_s, ctypes.addressof(out)):
+        return None
+    keys = ("cluster", "tiles_per_chunk", "stages", "passes", "smem_bytes", "keys_per_tile")
+    return dict(zip(keys, out))
+
+
 def _check(q, prefix_k, prefix_v, prefix_lens) -> None:
     dev = q.device
     for name, t in (("prefix_k", prefix_k), ("prefix_v", prefix_v),

@@ -29,6 +29,7 @@ GRID = [                              # B, T, S, H, KV, D, causal (tests/test_ke
     (1, 64, 192, 4, 4, 64, False),    # cross attention T != S
     (1, 128, 128, 4, 4, 256, True),   # recurrentgemma head_dim
     (1, 64, 192, 4, 2, 64, True),     # causal T < S: the mask is top-left
+    (1, 200, 200, 8, 2, 128, True),   # G = 4, T not a multiple of the query tile
 ]
 SLICE = (1, 1280, 1280, 16, 8, 128, True)   # qwen3-1.7b prefill of a served prompt
 

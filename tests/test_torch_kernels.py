@@ -36,6 +36,8 @@ K2_GRID = [                      # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64),
     (2, 2, 4, 1, 128, 100),      # MQA + non-aligned prefix blocks
     (1, 8, 4, 4, 64, 256),
+    (2, 32, 8, 2, 64, 300),      # R = 128 rows: several row tiles; S not a multiple of a chunk
+    (1, 3, 6, 3, 128, 520),      # R = 6 rows; the valid length ends inside a later chunk
 ]
 
 
@@ -240,7 +242,8 @@ def test_paged_attention_kernel_matches_plain(cuda_device, B, H, KV, D, page, P,
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("P,M,H,KV,D,S", K2_GRID)
 def test_shared_prefix_kernel_matches_plain(cuda_device, P, M, H, KV, D, S, dtype):
-    args = _on(cuda_device, _k2_inputs(6, P, M, H, KV, D, S, zero_len=True), dtype)
+    # prefix 0 has length 0 where another prefix keeps a length to check
+    args = _on(cuda_device, _k2_inputs(6, P, M, H, KV, D, S, zero_len=P > 1), dtype)
     before = shared_prefix_attention.launches
     got_o, got_l = shared_prefix_attention(*args, block_s=32)
     torch.cuda.synchronize()
@@ -248,3 +251,24 @@ def test_shared_prefix_kernel_matches_plain(cuda_device, P, M, H, KV, D, S, dtyp
     want_o, want_l = shared_prefix_attention_plain(*args)
     np.testing.assert_allclose(_np(got_o.cpu()), _np(want_o.cpu()), atol=_tol(dtype))
     np.testing.assert_allclose(_np(got_l.cpu()), _np(want_l.cpu()), atol=_lse_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shared_prefix_kernel_with_empty_chunks(cuda_device, dtype):
+    """A long prefix split across many chunks, with lengths from 0 to S:
+    chunks past a prefix's length are empty (all of them where it is 0),
+    and the merge must give no NaN, out = 0 and lse = -1e30 at length 0."""
+    P, M, H, KV, D, S = 4, 4, 16, 8, 128, 4096
+    q, pk, pv, _ = _k2_inputs(7, P, M, H, KV, D, S)
+    plens = np.array([0, 1, 1000, S], np.int32)
+    args = _on(cuda_device, [q, pk, pv, plens], dtype)
+    got_o, got_l = shared_prefix_attention(*args)
+    torch.cuda.synchronize()
+    want_o, want_l = shared_prefix_attention_plain(*args)
+    go, gl = _np(got_o.cpu()), _np(got_l.cpu())
+    assert np.isfinite(go).all() and not np.isnan(gl).any()
+    np.testing.assert_array_equal(go[0], 0.0)
+    np.testing.assert_array_equal(gl[0], np.float32(-1e30))
+    np.testing.assert_allclose(go, _np(want_o.cpu()), atol=_tol(dtype))
+    np.testing.assert_allclose(gl, _np(want_l.cpu()), atol=_lse_tol(dtype))
