@@ -31,8 +31,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              port's own CPU solve;
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
              main path's shapes (CUDA events, L2 flushed between launches),
-             K2 first at a long prefix with a small group; K2 and K3 also
-             after a read-only flush.
+             K2 first at a long prefix with a small group.
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phase 5; max error; times; bound); the last
@@ -43,7 +42,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 import time
@@ -197,43 +195,17 @@ def phase_env() -> str:
         _build.load(name)
     _log(f"[env] kernels built from csrc/ with nvcc in {time.perf_counter() - t0:.2f} s "
          f"(set-up; {len(reports)} compiled, {len(KERNELS) - len(reports)} cached)")
+    # each entry function with its registers, spills and shared memory,
+    # names demangled by the toolkit's cu++filt where it has one
+    filt = Path(_build._nvcc()).with_name("cu++filt")
     for name, log in reports.items():
-        for fn, info in ptxas_report(log):
-            _log(f"[env] ptxas {name}: {fn}: {info}")
+        if filt.exists():
+            log = subprocess.run([str(filt)], input=log, capture_output=True, text=True,
+                                 check=True, timeout=60).stdout
+        for line in log.splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                _log(f"[env] ptxas {name}: {line.strip()}")
     return card
-
-
-def _demangle(mangled: str) -> str:
-    """repro::<kernel><template args> from an Itanium-mangled name, enough
-    for this directory's kernels."""
-    m = re.match(r"_ZN5repro(\d+)", mangled)
-    if not m:
-        return mangled
-    n, rest = int(m.group(1)), mangled[m.end():]
-    name, rest = rest[:n], rest[n:]
-    if rest.startswith("I"):
-        args = rest[1:rest.index("EE") + 1]
-        vals = [v or {"f": "float", "13__nv_bfloat16": "bf16"}.get(t, t)
-                for v, t in re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)", args)]
-        name += "<" + ",".join(vals) + ">"
-    return name
-
-
-def ptxas_report(log: str) -> List[tuple]:
-    """(kernel, "registers, spills, static shared memory, barriers") for
-    each entry function in an nvcc -Xptxas -v log."""
-    out, fn, spill = [], None, ""
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn, spill = _demangle(m.group(1)), ""
-        elif fn and "spill" in line:
-            spill = line.strip()
-        elif fn and "Used" in line and "registers" in line:
-            used = line.split("Used", 1)[1].strip()
-            out.append((fn, f"{used}; {spill}"))
-            fn = None
-    return out
 
 
 def launch_plans(sizes: Sizes) -> None:
@@ -257,7 +229,9 @@ K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py)
 ]
 K2_GRID = [  # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
-    (2, 32, 8, 2, 64, 300), (1, 3, 6, 3, 128, 520),
+    (2, 32, 8, 2, 64, 300), (1, 3, 6, 3, 128, 520), (1, 40, 8, 2, 64, 300),
+    (1, 26, 56, 8, 128, 300), (1, 36, 16, 2, 128, 200), (1, 8, 8, 2, 256, 100),
+    (2, 8, 10, 1, 256, 300), (1, 20, 8, 1, 256, 130),
 ]
 K1_WIDE = [(3, 8, 1, 256, 64, 8, 3)]   # G=8, D=256, pages wider than a warp's 32 tokens
 K3_GRID = [  # B, T, S, H, KV, D, causal (tests/test_kernels.py, then causal T < S)
@@ -718,20 +692,15 @@ def phase_admission(device, sizes: Sizes) -> float:
 
 # -- phase 7: timing -------------------------------------------------------
 
-def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5,
-              clean: bool = False) -> float:
+def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
     """Median of n launches, each timed with CUDA events, the L2 cache
-    flushed before each: by a 256 MiB write, which leaves the cache full of
-    dirty lines that the launch pays to write back as it evicts them, or
-    with ``clean`` by a 256 MiB read, which leaves it full of clean ones."""
+    flushed before each by a 256 MiB write (which leaves the cache full of
+    dirty lines that the launch pays to write back as it evicts them)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
-        if clean:
-            flush.sum(dtype=torch.int64)
-        else:
-            flush.zero_()
+        flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -767,26 +736,14 @@ def _time_k2(gq, pk, pv, pl, flush) -> dict:
         shape=f"P={P} M={M} H={H} KV={KV} D={D} S={S}",
     )
     r["bound_ms"], r["bound_by"] = bound_ms(k2_bytes, k2_flops, gq.dtype)
-    _clean_times(r, lambda: shared_prefix_attention(gq, pk, pv, pl),
-                 lambda: F.scaled_dot_product_attention(qs, ks, vs), flush)
     return r
-
-
-def _clean_times(r: dict, fn, lib, flush) -> None:
-    """The kernel and its yardstick again after a read-only flush: what the
-    write-back of the dirty flush lines costs each."""
-    r["clean_ms"] = median_ms(fn, flush, clean=True)
-    r["clean_library_ms"] = median_ms(lib, flush, clean=True)
 
 
 def _log_timing(name: str, r: dict) -> None:
     lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-    clean = ("" if "clean_ms" not in r else
-             f"; after a read-only flush kernel {r['clean_ms']:.4f} ms, library "
-             f"{r['clean_library_ms']:.4f} ms")
     _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
-         f"({r['bound_by']}){clean}")
+         f"({r['bound_by']})")
 
 
 def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -> Dict[str, dict]:
@@ -840,9 +797,6 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     )
     res["flash_attention"]["bound_ms"], res["flash_attention"]["bound_by"] = bound_ms(
         k3_bytes, k3_flops, q3.dtype)
-    _clean_times(res["flash_attention"], lambda: flash_attention(q3, k3, v3, causal=True),
-                 lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                        enable_gqa=True), flush)
     for name, r in res.items():
         _log_timing(name, r)
     return res

@@ -20,15 +20,16 @@
 //   before it is dropped, so a prefix element is read from device memory
 //   once. A block holds 128 rows in registers (256 below D = 256 with two
 //   row tiles a warp); a group with more rows takes further passes, each
-//   its own cluster, and only then is a prefix element read more than once.
+//   its own cluster, and each pass reads the prefix again.
 // * S is split into chunks, chosen on the host from the allocated S and the
 //   card's SM count (never from prefix_lens, which lie on the device): as
 //   many chunks per (p, h) as leave about one block per SM, 1 to 8. At
 //   P = 8, KV = 8, S = 1024: 2 chunks of 4 tiles, 128 blocks. A chunk that
 //   begins at or past prefix_lens[p] reads nothing and leaves an empty
 //   partial (m = -1e30, l = 0, acc = 0).
-// * K/V tiles of block_s rows (rounded up to 32) arrive by TMA into a ring
-//   of up to three stages behind mbarriers: thread 0 keeps the next tiles
+// * K/V tiles of block_s rows (rounded up to 32; at most 64 at D = 256, so
+//   that two stages fit) arrive by TMA into a ring of up to three stages
+//   behind mbarriers: thread 0 keeps the next tiles
 //   in flight under this tile's arithmetic, and no thread spends an
 //   instruction on the copy. TMA rather than cp.async.bulk: one request per
 //   32-column box instead of one per 2 * D-byte row, zeros for the rows past
@@ -40,19 +41,24 @@
 //   row tiles the warps also split each tile's keys 32 at a time (up to 4
 //   slices), so more warps work; each keeps its own (m, l, acc) per row.
 // * The chunks of one (p, h) run as one thread-block cluster, and the
-//   partials never pass through device memory: after the last tile each
-//   block merges its key slices in its own shared memory (over the freed
-//   stages), sends each row's partial (m, l, acc) to the block that owns
-//   the row (row r to block r % chunks) with 16-byte stores into that
-//   block's shared memory, and after cluster.sync() merges the rows it owns
-//   and writes them to out and lse. One launch.
+//   partials never pass through device memory: after the last tile the
+//   key slices of each row fold, one after the other, into the row's one
+//   slot (m, l, acc) in the block's shared memory (over the freed stages).
+//   After cluster.sync() the block that owns row r (block r % chunks) reads
+//   the row's slot from every block of the cluster through distributed
+//   shared memory, merges them and writes out and lse; a second
+//   cluster.sync() keeps each block resident until the others have read
+//   it. One launch. Shared memory holds one slot per row of the pass, so
+//   every pass size fits (the host checks, and refuses a launch that would
+//   not).
 // * V rows at or past the valid length are zeroed in shared memory before
 //   P V (the TPU kernel zeroes its padded V rows) and their keys masked.
 //
 // f32 (held to 2e-5, so no TF32) and the other head sizes keep the
 // earlier CUDA-core kernel below: one block of 128 threads per (p, h, tile
-// of 16 rows) walks S in block_s steps, staging K/V as f32, 4 x 4 register
-// tiles per lane. It is not on the serving path.
+// of 16 rows) walks S in block_s steps (64 at D = 256, where 128 rows of
+// f32 K and V do not fit), staging K/V as f32, 4 x 4 register tiles per
+// lane. It is not on the serving path.
 //
 // Semantics follow the TPU kernel: out = acc / max(l, 1e-30) in q's
 // dtype, lse = m + log(max(l, 1e-30)) in f32, so a zero-length prefix
@@ -75,6 +81,7 @@ constexpr int K2_WARP_ROWS = K2_ROWS / WARPS;    // ... 4 per warp
 constexpr int K2_MAX_KEYS = 128;                 // keys staged per step: 4 per lane
 constexpr int K2_LANE_KEYS = K2_MAX_KEYS / 32;
 constexpr int K2_MAX_COLS = 8;                   // output columns per lane: D <= 256
+constexpr size_t K2_MAX_SMEM = 232448;           // shared memory per block on an H100
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -220,6 +227,8 @@ template <typename T>
 cudaError_t launch_k2(const void* q, const void* prefix_k, const void* prefix_v,
                       const int* prefix_lens, void* out, float* lse, int P, int M, int H,
                       int KV, int D, int S, int block_s, float sm_scale, cudaStream_t stream) {
+  // stage fewer rows where block_s rows of f32 K and V do not fit (D = 256)
+  while (block_s > 32 && k2_smem_bytes(D, block_s) > K2_MAX_SMEM) block_s /= 2;
   const size_t smem = k2_smem_bytes(D, block_s);
   cudaError_t err = prepare_smem(shared_prefix_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -240,7 +249,6 @@ constexpr int K2T_GROUP = 32;        // keys per online-softmax step of a warp
 constexpr int K2T_MAX_KSF = 4;       // key slices per row tile
 constexpr int K2T_MAX_CHUNKS = 8;    // blocks of a cluster (the portable maximum)
 constexpr int K2T_MAX_STAGES = 3;
-constexpr size_t K2T_MAX_SMEM = 232448;   // per block on an H100
 
 template <int D, int RTW_>
 struct K2T {
@@ -257,23 +265,19 @@ __host__ __device__ inline int k2t_ksf(int n_rt) {
   return k < 1 ? 1 : (k > K2T_MAX_KSF ? K2T_MAX_KSF : k);
 }
 
-// Shared-memory carve-up, the same on the host and in the kernel. After
-// the last tile the K/V stages (from offset 0) hold the warps' partials
-// (ksf x NR slots) and, from `recv`, the partials the block receives
-// (chunks x kmax slots).
+// Shared-memory carve-up, the same on the host and in the kernel, for a
+// pass of `rows` rows (a multiple of 16). After the last tile the K/V
+// stages (from offset 0) hold each row's partial acc, rows padded to D + 8
+// floats; q, and m and l of each row, lie past them.
 struct K2TSmem {
-  size_t recv, q, pm, pl, rm, rl, bar, total;
-  __host__ __device__ K2TSmem(int D, int BS, int n_stages, int part_slots, int recv_slots,
-                              int q_rows) {
+  size_t q, pm, pl, bar, total;
+  __host__ __device__ K2TSmem(int D, int BS, int n_stages, int rows) {
     const size_t stages = (size_t)4 * D * BS * n_stages;
-    recv = (size_t)part_slots * (D + 8) * 4;
-    const size_t merge = recv + (size_t)recv_slots * D * 4;
+    const size_t merge = (size_t)rows * (D + 8) * 4;
     q = stages > merge ? stages : merge;
-    pm = q + (size_t)q_rows * (D + 8) * 2;
-    pl = pm + (size_t)part_slots * 4;
-    rm = pl + (size_t)part_slots * 4;
-    rl = rm + (size_t)recv_slots * 4;
-    bar = (rl + (size_t)recv_slots * 4 + 7) & ~(size_t)7;
+    pm = q + (size_t)rows * (D + 8) * 2;
+    pl = pm + (size_t)rows * 4;
+    bar = (pl + (size_t)rows * 4 + 7) & ~(size_t)7;
     total = bar + K2T_MAX_STAGES * 8 + 1024;   // + the slack of aligning the base
   }
 };
@@ -285,13 +289,6 @@ __device__ __forceinline__ __nv_bfloat16* sw64(__nv_bfloat16* tile, int rows, in
   return tile + (c >> 5) * rows * 32 + r * 32 + ((((c >> 3) & 3) ^ ((r >> 1) & 3)) << 3);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 template <int D, int RTW>
 __global__ void __launch_bounds__(K2T_THREADS)
 shared_prefix_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -299,7 +296,7 @@ shared_prefix_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __nv_bfloat16* __restrict__ q, const int* __restrict__ prefix_lens,
                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int M, int H,
                         int KV, int S, int BS, int tiles_per_chunk, int n_stages, int n_pass,
-                        int part_slots, int recv_slots, float scale2) {
+                        float scale2) {
   using L = K2T<D, RTW>;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -311,26 +308,21 @@ shared_prefix_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int nr = min(L::PASS_ROWS, R - r0);
   const int n_rt = (nr + 15) / 16;               // row tiles of 16
   const int ksf = k2t_ksf(n_rt);                 // key slices per row tile
-  const int NR = n_rt * 16;                      // partial slots per key slice
-  const int kmax = (nr + n_chunks - 1) / n_chunks;   // rows a block merges, at most
   const int q_rows = min(L::PASS_ROWS, (R + 15) / 16 * 16);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_1024(smem_raw);
-  const K2TSmem lay(D, BS, n_stages, part_slots, recv_slots, q_rows);
+  const K2TSmem lay(D, BS, n_stages, q_rows);
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(base);   // stage st: K, then V
-  // (ksf x NR, D) warp partials, rows padded to D + 8 floats: the float2
-  // stores of a quad's 8 rows then fall on distinct banks
+  // (q_rows, D) partial acc of each row, rows padded to D + 8 floats: the
+  // float2 stores of a quad's 8 rows then fall on distinct banks
   float* pacc = reinterpret_cast<float*>(base);
   constexpr int PS = D + 8;
-  float* racc = reinterpret_cast<float*>(base + lay.recv);    // (chunks x kmax, D) received
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base + lay.q);   // (q_rows, QS)
-  float* pm = reinterpret_cast<float*>(base + lay.pm);   // m of each partial, log2 units
-  float* pl = reinterpret_cast<float*>(base + lay.pl);   // l of each partial
-  float* rm = reinterpret_cast<float*>(base + lay.rm);
-  float* rl = reinterpret_cast<float*>(base + lay.rl);
+  float* pm = reinterpret_cast<float*>(base + lay.pm);   // m of each row, log2 units
+  float* pl = reinterpret_cast<float*>(base + lay.pl);   // l of each row
   uint64_t* full = reinterpret_cast<uint64_t*>(base + lay.bar);
 
   // offset of row r (< R) of (p, h) in q / out (P, M, H, D), divided by D
@@ -359,7 +351,7 @@ shared_prefix_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
   };
   // q rows of this pass, bf16 as they lie, by cp.async (rows past R zeroed)
-  for (int i = tid; i < NR * (D / 8); i += K2T_THREADS) {
+  for (int i = tid; i < n_rt * 16 * (D / 8); i += K2T_THREADS) {
     const int r = i / (D / 8), c = (i - r * (D / 8)) * 8;
     cp_async_16(q_s + r * L::QS + c, q + row_off(r0 + min(r, nr - 1)) * D + c, r < nr);
   }
@@ -508,95 +500,100 @@ shared_prefix_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
     if (tid == 0 && i + n_stages < n_my) issue(i + n_stages);
   }
 
-  // 1. each warp's partials into this block's shared memory (over the
-  //    stages): m and l of each row in log2 units, acc unnormalised
+  // 1. each row's partial into its slot in this block's shared memory
+  //    (over the stages): m and l in log2 units, acc unnormalised. The key
+  //    slices of a row tile fold into the tile's slots one after the other.
+  for (int s = 0; s < ksf; ++s) {
+    if (ks == s) {
 #pragma unroll
-  for (int j = 0; j < L::RTW; ++j) {
-    if (j < nslots) {
-      float la = l_a[j], lb = l_b[j];
+      for (int j = 0; j < L::RTW; ++j) {
+        if (j < nslots) {
+          float la = l_a[j], lb = l_b[j];
 #pragma unroll
-      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-        la += __shfl_xor_sync(0xffffffffu, la, o_);
-        lb += __shfl_xor_sync(0xffffffffu, lb, o_);
-      }
-      const int sa = ks * NR + rt_of[j] * 16 + g, sb = sa + 8;
-      if (tq == 0) {
-        pm[sa] = m_a[j];
-        pl[sa] = la;
-        pm[sb] = m_b[j];
-        pl[sb] = lb;
-      }
+          for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+            la += __shfl_xor_sync(0xffffffffu, la, o_);
+            lb += __shfl_xor_sync(0xffffffffu, lb, o_);
+          }
+          const int sa = rt_of[j] * 16 + g, sb = sa + 8;
+          float ma = m_a[j], mb = m_b[j];
+          float wa = 1.f, wb = 1.f, ua = 0.f, ub = 0.f;   // weights of this slice, of the slot
+          if (s > 0) {   // the slot holds the earlier slices: rescale both to the joint max
+            const float oa = pm[sa], ob = pm[sb];
+            const float na = fmaxf(ma, oa), nb = fmaxf(mb, ob);
+            wa = exp2f(ma - na);
+            ua = exp2f(oa - na);
+            wb = exp2f(mb - nb);
+            ub = exp2f(ob - nb);
+            la = la * wa + pl[sa] * ua;
+            lb = lb * wb + pl[sb] * ub;
+            ma = na;
+            mb = nb;
+            __syncwarp();   // every lane of the quad has read m and l
+          }
+          if (tq == 0) {
+            pm[sa] = ma;
+            pl[sa] = la;
+            pm[sb] = mb;
+            pl[sb] = lb;
+          }
 #pragma unroll
-      for (int n = 0; n < L::ND; ++n) {
-        const int col = n * 8 + tq * 2;
-        *reinterpret_cast<float2*>(pacc + (size_t)sa * PS + col) = make_float2(o[j][n][0], o[j][n][1]);
-        *reinterpret_cast<float2*>(pacc + (size_t)sb * PS + col) = make_float2(o[j][n][2], o[j][n][3]);
+          for (int n = 0; n < L::ND; ++n) {
+            float2* da = reinterpret_cast<float2*>(pacc + (size_t)sa * PS + n * 8 + tq * 2);
+            float2* db = reinterpret_cast<float2*>(pacc + (size_t)sb * PS + n * 8 + tq * 2);
+            const float2 pa = s > 0 ? *da : make_float2(0.f, 0.f);
+            const float2 pb = s > 0 ? *db : make_float2(0.f, 0.f);
+            *da = make_float2(o[j][n][0] * wa + pa.x * ua, o[j][n][1] * wa + pa.y * ua);
+            *db = make_float2(o[j][n][2] * wb + pb.x * ub, o[j][n][3] * wb + pb.y * ub);
+          }
+        }
       }
     }
+    __syncthreads();
   }
-  cluster_arrive();   // this block's stages are free to receive partials
-  __syncthreads();
-  // 2. merge the key slices of each row here, then send the row's partial
-  //    to the block that merges it: row r goes to block r % n_chunks, slot
-  //    (source chunk) * kmax + r / n_chunks. 16-byte remote stores.
-  cluster_wait();     // ... in every block of the cluster
-  for (int it = tid; it < nr * (D / 4); it += K2T_THREADS) {
-    const int r = it / (D / 4), c4 = (it - r * (D / 4)) * 4;
-    float mx = NEG_INF;
-    for (int s = 0; s < ksf; ++s) mx = fmaxf(mx, pm[s * NR + r]);
-    float l = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < ksf; ++s) {
-      const int slot = s * NR + r;
-      const float w = exp2f(pm[slot] - mx);   // 0 for an empty slice beside a real one
-      const float4 a4 = *reinterpret_cast<const float4*>(pacc + (size_t)slot * PS + c4);
-      l += w * pl[slot];
-      acc.x += w * a4.x;
-      acc.y += w * a4.y;
-      acc.z += w * a4.z;
-      acc.w += w * a4.w;
-    }
-    const int owner = r % n_chunks, slot = chunk * kmax + r / n_chunks;
-    *reinterpret_cast<float4*>(cluster.map_shared_rank(racc, owner) + (size_t)slot * D + c4) = acc;
-    if (c4 == 0) {
-      cluster.map_shared_rank(rm, owner)[slot] = mx;
-      cluster.map_shared_rank(rl, owner)[slot] = l;
-    }
-  }
-  cluster.sync();   // the partials of this block's rows have all arrived
-  // 3. rows chunk, chunk + n_chunks, ...: merge the chunks' partials and
-  //    write out and lse, four columns per thread and step
+  cluster.sync();   // every block's slots are written
+  // 2. rows chunk, chunk + n_chunks, ...: read the row's slot from every
+  //    block of the cluster, merge, and write out and lse, four columns per
+  //    thread and step
   const int my_rows = (nr - chunk + n_chunks - 1) / n_chunks;
   for (int it = tid; it < my_rows * (D / 4); it += K2T_THREADS) {
     const int k = it / (D / 4), c4 = (it - k * (D / 4)) * 4;
-    float mx = NEG_INF;
-    for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, rm[c * kmax + k]);
+    const int r = chunk + k * n_chunks;
+    float mc[K2T_MAX_CHUNKS], mx = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < K2T_MAX_CHUNKS; ++c) {
+      mc[c] = c < n_chunks ? *cluster.map_shared_rank(pm + r, c) : NEG_INF;
+      mx = fmaxf(mx, mc[c]);
+    }
     float l = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < n_chunks; ++c) {
-      const int slot = c * kmax + k;
-      const float w = exp2f(rm[slot] - mx);   // 0 for an empty chunk beside a real one
-      const float4 a4 = *reinterpret_cast<const float4*>(racc + (size_t)slot * D + c4);
-      l += w * rl[slot];
-      acc.x += w * a4.x;
-      acc.y += w * a4.y;
-      acc.z += w * a4.z;
-      acc.w += w * a4.w;
+#pragma unroll
+    for (int c = 0; c < K2T_MAX_CHUNKS; ++c) {
+      if (c < n_chunks) {
+        const float w = exp2f(mc[c] - mx);   // 0 for an empty chunk beside a real one
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(cluster.map_shared_rank(pacc + (size_t)r * PS + c4, c));
+        l += w * *cluster.map_shared_rank(pl + r, c);
+        acc.x += w * a4.x;
+        acc.y += w * a4.y;
+        acc.z += w * a4.z;
+        acc.w += w * a4.w;
+      }
     }
     const float lc_ = fmaxf(l, 1e-30f), inv = 1.f / lc_;
-    const long long off = row_off(r0 + chunk + k * n_chunks);
+    const long long off = row_off(r0 + r);
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + off * D + c4);
     dst[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
     dst[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
     // no valid key anywhere: m stays -1e30, as the TPU kernel leaves it
     if (c4 == 0) lse[off] = mx <= 0.5f * NEG_INF ? NEG_INF : mx * LN2 + logf(lc_);
   }
+  cluster.sync();   // no block leaves while another still reads its shared memory
 }
 
 // The launch of the tensor-core kernel for one call: tile, passes, chunks
 // (the cluster size), stages and shared memory.
 struct K2TPlan {
-  int rtw, BS, n_pass, q_rows, n_chunks, tpc, n_stages, part_slots, recv_slots;
+  int rtw, BS, n_pass, q_rows, n_chunks, tpc, n_stages;
   size_t smem;
 };
 
@@ -608,7 +605,7 @@ inline K2TPlan k2t_plan(int P, int M, int H, int KV, int D, int S, int block_s) 
   const int R = M * (H / KV);
   pl.rtw = k2t_rtw(D, R);
   const int pass_rows = 16 * K2T_WARPS * pl.rtw;
-  pl.BS = std::min(128, (block_s + 31) / 32 * 32);
+  pl.BS = std::min({128, (block_s + 31) / 32 * 32, 16384 / D});   // a stage of 64 KiB at most
   pl.n_pass = (R + pass_rows - 1) / pass_rows;
   pl.q_rows = (std::min(R, pass_rows) + 15) / 16 * 16;
   const int n_tiles = (S + pl.BS - 1) / pl.BS;
@@ -622,20 +619,12 @@ inline K2TPlan k2t_plan(int P, int M, int H, int KV, int D, int S, int block_s) 
       1, std::min<long long>(std::min<long long>(K2T_MAX_CHUNKS, sms / pairs), n_tiles));
   pl.tpc = (n_tiles + pl.n_chunks - 1) / pl.n_chunks;
   pl.n_chunks = (n_tiles + pl.tpc - 1) / pl.tpc;
-  // partials: a block's warps leave ksf x NR, and it receives chunks x kmax,
-  // for the first pass or a shorter last one
-  auto parts = [&](int nr) { const int n_rt = (nr + 15) / 16; return k2t_ksf(n_rt) * n_rt * 16; };
-  auto recv = [&](int nr) { return pl.n_chunks * ((nr + pl.n_chunks - 1) / pl.n_chunks); };
-  const int nr0 = std::min(R, pass_rows), nr1 = R - (pl.n_pass - 1) * pass_rows;
-  pl.part_slots = std::max(parts(nr0), parts(nr1));
-  pl.recv_slots = std::max(recv(nr0), recv(nr1));
-  // as many stages (up to three) as fit
+  // as many stages (up to three) as fit; one always does (a pass of 256
+  // rows at D = 128 takes 212 KB), and the launch checks it
   pl.n_stages = std::min(K2T_MAX_STAGES, pl.tpc);
-  while (pl.n_stages > 1 &&
-         K2TSmem(D, pl.BS, pl.n_stages, pl.part_slots, pl.recv_slots, pl.q_rows).total >
-             K2T_MAX_SMEM)
+  while (pl.n_stages > 1 && K2TSmem(D, pl.BS, pl.n_stages, pl.q_rows).total > K2_MAX_SMEM)
     --pl.n_stages;
-  pl.smem = K2TSmem(D, pl.BS, pl.n_stages, pl.part_slots, pl.recv_slots, pl.q_rows).total;
+  pl.smem = K2TSmem(D, pl.BS, pl.n_stages, pl.q_rows).total;
   return pl;
 }
 
@@ -644,6 +633,7 @@ cudaError_t launch_k2_tc_rtw(const K2TPlan& pl, const void* q, const void* prefi
                              const void* prefix_v, const int* prefix_lens, void* out, float* lse,
                              int P, int M, int H, int KV, int S, float sm_scale,
                              cudaStream_t stream) {
+  if (pl.smem > K2_MAX_SMEM) return cudaErrorInvalidConfiguration;
   CUtensorMap tm_k, tm_v;
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)KV, (uint64_t)S, (uint64_t)P};
   const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)KV * D * 2, (uint64_t)S * KV * D * 2};
@@ -653,7 +643,7 @@ cudaError_t launch_k2_tc_rtw(const K2TPlan& pl, const void* q, const void* prefi
   if (err == cudaSuccess)
     err = make_tensor_map_bf16(&tm_v, prefix_v, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err == cudaSuccess)
-    err = allow_smem_once<shared_prefix_tc_kernel<D, RTW>>(K2T_MAX_SMEM);
+    err = allow_smem_once<shared_prefix_tc_kernel<D, RTW>>(K2_MAX_SMEM);
   if (err != cudaSuccess) return err;
 
   cudaLaunchConfig_t cfg = {};
@@ -671,8 +661,7 @@ cudaError_t launch_k2_tc_rtw(const K2TPlan& pl, const void* q, const void* prefi
   err = cudaLaunchKernelEx(&cfg, shared_prefix_tc_kernel<D, RTW>, tm_k, tm_v,
                            static_cast<const __nv_bfloat16*>(q), prefix_lens,
                            static_cast<__nv_bfloat16*>(out), lse, M, H, KV, S, pl.BS, pl.tpc,
-                           pl.n_stages, pl.n_pass, pl.part_slots, pl.recv_slots,
-                           sm_scale * LOG2E);
+                           pl.n_stages, pl.n_pass, sm_scale * LOG2E);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -124,7 +124,7 @@ def shared_prefix_attention(
     block_s: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (P, M, H, D) in q's dtype, lse (P, M, H) f32). CUDA
-    tensors launch the kernel, which stages ``min(block_s, S, 128)``
+    tensors launch the kernel, which stages at most ``min(block_s, S, 128)``
     prefix rows at a time; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return shared_prefix_attention_plain(

@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.kernels.shared_prefix_attention import (
+    launch_plan,
     shared_prefix_attention,
     shared_prefix_attention_plain,
 )
@@ -36,8 +37,14 @@ K2_GRID = [                      # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64),
     (2, 2, 4, 1, 128, 100),      # MQA + non-aligned prefix blocks
     (1, 8, 4, 4, 64, 256),
-    (2, 32, 8, 2, 64, 300),      # R = 128 rows: several row tiles; S not a multiple of a chunk
+    (2, 32, 8, 2, 64, 300),      # R = 128 rows: eight row tiles; S not a multiple of a chunk
     (1, 3, 6, 3, 128, 520),      # R = 6 rows; the valid length ends inside a later chunk
+    (1, 40, 8, 2, 64, 300),      # R = 160: two row tiles a warp
+    (1, 26, 56, 8, 128, 300),    # R = 182 (G = 7): two row tiles a warp at D = 128
+    (1, 36, 16, 2, 128, 200),    # R = 288: two passes, the second of 32 rows
+    (1, 8, 8, 2, 256, 100),      # D = 256, R = 32: key slices merged in turn
+    (2, 8, 10, 1, 256, 300),     # D = 256, R = 80 (G = 10)
+    (1, 20, 8, 1, 256, 130),     # D = 256, R = 160: two passes
 ]
 
 
@@ -245,7 +252,7 @@ def test_shared_prefix_kernel_matches_plain(cuda_device, P, M, H, KV, D, S, dtyp
     # prefix 0 has length 0 where another prefix keeps a length to check
     args = _on(cuda_device, _k2_inputs(6, P, M, H, KV, D, S, zero_len=P > 1), dtype)
     before = shared_prefix_attention.launches
-    got_o, got_l = shared_prefix_attention(*args, block_s=32)
+    got_o, got_l = shared_prefix_attention(*args, block_s=32 if S <= 256 else 128)
     torch.cuda.synchronize()
     assert shared_prefix_attention.launches == before + 1
     want_o, want_l = shared_prefix_attention_plain(*args)
@@ -272,3 +279,16 @@ def test_shared_prefix_kernel_with_empty_chunks(cuda_device, dtype):
     np.testing.assert_array_equal(gl[0], np.float32(-1e30))
     np.testing.assert_allclose(go, _np(want_o.cpu()), atol=_tol(dtype))
     np.testing.assert_allclose(gl, _np(want_l.cpu()), atol=_lse_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_shared_prefix_plan_fits_shared_memory(cuda_device, D):
+    """Every group size, from one row to several passes, gets a launch of
+    the bf16 kernel whose shared memory fits a block (227 KiB)."""
+    for G in (1, 2, 4, 7, 8, 10):
+        for M in (1, 3, 16, 26, 40, 64, 100):
+            for S, block_s in ((100, 32), (1024, 128), (4096, 128)):
+                plan = launch_plan(4, M, 8 * G, 8, D, S, block_s)
+                assert plan is not None and plan["stages"] >= 1
+                assert plan["smem_bytes"] <= 232448, (G, M, S, plan)
