@@ -8,8 +8,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 1. env       card name and power limit, torch/CUDA versions, the build
              of every kernel under src/repro_torch/kernels/csrc with nvcc
              (one nvcc per source, all started together), each kernel's
-             ptxas report (registers, spills) and the launch K2 and K3 get
-             at this run's shapes (cluster size, stages, shared memory);
+             ptxas report (registers, spills) and the launch K1, K2 and K3
+             get at this run's shapes (cluster size, stages, shared memory);
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              over the shape grids of tests/test_kernels.py and the port's
              tests in f32 and bf16 and at this run's own shapes, K2 also at
@@ -31,6 +31,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              port's own CPU solve;
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
              main path's shapes (CUDA events, L2 flushed between launches),
+             K1 first at a small batch with a long context (B=4, ctx=4096),
              K2 first at a long prefix with a small group.
 
 The line before the last lists each kernel as JSON (launches on its path:
@@ -61,6 +62,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import admission, irm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as k3_module  # noqa: E402
+from repro_torch.kernels import paged_attention as k1_module  # noqa: E402
 from repro_torch.kernels import shared_prefix_attention as k2_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -84,6 +86,7 @@ LSE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # tensor cores, bf16 on them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HOLD_CYCLES = 2_000_000   # ~1 ms of torch.cuda._sleep before each timed launch
 ADMISSION_RTOL = 1e-4   # card vs CPU float32 solve: sums in another order
 # Full-depth bf16 prefill, K3 against its plain version: last-token logits
 # within 5% of their largest magnitude. Both round each layer's attention
@@ -209,11 +212,20 @@ def phase_env() -> str:
 
 
 def launch_plans(sizes: Sizes) -> None:
-    """The launch of K2 (cluster, tiles, stages, shared memory) at the
-    grouped phase's and the long-prefix timing shapes, and of K3 at the
-    model's head size."""
+    """The launch of K1 (cluster, stage tokens, stages, shared memory,
+    clusters the card holds at once) at the serving, grouped and
+    small-batch timing shapes and for one sequence, of K2 (cluster,
+    tiles, stages, shared memory) at the grouped phase's and the
+    long-prefix timing shapes, and of K3 at the model's head size."""
     cfg = sizes.arch_config()
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ctx = sizes.prefix_tokens + sizes.user_tokens
+    for what, B, c in (("serving", sizes.decode_every, ctx),
+                       ("grouped", sizes.groups * sizes.group_size, ctx),
+                       ("small batch", SMALL_BATCH_B, SMALL_BATCH_CTX),
+                       ("one sequence", 1, SMALL_BATCH_CTX)):
+        _log(f"[env] launch K1 bf16 {what} B={B} H={H} KV={KV} D={D} page={sizes.block_tokens} "
+             f"ctx={c}: {k1_module.launch_plan(B, H, KV, D, sizes.block_tokens, c)}")
     for P, M, S in ((sizes.groups, sizes.group_size, sizes.prefix_tokens),
                     (LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S)):
         _log(f"[env] launch K2 bf16 P={P} M={M} H={H} KV={KV} D={D} S={S}: "
@@ -224,9 +236,17 @@ def launch_plans(sizes: Sizes) -> None:
 
 # -- phase 2: kernels against their plain versions ----------------------
 
-K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py)
+K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py, then tests/test_torch_kernels.py)
     (4, 8, 4, 64, 16, 32, 6), (2, 4, 1, 128, 8, 16, 4), (3, 6, 6, 64, 32, 12, 3),
+    (2, 56, 8, 128, 16, 24, 6), (3, 10, 1, 256, 16, 16, 5), (2, 20, 1, 64, 8, 8, 4),
+    (2, 4, 2, 256, 64, 8, 3), (2, 8, 4, 64, 12, 16, 5), (2, 16, 8, 128, 16, 64, 32),
+    (1, 4, 2, 64, 16, 300, 512), (3, 8, 2, 128, 16, 200, 128),
 ]
+K1_LENS = {  # given context lengths (else drawn, the first 0)
+    (2, 16, 8, 128, 16, 64, 32): (200, 77),        # ends mid-page and mid-split
+    (1, 4, 2, 64, 16, 300, 512): (4093,),          # many splits, some empty
+    (3, 8, 2, 128, 16, 200, 128): (0, 2048, 1500),  # ctx = 0 beside long rows
+}
 K2_GRID = [  # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
     (2, 32, 8, 2, 64, 300), (1, 3, 6, 3, 128, 520), (1, 40, 8, 2, 64, 300),
@@ -244,6 +264,9 @@ K3_GRID = [  # B, T, S, H, KV, D, causal (tests/test_kernels.py, then causal T <
 # of S per (p, h), and in the kernels phase lengths from 0 to S, so that
 # some chunks, or all of a prefix's, are empty
 LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S = 8, 4, 4096
+# K1's small-batch, long-context timing shape (the model's heads, each
+# sequence's pages distinct): the splits of a sequence fill the card
+SMALL_BATCH_B, SMALL_BATCH_CTX = 4, 4096
 
 
 def _randn(gen, shape, dtype, device):
@@ -270,10 +293,13 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
             cl = torch.randint(1, pps_ * page + 1, (B,), generator=gen, device=device,
                                dtype=torch.int32)
             cl[0] = 0                                     # the ctx = 0 row
+            lens = K1_LENS.get((B, H_, KV_, D_, page, P, pps_))
+            if lens is not None:
+                cl = torch.tensor(lens, dtype=torch.int32, device=device)
             got = paged_attention(q, kp, vp, bt, cl)
             err = errs.check("paged_attention", got, paged_attention_plain(q, kp, vp, bt, cl),
                              ATOL[dtype], f"K1 {dtype} B={B} H={H_} KV={KV_} D={D_} page={page}")
-            if float(got[0].float().abs().max()) != 0.0:
+            if int(cl[0]) == 0 and float(got[0].float().abs().max()) != 0.0:
                 _fail("K1: ctx = 0 must give zeros")
             _log(f"[kernels] K1 {str(dtype)[6:]:8s} B={B:3d} H={H_:2d} KV={KV_} D={D_:3d} "
                  f"page={page:2d} pps={pps_:2d}: max abs err {err:.3e}")
@@ -695,12 +721,17 @@ def phase_admission(device, sizes: Sizes) -> float:
 def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
     """Median of n launches, each timed with CUDA events, the L2 cache
     flushed before each by a 256 MiB write (which leaves the cache full of
-    dirty lines that the launch pays to write back as it evicts them)."""
+    dirty lines that the launch pays to write back as it evicts them). A
+    spin on the card between the flush and the first event keeps the
+    host's time to launch fn out of the measurement."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
         flush.zero_()
+        # keep the card busy (about 1 ms) until fn is queued, so that the
+        # host's time to launch it falls outside the events
+        torch.cuda._sleep(HOLD_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -739,11 +770,57 @@ def _time_k2(gq, pk, pv, pl, flush) -> dict:
     return r
 
 
+def k1_sdpa_inputs(q, k_pages, v_pages, bt, ctx: int) -> tuple:
+    """K1's yardstick inputs: q as (B, H, 1, D) and each sequence's first
+    ctx tokens of K and V gathered through its table into (B, KV, ctx, D),
+    for one SDPA call with enable_gqa (made outside the timed region)."""
+    B, _, D = q.shape
+    KV, _, page, _ = k_pages.shape
+    n = -(-ctx // page)
+    idx = bt[:, :n].long()
+    kg, vg = (p[:, idx].permute(1, 0, 2, 3, 4).reshape(B, KV, n * page, D)[:, :, :ctx].contiguous()
+              for p in (k_pages, v_pages))
+    return q[:, :, None, :], kg, vg
+
+
+def _time_k1(q, k_pages, v_pages, bt, cl, flush) -> dict:
+    """K1, its plain version and an SDPA yardstick on one batch whose rows
+    share one ctx. bound_ms counts the distinct pages the batch needs once
+    (with q, out, tables and lengths); seq_bound_ms counts every
+    sequence's pages."""
+    B, H, D = q.shape
+    KV, _, page, _ = k_pages.shape
+    es = k_pages.element_size()
+    ctx = int(cl[0])
+    if not bool((cl == ctx).all()):
+        _fail("K1 timing: the rows must share one ctx")
+    n = -(-ctx // page)
+    pages = int(torch.unique(bt[:, :n]).numel())
+    small = 2 * q.numel() * es + 4 * (B * n + B)
+    k1_flops = 4.0 * B * H * ctx * D
+    qs, kg, vg = k1_sdpa_inputs(q, k_pages, v_pages, bt, ctx)
+    r = dict(
+        ms=median_ms(lambda: paged_attention(q, k_pages, v_pages, bt, cl), flush),
+        plain_ms=median_ms(lambda: paged_attention_plain(q, k_pages, v_pages, bt, cl), flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True),
+                             flush),
+        library="SDPA on K/V gathered beforehand, enable_gqa",
+        shape=f"B={B} H={H} KV={KV} D={D} ctx={ctx} page={page}, {pages} distinct pages",
+    )
+    r["bound_ms"], r["bound_by"] = bound_ms(2 * pages * KV * page * D * es + small, k1_flops,
+                                            q.dtype)
+    r["seq_bound_ms"], _ = bound_ms(2 * B * ctx * KV * D * es + small, k1_flops, q.dtype)
+    return r
+
+
 def _log_timing(name: str, r: dict) -> None:
     lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    if r.get("library"):
+        lib += f" ({r['library']})"
+    seq = f", per-sequence bound {r['seq_bound_ms']:.4f} ms" if "seq_bound_ms" in r else ""
     _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
-         f"({r['bound_by']})")
+         f"({r['bound_by']}){seq}")
 
 
 def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -> Dict[str, dict]:
@@ -751,21 +828,19 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     k_pages, v_pages = served["engine"].pool.layer_pool(0)
     q, bt_t, cl = served["last"]
-    B, H, D = q.shape
-    KV, _, page, _ = k_pages.shape
-    es = k_pages.element_size()
-    pages = int(torch.unique(bt_t).numel())    # pages this batch needs; shared ones once
-    ctx = int(cl[0])
-    k1_bytes = 2 * pages * KV * page * D * es + 2 * q.numel() * es + 4 * (bt_t.numel() + B)
-    k1_flops = 4.0 * B * H * ctx * D
-    res = {"paged_attention": dict(
-        ms=median_ms(lambda: paged_attention(q, k_pages, v_pages, bt_t, cl), flush),
-        plain_ms=median_ms(lambda: paged_attention_plain(q, k_pages, v_pages, bt_t, cl), flush),
-        library_ms=None,   # no single PyTorch call reads KV through block tables
-        shape=f"B={B} H={H} KV={KV} D={D} ctx={ctx} page={page}, {pages} distinct pages",
-    )}
-    res["paged_attention"]["bound_ms"], res["paged_attention"]["bound_by"] = bound_ms(
-        k1_bytes, k1_flops, q.dtype)
+    # K1 first at the small-batch, long-context shape (a line of its own;
+    # each sequence's pages distinct, in a pool of their own), then at the
+    # serving phase's last decode batch (the kernels row)
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    B1, H, KV, D = SMALL_BATCH_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    page, n = sizes.block_tokens, SMALL_BATCH_CTX // sizes.block_tokens
+    sk, sv = (_randn(gen, (KV, B1 * n, page, D), k_pages.dtype, device) for _ in range(2))
+    sbt = torch.randperm(B1 * n, generator=gen, device=device).to(torch.int32).reshape(B1, n)
+    small = _time_k1(_randn(gen, (B1, H, D), k_pages.dtype, device), sk, sv, sbt,
+                     torch.full((B1,), SMALL_BATCH_CTX, dtype=torch.int32, device=device), flush)
+    del sk, sv
+    _log_timing("paged_attention, small batch long context", small)
+    res = {"paged_attention": _time_k1(q, k_pages, v_pages, bt_t, cl, flush)}
 
     # K2 first at the long-prefix, small-group shape (a line of its own),
     # then at the grouped phase's shape (the kernels row)

@@ -1,10 +1,9 @@
 // Helpers shared by the attention kernels of this directory.
 //
-// The f32 paths (and K1, and K2 at head sizes its tensor-core kernel is
-// not built for) stage K/V tiles in shared memory as f32 and do all of
-// their arithmetic in f32 FMA (never TF32): f32 inputs must agree with the
-// plain PyTorch version to 2e-5. The bf16 tensor-core paths of K2 and K3
-// use mma.cuh and hopper.cuh.
+// The f32 paths (and K2 at head sizes its tensor-core kernel is not built
+// for) do all of their arithmetic in f32 FMA (never TF32): f32 inputs must
+// agree with the plain PyTorch version to 2e-5. The bf16 tensor-core paths
+// of K1, K2 and K3 use mma.cuh and hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

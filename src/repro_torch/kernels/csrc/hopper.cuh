@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks shared by K2 and K3: mbarriers, TMA
-// tile loads, warpgroup matrix multiplies (wgmma) and, on the host, the
-// encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by K1, K2 and K3: mbarriers, TMA
+// tile loads, warpgroup matrix multiplies (wgmma), register transposes
+// and, on the host, the encoding of TMA tensor maps.
 //
 // * mbarrier: a 64-bit barrier in shared memory that counts arrivals and
 //   the bytes a TMA copy still owes it. A waiter names the parity of the
@@ -67,6 +67,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Once the warp's lanes have met, lane 0 arrives for the whole warp (on a
+// barrier that counts warps).
+__device__ __forceinline__ void mbar_arrive_warp(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over the first `threads`
+// threads of the block, a multiple of 32: lets some warps meet while
+// others run on.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy (TMA, wgmma) accesses of it.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -85,6 +99,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Element (r, c) of a (rows, D) bf16 tile staged by TMA as D / 64 boxes of
+// (rows, 64) with the 128-byte swizzle (each box 1024-byte aligned, rows a
+// multiple of 8): 16-byte chunk (c % 64) / 8 of row r sits at chunk
+// ((c % 64) / 8) ^ (r % 8). c is a multiple of 8. ldmatrix reading rows
+// r..r+7 (r a multiple of 8) at one c then touches eight distinct chunks.
+__device__ __forceinline__ __nv_bfloat16* sw128(__nv_bfloat16* tile, int rows, int r, int c) {
+  return tile + (c >> 6) * rows * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3);
+}
+
+// -- register transposes ------------------------------------------------------
+
+// Transposes an 8x8 b16 matrix held across the warp in the mma fragment
+// layout (lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1):
+// afterwards lane l holds row l / 4 of the transpose. It turns the rows of
+// a score accumulator into the B operand of the next product.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // -- wgmma ----------------------------------------------------------------------

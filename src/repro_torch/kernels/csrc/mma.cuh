@@ -1,4 +1,4 @@
-// Warp-level tensor-core helpers shared by K2 and K3 (bf16, sm_80+ PTX
+// Warp-level tensor-core helpers shared by K1, K2 and K3 (bf16, sm_80+ PTX
 // that Hopper keeps): mma.sync m16n8k16 with f32 accumulation, ldmatrix
 // fragment loads, cp.async copies and bf16 packing.
 //

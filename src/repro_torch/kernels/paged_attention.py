@@ -10,7 +10,8 @@ tables (a shared prefix) and is stored once.
 The CUDA kernel is ``csrc/paged_attention.cu`` (its note says what bounds
 it and how it is laid out). :func:`paged_attention` launches it for CUDA
 tensors and runs :func:`paged_attention_plain` for CPU tensors; it counts
-its launches in ``paged_attention.launches``.
+its launches in ``paged_attention.launches``. :func:`launch_plan` reports
+how a call of given sizes launches. The kernel takes any G = H / KV.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)       # the D the kernel is instantiated for
-_MAX_G = 8                        # K1_MAX_G in the source
 
 
 def paged_attention_plain(
@@ -59,6 +59,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_plan(B: int, H: int, KV: int, D: int, page: int, ctx: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How a call with these sizes launches, for a table of
+    ``ceil(ctx / page)`` slots: the cluster size (splits of a sequence),
+    tokens per ring stage, ring stages, dynamic shared memory, threads per
+    block, row passes, stages per split, and how many clusters of that
+    size the card holds at once. The f32 kernel reports one split, no ring
+    and no cluster count. Loads (and if need be builds) the library."""
+    fn = _lib().repro_paged_attention_plan
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 8)()
+    pps = max(1, -(-int(ctx) // int(page)))
+    if not fn(B, H, KV, D, page, pps, _DTYPES[dtype], ctypes.addressof(out)):
+        raise ValueError(f"the kernel does not take B={B} H={H} KV={KV} D={D} page={page}")
+    keys = ("cluster", "tokens_per_stage", "stages", "smem_bytes", "threads", "passes",
+            "stages_per_split", "clusters_at_once")
+    return dict(zip(keys, out))
+
+
 def _check(q, k_pages, v_pages, block_tables, context_lens) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -81,8 +102,8 @@ def _check(q, k_pages, v_pages, block_tables, context_lens) -> None:
         raise ValueError("block_tables (B, pps) and context_lens (B,) must match q's batch")
     if H % KV != 0:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if D not in _HEAD_DIMS or H // KV > _MAX_G:
-        raise ValueError(f"the kernel takes D in {_HEAD_DIMS} and G = H/KV <= {_MAX_G}; got D={D}, G={H // KV}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the kernel takes D in {_HEAD_DIMS}; got D={D}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("context_lens", context_lens)):
         if not t.is_contiguous():
@@ -102,8 +123,8 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention through block tables: (B, H, D) -> (B, H, D) in
     q's dtype. CUDA tensors launch the kernel (block table entries read,
-    those of the first ``ceil(ctx / page)`` slots, must lie in [0, P));
-    CPU tensors run the plain version."""
+    those of the first ``ceil(ctx / page)`` slots, must lie in [0, P)), for
+    any G = H / KV; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, context_lens, sm_scale=sm_scale
@@ -113,6 +134,8 @@ def paged_attention(
     _check(q, k_pages, v_pages, block_tables, context_lens)
     B, H, D = q.shape
     KV, P, page, _ = k_pages.shape
+    if B == 0 or block_tables.shape[1] == 0:
+        return torch.zeros_like(q)    # no table slot to read: zeros, without a launch
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)

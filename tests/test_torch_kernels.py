@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as k1_module
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.kernels.shared_prefix_attention import (
     launch_plan,
@@ -32,7 +33,21 @@ K1_GRID = [                      # B, H, KV, D, page, P, pps (tests/test_kernels
     (4, 8, 4, 64, 16, 32, 6),
     (2, 4, 1, 128, 8, 16, 4),    # MQA
     (3, 6, 6, 64, 32, 12, 3),    # MHA
+    (2, 56, 8, 128, 16, 24, 6),  # G = 7 (yi-34b heads)
+    (3, 10, 1, 256, 16, 16, 5),  # G = 10 at D = 256 (recurrentgemma-2b): two n-tiles
+    (2, 20, 1, 64, 8, 8, 4),     # G = 20: two passes of 16 rows
+    (2, 4, 2, 256, 64, 8, 3),    # page = 64 at D = 256: a page sliced over stages
+    (2, 8, 4, 64, 12, 16, 5),    # page = 12: boxes of 16 rows, 4 past the page
+    (2, 16, 8, 128, 16, 64, 32),  # ctx ends mid-page and mid-split (K1_LENS)
+    (1, 4, 2, 64, 16, 300, 512),  # ctx ~ 4096 of 8192: many splits, some empty
+    (3, 8, 2, 128, 16, 200, 128),  # a ctx = 0 row beside long rows
 ]
+# context lengths of the K1_GRID cases that need given ones (else drawn)
+K1_LENS = {
+    (2, 16, 8, 128, 16, 64, 32): (200, 77),
+    (1, 4, 2, 64, 16, 300, 512): (4093,),
+    (3, 8, 2, 128, 16, 200, 128): (0, 2048, 1500),
+}
 K2_GRID = [                      # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64),
     (2, 2, 4, 1, 128, 100),      # MQA + non-aligned prefix blocks
@@ -85,14 +100,19 @@ def _np(x):
 
 
 def _k1_inputs(seed, B, H, KV, D, page, P, pps, zero_ctx=False):
-    """q, k_pages, v_pages (f32) and block_tables, context_lens (int32)."""
+    """q, k_pages, v_pages (f32) and block_tables, context_lens (int32);
+    the lengths of K1_LENS where the case has them (``zero_ctx`` then does
+    not apply), else drawn, the first 0 with ``zero_ctx``."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, H, D)).astype(np.float32)
     kp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
     vp = rng.standard_normal((KV, P, page, D)).astype(np.float32)
     bt = rng.integers(0, P, (B, pps)).astype(np.int32)
     cl = rng.integers(1, pps * page + 1, B).astype(np.int32)
-    if zero_ctx:
+    lens = K1_LENS.get((B, H, KV, D, page, P, pps))
+    if lens is not None:
+        cl = np.array(lens, np.int32)
+    elif zero_ctx:
         cl[0] = 0
     return q, kp, vp, bt, cl
 
@@ -243,6 +263,40 @@ def test_paged_attention_kernel_matches_plain(cuda_device, B, H, KV, D, page, P,
     assert paged_attention.launches == before + 1
     want = paged_attention_plain(*args)
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_kernel_empty_splits_and_long_rows(cuda_device, dtype):
+    """One batch with ctx = 0, a ctx inside the first page, one ending
+    mid-page past half the table, and a full one: splits past a row's ctx
+    are empty, and a row with no token gives zeros."""
+    B, H, KV, D, page, P, pps = 4, 16, 8, 128, 16, 400, 256
+    q, kp, vp, bt, _ = _k1_inputs(8, B, H, KV, D, page, P, pps)
+    cl = np.array([0, 5, 2500, pps * page], np.int32)
+    args = _on(cuda_device, [q, kp, vp, bt, cl], dtype)
+    got = _np(paged_attention(*args).cpu())
+    want = _np(paged_attention_plain(*args).cpu())
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[0], 0.0)
+    np.testing.assert_allclose(got, want, atol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_paged_attention_plan_fits_shared_memory(cuda_device, D):
+    """Every group size, page size and batch x context, from 1 x 16 to
+    128 x 4096, gets a bf16 launch whose shared memory fits a block
+    (227 KiB) and whose cluster is at most the portable 8 blocks."""
+    for G in (1, 2, 4, 7, 8, 10):
+        for page in (8, 16, 32, 64):
+            for B, ctx in ((1, 16), (1, 4096), (4, 4096), (64, 1280), (128, 4096)):
+                plan = k1_module.launch_plan(B, 8 * G, 8, D, page, ctx, torch.bfloat16)
+                assert plan["stages"] >= 3 and 1 <= plan["cluster"] <= 8, (G, page, B, ctx, plan)
+                assert plan["smem_bytes"] <= 232448, (G, page, B, ctx, plan)
+                assert plan["tokens_per_stage"] % 16 == 0, plan
+                # where sequences are split, all their clusters fit on the card at once
+                assert plan["cluster"] == 1 or plan["clusters_at_once"] >= B * 8, plan
 
 
 @pytest.mark.cuda

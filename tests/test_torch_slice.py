@@ -139,6 +139,26 @@ def test_chip_smoke_phases_on_cpu_at_small_size():
     assert cs.phase_admission(dev, sizes) > 1.0       # sharing frees memory
 
 
+def test_chip_smoke_k1_yardstick_computes_k1():
+    """The SDPA call that chip_smoke.py times beside K1, on K/V gathered
+    through the tables, computes what K1's plain version does."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+
+    g = torch.Generator().manual_seed(0)
+    B, H, KV, D, page, P, ctx = 3, 8, 2, 64, 16, 40, 72
+    q = torch.randn((B, H, D), generator=g)
+    kp, vp = (torch.randn((KV, P, page, D), generator=g) for _ in range(2))
+    bt = torch.randperm(P, generator=g)[: B * 6].reshape(B, 6).to(torch.int32)
+    cl = torch.full((B,), ctx, dtype=torch.int32)
+    qs, kg, vg = cs.k1_sdpa_inputs(q, kp, vp, bt, ctx)
+    got = F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True)[:, :, 0]
+    np.testing.assert_allclose(got.numpy(), paged_attention_plain(q, kp, vp, bt, cl).numpy(),
+                               atol=2e-5)
+
+
 def test_chip_smoke_live_phase_on_cpu_at_small_size():
     """The live phase with the reduced qwen3 (K3's plain version on the
     CPU), and its check against the plain prefill."""
