@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
              main path's shapes (CUDA events, L2 flushed between launches),
              K1 first at a small batch with a long context (B=4, ctx=4096),
-             K2 first at a long prefix with a small group.
+             and also back to back in a CUDA graph and host-inclusive (the
+             host clock around a call and a synchronize), K2 first at a
+             long prefix with a small group.
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phase 5; max error; times; bound); the last
@@ -86,7 +88,6 @@ LSE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # tensor cores, bf16 on them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-HOLD_CYCLES = 2_000_000   # ~1 ms of torch.cuda._sleep before each timed launch
 ADMISSION_RTOL = 1e-4   # card vs CPU float32 solve: sums in another order
 # Full-depth bf16 prefill, K3 against its plain version: last-token logits
 # within 5% of their largest magnitude. Both round each layer's attention
@@ -240,12 +241,13 @@ K1_GRID = [  # B, H, KV, D, page, P, pps (tests/test_kernels.py, then tests/test
     (4, 8, 4, 64, 16, 32, 6), (2, 4, 1, 128, 8, 16, 4), (3, 6, 6, 64, 32, 12, 3),
     (2, 56, 8, 128, 16, 24, 6), (3, 10, 1, 256, 16, 16, 5), (2, 20, 1, 64, 8, 8, 4),
     (2, 4, 2, 256, 64, 8, 3), (2, 8, 4, 64, 12, 16, 5), (2, 16, 8, 128, 16, 64, 32),
-    (1, 4, 2, 64, 16, 300, 512), (3, 8, 2, 128, 16, 200, 128),
+    (1, 4, 2, 64, 16, 300, 512), (3, 8, 2, 128, 16, 200, 128), (4, 16, 8, 128, 16, 200, 128),
 ]
 K1_LENS = {  # given context lengths (else drawn, the first 0)
     (2, 16, 8, 128, 16, 64, 32): (200, 77),        # ends mid-page and mid-split
     (1, 4, 2, 64, 16, 300, 512): (4093,),          # many splits, some empty
     (3, 8, 2, 128, 16, 200, 128): (0, 2048, 1500),  # ctx = 0 beside long rows
+    (4, 16, 8, 128, 16, 200, 128): (0, 5, 1250, 2048),  # ... inside a page, mid-page, full
 }
 K2_GRID = [  # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64), (2, 2, 4, 1, 128, 100), (1, 8, 4, 4, 64, 256),
@@ -721,23 +723,56 @@ def phase_admission(device, sizes: Sizes) -> float:
 def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
     """Median of n launches, each timed with CUDA events, the L2 cache
     flushed before each by a 256 MiB write (which leaves the cache full of
-    dirty lines that the launch pays to write back as it evicts them). A
-    spin on the card between the flush and the first event keeps the
-    host's time to launch fn out of the measurement."""
+    dirty lines that the launch pays to write back as it evicts them)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
         flush.zero_()
-        # keep the card busy (about 1 ms) until fn is queued, so that the
-        # host's time to launch it falls outside the events
-        torch.cuda._sleep(HOLD_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """ms per launch of n launches of fn captured in one CUDA graph and
+    replayed once: back to back, no flush and no host time between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def host_ms(fn, n: int = 30, warmup: int = 5) -> float:
+    """Median host wall-clock time of one call of fn and a synchronize (no
+    flush): the wrapper's host path, the launch and the kernel together,
+    what a caller that waits for each call pays."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
 
@@ -783,11 +818,18 @@ def k1_sdpa_inputs(q, k_pages, v_pages, bt, ctx: int) -> tuple:
     return q[:, :, None, :], kg, vg
 
 
+def k1_kernel_times(fn, flush) -> dict:
+    """One K1 call fn timed three ways: flushed (median_ms), back to back
+    in a CUDA graph (graph_ms) and on the host clock with a synchronize
+    (host_ms)."""
+    return dict(ms=median_ms(fn, flush), graph_ms=graph_ms(fn), host_ms=host_ms(fn))
+
+
 def _time_k1(q, k_pages, v_pages, bt, cl, flush) -> dict:
-    """K1, its plain version and an SDPA yardstick on one batch whose rows
-    share one ctx. bound_ms counts the distinct pages the batch needs once
-    (with q, out, tables and lengths); seq_bound_ms counts every
-    sequence's pages."""
+    """K1 (k1_kernel_times), its plain version and an SDPA yardstick on one
+    batch whose rows share one ctx. bound_ms counts the distinct pages the
+    batch needs once (with q, out, tables and lengths); seq_bound_ms counts
+    every sequence's pages."""
     B, H, D = q.shape
     KV, _, page, _ = k_pages.shape
     es = k_pages.element_size()
@@ -799,8 +841,8 @@ def _time_k1(q, k_pages, v_pages, bt, cl, flush) -> dict:
     small = 2 * q.numel() * es + 4 * (B * n + B)
     k1_flops = 4.0 * B * H * ctx * D
     qs, kg, vg = k1_sdpa_inputs(q, k_pages, v_pages, bt, ctx)
-    r = dict(
-        ms=median_ms(lambda: paged_attention(q, k_pages, v_pages, bt, cl), flush),
+    r = k1_kernel_times(lambda: paged_attention(q, k_pages, v_pages, bt, cl), flush)
+    r.update(
         plain_ms=median_ms(lambda: paged_attention_plain(q, k_pages, v_pages, bt, cl), flush),
         library_ms=median_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, enable_gqa=True),
                              flush),
@@ -818,7 +860,9 @@ def _log_timing(name: str, r: dict) -> None:
     if r.get("library"):
         lib += f" ({r['library']})"
     seq = f", per-sequence bound {r['seq_bound_ms']:.4f} ms" if "seq_bound_ms" in r else ""
-    _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+    extra = (f" (back to back {r['graph_ms']:.4f} ms, host-inclusive {r['host_ms']:.4f} ms)"
+             if "graph_ms" in r else "")
+    _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms{extra}, plain "
          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
          f"({r['bound_by']}){seq}")
 

@@ -3,111 +3,67 @@
 
     python3 scripts/time_paged_attention.py [--src TREE/src] [--seed N]
 
-Loads ``repro_torch`` from ``--src`` (this repository's ``src`` by
-default), so that two trees, e.g. a commit and its parent unpacked with
-``git archive``, can be timed in turns in one process each. Prints the
-card's name and power limit, then one line per shape: the median of 30
-launches (CUDA events, the L2 cache flushed by a 256 MiB write before
-each and the card held busy until the launch is queued, as
-``chip_smoke.py`` times), the time per launch of 20 launches
-back to back in a CUDA graph (no flush, no host time between them), and
-the byte bound of reading every sequence's pages once at 3.35 TB/s.
-Shapes (qwen3-1.7b's heads, H=16, KV=8, D=128, bf16, pages of 16 tokens,
-each sequence's pages distinct): a small batch with a long context (B=4,
-ctx=4096), the serving phase's batch (B=64, ctx=1280), and B=4 with
-ctx=0, a launch with nothing to read. A last line times a one-element
-add under the same flush, the timing's own floor. Exits 2 without a card.
+Imports ``repro_torch`` from ``--src`` (this repository's ``src`` by
+default) before ``chip_smoke``, so that ``chip_smoke.k1_kernel_times``
+times that tree's kernel: flushed (``median_ms``), back to back in a CUDA
+graph and host-inclusive (the host clock around a call and a synchronize).
+Two trees, e.g. a commit and its parent unpacked with ``git archive``, are
+timed in turns, one process each; the tree's ``repro_torch`` must hold the
+modules ``chip_smoke.py`` imports. Prints the card's name and power limit,
+then one line per shape with the byte bound of reading every sequence's
+pages once. Shapes (qwen3-1.7b's heads, H=16, KV=8, D=128, bf16, pages of
+16 tokens, each sequence's pages distinct): a small batch with a long
+context (B=4, ctx=4096), the serving phase's batch (B=64, ctx=1280), and
+B=4 with ctx=0, a launch with nothing to read. A last line times a
+one-element add under the same flush, the timing's own floor. Exits 2
+without a card.
 """
 
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parents[1]
 SHAPES = ((4, 4096), (64, 1280), (4, 0))      # (B, ctx)
 H, KV, D, PAGE = 16, 8, 128, 16
-HBM_BYTES_PER_S = 3.35e12
-HOLD_CYCLES = 2_000_000   # ~1 ms of torch.cuda._sleep before each timed launch
-
-
-def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        flush.zero_()
-        # keep the card busy (about 1 ms) until fn is queued, so that the
-        # host's time to launch it falls outside the events
-        torch.cuda._sleep(HOLD_CYCLES)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def graph_ms(fn, n: int = 20) -> float:
-    """ms per launch of n launches of fn captured in one CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):          # warm up off the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_paged_attention: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import paged_attention  # the tree's kernel
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout
-    print(f"card: {card.strip().splitlines()[0]}; tree {args.src}", flush=True)
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    print(f"card: {cs.nvidia_smi()}; tree {args.src}", flush=True)
     dev = torch.device("cuda")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     for B, ctx in SHAPES:
         n = max(1, ctx // PAGE)
-        kp, vp = (torch.randn((KV, B * n, PAGE, D), generator=gen, device=dev).to(torch.bfloat16)
-                  for _ in range(2))
+        kp, vp = (cs._randn(gen, (KV, B * n, PAGE, D), torch.bfloat16, dev) for _ in range(2))
         bt = torch.randperm(B * n, generator=gen, device=dev).to(torch.int32).reshape(B, n)
-        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        q = cs._randn(gen, (B, H, D), torch.bfloat16, dev)
         cl = torch.full((B,), ctx, dtype=torch.int32, device=dev)
-        fn = lambda: paged_attention(q, kp, vp, bt, cl)  # noqa: E731
-        ms = median_ms(fn, flush)
-        back = graph_ms(fn)
-        bound = (2 * B * ctx * KV * D * 2 + 2 * q.numel() * 2) / HBM_BYTES_PER_S * 1e3
+        r = cs.k1_kernel_times(lambda: paged_attention(q, kp, vp, bt, cl), flush)
+        bound = (2 * B * ctx * KV * D * 2 + 2 * q.numel() * 2) / cs.HBM_BYTES_PER_S * 1e3
         print(f"[k1] B={B} H={H} KV={KV} D={D} ctx={ctx} page={PAGE}, distinct pages: "
-              f"{ms:.4f} ms flushed, {back:.4f} ms back to back, byte bound {bound:.4f} ms",
-              flush=True)
+              f"{r['ms']:.4f} ms flushed, {r['graph_ms']:.4f} ms back to back, "
+              f"{r['host_ms']:.4f} ms host-inclusive, byte bound {bound:.4f} ms", flush=True)
         del kp, vp
     x = torch.zeros(1, device=dev)
-    print(f"[k1] one-element add under the flush: {median_ms(lambda: x.add_(1), flush):.4f} ms",
+    print(f"[k1] one-element add under the flush: {cs.median_ms(lambda: x.add_(1), flush):.4f} ms",
           flush=True)
     return 0
 

@@ -16,8 +16,9 @@
 // device memory once if the blocks that read it run close together.
 //
 // bf16 (the serving path; D in {64, 128, 256}, any G = H / KV):
-// * Split. The grid is (split, kv head, sequence x row pass). The splits of
-//   one (sequence, kv head, pass) are contiguous ranges of the sequence's
+// * Split. The grid is (split, kv head, sequence x row pass), folded into
+//   x with the split fastest (at most 2^31 - 1 blocks). The splits of one
+//   (sequence, kv head, pass) are contiguous ranges of the sequence's
 //   stages and run as one thread-block cluster. Their count comes from
 //   B * KV, the allocated table length and the SM count: about one wave at
 //   two blocks per SM, 1 to 8 splits, and no more than let every cluster
@@ -330,7 +331,9 @@ paged_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int n_split = static_cast<int>(cluster.num_blocks());
-  const int h = blockIdx.y, b = blockIdx.z / n_pass, pass = blockIdx.z - b * n_pass;
+  // blockIdx.x = split + n_split * (kv head + KV * (sequence * n_pass + pass))
+  const int cid = blockIdx.x / n_split;
+  const int h = cid % KV, bp = cid / KV, b = bp / n_pass, pass = bp - b * n_pass;
   const int G = H / KV;
   const int g0 = pass * R;                    // this pass's first row of the kv head
   const int rows = min(R, G - g0);            // rows of this pass
@@ -651,6 +654,17 @@ inline int k1t_max_clusters(int D, int nt, int size, size_t smem) {
   return slot - 1;
 }
 
+// The card's SM count, asked of the runtime once per device.
+inline int k1t_sm_count() {
+  static int cache[64];   // 0 is unknown
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  int& slot = cache[dev & 63];
+  if (slot == 0 && cudaDeviceGetAttribute(&slot, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    slot = 0;
+  return slot > 0 ? slot : 132;
+}
+
 inline K1TPlan k1t_plan(int B, int H, int KV, int D, int page, int pps) {
   K1TPlan pl;
   const int G = H / KV;
@@ -674,9 +688,7 @@ inline K1TPlan k1t_plan(int B, int H, int KV, int D, int page, int pps) {
   // pass) at two blocks per SM, 1 to 8, each at least one stage, and no
   // more than let every cluster run in the first wave
   const int n_stage = (pps * pl.spp + pl.nseg - 1) / pl.nseg;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = k1t_sm_count();
   const long long pairs = (long long)B * KV * pl.n_pass;
   int n = (int)std::min<long long>(std::min<long long>(K1T_MAX_SPLITS, n_stage),
                                    std::max(1LL, 2LL * sms / std::max(1LL, pairs)));
@@ -686,25 +698,69 @@ inline K1TPlan k1t_plan(int B, int H, int KV, int D, int page, int pps) {
   return pl;
 }
 
+// The K and V tensor maps of one pool, encoded once for each (device, K and
+// V pointers, pool shape, box rows) and kept in a small per-thread cache:
+// the serving path calls the kernel over one pool, and an encoding costs
+// host time on every call otherwise.
+struct K1TMaps {
+  const void* k = nullptr;
+  const void* v = nullptr;
+  int dev = -1, D = 0, page = 0, P = 0, KV = 0, br = 0;
+  CUtensorMap tm_k, tm_v;
+};
+
+inline cudaError_t k1t_maps(const void* k_pages, const void* v_pages, int D, int page, int P,
+                            int KV, int br, const K1TMaps** found) {
+  constexpr int N = 4;
+  thread_local K1TMaps cache[N];
+  thread_local int next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (const K1TMaps& m : cache)
+    if (m.k == k_pages && m.v == v_pages && m.dev == dev && m.D == D && m.page == page &&
+        m.P == P && m.KV == KV && m.br == br) {
+      *found = &m;
+      return cudaSuccess;
+    }
+  K1TMaps& m = cache[next];
+  m.k = nullptr;                           // invalid until both maps are encoded
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)page, (uint64_t)P, (uint64_t)KV};
+  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)page * D * 2, (uint64_t)P * page * D * 2};
+  const uint32_t box[4] = {64, (uint32_t)br, 1, 1};
+  err = make_tensor_map_bf16(&m.tm_k, k_pages, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&m.tm_v, v_pages, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  m.k = k_pages;
+  m.v = v_pages;
+  m.dev = dev;
+  m.D = D;
+  m.page = page;
+  m.P = P;
+  m.KV = KV;
+  m.br = br;
+  next = (next + 1) % N;
+  *found = &m;
+  return cudaSuccess;
+}
+
 template <int D, int NT>
 cudaError_t launch_k1_tc_nt(const K1TPlan& pl, const void* q, const void* k_pages,
                             const void* v_pages, const int* block_tables, const int* context_lens,
                             void* out, int B, int H, int KV, int P, int page, int pps,
                             float sm_scale, cudaStream_t stream) {
   if (pl.smem > K1_MAX_SMEM) return cudaErrorInvalidConfiguration;
-  CUtensorMap tm_k, tm_v;
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)page, (uint64_t)P, (uint64_t)KV};
-  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)page * D * 2, (uint64_t)P * page * D * 2};
-  const uint32_t box[4] = {64, (uint32_t)pl.br, 1, 1};
-  cudaError_t err = make_tensor_map_bf16(&tm_k, k_pages, 4, dims, strides, box,
-                                         CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess)
-    err = make_tensor_map_bf16(&tm_v, v_pages, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  // one grid dimension, x, holds every block: at most 2^31 - 1 of them
+  const long long blocks = (long long)pl.n_split * KV * B * pl.n_pass;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const K1TMaps* maps = nullptr;
+  cudaError_t err = k1t_maps(k_pages, v_pages, D, page, P, KV, pl.br, &maps);
   if (err == cudaSuccess) err = allow_smem_once<paged_attention_tc_kernel<D, NT>>(K1_MAX_SMEM);
   if (err != cudaSuccess) return err;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.n_split, KV, B * pl.n_pass);
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
   cfg.blockDim = dim3(K1T_THREADS);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
@@ -715,7 +771,7 @@ cudaError_t launch_k1_tc_nt(const K1TPlan& pl, const void* q, const void* k_page
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_attention_tc_kernel<D, NT>, tm_k, tm_v,
+  err = cudaLaunchKernelEx(&cfg, paged_attention_tc_kernel<D, NT>, maps->tm_k, maps->tm_v,
                            static_cast<const __nv_bfloat16*>(q), block_tables, context_lens,
                            static_cast<__nv_bfloat16*>(out), H, KV, P, page, pps, pl.tok, pl.br,
                            pl.nseg, pl.spp, pl.tiles, pl.sps, pl.n_pass, sm_scale * LOG2E);

@@ -104,6 +104,9 @@ def _check(q, k_pages, v_pages, block_tables, context_lens) -> None:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes D in {_HEAD_DIMS}; got D={D}")
+    if B * H >= 2**28 or H > 65535:
+        # CUDA's grid limits: 2^31 - 1 blocks on x (bf16: up to 8 B H), 65535 on y, z (f32)
+        raise ValueError(f"the kernel's grid takes B*H < 2^28 and H <= 65535; got B={B} H={H}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("context_lens", context_lens)):
         if not t.is_contiguous():

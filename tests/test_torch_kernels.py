@@ -41,12 +41,14 @@ K1_GRID = [                      # B, H, KV, D, page, P, pps (tests/test_kernels
     (2, 16, 8, 128, 16, 64, 32),  # ctx ends mid-page and mid-split (K1_LENS)
     (1, 4, 2, 64, 16, 300, 512),  # ctx ~ 4096 of 8192: many splits, some empty
     (3, 8, 2, 128, 16, 200, 128),  # a ctx = 0 row beside long rows
+    (4, 16, 8, 128, 16, 200, 128),  # ctx 0, inside the first page, mid-page, full
 ]
 # context lengths of the K1_GRID cases that need given ones (else drawn)
 K1_LENS = {
     (2, 16, 8, 128, 16, 64, 32): (200, 77),
     (1, 4, 2, 64, 16, 300, 512): (4093,),
     (3, 8, 2, 128, 16, 200, 128): (0, 2048, 1500),
+    (4, 16, 8, 128, 16, 200, 128): (0, 5, 1250, 2048),
 }
 K2_GRID = [                      # P, M, H, KV, D, S
     (3, 4, 8, 4, 64, 64),
@@ -262,24 +264,24 @@ def test_paged_attention_kernel_matches_plain(cuda_device, B, H, KV, D, page, P,
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     want = paged_attention_plain(*args)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=_tol(dtype))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_attention_kernel_empty_splits_and_long_rows(cuda_device, dtype):
-    """One batch with ctx = 0, a ctx inside the first page, one ending
-    mid-page past half the table, and a full one: splits past a row's ctx
-    are empty, and a row with no token gives zeros."""
-    B, H, KV, D, page, P, pps = 4, 16, 8, 128, 16, 400, 256
-    q, kp, vp, bt, _ = _k1_inputs(8, B, H, KV, D, page, P, pps)
-    cl = np.array([0, 5, 2500, pps * page], np.int32)
-    args = _on(cuda_device, [q, kp, vp, bt, cl], dtype)
-    got = _np(paged_attention(*args).cpu())
-    want = _np(paged_attention_plain(*args).cpu())
+    got, cl = _np(got.cpu()), args[4].cpu().numpy()
     assert np.isfinite(got).all()
-    np.testing.assert_array_equal(got[0], 0.0)
-    np.testing.assert_allclose(got, want, atol=_tol(dtype))
+    np.testing.assert_array_equal(got[cl <= 0], 0.0)     # a row with no token: zeros
+    np.testing.assert_allclose(got, _np(want.cpu()), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("B,H,KV", [(2**22, 64, 8), (1, 65536, 1)])
+def test_paged_attention_check_refuses_grids_past_cuda_limits(B, H, KV):
+    """The wrapper's checks refuse sizes whose grid CUDA cannot launch
+    (2^31 - 1 blocks on x, 65535 on y and z); meta tensors hold no data."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty((B, H, 64), **meta)
+    pages = torch.empty((KV, 4, 16, 64), **meta)
+    bt = torch.empty((B, 2), device="meta", dtype=torch.int32)
+    cl = torch.empty((B,), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="grid"):
+        k1_module._check(q, pages, pages, bt, cl)
+    k1_module._check(q[:1, :16], pages[:1], pages[:1], bt[:1], cl[:1])   # a size it takes
 
 
 @pytest.mark.cuda
