@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving paths once on one NVIDIA card.
+"""Runs the PyTorch/CUDA port's serving paths and its estimator loop
+once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -7,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. env       card name and power limit, torch/CUDA versions, the build
              of every kernel under src/repro_torch/kernels/csrc with nvcc
-             (one nvcc per source, all started together), each kernel's
+             (one nvcc per source, all started together: K1, K2, K3 and
+             the lane engine), each kernel's
              ptxas report (registers, spills) and the launch K1, K2 and K3
              get at this run's shapes (cluster size, stages, shared memory);
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
@@ -34,16 +36,31 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              K1 first at a small batch with a long context (B=4, ctx=4096),
              and also back to back in a CUDA graph and host-inclusive (the
              host clock around a call and a synchronize), K2 first at a
-             long prefix with a small group.
+             long prefix with a small group;
+8. estimator the paper's estimator loop at its published widths on the
+             lane engine (one CUDA thread per lane): the Table I system
+             (J=3, N=1000, B=1000, Zipf 0.75/0.5/1.0), its 8 b-combos x 4
+             replicas as 32 sweep lanes of one batched runner, and the
+             Fig. 2 system (J=9, N=1e6, 3x1000+3x2000+3x7000 units, Zipf
+             0.5..4.5), 16 replicas (about 3.2 GB of state); every lane
+             held exactly to the kernel's host build and to the host C
+             engine; Scenario.run() of the Table I preset with 4
+             replicas on backend="cuda" against backend="c"
+             (same_estimates); the Table II working-set solve of the 8
+             combos batched on the card against the CPU; then the lane
+             engine timed per chunk beside its host build, the host C
+             engine and its byte bound. Request counts per lane are cut
+             from the paper's (printed); widths never are.
 
 The line before the last lists each kernel as JSON (launches on its path:
-K1 and K2 in phases 3-4, K3 in phase 5; max error; times; bound); the last
-line is {"ok": true, "device": {...}}.
+K1 and K2 in phases 3-4, K3 in phase 5, the lane engine in phase 8; max
+error; times; bound); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,7 +78,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cacheblocks import layout_for  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import admission, irm  # noqa: E402
+from repro_torch.core import admission, fastsim, irm  # noqa: E402
+from repro_torch.core.fastsim_cuda import BatchedCudaRunner  # noqa: E402
+from repro_torch.core.shared_lru import _lcm_1_to  # noqa: E402
+from repro_torch.core.workingset import solve_workingset_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as k3_module  # noqa: E402
 from repro_torch.kernels import paged_attention as k1_module  # noqa: E402
@@ -70,6 +90,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels.lane_engine import lane_engine  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
@@ -79,6 +100,8 @@ from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
     shared_prefix_attention_plain,
 )
 from repro_torch.models import make_model  # noqa: E402
+from repro_torch.scenario import get_preset  # noqa: E402
+from repro_torch.scenario.runner import _rates_for, derive_seeds, ensemble_seeds  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
 
 # Tolerances of tests/test_kernels.py: out f32 / bf16, lse f32 / bf16.
@@ -112,6 +135,13 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:34",
     ),
+    # not a Pallas kernel: the reference's XLA lane engine (_drive_impl;
+    # _drive_batched_impl at :364)
+    "lane_engine": dict(
+        fn=lane_engine,
+        source="src/repro_torch/kernels/csrc/lane_engine.cu",
+        replaces="src/repro/core/fastsim_jax.py:138",
+    ),
 }
 
 
@@ -135,6 +165,15 @@ class Sizes:
     live_requests: int = 8          # phase 5: requests served by the model ...
     live_prompts: int = 2           # ... shared prompts of tenants A, B ...
     new_tokens: int = 16            # ... and tokens decoded for each
+    # phase 8: requests per lane (the paper: 10^7 for Table I, 3 x 10^6
+    # for Fig. 2) and lanes; the catalogue is cut only in CPU rehearsals
+    table1_requests: int = 4_000_000
+    table1_replicas: int = 4        # x 8 b-combos = 32 sweep lanes
+    fig2_requests: int = 1_200_000
+    fig2_replicas: int = 16
+    fig2_catalogue: float = 1.0     # 1.0 = the published N = 10^6
+    scenario_requests: int = 1_000_000
+    est_chunk: int = 1 << 16        # requests per lane in a timed chunk
 
     def arch_config(self):
         cfg = get_config(self.arch)
@@ -921,6 +960,292 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     return res
 
 
+# -- phase 8: estimator ------------------------------------------------------
+
+# The b-combos of Tables I and II (benchmarks/common.py B_GRID)
+TABLE1_GRID = ((8, 8, 8), (8, 8, 64), (8, 64, 8), (8, 64, 64),
+               (64, 8, 8), (64, 8, 64), (64, 64, 8), (64, 64, 64))
+WS_RTOL = 1e-4          # card vs CPU float32 working-set solve (as phase 6)
+# Dependent global loads on a list-hit step of lane_engine.cuh, read from
+# the code: O[off] -> hold[ik] -> head[i] -> prv[ik], nxt[ik] -> head[i]
+# again (re-read after the unlink's stores). A miss adds the eviction
+# loop's chain per victim (tail, nxt, res_since, hcnt, the holder column).
+HIT_STEP_DEPENDENT_LOADS = 5
+
+
+def _same_sim(a, b, what: str) -> None:
+    """Exact equality of two SimResults: occupancy (the integers over one
+    horizon), virtual lengths, counters and the evictions histogram."""
+    pairs = (("occupancy", a.dense_occupancy(), b.dense_occupancy()),
+             ("vlen", a.final_vlen, b.final_vlen),
+             ("hist", a.evictions_per_set, b.evictions_per_set),
+             ("hits", a.hits_by_proxy, b.hits_by_proxy),
+             ("reqs", a.reqs_by_proxy, b.reqs_by_proxy))
+    for name, x, y in pairs:
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            _fail(f"{what}: {name} differs")
+    ca = (a.n_hit_list, a.n_hit_cache, a.n_miss, a.n_sets_recorded, a.n_primary, a.n_ripple)
+    cb = (b.n_hit_list, b.n_hit_cache, b.n_miss, b.n_sets_recorded, b.n_primary, b.n_ripple)
+    if ca != cb:
+        _fail(f"{what}: counters {ca} != {cb}")
+
+
+def _lane_results(runner, n: int, warmup: int, sparse: bool) -> list:
+    return [fastsim._assemble(out, runner.elapsed, n, warmup, runner.J, runner.N,
+                              _lcm_1_to(runner.J), "cuda", sparse)
+            for out in runner.finish(n)]
+
+
+def _c_lanes(params_of, traces_of, R: int, N: int, warmup: int, sparse: bool) -> tuple:
+    """Lane r through the host C engine (fastsim_c), one lane after another;
+    returns the results and the warm drivers (for the timed chunk)."""
+    out, drivers = [], []
+    for r in range(R):
+        params = params_of(r)
+        drv, name, scale = fastsim.make_chunk_driver(
+            params, N, np.ones(N, np.int64), warmup, warmup, engine="c")
+        if name != "c":
+            _fail("the host C engine did not build")
+        tr = traces_of(r)
+        drv.feed(tr.proxies, tr.objects)
+        out.append(fastsim._assemble(drv.finish(len(tr)), drv.elapsed, len(tr), warmup,
+                                     len(params.allocations), N, scale, "c", sparse))
+        drivers.append(drv)
+    return out, drivers
+
+
+def _hold_lanes(device, runner, host, lanes, c_lanes, what: str) -> None:
+    """Every lane's whole state on the card equals the host build's, and
+    its outputs equal the host C engine's."""
+    if device.type == "cuda":
+        for k in runner.st:
+            if not torch.equal(runner.st[k].cpu(), host.st[k]):
+                _fail(f"{what}: state {k} on the card differs from the host build")
+    for r, (x, c) in enumerate(zip(lanes, c_lanes)):
+        _same_sim(x, c, f"{what} lane {r} vs host C")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
+    """The main path of the estimator loop (see the module docstring)."""
+    res = {}
+    # -- Table I system: 8 b-combos x R replicas as sweep lanes ------------
+    sc = get_preset("table1", seed=7 + seed)
+    wl, sysm = sc.workload, sc.system
+    n, R = sizes.table1_requests, sizes.table1_replicas
+    trace_seed, _ = derive_seeds(sc.seed)
+    t0 = time.perf_counter()
+    traces = [wl.sample(n, s) for s in ensemble_seeds(trace_seed, R)]
+    sample_s = time.perf_counter() - t0
+    combos = np.repeat(np.asarray(TABLE1_GRID, np.int64), R, axis=0)   # lane = combo * R + rep
+    L = len(combos)
+    P = np.stack([traces[lane % R].proxies for lane in range(L)])
+    O = np.stack([traces[lane % R].objects for lane in range(L)])
+    J, N, B = len(sysm.allocations), wl.n_objects, sysm.capacity()
+    warmup = fastsim.default_warmup(n, TABLE1_GRID[-1])
+    params = fastsim.SimParams(allocations=TABLE1_GRID[-1], physical_capacity=B)
+    _log(f"[estimator] Table I system: J={J} N={N} B={B}, Zipf {wl.alphas}, "
+         f"{len(TABLE1_GRID)} b-combos x {R} replicas = {L} lanes, {n} requests per lane "
+         f"(the paper: 10^7; cut for time), warmup {warmup}; traces sampled in "
+         f"{sample_s:.2f} s (set-up)")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    t0 = time.perf_counter()
+    card = BatchedCudaRunner(params, N, np.ones(N, np.int64), warmup, warmup, _lcm_1_to(J), L,
+                             b_sweep=combos, bhat_sweep=combos, device=device)
+    card.feed(P, O)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    lanes = _lane_results(card, n, warmup, False)
+    host = BatchedCudaRunner(params, N, np.ones(N, np.int64), warmup, warmup, _lcm_1_to(J), L,
+                             b_sweep=combos, bhat_sweep=combos, device="cpu")
+    host.feed(P, O)
+    c_lanes, c_drivers = _c_lanes(
+        lambda r: fastsim.SimParams(allocations=tuple(int(x) for x in combos[r]),
+                                    physical_capacity=B),
+        lambda r: traces[r % R], L, N, warmup, False)
+    _hold_lanes(device, card, host, lanes, c_lanes, "Table I")
+    c_s = sum(c.elapsed_s for c in c_lanes)
+    state_mb = sum(t[0].numel() * 4 for t in card.st.values()) / 1e6
+    _log(f"[estimator] Table I: {L} lanes x {n} requests in {card.elapsed:.4f} s of launches "
+         f"({len(card.launch_s)} timed launches; runner wall {wall:.3f} s with the build and "
+         f"module load): {n / card.elapsed:.0f} requests/s per lane, {L * n / card.elapsed:.0f} "
+         f"for all lanes; host build {host.elapsed:.3f} s; host C engine {c_lanes[0].elapsed_s:.4f}"
+         f" s for lane 0 ({n / c_lanes[0].elapsed_s:.0f} requests/s), {c_s:.3f} s for the {L} "
+         f"lanes one after another ({L * n / c_s:.0f} requests/s); state {state_mb:.4f} MB per "
+         f"lane; every lane's state equals the host build's and its outputs the C engine's")
+    for b in ((64, 64, 64), (8, 8, 64)):
+        r = TABLE1_GRID.index(b) * R
+        hp = lanes[r].dense_occupancy()[:, [0, 9, 99, 999]]
+        _log(f"[estimator] Table I b={b} lane {r}: hit probability at ranks 1/10/100/1000 "
+             f"{np.round(hp, 4).tolist()}; misses {lanes[r].n_miss}, sets recorded after "
+             f"warmup {lanes[r].n_sets_recorded}")
+    res["table1"] = dict(card=card, host=host, c_drivers=c_drivers, L=L, n=n, c_s=c_s,
+                         combos=combos, traces=traces, R=R)
+
+    # -- Fig. 2 system: R replicas at the published widths -----------------
+    sc2 = get_preset("fig2_ripple", seed=23 + seed)
+    sc2 = sc2.scaled(requests=sizes.fig2_requests / sc2.n_requests, catalogue=sizes.fig2_catalogue)
+    wl2, sys2 = sc2.workload, sc2.system
+    n2, R2, N2 = sc2.n_requests, sizes.fig2_replicas, wl2.n_objects
+    J2, B2 = len(sys2.allocations), sys2.capacity()
+    warm2 = sc2.warmup
+    trace_seed2, _ = derive_seeds(sc2.seed)
+    t0 = time.perf_counter()
+    traces2 = [wl2.sample(n2, s) for s in ensemble_seeds(trace_seed2, R2)]
+    sample_s = time.perf_counter() - t0
+    p2 = sys2.to_sim_params()
+    _log(f"[estimator] Fig. 2 system: J={J2} N={N2} B={B2}, allocations {sys2.allocations}, "
+         f"Zipf {wl2.alphas[0]}..{wl2.alphas[-1]}, {R2} replicas, {n2} requests per lane (the "
+         f"paper: 3 x 10^6; cut for time), warmup {warm2}; traces sampled in {sample_s:.2f} s")
+    P2 = np.stack([t.proxies for t in traces2])
+    O2 = np.stack([t.objects for t in traces2])
+    card2 = BatchedCudaRunner(p2, N2, np.ones(N2, np.int64), warm2, warm2, _lcm_1_to(J2), R2,
+                              device=device)
+    card2.feed(P2, O2)
+    lanes2 = _lane_results(card2, n2, warm2, True)
+    mem = (torch.cuda.max_memory_allocated() - mem0) / 1e9 if device.type == "cuda" else 0.0
+    state2 = sum(t[0].numel() * 4 for t in card2.st.values())
+    host2 = BatchedCudaRunner(p2, N2, np.ones(N2, np.int64), warm2, warm2, _lcm_1_to(J2), R2,
+                              device="cpu")
+    host2.feed(P2, O2)
+    c2, _ = _c_lanes(lambda r: p2, lambda r: traces2[r], R2, N2, warm2, True)
+    _hold_lanes(device, card2, host2, lanes2, c2, "Fig. 2")
+    del host2
+    c2_s = sum(c.elapsed_s for c in c2)
+    agg = np.zeros(8, np.int64)
+    for x in lanes2:
+        h = x.evictions_per_set[:8]
+        agg[: len(h)] += h
+    _log(f"[estimator] Fig. 2: {R2} lanes x {n2} requests in {card2.elapsed:.4f} s of launches: "
+         f"{n2 / card2.elapsed:.0f} requests/s per lane, {R2 * n2 / card2.elapsed:.0f} for all "
+         f"lanes; host C engine {c2[0].elapsed_s:.4f} s for lane 0, {c2_s:.3f} s for the {R2} "
+         f"lanes one after another ({R2 * n2 / c2_s:.0f} requests/s); state "
+         f"{state2 / 1e6:.1f} MB per lane, {R2 * state2 / 1e9:.3f} GB for all (peak allocated "
+         f"since the phase began {mem:.3f} GB); evictions per set, all lanes, 0..7: "
+         f"{agg.tolist()}; every lane equals the host build and the C engine")
+    res["fig2"] = dict(n=n2, R=R2, elapsed=card2.elapsed, c_s=c2_s)
+    del card2
+
+    # -- the Scenario path: Table I preset, 4 replicas, cuda vs c ----------
+    scs = get_preset("table1", b=(64, 64, 8), seed=7 + seed).scaled(
+        requests=sizes.scenario_requests / sc.n_requests)
+    scs = dataclasses.replace(scs, estimator=dataclasses.replace(scs.estimator, replications=4))
+    on = dataclasses.replace(scs, system=dataclasses.replace(scs.system, backend="cuda"))
+    off = dataclasses.replace(scs, system=dataclasses.replace(scs.system, backend="c"))
+    _sync(device)
+    t0 = time.perf_counter()
+    rep = on.run(device=device)
+    _sync(device)
+    wall_on = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_c = off.run()
+    wall_off = time.perf_counter() - t0
+    if not (rep.same_estimates(rep_c) and rep_c.same_estimates(rep)):
+        _fail("scenario: the cuda Report's estimates differ from the c Report's")
+    if rep.backend != "cuda" or not rep.ensemble["batched"]:
+        _fail(f"scenario: ran on {rep.backend}, batched={rep.ensemble['batched']}")
+    if not (np.all(np.isfinite(rep.hit_rate)) and rep.dense_hit_prob().shape == (3, N)):
+        _fail("scenario: hit rates not finite or hit_prob of the wrong shape")
+    _log(f"[estimator] Scenario table1 b=(64, 64, 8), {scs.n_requests} requests x 4 replicas: "
+         f"backend cuda {wall_on:.3f} s wall (Report elapsed {rep.elapsed_s:.4f} s, "
+         f"{rep.throughput_rps:.0f} requests/s), backend c {wall_off:.3f} s wall (elapsed "
+         f"{rep_c.elapsed_s:.4f} s); same_estimates both ways; overall hit rate "
+         f"{rep.overall_hit_rate:.6f}, per proxy {np.round(rep.hit_rate, 6).tolist()}")
+    res["scenario"] = dict(sc=on, wall=wall_on, wall_c=wall_off, report=rep)
+
+    # -- Table II: the working-set solve of the 8 combos, batched ----------
+    ws = get_preset("table2_ws")
+    lam = _rates_for(ws)
+    _, length_seed = derive_seeds(ws.seed)
+    lengths = ws.workload.object_lengths(length_seed).astype(np.float64)
+    grid = np.asarray(TABLE1_GRID, np.float64)
+    _sync(device)
+    t0 = time.perf_counter()
+    sols = solve_workingset_batch(lam, lengths, grid, "L1", device=device)
+    ws_s = time.perf_counter() - t0
+    cpu = solve_workingset_batch(lam, lengths, grid, "L1", device="cpu")
+    rel = max(float(np.max(np.abs(a.t - b.t) / b.t)) for a, b in zip(sols, cpu))
+    if not (rel <= WS_RTOL and all(s.converged for s in sols)):
+        _fail(f"table2_ws: card vs CPU rel err t {rel:.2e} > {WS_RTOL} or not converged")
+    _log(f"[estimator] Table II working set (L1), 8 combos batched on {device}: {ws_s:.3f} s; "
+         f"card vs CPU float32 rel err t {rel:.2e}; outer steps per combo "
+         f"{[s.iterations for s in sols]} (CPU {[s.iterations for s in cpu]}); b=(64,64,64) "
+         f"h at ranks 1/10/100/1000 {np.round(sols[-1].h[:, [0, 9, 99, 999]], 4).tolist()}")
+    return res
+
+
+def profile_scenario(device, est: dict) -> dict:
+    """The Scenario path once more under torch.profiler: the card's busy
+    share of its wall time."""
+    sc = est["scenario"]["sc"]
+    r = _device_profile(lambda: sc.run(device=device), device)
+    if r["busy_ms"] is None:
+        _log(f"[estimator] profile Scenario.run: {r['wall_ms']:.2f} ms (host clock); device "
+             f"time not measured (the profiler saw no device activity)")
+        return r
+    top = "; ".join(f"{k[:50]} x{n} {ms:.3f} ms" for k, ms, n in r["top"])
+    _log(f"[estimator] profile Scenario.run: {r['wall_ms']:.2f} ms (host clock), card busy "
+         f"{r['busy_ms']:.2f} ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; largest: {top}")
+    return r
+
+
+def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
+    """One chunk of sizes.est_chunk requests on each of the 32 warm Table I
+    lanes: the kernel (CUDA events, median of 5 chunks), its host build,
+    and the host C engine on the same lanes one after another. The bound
+    counts the chunk's requests, the lanes' state read once and written
+    once, and the constants."""
+    t1 = est["table1"]
+    card, host, drivers, L, R = t1["card"], t1["host"], t1["c_drivers"], t1["L"], t1["R"]
+    m = sizes.est_chunk
+    rng = np.random.default_rng(12345)
+    lam = irm.rate_matrix(card.N, (0.75, 0.5, 1.0))
+    chunks = [irm.sample_trace(lam, m, seed=int(rng.integers(2**31))) for _ in range(6 * R)]
+    times, plain, c_ms = [], [], []
+    for i in range(6):
+        tr = chunks[i * R:(i + 1) * R]
+        P = np.stack([tr[lane % R].proxies for lane in range(L)]).astype(np.int32)
+        O = np.stack([tr[lane % R].objects for lane in range(L)]).astype(np.int32)
+        Pd, Od = torch.from_numpy(P).to(device), torch.from_numpy(O).to(device)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        card._launch(Pd, Od)
+        b.record()
+        b.synchronize()
+        card.idx += m
+        times.append(a.elapsed_time(b))
+        t0 = time.perf_counter()
+        host._run(P, O)
+        plain.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for lane, drv in enumerate(drivers):
+            drv.feed(P[lane], O[lane].astype(np.int64))
+        c_ms.append(1e3 * (time.perf_counter() - t0))
+    ms, plain_ms, c_med = (float(np.median(x[1:])) for x in (times, plain, c_ms))
+    state = sum(t.numel() * 4 for t in card.st.values())
+    n_bytes = 2 * state + 2 * L * m * 4 + card.lengths.numel() * 4 + card.share.numel() * 4
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=c_med, shape=f"{L} lanes x {m} requests",
+             library="host C engine (fastsim_c), the lanes one after another")
+    r["bound_ms"], r["bound_by"] = n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    per_req_ns = ms * 1e6 / m
+    _log(f"[timing] lane_engine ({r['shape']}, Table I system): kernel {ms:.4f} ms per chunk "
+         f"(median of 5 after one), {L * m / ms * 1e3:.0f} requests/s for all lanes, "
+         f"{m / ms * 1e3:.0f} per lane; host build {plain_ms:.4f} ms; host C engine "
+         f"{c_med:.4f} ms; bound {r['bound_ms']:.6f} ms (bytes: {n_bytes / 1e6:.3f} MB); "
+         f"{per_req_ns:.1f} ns per request per lane = {per_req_ns / HIT_STEP_DEPENDENT_LOADS:.1f}"
+         f" ns per dependent load of a hit step ({HIT_STEP_DEPENDENT_LOADS}); "
+         f"{min(L, torch.cuda.get_device_properties(device).multi_processor_count)} of "
+         f"{torch.cuda.get_device_properties(device).multi_processor_count} SMs hold a lane")
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -966,7 +1291,19 @@ def main(argv=None) -> int:
     _log(f"[live] K3 share of prefill: {live_launches['flash_attention'] // sizes.live_requests}"
          f" x {k3_ms:.4f} ms / {prefill_ms:.2f} ms = "
          f"{live_launches['flash_attention'] / sizes.live_requests * k3_ms / prefill_ms:.4f}")
-    path_launches = dict(main_launches, flash_attention=live_launches["flash_attention"])
+    reset_launches()                                  # the estimator path starts here
+    t_est = time.perf_counter()
+    est = phase_estimator(device, sizes, args.seed)
+    est_launches = launches()                         # ... and ends here
+    _log(f"[estimator] launches: {est_launches}")
+    if est_launches["lane_engine"] == 0:
+        _fail(f"the estimator path did not launch the lane engine: {est_launches}")
+    profile_scenario(device, est)
+    timing["lane_engine"] = time_lane_engine(device, sizes, est)
+    _log(f"[estimator] phase 8 took {time.perf_counter() - t_est:.1f} s (host clock, its "
+         f"checks, profile and timing included)")
+    path_launches = dict(main_launches, flash_attention=live_launches["flash_attention"],
+                         lane_engine=est_launches["lane_engine"])
 
     rows = []
     for name, k in KERNELS.items():
@@ -977,6 +1314,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+        if name == "lane_engine":      # its yardstick is no PyTorch call
+            rows[-1]["library"] = t["library"]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

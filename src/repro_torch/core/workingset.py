@@ -23,8 +23,9 @@ is the mean length of object ``k`` attributed to LRU-list ``i``:
 
 Solver: damped Jacobi outer iteration; inner step is a vectorized
 bisection per proxy (the per-proxy residual is monotone increasing in
-t_i for every attribution model). The torch solver keeps the reference's
-steps exactly — a not-shared warm start, 64 bracket doublings (x4),
+t_i for every attribution model). :func:`solve_workingset_batch` solves
+K allocation vectors at once (the Table II grid), each combo stopping on
+its own test. The torch solver keeps the reference's steps exactly — a not-shared warm start, 64 bracket doublings (x4),
 ``n_bisect`` bisections, damping and the stopping test
 ``it < n_outer and delta > tol`` — as a plain loop of tensor operations
 on ``device`` (the CUDA card unless the caller names another) in
@@ -47,7 +48,7 @@ ATTRIBUTIONS = ("L1", "Lstar", "L2", "full")
 
 def hit_probabilities(lam: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """h_{i,k} = 1 - exp(-lambda_{i,k} * t_i)  (paper eq. (3))."""
-    return -torch.expm1(-lam * t[:, None])
+    return -torch.expm1(-lam * t[..., None])
 
 
 def _leggauss01(n_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -77,22 +78,22 @@ def expected_inverse_one_plus(h_others: torch.Tensor, n_quad: int) -> torch.Tens
 
 
 def _l1_matrix(h: torch.Tensor, n_quad: int) -> torch.Tensor:
-    """(J, N) matrix E_i,k = E[1/(1+sum_{j!=i} Z_{j,k})], leave-one-out.
+    """(..., J, N) matrix E_i,k = E[1/(1+sum_{j!=i} Z_{j,k})], leave-one-out.
 
     Uses the full product divided by the left-out factor; every factor
     ``1 - h (1-x)`` is >= x > 0 at interior quadrature nodes, so the
     division is always safe.
     """
-    x, w = _nodes(n_quad, h)                              # (Q,)
-    terms = 1.0 - h[None] * (1.0 - x)[:, None, None]      # (Q, J, N) > 0
-    full = torch.prod(terms, dim=1, keepdim=True)         # (Q, 1, N)
-    contribs = w[:, None, None] * full / terms            # (Q, J, N)
-    return contribs.sum(dim=0)
+    x, w = _nodes(n_quad, h)                                  # (Q,)
+    terms = 1.0 - h.unsqueeze(-3) * (1.0 - x)[:, None, None]  # (..., Q, J, N) > 0
+    full = torch.prod(terms, dim=-2, keepdim=True)            # (..., Q, 1, N)
+    contribs = w[:, None, None] * full / terms                # (..., Q, J, N)
+    return contribs.sum(dim=-3)
 
 
 def _others_sum(h: torch.Tensor) -> torch.Tensor:
     """s_{i,k} = sum_{j != i} h_{j,k}."""
-    return h.sum(dim=0, keepdim=True) - h
+    return h.sum(dim=-2, keepdim=True) - h
 
 
 def _l2_fraction(h_own: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -153,8 +154,19 @@ def _solve(
     damping: float,
     tol: float,
 ):
-    """Damped Jacobi outer loop + vectorized inner bisection."""
+    """Damped Jacobi outer loop + vectorized inner bisection.
+
+    ``b`` is (J,) for one solve or (K, J) for K allocation vectors over
+    the same ``lam``; ``t``, ``h``, ``L`` and the residual get the same
+    leading axis, ``iterations`` and ``delta`` one entry per combo. Each
+    combo stops on its own test, ``it < n_outer and delta > tol``: once
+    it turns false, the combo's ``t``, ``it`` and ``delta`` stay frozen
+    while the others go on — what the batching rule of the reference's
+    vmapped ``while_loop`` does, so the batch gives each combo the steps
+    of its own solve.
+    """
     J, N = lam.shape
+    batch = b.shape[:-1]
 
     def frozen_lengths(h_frozen: torch.Tensor) -> torch.Tensor:
         """L for L1/Lstar/full depends only on the *other* proxies' h,
@@ -174,15 +186,15 @@ def _solve(
             def residual(t_cand):
                 h_own = hit_probabilities(lam, t_cand)
                 L = lengths[None, :] * _l2_fraction(h_own, s)
-                return (h_own * L).sum(dim=1) - b
+                return (h_own * L).sum(dim=-1) - b
         else:
             L = frozen_lengths(h_frozen)
 
             def residual(t_cand):
-                return (hit_probabilities(lam, t_cand) * L).sum(dim=1) - b
+                return (hit_probabilities(lam, t_cand) * L).sum(dim=-1) - b
 
         # Bracket: grow hi until the residual is positive (or cap).
-        hi = torch.full((J,), 1e-2, dtype=lam.dtype, device=lam.device)
+        hi = torch.full(b.shape, 1e-2, dtype=lam.dtype, device=lam.device)
         for _ in range(64):
             hi = torch.where(residual(hi) < 0, hi * 4.0, hi)
         lo = torch.zeros_like(hi)
@@ -193,17 +205,23 @@ def _solve(
             hi = torch.where(neg, hi, mid)
         return 0.5 * (lo + hi)
 
-    t = inner_solve(torch.zeros((J, N), dtype=lam.dtype, device=lam.device))  # not-shared warm start
+    dev = lam.device
+    t = inner_solve(torch.zeros(batch + (J, N), dtype=lam.dtype, device=dev))  # not-shared warm start
     # delta stays a tensor so that ``tol`` is compared in ``dtype``.
-    it, delta = 0, torch.tensor(float("inf"), dtype=lam.dtype)
-    while it < n_outer and bool(delta > tol):
+    it = torch.zeros(batch, dtype=torch.int64, device=dev)
+    delta = torch.full(batch, float("inf"), dtype=lam.dtype, device=dev)
+    active = (it < n_outer) & (delta > tol)
+    while bool(active.any()):
         t_new = inner_solve(hit_probabilities(lam, t))
         t_next = (1.0 - damping) * t + damping * t_new
-        delta = torch.max(torch.abs(t_next - t) / torch.clamp(t, min=1e-12))
-        t, it = t_next, it + 1
+        d = torch.amax(torch.abs(t_next - t) / torch.clamp(t, min=1e-12), dim=-1)
+        t = torch.where(active[..., None], t_next, t)
+        delta = torch.where(active, d, delta)
+        it = it + active.to(torch.int64)
+        active = (it < n_outer) & (delta > tol)
     h = hit_probabilities(lam, t)
     L = attribution_matrix(h, lengths, kind, n_quad)
-    res = b - (h * L).sum(dim=1)
+    res = b - (h * L).sum(dim=-1)
     return t, h, L, res, it, delta
 
 
@@ -316,3 +334,62 @@ def virtual_footprint(
         n_quad,
     )
     return (h * L.cpu().numpy()).sum(axis=1)
+
+
+def solve_workingset_batch(
+    lam,
+    lengths,
+    b_batch,
+    attribution: str = "L1",
+    *,
+    n_quad: int | None = None,
+    n_outer: int = 200,
+    n_bisect: int = 90,
+    damping: float = 0.7,
+    tol: float = 1e-7,
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> list:
+    """Solve eq. (8) for a whole batch of allocation vectors at once.
+
+    ``b_batch``: (K, J) — e.g. the 8 Table-II ``b``-combinations — over
+    one ``lam`` and ``lengths``. One loop of batched tensor operations on
+    ``device`` runs until the *slowest* combo converges; a combo whose
+    stopping test has turned false is frozen (its ``t``, ``iterations``
+    and final ``delta`` are those of its own solve, as the reference's
+    vmapped ``while_loop`` gives them). Per-combo ``converged`` comes
+    from its final delta.
+
+    Returns a list of K :class:`WorkingSetSolution`.
+    """
+    lam = np.asarray(lam, dtype=np.float64)
+    lengths = np.asarray(lengths, dtype=np.float64)
+    b_batch = np.atleast_2d(np.asarray(b_batch, dtype=np.float64))
+    J, N = lam.shape
+    if b_batch.shape[1] != J:
+        raise ValueError("b_batch must be (K, J)")
+    for b in b_batch:
+        _check_inputs(lam, lengths, b, attribution)
+
+    if n_quad is None:
+        n_quad = max(8, (J + 1) // 2 + 1)
+
+    dev = resolve_device(device)
+    t, h, L, res, iters, delta = _solve(
+        *(torch.as_tensor(x, dtype=dtype, device=dev) for x in (lam, lengths, b_batch)),
+        attribution, n_quad, n_outer, n_bisect, damping, tol,
+    )
+    t, h, L, res = (_as_np(x) for x in (t, h, L, res))
+    iters, delta = iters.cpu().numpy(), delta.cpu()
+    out = []
+    for k in range(b_batch.shape[0]):
+        sol = WorkingSetSolution(
+            t=t[k],
+            h=h[k],
+            L=L[k],
+            residual=res[k],
+            iterations=int(iters[k]),
+            converged=bool(delta[k] <= tol),
+        )
+        out.append(sol.with_rates(lam))
+    return out

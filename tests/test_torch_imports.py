@@ -34,7 +34,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 37          # every subpackage and module was imported
+    assert int(n) >= 54          # every subpackage and module was imported
     assert bad == "[]"
 
 

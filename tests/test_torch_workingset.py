@@ -8,6 +8,7 @@ the order of float32 sums, which moves t by a few ulps.
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import admission as jadm
 from repro.core import irm as jirm
@@ -99,3 +100,55 @@ def test_virtual_allocations_and_controller_match_reference():
     )
     assert [d.action for d in ctrls[1].log] == [d.action for d in ctrls[0].log]
     assert ctrls[1].overbooking_gain == pytest.approx(ctrls[0].overbooking_gain, rel=1e-4)
+
+
+TABLE2_GRID = np.array([(8, 8, 8), (8, 8, 64), (8, 64, 8), (8, 64, 64),
+                        (64, 8, 8), (64, 8, 64), (64, 64, 8), (64, 64, 64)], float)
+
+
+@pytest.mark.parametrize("attribution", ["L1", "Lstar", "L2", "full"])
+def test_solve_workingset_batch_matches_reference(attribution):
+    """The 8 combos of Table II, scaled to this catalogue, in float32: t
+    and h per combo within the single solve's tolerances, and each combo
+    takes exactly the steps of the port's own single solve (converged
+    combos are frozen while the others go on)."""
+    lam, lengths = _problem()
+    grid = TABLE2_GRID * lengths.sum() / 1000 * 0.3
+    want = jws.solve_workingset_batch(lam, lengths, grid, attribution)
+    got = ws.solve_workingset_batch(lam, lengths, grid, attribution, device="cpu")
+    assert len(got) == len(grid)
+    for b, g, w in zip(grid, got, want):
+        np.testing.assert_allclose(g.t, w.t, rtol=1e-4)
+        np.testing.assert_allclose(g.h, w.h, rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(g.hit_rate, w.hit_rate, rtol=1e-4)
+        assert g.converged == w.converged
+        single = ws.solve_workingset(lam, lengths, b, attribution, device="cpu")
+        assert g.iterations == single.iterations
+        np.testing.assert_array_equal(g.t, single.t)
+
+
+@pytest.mark.parametrize("attribution", ["L1", "L2"])
+def test_solve_workingset_batch_iterations_match_reference_in_float64(attribution):
+    """In float64 on both sides (tol = 1e-7 is far above the rounding of
+    delta), every combo takes exactly the reference's number of steps."""
+    import jax
+
+    lam, lengths = _problem()
+    grid = TABLE2_GRID * lengths.sum() / 1000 * 0.3
+    with jax.enable_x64(True):
+        want = jws.solve_workingset_batch(lam, lengths, grid, attribution)
+    got = ws.solve_workingset_batch(lam, lengths, grid, attribution, device="cpu",
+                                    dtype=torch.float64)
+    assert [g.iterations for g in got] == [w.iterations for w in want]
+    assert [g.converged for g in got] == [w.converged for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.t, w.t, rtol=1e-12)
+
+
+def test_working_set_solvers_need_a_card_unless_cpu_is_named(monkeypatch):
+    lam, lengths = _problem()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ws.solve_workingset_batch(lam, lengths, TABLE2_GRID[:2] * 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ws.solve_workingset(lam, lengths, TABLE2_GRID[0] * 0.1)
