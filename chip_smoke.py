@@ -45,12 +45,14 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              0.5..4.5), 16 replicas (about 3.2 GB of state); every lane
              held exactly to the kernel's host build and to the host C
              engine; Scenario.run() of the Table I preset with 4
-             replicas on backend="cuda" against backend="c"
-             (same_estimates); the Table II working-set solve of the 8
-             combos batched on the card against the CPU; then the lane
-             engine timed per chunk beside its host build, the host C
-             engine and its byte bound. Request counts per lane are cut
-             from the paper's (printed); widths never are.
+             replicas on its default backend ("auto", which runs the lane
+             engine on the card) against backend="c" (same_estimates);
+             the Table II working-set solve of the 8 combos batched on
+             the card against the CPU; then the lane engine timed per
+             chunk beside its host build, the host C engine and its byte
+             bound, with the timed chunk's mix of steps read from the
+             lanes' counters. Request counts per lane are cut from the
+             paper's (printed); widths never are.
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phase 5, the lane engine in phase 8; max
@@ -90,7 +92,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
 )
-from repro_torch.kernels.lane_engine import lane_engine  # noqa: E402
+from repro_torch.kernels.lane_engine import SCALARS, lane_engine  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
@@ -966,28 +968,40 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
 TABLE1_GRID = ((8, 8, 8), (8, 8, 64), (8, 64, 8), (8, 64, 64),
                (64, 8, 8), (64, 8, 64), (64, 64, 8), (64, 64, 64))
 WS_RTOL = 1e-4          # card vs CPU float32 working-set solve (as phase 6)
-# Dependent global loads on a list-hit step of lane_engine.cuh, read from
-# the code: O[off] -> hold[ik] -> head[i] -> prv[ik], nxt[ik] -> head[i]
-# again (re-read after the unlink's stores). A miss adds the eviction
-# loop's chain per victim (tail, nxt, res_since, hcnt, the holder column).
-HIT_STEP_DEPENDENT_LOADS = 5
+# Loads on a list-hit step of lane_engine.cuh, read from the code: O[off],
+# hold[ik], head[i], prv[ik] and nxt[ik], head[i] again after the unlink's
+# stores. A cache-hit attach or a miss adds the eviction loop's loads per
+# victim (tail, nxt, res_since, hcnt, the holder column); the timed
+# chunk's mix of steps is read from the lanes' counters.
+HIT_STEP_LOADS = 5
 
 
-def _same_sim(a, b, what: str) -> None:
+def _max_abs_diff(x, y) -> float:
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    if x.shape != y.shape:
+        return float("inf")
+    return float(np.max(np.abs(x - y))) if x.size else 0.0
+
+
+def _same_sim(a, b, what: str) -> float:
     """Exact equality of two SimResults: occupancy (the integers over one
-    horizon), virtual lengths, counters and the evictions histogram."""
+    horizon), virtual lengths, counters and the evictions histogram.
+    Returns the largest difference (0.0), failing on any other."""
+    ca = (a.n_hit_list, a.n_hit_cache, a.n_miss, a.n_sets_recorded, a.n_primary, a.n_ripple)
+    cb = (b.n_hit_list, b.n_hit_cache, b.n_miss, b.n_sets_recorded, b.n_primary, b.n_ripple)
     pairs = (("occupancy", a.dense_occupancy(), b.dense_occupancy()),
              ("vlen", a.final_vlen, b.final_vlen),
              ("hist", a.evictions_per_set, b.evictions_per_set),
              ("hits", a.hits_by_proxy, b.hits_by_proxy),
-             ("reqs", a.reqs_by_proxy, b.reqs_by_proxy))
+             ("reqs", a.reqs_by_proxy, b.reqs_by_proxy),
+             ("counters", ca, cb))
+    err = 0.0
     for name, x, y in pairs:
-        if not np.array_equal(np.asarray(x), np.asarray(y)):
-            _fail(f"{what}: {name} differs")
-    ca = (a.n_hit_list, a.n_hit_cache, a.n_miss, a.n_sets_recorded, a.n_primary, a.n_ripple)
-    cb = (b.n_hit_list, b.n_hit_cache, b.n_miss, b.n_sets_recorded, b.n_primary, b.n_ripple)
-    if ca != cb:
-        _fail(f"{what}: counters {ca} != {cb}")
+        d = _max_abs_diff(x, y)
+        if d != 0.0:
+            _fail(f"{what}: {name} differs (max abs diff {d})")
+        err = max(err, d)
+    return err
 
 
 def _lane_results(runner, n: int, warmup: int, sparse: bool) -> list:
@@ -1014,15 +1028,22 @@ def _c_lanes(params_of, traces_of, R: int, N: int, warmup: int, sparse: bool) ->
     return out, drivers
 
 
-def _hold_lanes(device, runner, host, lanes, c_lanes, what: str) -> None:
+def _hold_lanes(device, runner, host, lanes, c_lanes, errs: Errors, what: str) -> None:
     """Every lane's whole state on the card equals the host build's, and
-    its outputs equal the host C engine's."""
+    its outputs equal the host C engine's; the largest difference goes
+    into errs (any difference fails)."""
+    err = 0.0
     if device.type == "cuda":
         for k in runner.st:
-            if not torch.equal(runner.st[k].cpu(), host.st[k]):
-                _fail(f"{what}: state {k} on the card differs from the host build")
+            d = float((runner.st[k].cpu().to(torch.int64) - host.st[k].to(torch.int64))
+                      .abs().max())
+            if d != 0.0:
+                _fail(f"{what}: state {k} on the card differs from the host build (max abs "
+                      f"diff {d})")
+            err = max(err, d)
     for r, (x, c) in enumerate(zip(lanes, c_lanes)):
-        _same_sim(x, c, f"{what} lane {r} vs host C")
+        err = max(err, _same_sim(x, c, f"{what} lane {r} vs host C"))
+    errs.max["lane_engine"] = max(errs.max["lane_engine"], err)
 
 
 def _sync(device) -> None:
@@ -1030,7 +1051,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
+def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
     """The main path of the estimator loop (see the module docstring)."""
     res = {}
     # -- Table I system: 8 b-combos x R replicas as sweep lanes ------------
@@ -1069,7 +1090,7 @@ def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
         lambda r: fastsim.SimParams(allocations=tuple(int(x) for x in combos[r]),
                                     physical_capacity=B),
         lambda r: traces[r % R], L, N, warmup, False)
-    _hold_lanes(device, card, host, lanes, c_lanes, "Table I")
+    _hold_lanes(device, card, host, lanes, c_lanes, errs, "Table I")
     c_s = sum(c.elapsed_s for c in c_lanes)
     state_mb = sum(t[0].numel() * 4 for t in card.st.values()) / 1e6
     _log(f"[estimator] Table I: {L} lanes x {n} requests in {card.elapsed:.4f} s of launches "
@@ -1115,7 +1136,7 @@ def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
                               device="cpu")
     host2.feed(P2, O2)
     c2, _ = _c_lanes(lambda r: p2, lambda r: traces2[r], R2, N2, warm2, True)
-    _hold_lanes(device, card2, host2, lanes2, c2, "Fig. 2")
+    _hold_lanes(device, card2, host2, lanes2, c2, errs, "Fig. 2")
     del host2
     c2_s = sum(c.elapsed_s for c in c2)
     agg = np.zeros(8, np.int64)
@@ -1132,12 +1153,13 @@ def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
     res["fig2"] = dict(n=n2, R=R2, elapsed=card2.elapsed, c_s=c2_s)
     del card2
 
-    # -- the Scenario path: Table I preset, 4 replicas, cuda vs c ----------
+    # -- the Scenario path: Table I preset, 4 replicas, default backend vs c -
     scs = get_preset("table1", b=(64, 64, 8), seed=7 + seed).scaled(
         requests=sizes.scenario_requests / sc.n_requests)
-    scs = dataclasses.replace(scs, estimator=dataclasses.replace(scs.estimator, replications=4))
-    on = dataclasses.replace(scs, system=dataclasses.replace(scs.system, backend="cuda"))
-    off = dataclasses.replace(scs, system=dataclasses.replace(scs.system, backend="c"))
+    on = dataclasses.replace(scs, estimator=dataclasses.replace(scs.estimator, replications=4))
+    if on.system.backend != "auto":
+        _fail(f"scenario: the preset's backend is {on.system.backend!r}, not the default")
+    off = dataclasses.replace(on, system=dataclasses.replace(on.system, backend="c"))
     _sync(device)
     t0 = time.perf_counter()
     rep = on.run(device=device)
@@ -1147,14 +1169,14 @@ def phase_estimator(device, sizes: Sizes, seed: int) -> dict:
     rep_c = off.run()
     wall_off = time.perf_counter() - t0
     if not (rep.same_estimates(rep_c) and rep_c.same_estimates(rep)):
-        _fail("scenario: the cuda Report's estimates differ from the c Report's")
+        _fail("scenario: the default backend's estimates differ from the c Report's")
     if rep.backend != "cuda" or not rep.ensemble["batched"]:
         _fail(f"scenario: ran on {rep.backend}, batched={rep.ensemble['batched']}")
     if not (np.all(np.isfinite(rep.hit_rate)) and rep.dense_hit_prob().shape == (3, N)):
         _fail("scenario: hit rates not finite or hit_prob of the wrong shape")
     _log(f"[estimator] Scenario table1 b=(64, 64, 8), {scs.n_requests} requests x 4 replicas: "
-         f"backend cuda {wall_on:.3f} s wall (Report elapsed {rep.elapsed_s:.4f} s, "
-         f"{rep.throughput_rps:.0f} requests/s), backend c {wall_off:.3f} s wall (elapsed "
+         f"backend auto (ran {rep.backend}) {wall_on:.3f} s wall (Report elapsed "
+         f"{rep.elapsed_s:.4f} s, {rep.throughput_rps:.0f} requests/s), backend c {wall_off:.3f} s wall (elapsed "
          f"{rep_c.elapsed_s:.4f} s); same_estimates both ways; overall hit rate "
          f"{rep.overall_hit_rate:.6f}, per proxy {np.round(rep.hit_rate, 6).tolist()}")
     res["scenario"] = dict(sc=on, wall=wall_on, wall_c=wall_off, report=rep)
@@ -1208,6 +1230,7 @@ def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
     lam = irm.rate_matrix(card.N, (0.75, 0.5, 1.0))
     chunks = [irm.sample_trace(lam, m, seed=int(rng.integers(2**31))) for _ in range(6 * R)]
     times, plain, c_ms = [], [], []
+    sc0 = card.st["sc"].to(torch.int64).sum(0).cpu()
     for i in range(6):
         tr = chunks[i * R:(i + 1) * R]
         P = np.stack([tr[lane % R].proxies for lane in range(L)]).astype(np.int32)
@@ -1229,6 +1252,11 @@ def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
             drv.feed(P[lane], O[lane].astype(np.int64))
         c_ms.append(1e3 * (time.perf_counter() - t0))
     ms, plain_ms, c_med = (float(np.median(x[1:])) for x in (times, plain, c_ms))
+    # the chunks' mix of steps, from the counters of all lanes
+    d = dict(zip(SCALARS, (card.st["sc"].to(torch.int64).sum(0).cpu() - sc0).tolist()))
+    steps = d["n_hit_list"] + d["n_hit_cache"] + d["n_miss"]
+    mix = {k: d[k] / steps for k in ("n_hit_list", "n_hit_cache", "n_miss")}
+    set_evict_per_req = (d["n_prim"] + d["n_rip"]) / steps     # a miss's set only
     state = sum(t.numel() * 4 for t in card.st.values())
     n_bytes = 2 * state + 2 * L * m * 4 + card.lengths.numel() * 4 + card.share.numel() * 4
     r = dict(ms=ms, plain_ms=plain_ms, library_ms=c_med, shape=f"{L} lanes x {m} requests",
@@ -1239,8 +1267,11 @@ def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
          f"(median of 5 after one), {L * m / ms * 1e3:.0f} requests/s for all lanes, "
          f"{m / ms * 1e3:.0f} per lane; host build {plain_ms:.4f} ms; host C engine "
          f"{c_med:.4f} ms; bound {r['bound_ms']:.6f} ms (bytes: {n_bytes / 1e6:.3f} MB); "
-         f"{per_req_ns:.1f} ns per request per lane = {per_req_ns / HIT_STEP_DEPENDENT_LOADS:.1f}"
-         f" ns per dependent load of a hit step ({HIT_STEP_DEPENDENT_LOADS}); "
+         f"{per_req_ns:.1f} ns per request per lane; steps: list hits {mix['n_hit_list']:.4f}, "
+         f"cache-hit attaches {mix['n_hit_cache']:.4f}, misses {mix['n_miss']:.4f}; evictions "
+         f"of a miss's set {set_evict_per_req:.4f} a request (an attach's are not counted); a "
+         f"list hit is {HIT_STEP_LOADS} loads, read from the code; the other steps add the "
+         f"eviction loop's; "
          f"{min(L, torch.cuda.get_device_properties(device).multi_processor_count)} of "
          f"{torch.cuda.get_device_properties(device).multi_processor_count} SMs hold a lane")
     return r
@@ -1293,7 +1324,7 @@ def main(argv=None) -> int:
          f"{live_launches['flash_attention'] / sizes.live_requests * k3_ms / prefill_ms:.4f}")
     reset_launches()                                  # the estimator path starts here
     t_est = time.perf_counter()
-    est = phase_estimator(device, sizes, args.seed)
+    est = phase_estimator(device, sizes, errs, args.seed)
     est_launches = launches()                         # ... and ends here
     _log(f"[estimator] launches: {est_launches}")
     if est_launches["lane_engine"] == 0:

@@ -882,18 +882,20 @@ def simulate_trace(
     (window reset at ``warmup``), ripple statistics from ``ripple_from``
     (default: ``warmup``) onward.
 
-    ``engine="auto"`` picks the fastest applicable backend: the native C
-    loop (:mod:`repro_torch.core.fastsim_c`, compiled on demand with the
+    ``engine="auto"`` is :func:`pick_engine`'s choice: the CUDA lane
+    engine (:mod:`repro_torch.core.fastsim_cuda`) on ``device`` for the
+    flat shared LRU without delayed batching inside the lane engine's
+    int32 envelope; elsewhere a host engine — the native C loop
+    (:mod:`repro_torch.core.fastsim_c`, compiled on demand with the
     system compiler) for the flat shared-LRU and not-shared variants,
     the allocation-free inlined Python loop when no C compiler is
     around, and the generic per-operation loop for the segmented
     variant. ``engine="c"`` / ``"flat"`` / ``"generic"`` / ``"cuda"``
     force a specific backend (the equivalence tests diff them against
-    each other). ``engine="cuda"`` runs the lane engine
-    (:mod:`repro_torch.core.fastsim_cuda`) on ``device``: ``None`` is the
+    each other). The lane engine runs on ``device``: ``None`` is the
     CUDA card (raises without one), ``"cpu"`` runs the same step body
-    built for the host. It never wins "auto", which keeps the reference's
-    host engines; a failed build or launch raises.
+    built for the host. A failed build or launch raises; nothing gives
+    way to a host engine.
 
     ``sparse=True`` returns occupancy as a :class:`SparseOccupancy`
     (indices, values) pair instead of the dense ``(J, N)`` matrix; the
@@ -947,7 +949,8 @@ def simulate_chunks(
     ``n_requests`` must equal the total chunk length (it fixes the
     default warmup before the stream is consumed). With ``sparse=True``
     (default) occupancy comes back as :class:`SparseOccupancy`.
-    ``device`` is read only by ``engine="cuda"``.
+    ``engine="auto"`` resolves as in :func:`simulate_trace`; ``device``
+    is read only by the lane engine.
     """
     if engine not in ("auto", "c", "flat", "generic", "cuda"):
         raise ValueError(
@@ -977,6 +980,7 @@ def simulate_chunks(
             raise ValueError("object lengths must be positive")
 
     J = len(params.allocations)
+    engine = pick_engine(engine, params, n, N, lengths_a)
     driver, engine_name, vlen_scale = make_chunk_driver(
         params, N, lengths_a, warmup, ripple_from, engine=engine, n_requests=n,
         device=device,
@@ -1016,7 +1020,10 @@ def make_chunk_driver(
     ``feed(proxies, objects)`` / ``finish(n_total)`` protocol with state
     resident between feeds, and ``n_requests`` (total stream length, when
     known up front) only gates the int32-envelope check of the CUDA
-    backend, which runs on ``device`` (``None``: the card).
+    backend, which runs on ``device`` (``None``: the card). Here
+    ``engine="auto"`` is the host engines only (the cluster's nodes, whose
+    forked workers must never touch CUDA); :func:`simulate_chunks`
+    resolves "auto" with :func:`pick_engine` before it gets here.
     """
     N = int(n_objects)
     lengths_a = np.ascontiguousarray(np.asarray(lengths), dtype=np.int64)
@@ -1071,6 +1078,27 @@ def make_chunk_driver(
             driver = _FlatDriver(params, N, lengths_a, warmup, ripple_from)
             engine_name = "flat"
     return driver, engine_name, vlen_scale
+
+
+def pick_engine(
+    engine: str,
+    params: SimParams,
+    n_requests: int,
+    n_objects: int,
+    lengths: np.ndarray,
+) -> str:
+    """What ``engine="auto"`` runs for one Monte-Carlo run: ``"cuda"`` (the
+    lane engine, on the run's device) for the flat shared LRU without
+    delayed batching inside :func:`_xla_applicable`'s envelope, else
+    ``"auto"`` (the host engines). A forced engine comes back as it is."""
+    if (
+        engine == "auto"
+        and params.variant == "lru"
+        and params.batch_interval == 0
+        and _xla_applicable(n_requests, n_objects, lengths, params)
+    ):
+        return "cuda"
+    return engine
 
 
 # Backends that can honour a forced-engine request, per variant.
@@ -1150,23 +1178,31 @@ def _make_cuda(params, n_objects, lengths, warmup, ripple_from, scale, device):
 
 
 def _xla_applicable(
-    n: int, n_objects: int, lengths: np.ndarray, params: SimParams
+    n: int,
+    n_objects: int,
+    lengths: np.ndarray,
+    params: SimParams,
+    bhat_rows: Optional[np.ndarray] = None,
 ) -> bool:
-    """int32-exactness envelope of the lane engine (its state is int32)."""
+    """int32-exactness envelope of the lane engine (its state is int32).
+    ``bhat_rows`` are per-lane ripple allocations (sweep lanes), in place
+    of ``params``' own."""
     J = len(params.allocations)
     scale = _lcm_1_to(J)
     # vlen is bounded by the *ripple* allocation (plus one transient
     # attach), so b_hat — not b — sets the envelope.
-    b_hat = (
-        params.ripple_allocations
-        if params.ripple_allocations is not None
-        else params.allocations
-    )
+    if bhat_rows is None:
+        bhat_rows = (
+            params.ripple_allocations
+            if params.ripple_allocations is not None
+            else params.allocations
+        )
+    bhat_max = int(np.max(bhat_rows)) if np.size(bhat_rows) else 0
     return (
         n < 2**31
         and J * n_objects < 2**31
         and int(np.max(lengths)) * scale * (J + 1) < 2**31
-        and max(b_hat, default=0) * scale < 2**30
+        and bhat_max * scale < 2**30
     )
 
 

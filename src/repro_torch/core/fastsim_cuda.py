@@ -10,12 +10,13 @@ runs in :func:`repro_torch.kernels.lane_engine.lane_engine`: a CUDA
 kernel with one thread per lane for CUDA devices, the same step body
 built for the host for ``device="cpu"``.
 
-* :class:`CudaChunkRunner` — one lane (``XLAChunkRunner``'s place), what
-  ``fastsim.simulate_trace(engine="cuda")`` drives.
 * :class:`BatchedCudaRunner` — R lanes in one launch per chunk, with
   optional per-lane ``(b, b_hat)`` sweep points
   (``BatchedXLARunner``'s place); lane r is bit-identical to a single
   run on trace r.
+* :class:`CudaChunkRunner` — the batched runner with R = 1, fed and
+  finished as one cache (``XLAChunkRunner``'s place), what
+  ``fastsim.simulate_trace`` drives on the lane engine.
 * :func:`simulate_ensemble` — R replicas through the batched runner.
 
 The runners keep the reference's host side: a chunk is split at
@@ -24,12 +25,11 @@ The runners keep the reference's host side: a chunk is split at
 :data:`MAX_LAUNCH_REQUESTS` is fed in pieces, so that no single launch
 runs for long; ``finish`` closes open residence intervals in int64.
 ``elapsed`` counts launches only: the kernel is built and its module
-loaded by an empty launch when the runner is made, each piece is
-copied to the device before the clock starts, and the clock stops at a
-synchronize.
+loaded (no launch) when the runner is made, each piece is copied to the
+device before the clock starts, and the clock stops at a synchronize.
 
 All arithmetic is int32 (exact): the runners refuse work outside
-``fastsim._xla_applicable``'s envelope.
+``fastsim._xla_applicable``'s envelope, sweep lanes included.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import lane_engine as le
 
-from .fastsim import HIST_BUCKETS
+from .fastsim import HIST_BUCKETS, _xla_applicable
 
 HIST_MAX = HIST_BUCKETS
 assert le.HIST == HIST_BUCKETS
@@ -52,9 +52,14 @@ MAX_LAUNCH_REQUESTS = 1 << 20
 _T_START = le.SCALARS.index("t_start")
 
 
-class _RunnerBase:
-    """Shared chunk-feeding machinery: state on the device, warmup split,
-    timed launches, output assembly."""
+class BatchedCudaRunner:
+    """R-lane ensemble driver: one launch per chunk advances R independent
+    engines, lane r through its own trace, with the state on the device
+    between feeds. ``feed`` takes stacked ``(R, m)`` proxy/object chunks.
+    With ``b_sweep`` / ``bhat_sweep`` ((R, J), raw allocation units) each
+    lane gets its own eviction thresholds. Lane r is bit-identical to
+    :class:`CudaChunkRunner` fed trace r with that lane's thresholds.
+    ``finish`` returns one output dict per lane."""
 
     def __init__(
         self,
@@ -64,7 +69,7 @@ class _RunnerBase:
         warmup: int,
         ripple_from: int,
         scale: int,
-        replications: int = 1,
+        replications: int,
         *,
         b_sweep=None,
         bhat_sweep=None,
@@ -96,10 +101,8 @@ class _RunnerBase:
                 raise ValueError("sweep arrays must have shape (R, J)")
             if np.any(bh_rows < b_rows):
                 raise ValueError("sweep points must satisfy b_hat >= b")
-            if np.any(bh_rows * scale >= 2**30):
-                raise ValueError(
-                    "sweep points exceed the lane engine's int32-exactness envelope"
-                )
+        if not _xla_applicable(0, self.N, np.asarray(lengths), params, bh_rows):
+            raise ValueError("the lane engine's int32-exactness envelope is exceeded")
         share = [0] + [scale // p for p in range(1, J + 1)] + [0]
         self.ghost_retention = bool(params.ghost_retention)
         self.warmup = int(warmup)
@@ -115,10 +118,7 @@ class _RunnerBase:
         self.idx = 0
         self.elapsed = 0.0
         self.launch_s: List[float] = []   # wall seconds of each timed launch
-        # build the kernel and load its module outside the clock
-        empty = torch.zeros((self.R, 0), dtype=torch.int32, device=dev)
-        self._launch(empty, empty)
-        self._sync()
+        le.load(dev)    # build the kernel and load its module outside the clock
 
     # -- launches -------------------------------------------------------
     def _sync(self) -> None:
@@ -219,63 +219,6 @@ class _RunnerBase:
         }
 
 
-class CudaChunkRunner(_RunnerBase):
-    """Chunk-fed lane engine for one cache: state carried on the device
-    across ``feed`` calls. Same ``feed`` / ``finish`` / ``elapsed``
-    interface as the C and Python chunk drivers of
-    :mod:`repro_torch.core.fastsim` / :mod:`repro_torch.core.fastsim_c`."""
-
-    def __init__(
-        self,
-        params,
-        n_objects: int,
-        lengths,
-        warmup: int,
-        ripple_from: int,
-        scale: int,
-        *,
-        device: DeviceLike = None,
-    ) -> None:
-        super().__init__(
-            params, n_objects, lengths, warmup, ripple_from, scale, 1, device=device
-        )
-
-    def feed(self, proxies, objects) -> None:
-        n = len(proxies)
-        self._feed_arrays(*self._ids(proxies, objects, (1, n)))
-
-    def finish(self, n_total: int) -> Dict[str, np.ndarray]:
-        return self._finish_lane(0, n_total)
-
-
-class BatchedCudaRunner(_RunnerBase):
-    """R-lane ensemble driver: one launch per chunk advances R independent
-    engines, lane r through its own trace. ``feed`` takes stacked
-    ``(R, m)`` proxy/object chunks. With ``b_sweep`` / ``bhat_sweep``
-    ((R, J), raw allocation units) each lane gets its own eviction
-    thresholds. Lane r is bit-identical to :class:`CudaChunkRunner` fed
-    trace r with that lane's thresholds. ``finish`` returns one output
-    dict per lane."""
-
-    def __init__(
-        self,
-        params,
-        n_objects: int,
-        lengths,
-        warmup: int,
-        ripple_from: int,
-        scale: int,
-        replications: int,
-        *,
-        b_sweep=None,
-        bhat_sweep=None,
-        device: DeviceLike = None,
-    ) -> None:
-        super().__init__(
-            params, n_objects, lengths, warmup, ripple_from, scale, replications,
-            b_sweep=b_sweep, bhat_sweep=bhat_sweep, device=device,
-        )
-
     def feed(self, proxies, objects) -> None:
         P = np.asarray(proxies)
         if P.ndim != 2 or P.shape[0] != self.R:
@@ -287,6 +230,24 @@ class BatchedCudaRunner(_RunnerBase):
 
     def finish(self, n_total: int) -> List[Dict[str, np.ndarray]]:
         return [self._finish_lane(r, n_total) for r in range(self.R)]
+
+
+class CudaChunkRunner(BatchedCudaRunner):
+    """The lane engine for one cache: :class:`BatchedCudaRunner` with R = 1,
+    with the ``feed`` / ``finish`` / ``elapsed`` interface of the C and
+    Python chunk drivers of :mod:`repro_torch.core.fastsim` /
+    :mod:`repro_torch.core.fastsim_c`."""
+
+    def __init__(self, params, n_objects, lengths, warmup, ripple_from, scale, *,
+                 device: DeviceLike = None) -> None:
+        super().__init__(params, n_objects, lengths, warmup, ripple_from, scale, 1,
+                         device=device)
+
+    def feed(self, proxies, objects) -> None:
+        super().feed(np.asarray(proxies).reshape(1, -1), np.asarray(objects).reshape(1, -1))
+
+    def finish(self, n_total: int) -> Dict[str, np.ndarray]:
+        return super().finish(n_total)[0]
 
 
 def simulate_ensemble(
@@ -315,7 +276,7 @@ def simulate_ensemble(
     batch, so aggregate throughput is
     ``sum(r.requests_per_sec for r in results)``.
     """
-    from .fastsim import _assemble, _validate_params, _xla_applicable, default_warmup
+    from .fastsim import _assemble, _validate_params, default_warmup
     from .shared_lru import _lcm_1_to
 
     _validate_params(params)

@@ -21,8 +21,15 @@ __global__ void __launch_bounds__(1) lane_engine_kernel(const lane_engine::Args 
 
 }  // namespace
 
-// Advance R lanes by one chunk of m requests each (m = 0 launches an empty
-// kernel, which loads the module). Returns the launch's cudaError_t.
+// Load the kernel's module without launching it (asking for the kernel's
+// attributes loads a lazily loaded module). Returns the cudaError_t.
+extern "C" int repro_lane_engine_load() {
+  cudaFuncAttributes attr;
+  return static_cast<int>(cudaFuncGetAttributes(&attr, lane_engine_kernel));
+}
+
+// Advance R lanes by one chunk of m requests each. Returns the launch's
+// cudaError_t.
 extern "C" int repro_lane_engine(const uint64_t* fields, const int32_t* P, const int32_t* O,
                                  const int32_t* lengths, const int32_t* share, int R, int J,
                                  int N, int m, int idx0, int B, int warmup, int ripple_from,

@@ -12,8 +12,9 @@ yardstick, so the plain version is the same serial body on the host.
 
 :func:`lane_engine` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it counts its launches in
-``lane_engine.launches``. The state is the dict of :func:`init_state`,
-updated in place: the kernel allocates nothing.
+``lane_engine.launches``. :func:`load` builds either and loads the
+kernel's module without a launch. The state is the dict of
+:func:`init_state`, updated in place: the kernel allocates nothing.
 """
 
 from __future__ import annotations
@@ -85,6 +86,17 @@ def _fn(device: torch.device):
     return fn
 
 
+def load(device: torch.device) -> None:
+    """Build the lane engine for ``device`` and, on a CUDA device, load the
+    kernel's module, so that the first launch pays neither (no launch)."""
+    _fn(device)
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            rc = _build.load("lane_engine").repro_lane_engine_load()
+        if rc != 0:
+            raise RuntimeError(f"lane engine module failed to load: cudaError {rc}")
+
+
 def field_table(st: Dict[str, torch.Tensor]) -> ctypes.Array:
     """The pointer table the C entry points take (stable while the state
     is updated in place; a runner builds it once)."""
@@ -145,8 +157,11 @@ def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
     ``st`` in place. ``P`` and ``O`` are (R, m) int32 with proxies in
     [0, J) and objects in [0, N) (the caller checks them). CUDA tensors
     launch the kernel on the current stream (no synchronisation); CPU
-    tensors run :func:`lane_engine_plain`. ``table`` is
-    :func:`field_table` of ``st``, if the caller keeps one."""
+    tensors run :func:`lane_engine_plain`; m = 0 does nothing. ``table``
+    is :func:`field_table` of ``st``, if the caller keeps one."""
+    if P.dim() == 2 and P.shape[1] == 0:
+        _check(st, P, O, lengths, share, idx0)
+        return
     if P.device.type == "cpu":
         lane_engine_plain(st, P, O, idx0=idx0, lengths=lengths, share=share, B=B,
                           warmup=warmup, ripple_from=ripple_from, ghost=ghost, table=table)

@@ -3,9 +3,11 @@
 Dispatches on the system and estimator:
 
 * ``monte_carlo`` — samples the workload's trace and drives it through
-  :func:`repro_torch.core.fastsim.simulate_trace` (C / inlined-Python
-  host backends, or the CUDA lane engine with ``backend="cuda"``) or, with ``System(backend="reference")``, through the
-  hookable executable-spec caches of :mod:`repro_torch.core.shared_lru` /
+  :func:`repro_torch.core.fastsim.simulate_trace` — the CUDA lane engine
+  on the run's device for the flat shared LRU (``backend="auto"`` or
+  ``"cuda"``), the C / inlined-Python host backends for the other
+  variants, the cluster and a forced host backend — or, with
+  ``System(backend="reference")``, through the hookable executable-spec caches of :mod:`repro_torch.core.shared_lru` /
   :mod:`repro_torch.core.slru` (event-equivalent, orders of magnitude slower —
   small runs and debugging). Large runs stream instead: past the
   ``STREAMING_*`` thresholds (or with ``Estimator(streaming=True)``)
@@ -469,25 +471,32 @@ def _run_monte_carlo_ensemble(
     """R-replica Monte-Carlo run (``Estimator(replications=R)``).
 
     Replica trace seeds come from :func:`ensemble_seeds` (replica 0 is
-    bit-identical to a single run). On ``backend="cuda"`` (flat LRU, no
-    delayed batching) all replicas run batched, one lane each, in the
-    CUDA lane engine on ``device`` via
+    bit-identical to a single run). When the lane engine runs
+    (``backend="cuda"``, or ``"auto"`` where
+    :func:`~repro_torch.core.fastsim.pick_engine` picks it: flat LRU, no
+    delayed batching, inside the int32 envelope) all replicas run
+    batched, one lane each, on ``device`` via
     :func:`repro_torch.core.fastsim_cuda.simulate_ensemble`;
     every other backend runs the replicas sequentially with identical
     per-replica results. The Report carries cross-replica means in the
     main fields and the per-replica estimates in ``Report.ensemble``.
     """
-    from repro_torch.core.fastsim import _xla_applicable
+    from repro_torch.core.fastsim import _xla_applicable, pick_engine
 
     system, est = sc.system, sc.estimator
     R = est.replications
     seeds = ensemble_seeds(trace_seed, R)
     params = system.to_sim_params()
     ripple_from = sc.ripple_from
+    engine = system.backend
+    if engine != "reference":
+        engine = pick_engine(
+            engine, params, n, sc.workload.n_objects, np.asarray(lengths)
+        )
     batched = False
     results = None
     if (
-        system.backend == "cuda"
+        engine == "cuda"
         and system.variant == "lru"
         and system.batch_interval == 0
         and _xla_applicable(
@@ -536,7 +545,7 @@ def _run_monte_carlo_ensemble(
                         lengths=lengths,
                         warmup=warmup,
                         ripple_from=ripple_from,
-                        engine=system.backend,
+                        engine=engine,
                         sparse=True,
                         device=device,
                     )
@@ -550,7 +559,7 @@ def _run_monte_carlo_ensemble(
                         lengths=lengths,
                         warmup=warmup,
                         ripple_from=ripple_from,
-                        engine=system.backend,
+                        engine=engine,
                         device=device,
                     )
                 )

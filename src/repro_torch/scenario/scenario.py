@@ -70,10 +70,11 @@ class Scenario:
         """Produce a Report with the configured estimator.
 
         ``device`` is where the runs that use one go: the CUDA lane
-        engine (``backend="cuda"``) and the working-set solve. ``None``
-        is the CUDA card (raises without one); ``"cpu"`` runs the same
-        code on the host. Host backends ignore it. It is not part of the
-        scenario and never enters its JSON."""
+        engine (``backend="cuda"``, and ``"auto"`` on a flat-LRU
+        Monte-Carlo run) and the working-set solve. ``None`` is the CUDA
+        card (raises without one); ``"cpu"`` runs the same code on the
+        host. Host backends ignore it. It is not part of the scenario and
+        never enters its JSON."""
         from .runner import run_scenario
 
         return run_scenario(self, device=device)

@@ -23,10 +23,13 @@ from repro_torch.core.fastsim import SimParams
 from repro_torch.core.workingset import ATTRIBUTIONS
 
 VARIANTS = ("lru", "slru", "noshare", "pooled")
-# "auto" lets fastsim pick a host engine (C loop when a compiler exists,
-# else the inlined Python loop); "cuda" runs the lane engine on the
-# device the run is given (the card by default); "reference" drives the
-# hookable executable-spec classes (slow — small runs and debugging only).
+# "auto" runs the lane engine on the device the run is given (the card by
+# default) where it applies — flat LRU, no delayed batching, inside its
+# int32 envelope, not a cluster — and a host engine elsewhere (C loop when
+# a compiler exists, else the inlined Python loop); "cuda" forces the lane
+# engine; "c" / "flat" / "generic" force a host engine; "reference"
+# drives the hookable executable-spec classes (slow — small runs and
+# debugging only).
 BACKENDS = ("auto", "c", "flat", "generic", "cuda", "reference")
 ESTIMATORS = ("monte_carlo", "working_set")
 
@@ -144,11 +147,13 @@ class System:
     hot_frac / warm_frac:
         S-LRU segment split (``variant="slru"`` only).
     backend:
-        Execution engine: ``auto`` (C loop when a compiler exists, else
+        Execution engine: ``auto`` (the lane engine on the run's device,
+        ``Scenario.run(device=...)``, for a flat-LRU Monte-Carlo run
+        without delayed batching inside its int32 envelope; otherwise,
+        and always for a cluster, the C loop when a compiler exists, else
         the inlined Python loop), ``c``, ``flat``, ``generic``, ``cuda``
-        (the lane engine on the run's device: ``Scenario.run(device=...)``),
-        or ``reference`` (the hookable executable-spec classes — slow,
-        small runs and debugging only).
+        (the lane engine, forced), or ``reference`` (the hookable
+        executable-spec classes — slow, small runs and debugging only).
     admission:
         Optional :class:`AdmissionSpec` enabling the online Section
         IV-C admission-control loop (tenant-churn workloads only).

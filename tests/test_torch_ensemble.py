@@ -155,7 +155,7 @@ def test_scenario_ensemble_equals_reference(streaming):
     assert port.extras["streaming"] is streaming
     _same_both_ways(port, ref)
     seq = dataclasses.replace(port_sc, system=dataclasses.replace(port_sc.system,
-                                                                  backend="auto")).run()
+                                                                  backend="c")).run()
     assert seq.ensemble["batched"] is False
     assert seq.same_estimates(port)
 

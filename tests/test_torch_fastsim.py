@@ -146,6 +146,12 @@ def test_envelope_and_unsupported_options_raise(trace):
         fastsim_cuda.simulate_ensemble(p, [trace], N_OBJ, lengths=big, device="cpu")
     assert not fastsim._xla_applicable(N_REQ, N_OBJ, big, p)
     assert fastsim._xla_applicable(N_REQ, N_OBJ, np.ones(N_OBJ), p)
+    # sweep lanes: one envelope, over every lane's b_hat
+    rows = np.array([[8, 8, 6], [8, 8, 2**28]])
+    assert not fastsim._xla_applicable(N_REQ, N_OBJ, np.ones(N_OBJ), p, rows)
+    with pytest.raises(ValueError, match="envelope"):
+        fastsim_cuda.BatchedCudaRunner(p, N_OBJ, np.ones(N_OBJ), 0, 0, 6, 2, b_sweep=rows,
+                                       bhat_sweep=rows, device="cpu")
 
 
 def test_histogram_clamps_into_the_last_bucket():

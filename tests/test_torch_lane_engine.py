@@ -90,8 +90,30 @@ def test_cuda_engine_needs_a_card_unless_cpu_is_named(trace, monkeypatch):
         simulate_trace(p, trace, N_OBJ, engine="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fastsim_cuda.simulate_ensemble(p, [trace], N_OBJ)
+    # "auto" runs the flat shared LRU on the lane engine: on the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_trace(p, trace, N_OBJ, engine="auto")
+    assert simulate_trace(p, trace, N_OBJ, engine="auto", device="cpu").engine == "cuda"
     # host engines take no device
-    assert simulate_trace(p, trace, N_OBJ, engine="auto").engine in ("c", "flat")
+    assert simulate_trace(p, trace, N_OBJ, engine="c").engine == "c"
+
+
+def test_auto_picks_the_lane_engine_only_where_it_applies():
+    n, ones = N_REQ, np.ones(N_OBJ, np.int64)
+    lru = SimParams(allocations=(8, 8, 6), physical_capacity=60)
+    assert fastsim.pick_engine("auto", lru, n, N_OBJ, ones) == "cuda"
+    for forced in ("c", "flat", "generic", "cuda"):
+        assert fastsim.pick_engine(forced, lru, n, N_OBJ, ones) == forced
+    host = [
+        dataclasses.replace(lru, batch_interval=5),
+        dataclasses.replace(lru, variant="slru"),
+        dataclasses.replace(lru, variant="noshare"),
+        dataclasses.replace(lru, variant="pooled"),
+    ]
+    for p in host:
+        assert fastsim.pick_engine("auto", p, n, N_OBJ, ones) == "auto", p
+    big = np.full(N_OBJ, 2**28, np.int64)          # outside the int32 envelope
+    assert fastsim.pick_engine("auto", lru, n, N_OBJ, big) == "auto"
 
 
 def test_host_build_launches_nothing(trace):
@@ -125,7 +147,7 @@ def test_kernel_equals_host_build_and_c_engine(card, lam, kw):
     traces = [sample_trace(lam, N_REQ, seed=10 + r) for r in range(6)]
     le.lane_engine.launches = 0
     on_card = _runs(p, traces, N_OBJ, WARMUP, 6, card)
-    assert le.lane_engine.launches == 3       # the module load, then the warmup split
+    assert le.lane_engine.launches == 2       # the warmup split; the module load is no launch
     host = _runs(p, traces, N_OBJ, WARMUP, 6, "cpu")
     for k in on_card.st:
         assert torch.equal(on_card.st[k].cpu(), host.st[k]), k
@@ -173,8 +195,10 @@ def test_kernel_at_fig2_width_equals_host_build_and_c(card):
 def test_table1_scenario_on_the_card_equals_c(card):
     sc = get_preset("table1", b=(64, 8, 64)).scaled(requests=5e-3)
     sc = dataclasses.replace(sc, estimator=dataclasses.replace(sc.estimator, replications=4))
-    on = dataclasses.replace(sc, system=dataclasses.replace(sc.system, backend="cuda"))
     off = dataclasses.replace(sc, system=dataclasses.replace(sc.system, backend="c"))
-    got, want = on.run(device=card), off.run()
-    assert got.backend == "cuda" and got.ensemble["batched"] is True
-    assert got.same_estimates(want) and want.same_estimates(got)
+    want = off.run()
+    for backend in ("cuda", "auto"):      # "auto" runs the lane engine on the card
+        on = dataclasses.replace(sc, system=dataclasses.replace(sc.system, backend=backend))
+        got = on.run(device=card)
+        assert got.backend == "cuda" and got.ensemble["batched"] is True
+        assert got.same_estimates(want) and want.same_estimates(got)

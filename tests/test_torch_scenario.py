@@ -82,13 +82,15 @@ def _same_both_ways(port: Report, ref: JReport) -> None:
     assert as_port.same_estimates(port) and port.same_estimates(as_port)
 
 
-@pytest.mark.parametrize("backend", ["cuda", "c"])
+@pytest.mark.parametrize("backend", ["cuda", "c", "auto"])
 @pytest.mark.parametrize("name,kw,scale", PRESETS, ids=[p[0] for p in PRESETS])
 def test_preset_report_equals_reference(name, kw, scale, backend):
+    """"auto" runs these flat-LRU presets on the lane engine."""
     port_sc, ref_sc = _pair(name, kw, scale, backend)
     assert port_sc.to_dict()["workload"] == ref_sc.to_dict()["workload"]
     port, ref = port_sc.run(device=CPU), ref_sc.run()
-    assert port.backend == backend and port.n_requests == ref.n_requests > 0
+    ran = "cuda" if backend == "auto" else backend
+    assert port.backend == ran and port.n_requests == ref.n_requests > 0
     _same_both_ways(port, ref)
     assert port.ripple["n_sets_recorded"] > 0
 
@@ -129,12 +131,16 @@ def test_device_none_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_preset("table2_ws").run()
-    port_sc, _ = _pair("table1", {}, (5e-4, 1.0), "cuda")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_sc.run()
-    # the host engines take no device
-    host_sc, _ = _pair("table1", {}, (5e-4, 1.0), "auto")
-    assert host_sc.run().backend in ("c", "flat")
+    for backend in ("cuda", "auto"):
+        port_sc, _ = _pair("table1", {}, (5e-4, 1.0), backend)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_sc.run()
+    # a forced host engine, and "auto" where the lane engine does not
+    # apply, take no device
+    host_sc, _ = _pair("table1", {}, (5e-4, 1.0), "c")
+    assert host_sc.run().backend == "c"
+    noshare_sc, _ = _pair("table3_noshare", {}, (5e-4, 1.0), "auto")
+    assert noshare_sc.run().backend in ("c", "flat")
 
 
 def test_cluster_copy_equals_reference():

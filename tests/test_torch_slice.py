@@ -178,16 +178,19 @@ def test_chip_smoke_live_phase_on_cpu_at_small_size():
 def test_chip_smoke_estimator_phase_on_cpu_at_small_size():
     """Phase 8 at a small size: the lane engine's host build in the place
     of the kernel (every lane still held to the host C engine), the
-    Scenario path on backend="cuda" with device="cpu" against backend="c",
+    Scenario path on its default backend with device="cpu" (the lane
+    engine's host build) against backend="c",
     and the batched working-set solve."""
     import chip_smoke as cs
 
     sizes = cs.Sizes(table1_requests=20_000, table1_replicas=2, fig2_requests=6_000,
                      fig2_replicas=2, fig2_catalogue=0.001, scenario_requests=10_000)
-    est = cs.phase_estimator(torch.device("cpu"), sizes, seed=0)
+    errs = cs.Errors()
+    est = cs.phase_estimator(torch.device("cpu"), sizes, errs, seed=0)
     t1 = est["table1"]
     assert t1["L"] == 16 and t1["card"].idx == 20_000 and t1["card"].elapsed > 0
     assert est["fig2"]["R"] == 2 and est["fig2"]["n"] == 6_000
+    assert errs.max["lane_engine"] == 0.0
     rep = est["scenario"]["report"]
     assert rep.backend == "cuda" and rep.replications == 4 and rep.ensemble["batched"]
     assert cs.profile_scenario(torch.device("cpu"), est)["busy_ms"] is None
