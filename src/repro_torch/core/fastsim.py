@@ -885,7 +885,8 @@ def simulate_trace(
     ``engine="auto"`` is :func:`pick_engine`'s choice: the CUDA lane
     engine (:mod:`repro_torch.core.fastsim_cuda`) on ``device`` for the
     flat shared LRU without delayed batching inside the lane engine's
-    int32 envelope; elsewhere a host engine — the native C loop
+    int32 envelope, when the lane fits the device's free memory;
+    elsewhere (and for ``engine="host"``) a host engine — the native C loop
     (:mod:`repro_torch.core.fastsim_c`, compiled on demand with the
     system compiler) for the flat shared-LRU and not-shared variants,
     the allocation-free inlined Python loop when no C compiler is
@@ -949,16 +950,18 @@ def simulate_chunks(
     ``n_requests`` must equal the total chunk length (it fixes the
     default warmup before the stream is consumed). With ``sparse=True``
     (default) occupancy comes back as :class:`SparseOccupancy`.
-    ``engine="auto"`` resolves as in :func:`simulate_trace`; ``device``
-    is read only by the lane engine.
+    ``engine="auto"`` resolves as in :func:`simulate_trace`, and
+    ``engine="host"`` is what "auto" runs where the lane engine does not
+    apply (the host engines' own choice); ``device`` is read only by the
+    lane engine and by "auto" (whether the lane fits it).
     """
-    if engine not in ("auto", "c", "flat", "generic", "cuda"):
+    if engine not in ("auto", "host", "c", "flat", "generic", "cuda"):
         raise ValueError(
-            f"unknown engine {engine!r}; options: auto, c, flat, generic, cuda"
+            f"unknown engine {engine!r}; options: auto, host, c, flat, generic, cuda"
         )
     _validate_params(params)
     allowed = _ENGINES_BY_VARIANT[params.variant]
-    if engine != "auto" and engine not in allowed:
+    if engine not in ("auto", "host") and engine not in allowed:
         raise ValueError(
             f"engine {engine!r} does not support variant {params.variant!r}; "
             f"options: auto, {', '.join(allowed)}"
@@ -980,7 +983,11 @@ def simulate_chunks(
             raise ValueError("object lengths must be positive")
 
     J = len(params.allocations)
-    engine = pick_engine(engine, params, n, N, lengths_a)
+    engine = (
+        "auto"
+        if engine == "host"
+        else pick_engine(engine, params, n, N, lengths_a, device=device)
+    )
     driver, engine_name, vlen_scale = make_chunk_driver(
         params, N, lengths_a, warmup, ripple_from, engine=engine, n_requests=n,
         device=device,
@@ -1086,19 +1093,69 @@ def pick_engine(
     n_requests: int,
     n_objects: int,
     lengths: np.ndarray,
+    *,
+    replicas: int = 1,
+    device: DeviceLike = None,
 ) -> str:
-    """What ``engine="auto"`` runs for one Monte-Carlo run: ``"cuda"`` (the
-    lane engine, on the run's device) for the flat shared LRU without
-    delayed batching inside :func:`_xla_applicable`'s envelope, else
-    ``"auto"`` (the host engines). A forced engine comes back as it is."""
+    """What ``engine="auto"`` runs for a Monte-Carlo run of ``replicas``
+    lanes at once: ``"cuda"`` (the lane engine, on the run's device) for
+    the flat shared LRU without delayed batching inside
+    :func:`_xla_applicable`'s envelope whose lanes fit the device
+    (:func:`lanes_fit`), else ``"auto"`` (the host engines). A forced
+    engine comes back as it is."""
     if (
         engine == "auto"
         and params.variant == "lru"
         and params.batch_interval == 0
         and _xla_applicable(n_requests, n_objects, lengths, params)
+        and lanes_fit(
+            len(params.allocations), n_objects, n_requests, replicas, device
+        )
     ):
         return "cuda"
     return engine
+
+
+# Share of a device's free memory that the lane engine's lanes may take:
+# the rest covers the caching allocator's rounding and blocks it already
+# holds, the CUDA context's growth and the run's other arrays.
+LANE_MEMORY_SHARE = 0.8
+
+
+def device_free_bytes(device: DeviceLike) -> Optional[int]:
+    """Free memory of ``device`` in bytes (``None`` is the CUDA card):
+    ``torch.cuda.mem_get_info`` on a CUDA device, the host's available
+    physical memory (``os.sysconf``) on the CPU; ``None`` when no card is
+    present (the lane engine's runner then raises the device rule's
+    error)."""
+    import os
+
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            return None
+        return int(torch.cuda.mem_get_info(dev)[0])
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def lanes_fit(J: int, N: int, n_requests: int, replicas: int,
+              device: DeviceLike) -> bool:
+    """Whether ``replicas`` lanes of the lane engine (their state, the
+    finish's temporaries and one launch's requests) fit in
+    :data:`LANE_MEMORY_SHARE` of the device's free memory."""
+    from repro_torch.kernels.lane_engine import lane_state_bytes
+
+    from .fastsim_cuda import MAX_LAUNCH_REQUESTS
+
+    free = device_free_bytes(device)
+    if free is None:
+        return True
+    need = lane_state_bytes(J, N, replicas) + 8 * replicas * min(
+        int(n_requests), MAX_LAUNCH_REQUESTS
+    )
+    return need <= LANE_MEMORY_SHARE * free
 
 
 # Backends that can honour a forced-engine request, per variant.

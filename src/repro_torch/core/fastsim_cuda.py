@@ -7,8 +7,9 @@ indicators, exact lcm-scaled virtual lengths, ghost list, inline
 residence-time occupancy), the same runner protocol (``feed`` /
 ``finish`` / ``elapsed``) and the same outputs, bit for bit. The step
 runs in :func:`repro_torch.kernels.lane_engine.lane_engine`: a CUDA
-kernel with one thread per lane for CUDA devices, the same step body
-built for the host for ``device="cpu"``.
+kernel with one block per lane for CUDA devices (its state in shared
+memory where a lane fits, else in device memory: the runner's
+``route``), the same step body built for the host for ``device="cpu"``.
 
 * :class:`BatchedCudaRunner` — R lanes in one launch per chunk, with
   optional per-lane ``(b, b_hat)`` sweep points
@@ -23,7 +24,8 @@ The runners keep the reference's host side: a chunk is split at
 ``warmup`` and the occupancy window is reset between launches
 (``tot_time`` zeroed, ``t_start = warmup``); a chunk longer than
 :data:`MAX_LAUNCH_REQUESTS` is fed in pieces, so that no single launch
-runs for long; ``finish`` closes open residence intervals in int64.
+runs for long (each launch copies a lane into shared memory and back on
+the shared route); ``finish`` closes open residence intervals in int64.
 ``elapsed`` counts launches only: the kernel is built and its module
 loaded (no launch) when the runner is made, each piece is copied to the
 device before the clock starts, and the clock stops at a synchronize.
@@ -59,7 +61,11 @@ class BatchedCudaRunner:
     With ``b_sweep`` / ``bhat_sweep`` ((R, J), raw allocation units) each
     lane gets its own eviction thresholds. Lane r is bit-identical to
     :class:`CudaChunkRunner` fed trace r with that lane's thresholds.
-    ``finish`` returns one output dict per lane."""
+    ``finish`` returns one output dict per lane. On a CUDA device every
+    launch takes one route (``route``: ``"shared"`` or ``"device"``,
+    :func:`repro_torch.kernels.lane_engine.route_for`; passing one forces
+    it, and ``"shared"`` raises for a lane that does not fit); on the CPU
+    ``route`` is None."""
 
     def __init__(
         self,
@@ -74,6 +80,7 @@ class BatchedCudaRunner:
         b_sweep=None,
         bhat_sweep=None,
         device: DeviceLike = None,
+        route: Optional[str] = None,
     ) -> None:
         if replications < 1:
             raise ValueError("replications must be >= 1")
@@ -115,10 +122,11 @@ class BatchedCudaRunner:
         self.bhat_scaled = bh_rows * scale
         self.st = le.init_state(J, self.N, self.R, self.b_scaled, self.bhat_scaled, dev)
         self._table = le.field_table(self.st)
+        le.load(dev)    # build the kernel and load its module outside the clock
+        self.route = le.route_for(self.st, dev, route) if dev.type == "cuda" else None
         self.idx = 0
         self.elapsed = 0.0
         self.launch_s: List[float] = []   # wall seconds of each timed launch
-        le.load(dev)    # build the kernel and load its module outside the clock
 
     # -- launches -------------------------------------------------------
     def _sync(self) -> None:
@@ -129,7 +137,7 @@ class BatchedCudaRunner:
         le.lane_engine(
             self.st, P, O, idx0=self.idx, lengths=self.lengths,
             share=self.share, B=self.B, warmup=self.warmup, ripple_from=self.ripple_from,
-            ghost=self.ghost_retention, table=self._table,
+            ghost=self.ghost_retention, table=self._table, route=self.route,
         )
 
     def _run(self, P: np.ndarray, O: np.ndarray) -> None:
@@ -195,13 +203,16 @@ class BatchedCudaRunner:
 
     def _finish_lane(self, r: int, n_total: int) -> Dict:
         """Lane r's outputs: open residence intervals closed at n_total,
-        in int64 (on the state's device, then copied)."""
+        in int64 (on the state's device, then copied). Its temporaries are
+        two int64 arrays and a bool mask of J*N, updated in place (what
+        :func:`repro_torch.kernels.lane_engine.lane_state_bytes` counts)."""
         sc = self.st["sc"][r].cpu().numpy()
         t_start = int(sc[_T_START])
         res = self.st["res_since"][r].to(torch.int64)
         tot = self.st["tot_time"][r].to(torch.int64)
         open_m = res >= 0
-        tot = torch.where(open_m, tot + (n_total - torch.clamp(res, min=t_start)), tot)
+        # tot + (n_total - max(res, t_start)) where the interval is open
+        tot.add_(res.clamp_(min=t_start).neg_().add_(n_total).mul_(open_m))
         scal = {name: int(sc[j]) for j, name in enumerate(le.SCALARS)}
         return {
             "tot_time": tot.cpu().numpy(),

@@ -1,42 +1,228 @@
-// The lane engine on the card: one CUDA thread per lane, each walking its
-// lane's chunk of requests through lane_engine.cuh's step (the serial
-// form of the reference's XLA lane engine, core/fastsim_jax.py:138 and
-// :364). One launch advances every lane by one chunk; the state stays on
-// the device between launches. See lane_engine.cuh for the semantics and
-// for what bounds a lane.
+// The lane engine on the card: one block per lane. One thread of the
+// block (the walker) takes the lane's chunk of requests through
+// lane_engine.cuh's step, in order; the other threads feed it. This is the
+// serial form of the reference's XLA lane engine (core/fastsim_jax.py:138
+// and :364); one launch advances every lane by one chunk, and the state
+// stays in device memory between launches, in the reference's layout. See
+// lane_engine.cuh for the semantics.
 //
-// Blocks of one thread: the scheduler spreads the R lanes over the SMs,
-// so each lane has an SM's L1 to itself (a Table I lane's 80 KB of state
-// fits in it).
+// A lane is a chain of dependent accesses, bound by the latency of the
+// memory that holds its state. Two routes, chosen by the host from a
+// lane's shared-memory words (lane_engine.cuh shared_words) against the
+// card's opt-in limit per block, one route per launch:
+//
+//  1. Shared memory (WHOLE = true), for lanes that fit (the Table I system,
+//     J=3, N=1000: 92 KB with the tiles, two blocks an SM). The block
+//     copies the whole lane into shared memory at launch start, coalesced,
+//     and back at the end; every access of the walk is then a shared-memory
+//     access (about 30 cycles). Only the evictions histogram stays in
+//     device memory (a miss touches it once).
+//  2. Device memory (WHOLE = false), for larger lanes (the Fig. 2 system,
+//     J=9, N=1e6: 200 MB a lane). The J-wide arrays and share go to shared
+//     memory; the rest stays where it is. The walker knows the requests
+//     ahead of it, so `dist` requests ahead (0: none) it prefetches into
+//     the L2 the lines that request's step will touch: hold, nxt, prv and res_since
+//     at i*N + k, length, hcnt and isghost at k, and k's holder column. The
+//     value is never loaded early, because the walker rewrites those lines.
+//     An eviction's tail victim is known only when the eviction runs, so
+//     its lines cannot be prefetched: each eviction still waits on device
+//     memory.
+//
+// On both routes the requests come to the walker through NBUF tiles of
+// TILE requests in shared memory: while the walker takes tile t, warps 1..
+// load tile t + NBUF - 1 from device memory, so the walker never waits on
+// device memory for a request, and can read up to TILE requests ahead.
 #include <cuda_runtime.h>
 
 #include "lane_engine.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1) lane_engine_kernel(const lane_engine::Args a) {
+using namespace lane_engine;
+
+constexpr int THREADS = 128;   // warp 0 holds the walker; warps 1-3 load tiles
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// The lines of request (i, k)'s step that can be known ahead of it.
+__device__ __forceinline__ void prefetch_request(const Lane& g, int J, int32_t N, int32_t i,
+                                                 int32_t k) {
+  const int32_t ik = i * N + k;
+  prefetch_l2(g.hold + ik);
+  prefetch_l2(g.nxt + ik);
+  prefetch_l2(g.prv + ik);
+  prefetch_l2(g.res_since + ik);
+  prefetch_l2(g.length + k);
+  prefetch_l2(g.hcnt + k);
+  prefetch_l2(g.isghost + k);
+  for (int j = 0; j < J; ++j)
+    if (j != i) prefetch_l2(g.hold + j * N + k);
+}
+
+// Copy n words between device and shared memory with the whole block.
+__device__ __forceinline__ void block_copy(int32_t* dst, const int32_t* src, int64_t n) {
+  for (int64_t x = threadIdx.x; x < n; x += THREADS) dst[x] = src[x];
+}
+
+template <bool WHOLE>
+__global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, const int dist) {
+  extern __shared__ int32_t sm[];
   const int r = blockIdx.x;
-  if (r < a.R) lane_engine::lane_run(a, r);
+  const int J = a.J;
+  const int32_t N = a.N;
+  const int64_t JN = (int64_t)J * N;
+  const Lane g = lane_load(a, r);     // the lane in device memory
+  Lane s = g;                         // ... and where the walker finds it
+
+  // -- stage the lane into shared memory ---------------------------------
+  int32_t* p = sm;
+  int32_t* big[10] = {s.nxt, s.prv, s.hold, s.res_since, s.tot_time,
+                      s.hcnt, s.length, s.gnxt, s.gprv, s.isghost};
+  if (WHOLE) {
+#pragma unroll
+    for (int f = 0; f < 10; ++f) {
+      const int64_t n = f < 5 ? JN : N;
+      block_copy(p, big[f], n);
+      big[f] = p;
+      p += n;
+    }
+    s.nxt = big[0]; s.prv = big[1]; s.hold = big[2]; s.res_since = big[3]; s.tot_time = big[4];
+    s.hcnt = big[5]; s.length = big[6]; s.gnxt = big[7]; s.gprv = big[8]; s.isghost = big[9];
+  }
+  int32_t* small[5] = {s.head, s.tail, s.vlen, s.hits_p, s.reqs_p};
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+    block_copy(p, small[f], J);
+    small[f] = p;
+    p += J;
+  }
+  s.head = small[0]; s.tail = small[1]; s.vlen = small[2]; s.hits_p = small[3];
+  s.reqs_p = small[4];
+  block_copy(p, g.b, J);
+  s.b = p;
+  p += J;
+  block_copy(p, g.bhat, J);
+  s.bhat = p;
+  p += J;
+  Args la = a;                        // the walker's arguments: constants in shared memory
+  block_copy(p, a.share, J + 2);
+  la.share = p;
+  p += J + 2;
+  if (WHOLE) {
+    block_copy(p, a.lengths, N);
+    la.lengths = p;
+    p += N;
+  }
+  int32_t* tiles = p;                 // NBUF x (TILE proxies, TILE objects)
+
+  // -- the walk: tile t is walked while tile t + NBUF - 1 loads ----------
+  const int m = a.m;
+  const int32_t* P = a.P + (int64_t)r * m;
+  const int32_t* O = a.O + (int64_t)r * m;
+  const int ntiles = (m + TILE - 1) / TILE;
+  auto load_tile = [&](int t, int first, int nthreads) {
+    int32_t* dst = tiles + (t % NBUF) * 2 * TILE;
+    const int b0 = t * TILE, n = min(TILE, m - b0);
+    for (int x = (int)threadIdx.x - first; x < n; x += nthreads) {
+      dst[x] = P[b0 + x];
+      dst[TILE + x] = O[b0 + x];
+    }
+  };
+  for (int t = 0; t < NBUF - 1 && t < ntiles; ++t) load_tile(t, 0, THREADS);
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    if (threadIdx.x >= 32) {
+      if (t + NBUF - 1 < ntiles) load_tile(t + NBUF - 1, 32, THREADS - 32);
+    } else if (threadIdx.x == 0) {
+      const int b0 = t * TILE, e = min(m, b0 + TILE);
+      const int ahead = min(m, (t + NBUF - 1) * TILE);   // requests loaded so far
+      auto req = [&](int off, int w) { return tiles[(off / TILE) % NBUF * 2 * TILE + w * TILE
+                                                    + off % TILE]; };
+      int32_t i = req(b0, 0), k = req(b0, 1);
+      for (int off = b0; off < e; ++off) {
+        int32_t i_next = 0, k_next = 0;
+        if (off + 1 < e) {
+          i_next = req(off + 1, 0);
+          k_next = req(off + 1, 1);
+        }
+        if (!WHOLE && dist > 0 && off + dist < ahead)
+          prefetch_request(g, J, N, req(off + dist, 0), req(off + dist, 1));
+        lane_step(s, la, a.idx0 + off, i, k);
+        i = i_next;
+        k = k_next;
+      }
+    }
+    __syncthreads();
+  }
+
+  // -- write the lane back ------------------------------------------------
+  if (threadIdx.x == 0) lane_store(a, r, s);
+  int32_t* back[15] = {g.nxt, g.prv, g.hold, g.res_since, g.tot_time,
+                       g.hcnt, g.length, g.gnxt, g.gprv, g.isghost,
+                       g.head, g.tail, g.vlen, g.hits_p, g.reqs_p};
+  const int32_t* from[15] = {big[0], big[1], big[2], big[3], big[4],
+                             big[5], big[6], big[7], big[8], big[9],
+                             small[0], small[1], small[2], small[3], small[4]};
+#pragma unroll
+  for (int f = WHOLE ? 0 : 10; f < 15; ++f)
+    block_copy(back[f], from[f], f < 5 ? JN : f < 10 ? N : J);
+}
+
+template <bool WHOLE>
+int launch(const Args& a, int dist, cudaStream_t stream) {
+  const int64_t bytes = 4 * shared_words(a.J, a.N, WHOLE);
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > limit) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(lane_engine_kernel<WHOLE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_engine_kernel<WHOLE><<<a.R, THREADS, (size_t)bytes, stream>>>(a, dist);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Load the kernel's module without launching it (asking for the kernel's
+// Load the kernels' module without launching them (asking for a kernel's
 // attributes loads a lazily loaded module). Returns the cudaError_t.
 extern "C" int repro_lane_engine_load() {
   cudaFuncAttributes attr;
-  return static_cast<int>(cudaFuncGetAttributes(&attr, lane_engine_kernel));
+  cudaError_t err = cudaFuncGetAttributes(&attr, lane_engine_kernel<true>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lane_engine_kernel<false>);
+  return static_cast<int>(err);
 }
 
-// Advance R lanes by one chunk of m requests each. Returns the launch's
-// cudaError_t.
+// The card's opt-in shared memory per block, in bytes (what route 1 may
+// take), or -1 with the error in *err.
+extern "C" int repro_lane_engine_shared_limit(int device, int* err) {
+  int limit = 0;
+  *err = static_cast<int>(
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  return *err == 0 ? limit : -1;
+}
+
+// Words of shared memory a block takes on route 1 (whole = 1) or 2.
+extern "C" int64_t repro_lane_engine_shared_words(int J, int N, int whole) {
+  return lane_engine::shared_words(J, N, whole != 0);
+}
+
+// Advance R lanes by one chunk of m requests each on route 1 (whole = 1:
+// the lane in shared memory) or route 2 (whole = 0: in device memory,
+// prefetched dist requests ahead). Returns the launch's cudaError_t; a lane
+// too large for route 1 is refused (cudaErrorInvalidValue), never moved.
 extern "C" int repro_lane_engine(const uint64_t* fields, const int32_t* P, const int32_t* O,
                                  const int32_t* lengths, const int32_t* share, int R, int J,
                                  int N, int m, int idx0, int B, int warmup, int ripple_from,
-                                 int ghost, void* stream) {
-  if (R < 1 || J < 1 || N < 1 || m < 0) return cudaErrorInvalidValue;
+                                 int ghost, int whole, int dist, void* stream) {
+  if (lane_engine::check_shape(R, J, N, m) != 0 || dist < 0 || dist > lane_engine::TILE)
+    return cudaErrorInvalidValue;
   const lane_engine::Args a = lane_engine::make_args(fields, P, O, lengths, share, R, J, N, m,
                                                      idx0, B, warmup, ripple_from, ghost);
-  lane_engine_kernel<<<R, 1, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return whole ? launch<true>(a, dist, st) : launch<false>(a, dist, st);
 }

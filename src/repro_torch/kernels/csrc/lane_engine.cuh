@@ -1,8 +1,9 @@
 // The lane engine: one request of one lane of the flat shared-LRU cache,
 // written once as plain serial C++ and compiled twice — by nvcc into the
-// CUDA kernel of lane_engine.cu (one thread per lane), and by g++ into the
-// host library of lane_engine_host.cpp (the kernel's plain version, which
-// the CPU tests hold to the reference package).
+// CUDA kernels of lane_engine.cu (one block per lane, one thread of it
+// walking the requests), and by g++ into the host library of
+// lane_engine_host.cpp (the kernels' plain version, which the CPU tests
+// hold to the reference package).
 //
 // It replaces the XLA programs of the reference's core/fastsim_jax.py:
 // `_drive_impl` (one lane, fastsim_jax.py:138) and `_drive_batched_impl`
@@ -10,9 +11,9 @@
 // branch-free because XLA wants them so; on CUDA each lane simply runs its
 // own nested loops, so the step below is the serial form of the same
 // computation (the serial C of _fastsim_c.c drive_chunk computes it too,
-// over a sparse slot layout). Every read and write happens in
-// _drive_impl's order, so a lane's state stays equal to the XLA state
-// array for array, not only in the outputs:
+// over a sparse slot layout). Every value is read as _drive_impl reads it,
+// so a lane's state stays equal to the XLA state array for array, not only
+// in the outputs:
 //  - the holder column is read before i's bit is set (attach), and after
 //    the victim's bit is cleared (eviction);
 //  - the head of list i is read after a list hit has unlinked k;
@@ -28,15 +29,20 @@
 // (index i*N + k), (R, N) holder counts, lengths and the ghost list,
 // (R, J) heads, tails, virtual lengths and post-warmup counters, (R, 1024)
 // the evictions-per-set histogram and (R, LE_NSC) scalars. All arithmetic
-// is int32, exact inside fastsim._xla_applicable's envelope.
+// is int32, exact inside fastsim._xla_applicable's envelope, which also
+// keeps J*N < 2^31: indices inside a lane are int32.
 //
-// What bounds it on the card: each lane is a chain of dependent loads (a
-// hit step reads hold[ik], head[i] and prv/nxt of k, then writes the links
-// of its neighbours), so a lane runs at the memory latency of its state —
-// L1/L2 for the Table I system's 80 KB per lane, device memory for the
-// Fig. 2 system's 200 MB. One thread per lane leaves the card mostly idle
-// when lanes are few; a warp per lane over the J-wide updates, and state
-// in shared memory for small N, are the next designs.
+// What bounds it: a lane is a chain of dependent memory accesses, so it
+// runs at the latency of the memory that holds its state, never at a rate
+// of bytes or operations. The step is written for that: everything a step
+// reads before its first store (hold[ik], length[k], hcnt[k], isghost[k],
+// head[i], prv/nxt of k and k's holder column) is loaded at once, from
+// cells that no earlier part of the step writes, so a list hit is one
+// level of loads and its stores, and each eviction one level after the
+// argmax that picks its list (the victim's cells and holder column at
+// once). On the card the state lives in shared memory when a lane fits
+// (lane_engine.cu, route 1: about 30 cycles a level) and in device memory
+// otherwise (route 2, prefetched ahead of the walker into the L2).
 #pragma once
 
 #include <stdint.h>
@@ -51,6 +57,13 @@ namespace lane_engine {
 
 constexpr int HIST = 1024;   // fastsim.HIST_BUCKETS: the last bucket clamps
 constexpr int32_t NIL = -1;
+constexpr int MAX_J = 62;    // the holder column is a 64-bit mask
+
+// Requests a block holds in shared memory: NBUF tiles of TILE proxies and
+// TILE objects (lane_engine.cu walks tile t while tile t + NBUF - 1 loads,
+// and looks up to TILE requests ahead into tile t + 1).
+constexpr int TILE = 256;
+constexpr int NBUF = 3;
 
 // Scalars of a lane, in the order of the (R, NSC) tensor.
 enum Scalar : int {
@@ -68,6 +81,16 @@ enum Field : int {
   SCALARS,                                   // (R, NSC)
   NFIELDS
 };
+
+// Words of shared memory a block takes on each route of lane_engine.cu.
+// Route 1 (the whole lane): the five J*N arrays, the five N arrays, the
+// seven J arrays, lengths, share and the request tiles. Route 2: the
+// seven J arrays, share and the tiles. The histogram stays in device
+// memory on both (a miss touches it once); the scalars live in registers.
+LE_FN int64_t shared_words(int J, int N, bool whole_lane) {
+  const int64_t small = 7 * (int64_t)J + (J + 2) + 2 * (int64_t)NBUF * TILE;
+  return whole_lane ? small + 5 * (int64_t)J * N + 6 * (int64_t)N : small;
+}
 
 struct Args {
   int32_t* f[NFIELDS];
@@ -140,6 +163,13 @@ LE_FN void lane_store(const Args& a, int r, const Lane& s) {
   sc[N_RIP] = s.n_rip;
 }
 
+// Object k's holder column as a bit mask (bit j: list j holds k).
+LE_FN uint64_t holder_column(const Lane& s, int J, int32_t N, int32_t k) {
+  uint64_t m = 0;
+  for (int j = 0; j < J; ++j) m |= (uint64_t)(s.hold[j * N + k] != 0) << j;
+  return m;
+}
+
 // Evict the head (oldest) ghost: it leaves the physical cache.
 LE_FN void ghost_evict_head(Lane& s) {
   const int32_t g = s.ghead;
@@ -154,14 +184,27 @@ LE_FN void ghost_evict_head(Lane& s) {
 
 // One request (proxy i, object k) at absolute index idx.
 LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) {
-  const int64_t N = a.N;
+  const int32_t N = a.N;
   const int J = a.J;
   const int32_t* share = a.share;
-  const int64_t base = i * N, ik = base + k;
+  const int32_t base = i * N, ik = base + k;
   const bool post = idx >= a.warmup;
 
-  const bool held = s.hold[ik] == 1;
-  const bool resident = s.length[k] > 0;
+  // Every cell the step reads before its first store, loaded at once. None
+  // is written before the serial form reads it: a miss's ghost evictions
+  // touch only ghosts, and k is no ghost when it misses (a ghost is
+  // resident); the attach touches vlen, the ghost list, hold[ik] and
+  // hcnt[k]; a list hit's unlink never moves head[i] (k is not the head).
+  const int32_t hold_ik = s.hold[ik];
+  const int32_t len_k = s.length[k];
+  const int32_t p_old = s.hcnt[k];
+  const int32_t ghost_k = s.isghost[k];
+  const int32_t head_i = s.head[i];
+  const int32_t prv_ik = s.prv[ik], nxt_ik = s.nxt[ik];
+  const uint64_t holders = holder_column(s, J, N, k);   // i's bit is 0 when it attaches
+
+  const bool held = hold_ik == 1;
+  const bool resident = len_k > 0;
   const bool att = !held;                 // a cache hit or a miss attaches k to list i
   const bool miss = !held && !resident;
   if (held) s.n_hit_list++;
@@ -170,22 +213,22 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   if (held && post) s.hits_p[i]++;
 
   // miss: make physical room among the ghosts, become resident
+  int32_t l = len_k;
   if (miss) {
-    const int32_t l_new = a.lengths[k];
-    while (s.phys + l_new > a.B && s.ghead != NIL) ghost_evict_head(s);
-    s.length[k] = l_new;
-    s.phys += l_new;
+    l = a.lengths[k];
+    while (s.phys + l > a.B && s.ghead != NIL) ghost_evict_head(s);
+    s.length[k] = l;
+    s.phys += l;
   }
 
   if (att) {
     // attach bookkeeping: the share re-apportionment of eq. (5)
-    const int32_t l = s.length[k];
-    const int32_t p_old = s.hcnt[k];
-    const int32_t delta = l * (share[p_old + 1] - share[p_old]);
+    const int32_t sh1 = share[p_old + 1];
+    const int32_t delta = l * (sh1 - share[p_old]);
     for (int j = 0; j < J; ++j)           // holders before i joins
-      if (s.hold[j * N + k]) s.vlen[j] += delta;
-    s.vlen[i] += l * share[p_old + 1];
-    if (p_old == 0 && s.isghost[k] == 1) {  // a ghost comes back: unlink it
+      if ((holders >> j) & 1) s.vlen[j] += delta;
+    s.vlen[i] += l * sh1;
+    if (p_old == 0 && ghost_k == 1) {     // a ghost comes back: unlink it
       const int32_t gp = s.gprv[k], gn = s.gnxt[k];
       if (gp == NIL) s.ghead = gn;
       else s.gnxt[gp] = gn;
@@ -194,23 +237,21 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
       s.isghost[k] = 0;
     }
     s.hold[ik] = 1;
-    s.hcnt[k] += 1;
+    s.hcnt[k] = p_old + 1;
   }
 
   // list hit: unlink k from its place (k is not the head, so nx != NIL)
-  const bool rem = held && s.head[i] != k;
+  const bool rem = held && head_i != k;
   if (rem) {
-    const int32_t p = s.prv[ik], nx = s.nxt[ik];
-    if (p == NIL) s.tail[i] = nx;
-    else s.nxt[base + p] = nx;
-    s.prv[base + nx] = p;
+    if (prv_ik == NIL) s.tail[i] = nxt_ik;
+    else s.nxt[base + prv_ik] = nxt_ik;
+    s.prv[base + nxt_ik] = prv_ik;
   }
   // insert k at the head of list i
   if (rem || att) {
-    const int32_t h = s.head[i];
-    if (h == NIL) s.tail[i] = k;      // only an attach finds list i empty
-    else s.nxt[base + h] = k;
-    s.prv[ik] = h;
+    if (head_i == NIL) s.tail[i] = k;     // only an attach finds list i empty
+    else s.nxt[base + head_i] = k;
+    s.prv[ik] = head_i;
     s.nxt[ik] = NIL;
     s.head[i] = k;
   }
@@ -227,27 +268,30 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
         if (o > over) { over = o; worst = j; }
       }
       if (worst < 0) break;
-      const int64_t wbase = worst * N;
+      const int32_t wbase = worst * N;
       const int32_t v = s.tail[worst];
-      const int64_t wv = wbase + v;
-      // unlink the tail victim (its prv is NIL)
+      const int32_t wv = wbase + v;
+      // the tail victim's cells, all at once (its prv is NIL)
       const int32_t nv = s.nxt[wv];
+      const int32_t since = s.res_since[wv];
+      const int32_t vl = s.length[v];
+      const int32_t vp_old = s.hcnt[v];
+      const uint64_t vholders = holder_column(s, J, N, v) & ~((uint64_t)1 << worst);
+      // unlink it
       s.tail[worst] = nv;
       if (nv == NIL) s.head[worst] = NIL;
       else s.prv[wbase + nv] = NIL;
       // close its residence interval
-      const int32_t since = s.res_since[wv];
       if (since >= 0) s.tot_time[wv] += idx - (since > s.t_start ? since : s.t_start);
       s.res_since[wv] = NIL;
       // share re-apportionment: the remaining holders inflate
-      const int32_t vl = s.length[v];
-      const int32_t vp_old = s.hcnt[v];
-      s.vlen[worst] -= vl * share[vp_old];
+      const int32_t sh_old = share[vp_old];
+      s.vlen[worst] -= vl * sh_old;
       s.hold[wv] = 0;
-      s.hcnt[v] -= 1;
-      const int32_t vdelta = vl * (share[vp_old - 1] - share[vp_old]);
+      s.hcnt[v] = vp_old - 1;
+      const int32_t vdelta = vl * (share[vp_old - 1] - sh_old);
       for (int j = 0; j < J; ++j)
-        if (s.hold[j * N + v]) s.vlen[j] += vdelta;
+        if ((vholders >> j) & 1) s.vlen[j] += vdelta;
       if (vp_old == 1) {                  // consensus eviction
         if (a.ghost) {
           const int32_t gt = s.gtail;
@@ -280,7 +324,8 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   if (post) s.reqs_p[i]++;
 }
 
-// Lane r walks its m requests of this chunk.
+// Lane r walks its m requests of this chunk (the host build's loop; the
+// kernels walk the same steps from tiles in shared memory).
 LE_FN void lane_run(const Args& a, int r) {
   Lane s = lane_load(a, r);
   const int32_t* P = a.P + (int64_t)r * a.m;
@@ -310,6 +355,14 @@ inline Args make_args(const uint64_t* fields, const int32_t* P, const int32_t* O
   a.ripple_from = ripple_from;
   a.ghost = ghost;
   return a;
+}
+
+// The entry points' argument check: 0 when the kernels take the lane
+// shape (J lists of at most MAX_J, J*N inside int32 indices).
+inline int check_shape(int R, int J, int N, int m) {
+  if (R < 1 || J < 1 || J > MAX_J || N < 1 || m < 0) return 1;
+  if ((int64_t)J * N >= ((int64_t)1 << 31)) return 1;
+  return 0;
 }
 
 }  // namespace lane_engine

@@ -1,32 +1,47 @@
 """The lane engine: R independent shared-LRU caches (lanes), each driven
-through its own request trace, one CUDA thread per lane.
+through its own request trace, one CUDA block per lane.
 
 It replaces the reference's XLA lane engine (``core/fastsim_jax.py``:
 ``_drive_impl`` for one lane, ``_drive_batched_impl`` for R lanes with
 per-lane sweep points). The step body is ``csrc/lane_engine.cuh``,
 written once and built twice: by ``nvcc`` into ``csrc/lane_engine.cu``'s
-kernel, and by ``g++`` into ``csrc/lane_engine_host.cpp``, which is this
-kernel's plain version (:func:`lane_engine_plain`). No PyTorch call
+kernels, and by ``g++`` into ``csrc/lane_engine_host.cpp``, which is the
+kernels' plain version (:func:`lane_engine_plain`). No PyTorch call
 computes this function and a torch op per micro-op would be no
 yardstick, so the plain version is the same serial body on the host.
+
+The kernel has two routes (``csrc/lane_engine.cu``): ``"shared"`` copies
+the whole lane into its block's shared memory for the launch, and
+``"device"`` keeps it in device memory and prefetches the lines of the
+requests ahead of the walker into the L2. :func:`pick_route` chooses from
+a lane's shared-memory bytes (:func:`shared_bytes`) against the card's
+opt-in limit per block (:func:`shared_limit`); a caller may force either,
+and a lane forced onto ``"shared"`` that does not fit raises.
 
 :func:`lane_engine` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it counts its launches in
 ``lane_engine.launches``. :func:`load` builds either and loads the
 kernel's module without a launch. The state is the dict of
 :func:`init_state`, updated in place: the kernel allocates nothing.
+:func:`lane_state_bytes` is what R lanes take on their device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import _build
 
 HIST = 1024   # fastsim.HIST_BUCKETS (the last bucket clamps)
+TILE, NBUF = 256, 3   # lane_engine.cuh: request tiles of a block in shared memory
+MAX_J = 62            # lane_engine.cuh: the holder column is a 64-bit mask
+ROUTES = ("shared", "device")
+# Requests ahead of the walker whose lines the device-memory route
+# prefetches into the L2 (at most TILE; 0 turns it off).
+PREFETCH_DISTANCE = 16
 # The state tensors in the order of lane_engine.cuh's Field enum.
 FIELDS = (
     "nxt", "prv", "hold", "res_since", "tot_time",   # (R, J*N)
@@ -42,6 +57,54 @@ SCALARS = (
     "n_miss", "n_sets", "n_prim", "n_rip",
 )
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+_limits: Dict[int, int] = {}
+
+
+def shared_bytes(J: int, N: int, route: str) -> int:
+    """Shared memory one block takes on ``route`` (``lane_engine.cuh``
+    ``shared_words``): on ``"shared"`` the whole lane but its histogram
+    (five int32 arrays of J*N, five of N, seven of J), the lengths and
+    share, and the request tiles; on ``"device"`` the J-wide arrays, share
+    and the tiles."""
+    small = 7 * J + (J + 2) + 2 * NBUF * TILE
+    if route == "shared":
+        return 4 * (small + 5 * J * N + 6 * N)
+    if route == "device":
+        return 4 * small
+    raise ValueError(f"unknown route {route!r}; options: {', '.join(ROUTES)}")
+
+
+def pick_route(J: int, N: int, limit: int) -> str:
+    """``"shared"`` when a lane fits ``limit`` bytes of shared memory per
+    block (:func:`shared_limit` on the card), else ``"device"``."""
+    return "shared" if shared_bytes(J, N, "shared") <= limit else "device"
+
+
+def shared_limit(device: torch.device) -> int:
+    """The card's opt-in shared memory per block in bytes
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), read once per card."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _limits:
+        err = ctypes.c_int(0)
+        fn = _build.load("lane_engine").repro_lane_engine_shared_limit
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        limit = fn(idx, ctypes.addressof(err))
+        if err.value != 0:
+            raise RuntimeError(f"reading the shared-memory limit failed: cudaError {err.value}")
+        _limits[idx] = limit
+    return _limits[idx]
+
+
+def lane_state_bytes(J: int, N: int, R: int) -> int:
+    """Device bytes of R lanes (:func:`init_state`: five int32 arrays of
+    J*N, five of N, seven of J, the histogram and the scalars per lane),
+    the constants (lengths and share) and the largest temporaries of a
+    runner's finish (``fastsim_cuda._finish_lane``, one lane at a time:
+    residence starts and totals in int64 and a bool mask, 17 bytes a
+    (list, object) cell)."""
+    lane = 4 * (5 * J * N + 5 * N + 7 * J + HIST + len(SCALARS))
+    return R * lane + 4 * (N + J + 2) + 17 * J * N
 
 
 def init_state(J: int, N: int, R: int, b_lim, bhat_lim,
@@ -77,7 +140,7 @@ def _fn(device: torch.device):
         fn = _build.load("lane_engine").repro_lane_engine
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES + [ctypes.c_void_p]
+            fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     else:
         fn = _build.load_host("lane_engine").repro_lane_engine_host
         if fn.argtypes is None:
@@ -127,6 +190,8 @@ def _check(st, P, O, lengths, share, idx0: int) -> tuple:
         raise ValueError("P, O (R, m), lengths (N,) and share (J + 2,) do not fit the state")
     if not (0 <= idx0 and idx0 + m < 2**31):
         raise ValueError("request indices must stay in int32")
+    if J > MAX_J or J * N >= 2**31:
+        raise ValueError(f"a lane takes at most {MAX_J} lists and J*N < 2^31 cells")
     return R, J, N, m
 
 
@@ -150,15 +215,37 @@ def lane_engine_plain(st, P, O, *, idx0: int, lengths, share, B: int, warmup: in
         raise RuntimeError(f"lane engine host build refused its arguments (rc {rc})")
 
 
+def route_for(st, device: torch.device, route: Optional[str] = None) -> str:
+    """The route a launch over state ``st`` on the CUDA ``device`` takes:
+    ``route`` if given (``"shared"`` raises for a lane that does not fit
+    the card's shared memory), else :func:`pick_route`'s choice."""
+    J, N = st["head"].shape[1], st["length"].shape[1]
+    limit = shared_limit(device)
+    if route is None:
+        return pick_route(J, N, limit)
+    need = shared_bytes(J, N, route)
+    if need > limit:
+        raise ValueError(f"a lane of J={J}, N={N} takes {need} B of shared memory on route "
+                         f"{route!r}; the card allows {limit} B per block")
+    return route
+
+
 def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
-                ripple_from: int, ghost: bool, table=None) -> None:
+                ripple_from: int, ghost: bool, table=None, route: Optional[str] = None,
+                dist: int = PREFETCH_DISTANCE) -> None:
     """Advance every lane by one chunk: lane r runs requests
     ``(P[r, j], O[r, j])`` at absolute indices ``idx0 + j``, updating
     ``st`` in place. ``P`` and ``O`` are (R, m) int32 with proxies in
     [0, J) and objects in [0, N) (the caller checks them). CUDA tensors
-    launch the kernel on the current stream (no synchronisation); CPU
-    tensors run :func:`lane_engine_plain`; m = 0 does nothing. ``table``
-    is :func:`field_table` of ``st``, if the caller keeps one."""
+    launch the kernel on the current stream (no synchronisation) on
+    :func:`route_for`'s route (``route`` forces one; ``dist`` is the
+    device-memory route's prefetch distance in requests); CPU tensors run
+    :func:`lane_engine_plain`, which has no routes; m = 0 does nothing.
+    ``table`` is :func:`field_table` of ``st``, if the caller keeps one."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; options: {', '.join(ROUTES)}")
+    if not 0 <= dist <= TILE:
+        raise ValueError(f"the prefetch distance must lie in [0, {TILE}]")
     if P.dim() == 2 and P.shape[1] == 0:
         _check(st, P, O, lengths, share, idx0)
         return
@@ -168,10 +255,12 @@ def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
         return
     if P.device.type != "cuda":
         raise ValueError(f"unsupported device {P.device}")
+    route = route_for(st, P.device, route)
     table = field_table(st) if table is None else table
     fn = _fn(P.device)
     with torch.cuda.device(P.device):
         rc = _call(fn, st, table, P, O, lengths, share, idx0, B, warmup, ripple_from, ghost,
+                   int(route == "shared"), int(dist),
                    torch.cuda.current_stream(P.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lane engine kernel launch failed: cudaError {rc}")

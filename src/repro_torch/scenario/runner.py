@@ -474,12 +474,14 @@ def _run_monte_carlo_ensemble(
     bit-identical to a single run). When the lane engine runs
     (``backend="cuda"``, or ``"auto"`` where
     :func:`~repro_torch.core.fastsim.pick_engine` picks it: flat LRU, no
-    delayed batching, inside the int32 envelope) all replicas run
+    delayed batching, inside the int32 envelope, the R lanes fitting the
+    device's free memory) all replicas run
     batched, one lane each, on ``device`` via
     :func:`repro_torch.core.fastsim_cuda.simulate_ensemble`;
     every other backend runs the replicas sequentially with identical
-    per-replica results. The Report carries cross-replica means in the
-    main fields and the per-replica estimates in ``Report.ensemble``.
+    per-replica results ("auto" then runs the host engines for each).
+    The Report carries cross-replica means in the main fields and the
+    per-replica estimates in ``Report.ensemble``.
     """
     from repro_torch.core.fastsim import _xla_applicable, pick_engine
 
@@ -491,8 +493,11 @@ def _run_monte_carlo_ensemble(
     engine = system.backend
     if engine != "reference":
         engine = pick_engine(
-            engine, params, n, sc.workload.n_objects, np.asarray(lengths)
+            engine, params, n, sc.workload.n_objects, np.asarray(lengths),
+            replicas=R, device=device,
         )
+        if engine == "auto":    # the R lanes do not go to the lane engine
+            engine = "host"
     batched = False
     results = None
     if (
