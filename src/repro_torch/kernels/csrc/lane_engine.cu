@@ -33,6 +33,7 @@
 // load tile t + NBUF - 1 from device memory, so the walker never waits on
 // device memory for a request, and can read up to TILE requests ahead.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "lane_engine.cuh"
 
@@ -40,25 +41,59 @@ namespace {
 
 using namespace lane_engine;
 
-constexpr int THREADS = 128;   // warp 0 holds the walker; warps 1-3 load tiles
+constexpr int THREADS = 128;   // warp 0 walks; warps 1-3 load tiles
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// The lines of request (i, k)'s step that can be known ahead of it.
+constexpr unsigned FULL = 0xffffffffu;
+
+// The step's J-wide loops spread over the walker's warp: lane j takes list
+// j (and j + 32). All 32 lanes run the rest of the step together on the
+// same values, so their stores agree; __syncwarp orders a lane's own
+// stores before the other lanes' loads.
+struct Warp {
+  __device__ __forceinline__ static int lane() { return threadIdx.x & 31; }
+  __device__ __forceinline__ static uint64_t column(const int32_t* hold, int J, int32_t N,
+                                                    int32_t k) {
+    const int l = lane();
+    uint64_t m = __ballot_sync(FULL, l < J && hold[l * N + k] != 0);
+    if (J > 32) m |= (uint64_t)__ballot_sync(FULL, l + 32 < J && hold[(l + 32) * N + k] != 0)
+                     << 32;
+    return m;
+  }
+  __device__ __forceinline__ static void add(int32_t* vlen, int J, uint64_t mask,
+                                             int32_t delta) {
+    for (int j = lane(); j < J; j += 32)
+      if ((mask >> j) & 1) vlen[j] += delta;
+    __syncwarp();
+  }
+  __device__ __forceinline__ static int worst(const int32_t* vlen, const int32_t* b,
+                                              const int32_t* bhat, int J, int32_t i) {
+    const int l = lane();
+    int32_t o0 = INT32_MIN, o1 = INT32_MIN;
+    if (l < J) o0 = vlen[l] - (l == i ? b[l] : bhat[l]);
+    if (l + 32 < J) o1 = vlen[l + 32] - (l + 32 == i ? b[l + 32] : bhat[l + 32]);
+    const int32_t best = __reduce_max_sync(FULL, max(o0, o1));
+    if (best <= 0) return -1;
+    const unsigned lo = __ballot_sync(FULL, o0 == best);
+    if (lo) return __ffs(lo) - 1;
+    return 31 + __ffs(__ballot_sync(FULL, o1 == best));
+  }
+};
+
+// The lines of request (i, k)'s step that can be known ahead of it, one
+// or two a lane.
 __device__ __forceinline__ void prefetch_request(const Lane& g, int J, int32_t N, int32_t i,
                                                  int32_t k) {
+  const int l = Warp::lane();
   const int32_t ik = i * N + k;
-  prefetch_l2(g.hold + ik);
-  prefetch_l2(g.nxt + ik);
-  prefetch_l2(g.prv + ik);
-  prefetch_l2(g.res_since + ik);
-  prefetch_l2(g.length + k);
-  prefetch_l2(g.hcnt + k);
-  prefetch_l2(g.isghost + k);
-  for (int j = 0; j < J; ++j)
-    if (j != i) prefetch_l2(g.hold + j * N + k);
+  const int32_t* line = l == 0 ? g.nxt + ik : l == 1 ? g.prv + ik : l == 2 ? g.res_since + ik
+                      : l == 3 ? g.length + k : l == 4 ? g.hcnt + k : l == 5 ? g.isghost + k
+                      : nullptr;
+  if (line) prefetch_l2(line);
+  for (int j = l; j < J; j += 32) prefetch_l2(g.hold + j * N + k);
 }
 
 // Copy n words between device and shared memory with the whole block.
@@ -135,7 +170,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
   for (int t = 0; t < ntiles; ++t) {
     if (threadIdx.x >= 32) {
       if (t + NBUF - 1 < ntiles) load_tile(t + NBUF - 1, 32, THREADS - 32);
-    } else if (threadIdx.x == 0) {
+    } else {
       const int b0 = t * TILE, e = min(m, b0 + TILE);
       const int ahead = min(m, (t + NBUF - 1) * TILE);   // requests loaded so far
       auto req = [&](int off, int w) { return tiles[(off / TILE) % NBUF * 2 * TILE + w * TILE
@@ -149,7 +184,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
         }
         if (!WHOLE && dist > 0 && off + dist < ahead)
           prefetch_request(g, J, N, req(off + dist, 0), req(off + dist, 1));
-        lane_step(s, la, a.idx0 + off, i, k);
+        lane_step<Warp>(s, la, a.idx0 + off, i, k);
         i = i_next;
         k = k_next;
       }

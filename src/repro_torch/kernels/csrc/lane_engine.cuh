@@ -163,12 +163,33 @@ LE_FN void lane_store(const Args& a, int r, const Lane& s) {
   sc[N_RIP] = s.n_rip;
 }
 
-// Object k's holder column as a bit mask (bit j: list j holds k).
-LE_FN uint64_t holder_column(const Lane& s, int J, int32_t N, int32_t k) {
-  uint64_t m = 0;
-  for (int j = 0; j < J; ++j) m |= (uint64_t)(s.hold[j * N + k] != 0) << j;
-  return m;
-}
+// The step's J-wide loops, done by one thread. lane_engine.cu's kernels
+// pass a team of their own with the same three functions.
+struct Serial {
+  // Object k's holder column as a bit mask (bit j: list j holds k).
+  LE_FN static uint64_t column(const int32_t* hold, int J, int32_t N, int32_t k) {
+    uint64_t m = 0;
+    for (int j = 0; j < J; ++j) m |= (uint64_t)(hold[j * N + k] != 0) << j;
+    return m;
+  }
+  // vlen[j] += delta for every list j of mask.
+  LE_FN static void add(int32_t* vlen, int J, uint64_t mask, int32_t delta) {
+    for (int j = 0; j < J; ++j)
+      if ((mask >> j) & 1) vlen[j] += delta;
+  }
+  // The list furthest over its threshold (b for the triggering list i,
+  // b_hat else): the lowest index among equal maxima, -1 when none is over.
+  LE_FN static int worst(const int32_t* vlen, const int32_t* b, const int32_t* bhat, int J,
+                         int32_t i) {
+    int w = -1;
+    int32_t over = 0;
+    for (int j = 0; j < J; ++j) {
+      const int32_t o = vlen[j] - (j == i ? b[j] : bhat[j]);
+      if (o > over) { over = o; w = j; }
+    }
+    return w;
+  }
+};
 
 // Evict the head (oldest) ghost: it leaves the physical cache.
 LE_FN void ghost_evict_head(Lane& s) {
@@ -183,6 +204,7 @@ LE_FN void ghost_evict_head(Lane& s) {
 }
 
 // One request (proxy i, object k) at absolute index idx.
+template <class Team = Serial>
 LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) {
   const int32_t N = a.N;
   const int J = a.J;
@@ -201,7 +223,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   const int32_t ghost_k = s.isghost[k];
   const int32_t head_i = s.head[i];
   const int32_t prv_ik = s.prv[ik], nxt_ik = s.nxt[ik];
-  const uint64_t holders = holder_column(s, J, N, k);   // i's bit is 0 when it attaches
+  const uint64_t holders = Team::column(s.hold, J, N, k);   // i's bit is 0 when it attaches
 
   const bool held = hold_ik == 1;
   const bool resident = len_k > 0;
@@ -225,8 +247,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
     // attach bookkeeping: the share re-apportionment of eq. (5)
     const int32_t sh1 = share[p_old + 1];
     const int32_t delta = l * (sh1 - share[p_old]);
-    for (int j = 0; j < J; ++j)           // holders before i joins
-      if ((holders >> j) & 1) s.vlen[j] += delta;
+    Team::add(s.vlen, J, holders, delta);  // holders before i joins
     s.vlen[i] += l * sh1;
     if (p_old == 0 && ghost_k == 1) {     // a ghost comes back: unlink it
       const int32_t gp = s.gprv[k], gn = s.gnxt[k];
@@ -261,12 +282,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   int32_t n_ev = 0, n_rip = 0;
   if (att) {
     for (;;) {
-      int worst = -1;
-      int32_t over = 0;
-      for (int j = 0; j < J; ++j) {
-        const int32_t o = s.vlen[j] - (j == i ? s.b[j] : s.bhat[j]);
-        if (o > over) { over = o; worst = j; }
-      }
+      const int worst = Team::worst(s.vlen, s.b, s.bhat, J, i);
       if (worst < 0) break;
       const int32_t wbase = worst * N;
       const int32_t v = s.tail[worst];
@@ -276,7 +292,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
       const int32_t since = s.res_since[wv];
       const int32_t vl = s.length[v];
       const int32_t vp_old = s.hcnt[v];
-      const uint64_t vholders = holder_column(s, J, N, v) & ~((uint64_t)1 << worst);
+      const uint64_t vholders = Team::column(s.hold, J, N, v) & ~((uint64_t)1 << worst);
       // unlink it
       s.tail[worst] = nv;
       if (nv == NIL) s.head[worst] = NIL;
@@ -290,8 +306,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
       s.hold[wv] = 0;
       s.hcnt[v] = vp_old - 1;
       const int32_t vdelta = vl * (share[vp_old - 1] - sh_old);
-      for (int j = 0; j < J; ++j)
-        if ((vholders >> j) & 1) s.vlen[j] += vdelta;
+      Team::add(s.vlen, J, vholders, vdelta);
       if (vp_old == 1) {                  // consensus eviction
         if (a.ghost) {
           const int32_t gt = s.gtail;
