@@ -48,13 +48,37 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 }
 
 constexpr unsigned FULL = 0xffffffffu;
-
-// The step's J-wide loops spread over the walker's warp: lane j takes list
-// j (and j + 32). All 32 lanes run the rest of the step together on the
-// same values, so their stores agree; __syncwarp orders a lane's own
-// stores before the other lanes' loads.
+// The walker's warp as lane_engine.cuh's team: list j's entries of the
+// J-wide arrays live in lane j's registers (j + 32 in its second), so the
+// step's J-wide loops are one instruction a lane and a vote, and reading
+// head[i], tail[i] or vlen[i] is a shuffle from lane i. All 32 lanes run
+// the rest of the step together on the same values, so their stores to
+// the lane's other arrays agree and each lane reads back what it wrote.
 struct Warp {
+  struct Vec {
+    int32_t lo, hi;   // entries l and l + 32 of lane l
+  };
   __device__ __forceinline__ static int lane() { return threadIdx.x & 31; }
+  __device__ __forceinline__ static int32_t at(const Vec& v, int j) {
+    return __shfl_sync(FULL, j < 32 ? v.lo : v.hi, j & 31);
+  }
+  __device__ __forceinline__ static void put(Vec& v, int j, int32_t x) {
+    if (lane() == (j & 31)) {
+      if (j < 32) v.lo = x;
+      else v.hi = x;
+    }
+  }
+  __device__ __forceinline__ static void add(Vec& v, int j, int32_t x) {
+    if (lane() == (j & 31)) {
+      if (j < 32) v.lo += x;
+      else v.hi += x;
+    }
+  }
+  __device__ __forceinline__ static void add_mask(Vec& v, int, uint64_t mask, int32_t x) {
+    const int l = lane();
+    if ((mask >> l) & 1) v.lo += x;
+    if ((mask >> (l + 32)) & 1) v.hi += x;
+  }
   __device__ __forceinline__ static uint64_t column(const int32_t* hold, int J, int32_t N,
                                                     int32_t k) {
     const int l = lane();
@@ -63,23 +87,26 @@ struct Warp {
                      << 32;
     return m;
   }
-  __device__ __forceinline__ static void add(int32_t* vlen, int J, uint64_t mask,
-                                             int32_t delta) {
-    for (int j = lane(); j < J; j += 32)
-      if ((mask >> j) & 1) vlen[j] += delta;
-    __syncwarp();
-  }
-  __device__ __forceinline__ static int worst(const int32_t* vlen, const int32_t* b,
-                                              const int32_t* bhat, int J, int32_t i) {
+  __device__ __forceinline__ static int worst(const Vec& vlen, const Vec& b, const Vec& bhat,
+                                              int J, int32_t i) {
     const int l = lane();
-    int32_t o0 = INT32_MIN, o1 = INT32_MIN;
-    if (l < J) o0 = vlen[l] - (l == i ? b[l] : bhat[l]);
-    if (l + 32 < J) o1 = vlen[l + 32] - (l + 32 == i ? b[l + 32] : bhat[l + 32]);
+    const int32_t o0 = l < J ? vlen.lo - (l == i ? b.lo : bhat.lo) : INT32_MIN;
+    const int32_t o1 = l + 32 < J ? vlen.hi - (l + 32 == i ? b.hi : bhat.hi) : INT32_MIN;
     const int32_t best = __reduce_max_sync(FULL, max(o0, o1));
     if (best <= 0) return -1;
     const unsigned lo = __ballot_sync(FULL, o0 == best);
     if (lo) return __ffs(lo) - 1;
     return 31 + __ffs(__ballot_sync(FULL, o1 == best));
+  }
+  // Lane l's entries of a J-wide array in device memory, and back.
+  __device__ __forceinline__ static Vec load(const int32_t* g, int J) {
+    const int l = lane();
+    return {l < J ? g[l] : 0, l + 32 < J ? g[l + 32] : 0};
+  }
+  __device__ __forceinline__ static void store(int32_t* g, const Vec& v, int J) {
+    const int l = lane();
+    if (l < J) g[l] = v.lo;
+    if (l + 32 < J) g[l + 32] = v.hi;
   }
 };
 
@@ -109,12 +136,11 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
   const int32_t N = a.N;
   const int64_t JN = (int64_t)J * N;
   const Lane g = lane_load(a, r);     // the lane in device memory
-  Lane s = g;                         // ... and where the walker finds it
 
   // -- stage the lane into shared memory ---------------------------------
   int32_t* p = sm;
-  int32_t* big[10] = {s.nxt, s.prv, s.hold, s.res_since, s.tot_time,
-                      s.hcnt, s.length, s.gnxt, s.gprv, s.isghost};
+  int32_t* big[10] = {g.nxt, g.prv, g.hold, g.res_since, g.tot_time,
+                      g.hcnt, g.length, g.gnxt, g.gprv, g.isghost};
   if (WHOLE) {
 #pragma unroll
     for (int f = 0; f < 10; ++f) {
@@ -123,24 +149,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
       big[f] = p;
       p += n;
     }
-    s.nxt = big[0]; s.prv = big[1]; s.hold = big[2]; s.res_since = big[3]; s.tot_time = big[4];
-    s.hcnt = big[5]; s.length = big[6]; s.gnxt = big[7]; s.gprv = big[8]; s.isghost = big[9];
   }
-  int32_t* small[5] = {s.head, s.tail, s.vlen, s.hits_p, s.reqs_p};
-#pragma unroll
-  for (int f = 0; f < 5; ++f) {
-    block_copy(p, small[f], J);
-    small[f] = p;
-    p += J;
-  }
-  s.head = small[0]; s.tail = small[1]; s.vlen = small[2]; s.hits_p = small[3];
-  s.reqs_p = small[4];
-  block_copy(p, g.b, J);
-  s.b = p;
-  p += J;
-  block_copy(p, g.bhat, J);
-  s.bhat = p;
-  p += J;
   Args la = a;                        // the walker's arguments: constants in shared memory
   block_copy(p, a.share, J + 2);
   la.share = p;
@@ -151,6 +160,25 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
     p += N;
   }
   int32_t* tiles = p;                 // NBUF x (TILE proxies, TILE objects)
+
+  // -- the walker's view of the lane ----------------------------------------
+  LaneT<Warp> s;
+  s.nxt = big[0]; s.prv = big[1]; s.hold = big[2]; s.res_since = big[3]; s.tot_time = big[4];
+  s.hcnt = big[5]; s.length = big[6]; s.gnxt = big[7]; s.gprv = big[8]; s.isghost = big[9];
+  s.hist = g.hist;
+  s.phys = g.phys; s.ghead = g.ghead; s.gtail = g.gtail; s.t_start = g.t_start;
+  s.n_hit_list = g.n_hit_list; s.n_hit_cache = g.n_hit_cache; s.n_miss = g.n_miss;
+  s.n_sets = g.n_sets; s.n_prim = g.n_prim; s.n_rip = g.n_rip;
+  const bool walker = threadIdx.x < 32;
+  if (walker) {
+    s.head = Warp::load(g.head, J);
+    s.tail = Warp::load(g.tail, J);
+    s.vlen = Warp::load(g.vlen, J);
+    s.hits_p = Warp::load(g.hits_p, J);
+    s.reqs_p = Warp::load(g.reqs_p, J);
+    s.b = Warp::load(g.b, J);
+    s.bhat = Warp::load(g.bhat, J);
+  }
 
   // -- the walk: tile t is walked while tile t + NBUF - 1 loads ----------
   const int m = a.m;
@@ -168,7 +196,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
   for (int t = 0; t < NBUF - 1 && t < ntiles; ++t) load_tile(t, 0, THREADS);
   __syncthreads();
   for (int t = 0; t < ntiles; ++t) {
-    if (threadIdx.x >= 32) {
+    if (!walker) {
       if (t + NBUF - 1 < ntiles) load_tile(t + NBUF - 1, 32, THREADS - 32);
     } else {
       const int b0 = t * TILE, e = min(m, b0 + TILE);
@@ -184,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
         }
         if (!WHOLE && dist > 0 && off + dist < ahead)
           prefetch_request(g, J, N, req(off + dist, 0), req(off + dist, 1));
-        lane_step<Warp>(s, la, a.idx0 + off, i, k);
+        lane_step(s, la, a.idx0 + off, i, k);
         i = i_next;
         k = k_next;
       }
@@ -193,16 +221,22 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
   }
 
   // -- write the lane back ------------------------------------------------
-  if (threadIdx.x == 0) lane_store(a, r, s);
-  int32_t* back[15] = {g.nxt, g.prv, g.hold, g.res_since, g.tot_time,
-                       g.hcnt, g.length, g.gnxt, g.gprv, g.isghost,
-                       g.head, g.tail, g.vlen, g.hits_p, g.reqs_p};
-  const int32_t* from[15] = {big[0], big[1], big[2], big[3], big[4],
-                             big[5], big[6], big[7], big[8], big[9],
-                             small[0], small[1], small[2], small[3], small[4]};
+  if (walker) {
+    Warp::store(g.head, s.head, J);
+    Warp::store(g.tail, s.tail, J);
+    Warp::store(g.vlen, s.vlen, J);
+    Warp::store(g.hits_p, s.hits_p, J);
+    Warp::store(g.reqs_p, s.reqs_p, J);
+    if (threadIdx.x == 0) lane_store(a, r, s);
+  }
+  if (WHOLE) {
+    const int32_t* from[10] = {big[0], big[1], big[2], big[3], big[4],
+                               big[5], big[6], big[7], big[8], big[9]};
+    int32_t* back[10] = {g.nxt, g.prv, g.hold, g.res_since, g.tot_time,
+                         g.hcnt, g.length, g.gnxt, g.gprv, g.isghost};
 #pragma unroll
-  for (int f = WHOLE ? 0 : 10; f < 15; ++f)
-    block_copy(back[f], from[f], f < 5 ? JN : f < 10 ? N : J);
+    for (int f = 0; f < 10; ++f) block_copy(back[f], from[f], f < 5 ? JN : N);
+  }
 }
 
 template <bool WHOLE>

@@ -83,12 +83,12 @@ enum Field : int {
 };
 
 // Words of shared memory a block takes on each route of lane_engine.cu.
-// Route 1 (the whole lane): the five J*N arrays, the five N arrays, the
-// seven J arrays, lengths, share and the request tiles. Route 2: the
-// seven J arrays, share and the tiles. The histogram stays in device
-// memory on both (a miss touches it once); the scalars live in registers.
+// Route 1 (the whole lane): the five J*N arrays, the five N arrays,
+// lengths, share and the request tiles. Route 2: share and the tiles. The
+// histogram stays in device memory on both (a miss touches it once); the
+// J-wide arrays and the scalars live in the walker's registers.
 LE_FN int64_t shared_words(int J, int N, bool whole_lane) {
-  const int64_t small = 7 * (int64_t)J + (J + 2) + 2 * (int64_t)NBUF * TILE;
+  const int64_t small = (J + 2) + 2 * (int64_t)NBUF * TILE;
   return whole_lane ? small + 5 * (int64_t)J * N + 6 * (int64_t)N : small;
 }
 
@@ -103,16 +103,50 @@ struct Args {
   int ghost;               // ghost retention on
 };
 
+// How the step reaches a lane's J-wide arrays (head, tail, vlen, hits_p,
+// reqs_p, b, b_hat) and runs its J-wide loops. Serial: one thread, the
+// arrays in memory; lane_engine.cu's kernels pass a team of their own with
+// the same members (the walker's warp, list j in lane j's registers).
+struct Serial {
+  using Vec = int32_t*;
+  LE_FN static int32_t at(const Vec& v, int j) { return v[j]; }
+  LE_FN static void put(Vec& v, int j, int32_t x) { v[j] = x; }
+  LE_FN static void add(Vec& v, int j, int32_t x) { v[j] += x; }
+  // v[j] += x for every list j of mask.
+  LE_FN static void add_mask(Vec& v, int J, uint64_t mask, int32_t x) {
+    for (int j = 0; j < J; ++j)
+      if ((mask >> j) & 1) v[j] += x;
+  }
+  // Object k's holder column as a bit mask (bit j: list j holds k).
+  LE_FN static uint64_t column(const int32_t* hold, int J, int32_t N, int32_t k) {
+    uint64_t m = 0;
+    for (int j = 0; j < J; ++j) m |= (uint64_t)(hold[j * N + k] != 0) << j;
+    return m;
+  }
+  // The list furthest over its threshold (b for the triggering list i,
+  // b_hat else): the lowest index among equal maxima, -1 when none is over.
+  LE_FN static int worst(const Vec& vlen, const Vec& b, const Vec& bhat, int J, int32_t i) {
+    int w = -1;
+    int32_t over = 0;
+    for (int j = 0; j < J; ++j) {
+      const int32_t o = vlen[j] - (j == i ? b[j] : bhat[j]);
+      if (o > over) { over = o; w = j; }
+    }
+    return w;
+  }
+};
+
 // Lane r's slice of every state tensor.
-struct Lane {
+template <class T>
+struct LaneT {
   int32_t *nxt, *prv, *hold, *res_since, *tot_time;
   int32_t *hcnt, *length, *gnxt, *gprv, *isghost;
-  int32_t *head, *tail, *vlen, *hits_p, *reqs_p;
-  const int32_t *b, *bhat;
+  typename T::Vec head, tail, vlen, hits_p, reqs_p, b, bhat;
   int32_t *hist;
   int32_t phys, ghead, gtail, t_start;
   int32_t n_hit_list, n_hit_cache, n_miss, n_sets, n_prim, n_rip;
 };
+using Lane = LaneT<Serial>;
 
 LE_FN Lane lane_load(const Args& a, int r) {
   const int64_t JN = (int64_t)a.J * a.N, N = a.N, J = a.J;
@@ -149,7 +183,8 @@ LE_FN Lane lane_load(const Args& a, int r) {
   return s;
 }
 
-LE_FN void lane_store(const Args& a, int r, const Lane& s) {
+template <class T>
+LE_FN void lane_store(const Args& a, int r, const LaneT<T>& s) {
   int32_t* sc = a.f[SCALARS] + (int64_t)r * NSC;
   sc[PHYS] = s.phys;
   sc[GHEAD] = s.ghead;
@@ -163,36 +198,9 @@ LE_FN void lane_store(const Args& a, int r, const Lane& s) {
   sc[N_RIP] = s.n_rip;
 }
 
-// The step's J-wide loops, done by one thread. lane_engine.cu's kernels
-// pass a team of their own with the same three functions.
-struct Serial {
-  // Object k's holder column as a bit mask (bit j: list j holds k).
-  LE_FN static uint64_t column(const int32_t* hold, int J, int32_t N, int32_t k) {
-    uint64_t m = 0;
-    for (int j = 0; j < J; ++j) m |= (uint64_t)(hold[j * N + k] != 0) << j;
-    return m;
-  }
-  // vlen[j] += delta for every list j of mask.
-  LE_FN static void add(int32_t* vlen, int J, uint64_t mask, int32_t delta) {
-    for (int j = 0; j < J; ++j)
-      if ((mask >> j) & 1) vlen[j] += delta;
-  }
-  // The list furthest over its threshold (b for the triggering list i,
-  // b_hat else): the lowest index among equal maxima, -1 when none is over.
-  LE_FN static int worst(const int32_t* vlen, const int32_t* b, const int32_t* bhat, int J,
-                         int32_t i) {
-    int w = -1;
-    int32_t over = 0;
-    for (int j = 0; j < J; ++j) {
-      const int32_t o = vlen[j] - (j == i ? b[j] : bhat[j]);
-      if (o > over) { over = o; w = j; }
-    }
-    return w;
-  }
-};
-
 // Evict the head (oldest) ghost: it leaves the physical cache.
-LE_FN void ghost_evict_head(Lane& s) {
+template <class T>
+LE_FN void ghost_evict_head(LaneT<T>& s) {
   const int32_t g = s.ghead;
   const int32_t gn = s.gnxt[g];
   s.ghead = gn;
@@ -204,8 +212,8 @@ LE_FN void ghost_evict_head(Lane& s) {
 }
 
 // One request (proxy i, object k) at absolute index idx.
-template <class Team = Serial>
-LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) {
+template <class T>
+LE_FN void lane_step(LaneT<T>& s, const Args& a, int32_t idx, int32_t i, int32_t k) {
   const int32_t N = a.N;
   const int J = a.J;
   const int32_t* share = a.share;
@@ -221,9 +229,9 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   const int32_t len_k = s.length[k];
   const int32_t p_old = s.hcnt[k];
   const int32_t ghost_k = s.isghost[k];
-  const int32_t head_i = s.head[i];
   const int32_t prv_ik = s.prv[ik], nxt_ik = s.nxt[ik];
-  const uint64_t holders = Team::column(s.hold, J, N, k);   // i's bit is 0 when it attaches
+  const uint64_t holders = T::column(s.hold, J, N, k);   // i's bit is 0 when it attaches
+  const int32_t head_i = T::at(s.head, i);
 
   const bool held = hold_ik == 1;
   const bool resident = len_k > 0;
@@ -232,7 +240,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   if (held) s.n_hit_list++;
   else if (resident) s.n_hit_cache++;
   else s.n_miss++;
-  if (held && post) s.hits_p[i]++;
+  if (held && post) T::add(s.hits_p, i, 1);
 
   // miss: make physical room among the ghosts, become resident
   int32_t l = len_k;
@@ -247,8 +255,8 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
     // attach bookkeeping: the share re-apportionment of eq. (5)
     const int32_t sh1 = share[p_old + 1];
     const int32_t delta = l * (sh1 - share[p_old]);
-    Team::add(s.vlen, J, holders, delta);  // holders before i joins
-    s.vlen[i] += l * sh1;
+    T::add_mask(s.vlen, J, holders, delta);  // holders before i joins
+    T::add(s.vlen, i, l * sh1);
     if (p_old == 0 && ghost_k == 1) {     // a ghost comes back: unlink it
       const int32_t gp = s.gprv[k], gn = s.gnxt[k];
       if (gp == NIL) s.ghead = gn;
@@ -264,17 +272,17 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   // list hit: unlink k from its place (k is not the head, so nx != NIL)
   const bool rem = held && head_i != k;
   if (rem) {
-    if (prv_ik == NIL) s.tail[i] = nxt_ik;
+    if (prv_ik == NIL) T::put(s.tail, i, nxt_ik);
     else s.nxt[base + prv_ik] = nxt_ik;
     s.prv[base + nxt_ik] = prv_ik;
   }
   // insert k at the head of list i
   if (rem || att) {
-    if (head_i == NIL) s.tail[i] = k;     // only an attach finds list i empty
+    if (head_i == NIL) T::put(s.tail, i, k);   // only an attach finds list i empty
     else s.nxt[base + head_i] = k;
     s.prv[ik] = head_i;
     s.nxt[ik] = NIL;
-    s.head[i] = k;
+    T::put(s.head, i, k);
   }
   if (att) s.res_since[ik] = idx;
 
@@ -282,31 +290,30 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
   int32_t n_ev = 0, n_rip = 0;
   if (att) {
     for (;;) {
-      const int worst = Team::worst(s.vlen, s.b, s.bhat, J, i);
+      const int worst = T::worst(s.vlen, s.b, s.bhat, J, i);
       if (worst < 0) break;
       const int32_t wbase = worst * N;
-      const int32_t v = s.tail[worst];
+      const int32_t v = T::at(s.tail, worst);
       const int32_t wv = wbase + v;
       // the tail victim's cells, all at once (its prv is NIL)
       const int32_t nv = s.nxt[wv];
       const int32_t since = s.res_since[wv];
       const int32_t vl = s.length[v];
       const int32_t vp_old = s.hcnt[v];
-      const uint64_t vholders = Team::column(s.hold, J, N, v) & ~((uint64_t)1 << worst);
+      const uint64_t vholders = T::column(s.hold, J, N, v) & ~((uint64_t)1 << worst);
       // unlink it
-      s.tail[worst] = nv;
-      if (nv == NIL) s.head[worst] = NIL;
+      T::put(s.tail, worst, nv);
+      if (nv == NIL) T::put(s.head, worst, NIL);
       else s.prv[wbase + nv] = NIL;
       // close its residence interval
       if (since >= 0) s.tot_time[wv] += idx - (since > s.t_start ? since : s.t_start);
       s.res_since[wv] = NIL;
       // share re-apportionment: the remaining holders inflate
       const int32_t sh_old = share[vp_old];
-      s.vlen[worst] -= vl * sh_old;
+      T::add(s.vlen, worst, -(vl * sh_old));
       s.hold[wv] = 0;
       s.hcnt[v] = vp_old - 1;
-      const int32_t vdelta = vl * (share[vp_old - 1] - sh_old);
-      Team::add(s.vlen, J, vholders, vdelta);
+      T::add_mask(s.vlen, J, vholders, vl * (share[vp_old - 1] - sh_old));
       if (vp_old == 1) {                  // consensus eviction
         if (a.ghost) {
           const int32_t gt = s.gtail;
@@ -336,7 +343,7 @@ LE_FN void lane_step(Lane& s, const Args& a, int32_t idx, int32_t i, int32_t k) 
       s.n_prim += n_ev - n_rip;
     }
   }
-  if (post) s.reqs_p[i]++;
+  if (post) T::add(s.reqs_p, i, 1);
 }
 
 // Lane r walks its m requests of this chunk (the host build's loop; the

@@ -121,12 +121,12 @@ H100_SHARED_LIMIT = 232_448   # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H1
 
 def _largest_shared_n(J, limit):
     """The largest N whose lane fits ``limit`` bytes on the shared route,
-    counted from the layout: 5 J*N + 6 N words for the lane, 8 J + 2 for
-    the J-wide arrays and share, 2 x 3 x 256 for the request tiles."""
-    return (limit // 4 - (8 * J + 2) - 2 * 3 * 256) // (5 * J + 6)
+    counted from the layout: 5 J*N + 6 N words for the lane and the
+    lengths, J + 2 for share, 2 x 3 x 256 for the request tiles."""
+    return (limit // 4 - (J + 2) - 2 * 3 * 256) // (5 * J + 6)
 
 
-@pytest.mark.parametrize("J,N", [(1, 1), (3, 1000), (3, 2692), (9, 500), (9, 1_000_000),
+@pytest.mark.parametrize("J,N", [(1, 1), (3, 1000), (3, 2693), (9, 500), (9, 1_000_000),
                                  (62, 7)])
 def test_shared_bytes_match_the_kernel_layout(J, N):
     """The route choice in Python counts the bytes the kernel launches
@@ -143,15 +143,15 @@ def test_shared_bytes_match_the_kernel_layout(J, N):
 
 def test_route_follows_the_shared_memory_limit():
     lim = H100_SHARED_LIMIT
-    assert le.pick_route(3, 1000, lim) == "shared"         # Table I: 90,248 B
-    assert le.shared_bytes(3, 1000, "shared") == 90_248
+    assert le.pick_route(3, 1000, lim) == "shared"         # Table I: 90,164 B
+    assert le.shared_bytes(3, 1000, "shared") == 90_164
     assert le.pick_route(9, 1_000_000, lim) == "device"    # Fig. 2
     for J in (1, 3, 9):
         n = _largest_shared_n(J, lim)
         assert le.shared_bytes(J, n, "shared") <= lim < le.shared_bytes(J, n + 1, "shared")
         assert le.pick_route(J, n, lim) == "shared"
         assert le.pick_route(J, n + 1, lim) == "device"
-    assert _largest_shared_n(3, lim) == 2692
+    assert _largest_shared_n(3, lim) == 2693
     with pytest.raises(ValueError, match="route"):
         le.shared_bytes(3, 10, "global")
 
