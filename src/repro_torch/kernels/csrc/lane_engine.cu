@@ -110,17 +110,17 @@ struct Warp {
   }
 };
 
-// The lines of request (i, k)'s step that can be known ahead of it, one
-// or two a lane.
+// The lines of request (i, k)'s step that can be known ahead of it.
 __device__ __forceinline__ void prefetch_request(const Lane& g, int J, int32_t N, int32_t i,
                                                  int32_t k) {
-  const int l = Warp::lane();
   const int32_t ik = i * N + k;
-  const int32_t* line = l == 0 ? g.nxt + ik : l == 1 ? g.prv + ik : l == 2 ? g.res_since + ik
-                      : l == 3 ? g.length + k : l == 4 ? g.hcnt + k : l == 5 ? g.isghost + k
-                      : nullptr;
-  if (line) prefetch_l2(line);
-  for (int j = l; j < J; j += 32) prefetch_l2(g.hold + j * N + k);
+  prefetch_l2(g.nxt + ik);
+  prefetch_l2(g.prv + ik);
+  prefetch_l2(g.res_since + ik);
+  prefetch_l2(g.length + k);
+  prefetch_l2(g.hcnt + k);
+  prefetch_l2(g.isghost + k);
+  for (int j = 0; j < J; ++j) prefetch_l2(g.hold + j * N + k);
 }
 
 // Copy n words between device and shared memory with the whole block.
@@ -159,6 +159,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
     la.lengths = p;
     p += N;
   }
+  volatile int32_t* walker_at = p++;  // the request the walker takes (route 2's prefetch)
   int32_t* tiles = p;                 // NBUF x (TILE proxies, TILE objects)
 
   // -- the walker's view of the lane ----------------------------------------
@@ -193,16 +194,21 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
       dst[TILE + x] = O[b0 + x];
     }
   };
+  auto req = [&](int off, int w) {
+    return tiles[(off / TILE) % NBUF * 2 * TILE + w * TILE + off % TILE];
+  };
+  // Route 2's prefetch warp (warp 1) follows the walker: the walker posts
+  // the request it takes, and the prefetch warp issues the lines of the
+  // requests up to dist ahead of it, one request a lane.
+  const bool prefetcher = !WHOLE && dist > 0 && threadIdx.x >= 32 && threadIdx.x < 64;
+  const int first_loader = !WHOLE && dist > 0 ? 64 : 32;
+  if (threadIdx.x == 0) *walker_at = -1;
   for (int t = 0; t < NBUF - 1 && t < ntiles; ++t) load_tile(t, 0, THREADS);
   __syncthreads();
   for (int t = 0; t < ntiles; ++t) {
-    if (!walker) {
-      if (t + NBUF - 1 < ntiles) load_tile(t + NBUF - 1, 32, THREADS - 32);
-    } else {
-      const int b0 = t * TILE, e = min(m, b0 + TILE);
-      const int ahead = min(m, (t + NBUF - 1) * TILE);   // requests loaded so far
-      auto req = [&](int off, int w) { return tiles[(off / TILE) % NBUF * 2 * TILE + w * TILE
-                                                    + off % TILE]; };
+    const int b0 = t * TILE, e = min(m, b0 + TILE);
+    const int ahead = min(m, (t + NBUF - 1) * TILE);   // requests loaded so far
+    if (walker) {
       int32_t i = req(b0, 0), k = req(b0, 1);
       for (int off = b0; off < e; ++off) {
         int32_t i_next = 0, k_next = 0;
@@ -210,12 +216,23 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
           i_next = req(off + 1, 0);
           k_next = req(off + 1, 1);
         }
-        if (!WHOLE && dist > 0 && off + dist < ahead)
-          prefetch_request(g, J, N, req(off + dist, 0), req(off + dist, 1));
+        if (!WHOLE && dist > 0 && threadIdx.x == 0) *walker_at = off;
         lane_step(s, la, a.idx0 + off, i, k);
         i = i_next;
         k = k_next;
       }
+    } else if (prefetcher) {
+      for (int done = b0;;) {
+        const int at = *walker_at;
+        const int upto = min(ahead, max(at, b0 - 1) + 1 + dist);
+        for (int x = done + (threadIdx.x & 31); x < upto; x += 32)
+          prefetch_request(g, J, N, req(x, 0), req(x, 1));
+        done = max(done, upto);
+        if (at >= e - 1 || done >= m) break;
+        __nanosleep(200);
+      }
+    } else if (t + NBUF - 1 < ntiles) {
+      load_tile(t + NBUF - 1, first_loader, THREADS - first_loader);
     }
     __syncthreads();
   }

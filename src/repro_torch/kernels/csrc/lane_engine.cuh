@@ -84,11 +84,12 @@ enum Field : int {
 
 // Words of shared memory a block takes on each route of lane_engine.cu.
 // Route 1 (the whole lane): the five J*N arrays, the five N arrays,
-// lengths, share and the request tiles. Route 2: share and the tiles. The
-// histogram stays in device memory on both (a miss touches it once); the
-// J-wide arrays and the scalars live in the walker's registers.
+// lengths, share, the walker's position and the request tiles. Route 2:
+// share, the position and the tiles. The histogram stays in device memory
+// on both (a miss touches it once); the J-wide arrays and the scalars live
+// in the walker's registers.
 LE_FN int64_t shared_words(int J, int N, bool whole_lane) {
-  const int64_t small = (J + 2) + 2 * (int64_t)NBUF * TILE;
+  const int64_t small = (J + 2) + 1 + 2 * (int64_t)NBUF * TILE;
   return whole_lane ? small + 5 * (int64_t)J * N + 6 * (int64_t)N : small;
 }
 

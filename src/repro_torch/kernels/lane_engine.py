@@ -63,10 +63,11 @@ _limits: Dict[int, int] = {}
 def shared_bytes(J: int, N: int, route: str) -> int:
     """Shared memory one block takes on ``route`` (``lane_engine.cuh``
     ``shared_words``): on ``"shared"`` the lane's five int32 arrays of J*N
-    and five of N, the lengths and share, and the request tiles; on
-    ``"device"`` share and the tiles. The J-wide arrays and the scalars
-    live in registers, the histogram in device memory."""
-    small = (J + 2) + 2 * NBUF * TILE
+    and five of N, the lengths, share, the walker's position and the
+    request tiles; on ``"device"`` share, the position and the tiles. The
+    J-wide arrays and the scalars live in registers, the histogram in
+    device memory."""
+    small = (J + 2) + 1 + 2 * NBUF * TILE
     if route == "shared":
         return 4 * (small + 5 * J * N + 6 * N)
     if route == "device":

@@ -122,8 +122,9 @@ H100_SHARED_LIMIT = 232_448   # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H1
 def _largest_shared_n(J, limit):
     """The largest N whose lane fits ``limit`` bytes on the shared route,
     counted from the layout: 5 J*N + 6 N words for the lane and the
-    lengths, J + 2 for share, 2 x 3 x 256 for the request tiles."""
-    return (limit // 4 - (J + 2) - 2 * 3 * 256) // (5 * J + 6)
+    lengths, J + 3 for share and the walker's position, 2 x 3 x 256 for
+    the request tiles."""
+    return (limit // 4 - (J + 3) - 2 * 3 * 256) // (5 * J + 6)
 
 
 @pytest.mark.parametrize("J,N", [(1, 1), (3, 1000), (3, 2693), (9, 500), (9, 1_000_000),
@@ -143,8 +144,8 @@ def test_shared_bytes_match_the_kernel_layout(J, N):
 
 def test_route_follows_the_shared_memory_limit():
     lim = H100_SHARED_LIMIT
-    assert le.pick_route(3, 1000, lim) == "shared"         # Table I: 90,164 B
-    assert le.shared_bytes(3, 1000, "shared") == 90_164
+    assert le.pick_route(3, 1000, lim) == "shared"         # Table I: 90,168 B
+    assert le.shared_bytes(3, 1000, "shared") == 90_168
     assert le.pick_route(9, 1_000_000, lim) == "device"    # Fig. 2
     for J in (1, 3, 9):
         n = _largest_shared_n(J, lim)
