@@ -38,20 +38,24 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              host clock around a call and a synchronize), K2 first at a
              long prefix with a small group;
 8. estimator the paper's estimator loop at its published widths on the
-             lane engine (one CUDA thread per lane): the Table I system
-             (J=3, N=1000, B=1000, Zipf 0.75/0.5/1.0), its 8 b-combos x 4
-             replicas as 32 sweep lanes of one batched runner, and the
-             Fig. 2 system (J=9, N=1e6, 3x1000+3x2000+3x7000 units, Zipf
-             0.5..4.5), 16 replicas (about 3.2 GB of state); every lane
-             held exactly to the kernel's host build and to the host C
-             engine; Scenario.run() of the Table I preset with 4
+             lane engine (one block per lane, its warp 0 walking the
+             requests; the lane in shared memory where it fits, else in
+             device memory): the Table I system (J=3, N=1000, B=1000,
+             Zipf 0.75/0.5/1.0), its 8 b-combos x 4 replicas as 32 sweep
+             lanes of one batched runner on the shared-memory route, and
+             once more on the device-memory route, and the Fig. 2 system
+             (J=9, N=1e6, 3x1000+3x2000+3x7000 units, Zipf 0.5..4.5), 16
+             replicas on the device-memory route (about 3.2 GB of state);
+             every lane held exactly to the kernel's host build and to the
+             host C engine; Scenario.run() of the Table I preset with 4
              replicas on its default backend ("auto", which runs the lane
              engine on the card) against backend="c" (same_estimates);
              the Table II working-set solve of the 8 combos batched on
              the card against the CPU; then the lane engine timed per
-             chunk beside its host build, the host C engine and its byte
-             bound, with the timed chunk's mix of steps read from the
-             lanes' counters. Request counts per lane are cut from the
+             chunk on both routes beside its host build, the host C
+             engine and its byte bound, with the timed chunk's mix of
+             steps read from the lanes' counters and its evictions from
+             their holder bits. Request counts per lane are cut from the
              paper's (printed); widths never are.
 
 The line before the last lists each kernel as JSON (launches on its path:
@@ -92,6 +96,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels import lane_engine as le_module  # noqa: E402
 from repro_torch.kernels.lane_engine import SCALARS, lane_engine  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
@@ -968,12 +973,17 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
 TABLE1_GRID = ((8, 8, 8), (8, 8, 64), (8, 64, 8), (8, 64, 64),
                (64, 8, 8), (64, 8, 64), (64, 64, 8), (64, 64, 64))
 WS_RTOL = 1e-4          # card vs CPU float32 working-set solve (as phase 6)
-# Loads on a list-hit step of lane_engine.cuh, read from the code: O[off],
-# hold[ik], head[i], prv[ik] and nxt[ik], head[i] again after the unlink's
-# stores. A cache-hit attach or a miss adds the eviction loop's loads per
-# victim (tail, nxt, res_since, hcnt, the holder column); the timed
-# chunk's mix of steps is read from the lanes' counters.
-HIT_STEP_LOADS = 5
+# Dependent levels of memory accesses per step of lane_engine.cuh, read
+# from the code (a level is accesses issued together, each waiting on the
+# one before; the request comes from a tile one step ahead, and the J-wide
+# arrays are registers): a list hit reads hold[ik], length[k], hcnt[k],
+# isghost[k], prv/nxt[ik] and k's holder column at once, then only
+# stores; an attach (a cache hit or a miss) adds share[hcnt[k]]; a miss
+# adds lengths[k]; each eviction reads its tail victim's cells and holder
+# column at once (the tail is a shuffle), then share[hcnt[v]]. The timed
+# chunk's mix of steps comes from the lanes' counters, its evictions from
+# their holder bits: each attach sets one, each eviction clears one.
+STEP_LEVELS = {"hit": 1, "attach": 2, "miss": 1, "eviction": 2}
 
 
 def _max_abs_diff(x, y) -> float:
@@ -1051,6 +1061,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _check_routes(device, runners: dict) -> None:
+    """Print the route each runner launches on, and fail where it is not
+    the one expected (on the card; the host build has no routes)."""
+    for what, (run, want) in runners.items():
+        _log(f"[estimator] {what}: J={run.J} N={run.N}, route {run.route}"
+             + (f" ({le_module.shared_bytes(run.J, run.N, 'shared')} B on the shared route; "
+                f"the card allows {le_module.shared_limit(device)} B a block)"
+                if device.type == "cuda" else ""))
+        if device.type == "cuda" and run.route != want:
+            _fail(f"{what}: route {run.route}, not {want}")
+
+
 def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
     """The main path of the estimator loop (see the module docstring)."""
     res = {}
@@ -1083,6 +1105,14 @@ def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
     _sync(device)
     wall = time.perf_counter() - t0
     lanes = _lane_results(card, n, warmup, False)
+    # the same lanes once more on the device-memory route
+    card_dev = BatchedCudaRunner(params, N, np.ones(N, np.int64), warmup, warmup, _lcm_1_to(J),
+                                 L, b_sweep=combos, bhat_sweep=combos, device=device,
+                                 route="device")
+    card_dev.feed(P, O)
+    lanes_dev = _lane_results(card_dev, n, warmup, False)
+    _check_routes(device, {"Table I": (card, "shared"),
+                           "Table I, forced": (card_dev, "device")})
     host = BatchedCudaRunner(params, N, np.ones(N, np.int64), warmup, warmup, _lcm_1_to(J), L,
                              b_sweep=combos, bhat_sweep=combos, device="cpu")
     host.feed(P, O)
@@ -1091,23 +1121,27 @@ def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
                                     physical_capacity=B),
         lambda r: traces[r % R], L, N, warmup, False)
     _hold_lanes(device, card, host, lanes, c_lanes, errs, "Table I")
+    _hold_lanes(device, card_dev, host, lanes_dev, c_lanes, errs, "Table I, device-memory route")
     c_s = sum(c.elapsed_s for c in c_lanes)
     state_mb = sum(t[0].numel() * 4 for t in card.st.values()) / 1e6
     _log(f"[estimator] Table I: {L} lanes x {n} requests in {card.elapsed:.4f} s of launches "
-         f"({len(card.launch_s)} timed launches; runner wall {wall:.3f} s with the build and "
-         f"module load): {n / card.elapsed:.0f} requests/s per lane, {L * n / card.elapsed:.0f} "
-         f"for all lanes; host build {host.elapsed:.3f} s; host C engine {c_lanes[0].elapsed_s:.4f}"
+         f"on route {card.route} ({len(card.launch_s)} timed launches; runner wall {wall:.3f} s "
+         f"with the build and module load): {n / card.elapsed:.0f} requests/s per lane, "
+         f"{L * n / card.elapsed:.0f} for all lanes; route {card_dev.route} (forced) "
+         f"{card_dev.elapsed:.4f} s, {n / card_dev.elapsed:.0f} requests/s per lane; host build "
+         f"{host.elapsed:.3f} s; host C engine {c_lanes[0].elapsed_s:.4f}"
          f" s for lane 0 ({n / c_lanes[0].elapsed_s:.0f} requests/s), {c_s:.3f} s for the {L} "
          f"lanes one after another ({L * n / c_s:.0f} requests/s); state {state_mb:.4f} MB per "
-         f"lane; every lane's state equals the host build's and its outputs the C engine's")
+         f"lane; every lane of both routes equals the host build state for state and the C "
+         f"engine output for output")
     for b in ((64, 64, 64), (8, 8, 64)):
         r = TABLE1_GRID.index(b) * R
         hp = lanes[r].dense_occupancy()[:, [0, 9, 99, 999]]
         _log(f"[estimator] Table I b={b} lane {r}: hit probability at ranks 1/10/100/1000 "
              f"{np.round(hp, 4).tolist()}; misses {lanes[r].n_miss}, sets recorded after "
              f"warmup {lanes[r].n_sets_recorded}")
-    res["table1"] = dict(card=card, host=host, c_drivers=c_drivers, L=L, n=n, c_s=c_s,
-                         combos=combos, traces=traces, R=R)
+    res["table1"] = dict(card=card, card_dev=card_dev, host=host, c_drivers=c_drivers, L=L,
+                         n=n, c_s=c_s, combos=combos, traces=traces, R=R)
 
     # -- Fig. 2 system: R replicas at the published widths -----------------
     sc2 = get_preset("fig2_ripple", seed=23 + seed)
@@ -1128,6 +1162,7 @@ def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
     O2 = np.stack([t.objects for t in traces2])
     card2 = BatchedCudaRunner(p2, N2, np.ones(N2, np.int64), warm2, warm2, _lcm_1_to(J2), R2,
                               device=device)
+    _check_routes(device, {"Fig. 2": (card2, "device")})
     card2.feed(P2, O2)
     lanes2 = _lane_results(card2, n2, warm2, True)
     mem = (torch.cuda.max_memory_allocated() - mem0) / 1e9 if device.type == "cuda" else 0.0
@@ -1143,7 +1178,8 @@ def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
     for x in lanes2:
         h = x.evictions_per_set[:8]
         agg[: len(h)] += h
-    _log(f"[estimator] Fig. 2: {R2} lanes x {n2} requests in {card2.elapsed:.4f} s of launches: "
+    _log(f"[estimator] Fig. 2: {R2} lanes x {n2} requests in {card2.elapsed:.4f} s of launches "
+         f"on route {card2.route}: "
          f"{n2 / card2.elapsed:.0f} requests/s per lane, {R2 * n2 / card2.elapsed:.0f} for all "
          f"lanes; host C engine {c2[0].elapsed_s:.4f} s for lane 0, {c2_s:.3f} s for the {R2} "
          f"lanes one after another ({R2 * n2 / c2_s:.0f} requests/s); state "
@@ -1174,8 +1210,10 @@ def phase_estimator(device, sizes: Sizes, errs: Errors, seed: int) -> dict:
         _fail(f"scenario: ran on {rep.backend}, batched={rep.ensemble['batched']}")
     if not (np.all(np.isfinite(rep.hit_rate)) and rep.dense_hit_prob().shape == (3, N)):
         _fail("scenario: hit rates not finite or hit_prob of the wrong shape")
+    route = (le_module.pick_route(J, N, le_module.shared_limit(device))
+             if device.type == "cuda" else "host build")
     _log(f"[estimator] Scenario table1 b=(64, 64, 8), {scs.n_requests} requests x 4 replicas: "
-         f"backend auto (ran {rep.backend}) {wall_on:.3f} s wall (Report elapsed "
+         f"backend auto (ran {rep.backend}, route {route}) {wall_on:.3f} s wall (Report elapsed "
          f"{rep.elapsed_s:.4f} s, {rep.throughput_rps:.0f} requests/s), backend c {wall_off:.3f} s wall (elapsed "
          f"{rep_c.elapsed_s:.4f} s); same_estimates both ways; overall hit rate "
          f"{rep.overall_hit_rate:.6f}, per proxy {np.round(rep.hit_rate, 6).tolist()}")
@@ -1217,33 +1255,70 @@ def profile_scenario(device, est: dict) -> dict:
     return r
 
 
+def chunk_mix(before: dict, after: dict) -> dict:
+    """The steps of the requests between two states of a runner, all lanes
+    together: the shares of list hits, cache-hit attaches and misses (the
+    lanes' counters), evictions a request (each attach sets one holder bit
+    and each eviction clears one, so evictions = attaches - the change in
+    set bits) and the dependent levels of memory accesses a request that
+    this mix implies (STEP_LEVELS). ``before`` and ``after`` map the
+    scalar names and "hold" to sums over the lanes."""
+    d = {k: after[k] - before[k] for k in after}
+    steps = d["n_hit_list"] + d["n_hit_cache"] + d["n_miss"]
+    attaches = d["n_hit_cache"] + d["n_miss"]
+    ev = attaches - d["hold"]
+    lv = STEP_LEVELS
+    levels = (lv["hit"] * d["n_hit_list"] + lv["attach"] * attaches + lv["miss"] * d["n_miss"]
+              + lv["eviction"] * ev)
+    return {"steps": steps, "list_hits": d["n_hit_list"] / steps,
+            "attaches": d["n_hit_cache"] / steps, "misses": d["n_miss"] / steps,
+            "evictions": ev / steps, "set_evictions": (d["n_prim"] + d["n_rip"]) / steps,
+            "levels": levels / steps}
+
+
+def lane_sums(runner) -> dict:
+    """The lanes' scalars and set holder bits, summed over the lanes."""
+    out = dict(zip(SCALARS, runner.st["sc"].to(torch.int64).sum(0).cpu().tolist()))
+    out["hold"] = int(runner.st["hold"].to(torch.int64).sum())
+    return out
+
+
+def _launch_ms(runner, Pd, Od) -> float:
+    """One launch of a runner's lanes over a chunk on the card (CUDA events)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    runner._launch(Pd, Od)
+    b.record()
+    b.synchronize()
+    runner.idx += Pd.shape[1]
+    return a.elapsed_time(b)
+
+
 def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
     """One chunk of sizes.est_chunk requests on each of the 32 warm Table I
-    lanes: the kernel (CUDA events, median of 5 chunks), its host build,
-    and the host C engine on the same lanes one after another. The bound
-    counts the chunk's requests, the lanes' state read once and written
-    once, and the constants."""
+    lanes: the kernel on the shared-memory route and on the device-memory
+    route (CUDA events, median of 5 chunks after one), its host build, and
+    the host C engine on the same lanes one after another; then every lane
+    of both routes equals the host build, state for state. The bound counts
+    the chunk's requests, the lanes' state read once and written once, and
+    the constants."""
     t1 = est["table1"]
-    card, host, drivers, L, R = t1["card"], t1["host"], t1["c_drivers"], t1["L"], t1["R"]
+    card, card_dev, host = t1["card"], t1["card_dev"], t1["host"]
+    drivers, L, R = t1["c_drivers"], t1["L"], t1["R"]
     m = sizes.est_chunk
     rng = np.random.default_rng(12345)
     lam = irm.rate_matrix(card.N, (0.75, 0.5, 1.0))
     chunks = [irm.sample_trace(lam, m, seed=int(rng.integers(2**31))) for _ in range(6 * R)]
-    times, plain, c_ms = [], [], []
-    sc0 = card.st["sc"].to(torch.int64).sum(0).cpu()
+    times, times_dev, plain, c_ms = [], [], [], []
+    before = lane_sums(card)
     for i in range(6):
         tr = chunks[i * R:(i + 1) * R]
         P = np.stack([tr[lane % R].proxies for lane in range(L)]).astype(np.int32)
         O = np.stack([tr[lane % R].objects for lane in range(L)]).astype(np.int32)
         Pd, Od = torch.from_numpy(P).to(device), torch.from_numpy(O).to(device)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        card._launch(Pd, Od)
-        b.record()
-        b.synchronize()
-        card.idx += m
-        times.append(a.elapsed_time(b))
+        times.append(_launch_ms(card, Pd, Od))
+        times_dev.append(_launch_ms(card_dev, Pd, Od))
         t0 = time.perf_counter()
         host._run(P, O)
         plain.append(1e3 * (time.perf_counter() - t0))
@@ -1251,29 +1326,32 @@ def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
         for lane, drv in enumerate(drivers):
             drv.feed(P[lane], O[lane].astype(np.int64))
         c_ms.append(1e3 * (time.perf_counter() - t0))
-    ms, plain_ms, c_med = (float(np.median(x[1:])) for x in (times, plain, c_ms))
-    # the chunks' mix of steps, from the counters of all lanes
-    d = dict(zip(SCALARS, (card.st["sc"].to(torch.int64).sum(0).cpu() - sc0).tolist()))
-    steps = d["n_hit_list"] + d["n_hit_cache"] + d["n_miss"]
-    mix = {k: d[k] / steps for k in ("n_hit_list", "n_hit_cache", "n_miss")}
-    set_evict_per_req = (d["n_prim"] + d["n_rip"]) / steps     # a miss's set only
+    for run in (card, card_dev):
+        for k in run.st:
+            if not torch.equal(run.st[k].cpu(), host.st[k]):
+                _fail(f"timed chunks, route {run.route}: state {k} differs from the host build")
+    ms, ms_dev, plain_ms, c_med = (float(np.median(x[1:])) for x in (times, times_dev, plain,
+                                                                       c_ms))
+    mix = chunk_mix(before, lane_sums(card))
     state = sum(t.numel() * 4 for t in card.st.values())
     n_bytes = 2 * state + 2 * L * m * 4 + card.lengths.numel() * 4 + card.share.numel() * 4
-    r = dict(ms=ms, plain_ms=plain_ms, library_ms=c_med, shape=f"{L} lanes x {m} requests",
+    r = dict(ms=ms, ms_device_route=ms_dev, plain_ms=plain_ms, library_ms=c_med,
+             shape=f"{L} lanes x {m} requests",
              library="host C engine (fastsim_c), the lanes one after another")
     r["bound_ms"], r["bound_by"] = n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
-    per_req_ns = ms * 1e6 / m
-    _log(f"[timing] lane_engine ({r['shape']}, Table I system): kernel {ms:.4f} ms per chunk "
-         f"(median of 5 after one), {L * m / ms * 1e3:.0f} requests/s for all lanes, "
-         f"{m / ms * 1e3:.0f} per lane; host build {plain_ms:.4f} ms; host C engine "
-         f"{c_med:.4f} ms; bound {r['bound_ms']:.6f} ms (bytes: {n_bytes / 1e6:.3f} MB); "
-         f"{per_req_ns:.1f} ns per request per lane; steps: list hits {mix['n_hit_list']:.4f}, "
-         f"cache-hit attaches {mix['n_hit_cache']:.4f}, misses {mix['n_miss']:.4f}; evictions "
-         f"of a miss's set {set_evict_per_req:.4f} a request (an attach's are not counted); a "
-         f"list hit is {HIT_STEP_LOADS} loads, read from the code; the other steps add the "
-         f"eviction loop's; "
-         f"{min(L, torch.cuda.get_device_properties(device).multi_processor_count)} of "
-         f"{torch.cuda.get_device_properties(device).multi_processor_count} SMs hold a lane")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _log(f"[timing] lane_engine ({r['shape']}, Table I system): kernel route {card.route} "
+         f"{ms:.4f} ms per chunk, route {card_dev.route} {ms_dev:.4f} ms (median of 5 after "
+         f"one), {L * m / ms * 1e3:.0f} requests/s for all lanes, {m / ms * 1e3:.0f} per lane "
+         f"(route {card_dev.route} {m / ms_dev * 1e3:.0f}); host build {plain_ms:.4f} ms; host C "
+         f"engine {c_med:.4f} ms; bound {r['bound_ms']:.6f} ms (bytes: {n_bytes / 1e6:.3f} MB); "
+         f"{ms * 1e6 / m:.1f} ns per request per lane; steps: list hits "
+         f"{mix['list_hits']:.4f}, cache-hit attaches {mix['attaches']:.4f}, misses "
+         f"{mix['misses']:.4f}; evictions {mix['evictions']:.4f} a request (from the holder "
+         f"bits; a miss's set alone {mix['set_evictions']:.4f}); {mix['levels']:.4f} dependent "
+         f"levels of memory accesses a request (STEP_LEVELS {STEP_LEVELS}), "
+         f"{ms * 1e6 / m / mix['levels']:.1f} ns a level; {min(L, sms)} of {sms} SMs hold a lane; "
+         f"both routes equal the host build after the timed chunks")
     return r
 
 

@@ -17,11 +17,12 @@ the timed chunks, each after the runner's own synchronize):
   one tile (256 requests) on the shared route, whose time is mostly the
   lane's copy into shared memory and back;
 - the Fig. 2 system (J=9, N=1e6, 3x1000 + 3x2000 + 3x7000 units, Zipf
-  0.5..4.5, 16 lanes warmed by 100,000 requests): chunks of 16,384 on the
-  device-memory route at each distance.
+  0.5..4.5, 16 lanes warmed by ``--fig2-warm`` requests): chunks of 16,384
+  on the device-memory route at each distance.
 
-Each route's lanes are held to one another after every chunk (the same
-requests give the same state). Two trees, e.g. a commit and its parent
+Every setting has runners of its own, fed the same requests in turn, so
+each chunk is timed on lanes in the same state; the runners' states are
+held equal after every chunk. Two trees, e.g. a commit and its parent
 unpacked with ``git archive``, are compared in turns, one process each.
 Prints the card's name and power limit first. Exits 2 without a card.
 """
@@ -82,6 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--dists", default="0,8,16,32,64")
     ap.add_argument("--chunks", type=int, default=3, help="timed chunks per setting")
+    ap.add_argument("--fig2-warm", type=int, default=300_000)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_lane_engine: no CUDA device", file=sys.stderr)
@@ -106,9 +108,11 @@ def main(argv=None) -> int:
     for fn, c in sass_counts(_build.library_path("lane_engine")).items():
         print(f"sass {fn}: {c}")
 
-    def runners(params, N, R, scale, routes, **kw):
-        return {rt: BatchedCudaRunner(params, N, np.ones(N, np.int64), 0, 0, scale, R,
-                                      device=dev, route=rt, **kw) for rt in routes}
+    def runners(params, N, R, scale, plan, **kw):
+        """{setting: runner} for plan {setting: (route, prefetch distance)}."""
+        return {key: BatchedCudaRunner(params, N, np.ones(N, np.int64), 0, 0, scale, R,
+                                       device=dev, route=route, **kw)
+                for key, (route, _) in plan.items()}
 
     def feed_all(rs, P, O):
         for r in rs.values():
@@ -119,7 +123,7 @@ def main(argv=None) -> int:
         for r in rs.values():
             for k in r.st:
                 if not torch.equal(r.st[k], ref.st[k]):
-                    raise RuntimeError(f"routes disagree on {k}")
+                    raise RuntimeError(f"settings disagree on {k}")
 
     def chunk_fn(r, Pd, Od, dist):
         def go():
@@ -129,20 +133,22 @@ def main(argv=None) -> int:
         return go
 
     def run_chunks(rs, sample, m, plan, label):
-        """plan: {runner key: prefetch distance}. Every chunk runs on every
-        runner (the same requests), timed; then the states are compared."""
+        """Every chunk runs on every setting's runners in turn (the same
+        requests on lanes in the same state), timed; then the states are
+        compared."""
         times = {key: [] for key in plan}
         for _ in range(args.chunks):
             P, O = sample(m)
             Pd, Od = torch.from_numpy(P).to(dev), torch.from_numpy(O).to(dev)
-            for key, d in plan.items():
+            for key, (_, d) in plan.items():
                 r = rs[key]
                 times[key].append(timed(chunk_fn(r, Pd, Od, d)))
                 r.idx += m
             same(rs)
         for key, t in times.items():
             med = float(np.median(t))
-            print(f"{label} route {key} dist {plan[key]}: {med:.4f} ms per chunk of "
+            route, d = plan[key]
+            print(f"{label} route {route} dist {d}: {med:.4f} ms per chunk of "
                   f"{rs[key].R} lanes x {m} (median of {len(t)}; all "
                   f"{[round(x, 4) for x in t]}), {m / med * 1e3:.0f} requests/s a lane",
                   flush=True)
@@ -163,11 +169,11 @@ def main(argv=None) -> int:
         return P[rep].astype(np.int32), O[rep].astype(np.int32)
 
     p1 = SimParams(allocations=TABLE1_GRID[-1], physical_capacity=N)
-    rs = runners(p1, N, L, 6, le.ROUTES, b_sweep=combos, bhat_sweep=combos)
+    plan = {"shared": ("shared", 0)} | {f"d{d}": ("device", d) for d in dists}
+    rs = runners(p1, N, L, 6, plan, b_sweep=combos, bhat_sweep=combos)
     feed_all(rs, *sample1(200_000))
     same(rs)
-    for d in dists:
-        run_chunks(rs, sample1, 65_536, {"shared": 0, "device": d}, "Table I")
+    run_chunks(rs, sample1, 65_536, plan, "Table I")
     P, O = sample1(le.TILE)
     Pd, Od = torch.from_numpy(P).to(dev), torch.from_numpy(O).to(dev)
     short = []
@@ -189,10 +195,10 @@ def main(argv=None) -> int:
                 t.objects.reshape(R2, m).astype(np.int32))
 
     p2 = SimParams(allocations=FIG2_ALLOCS, physical_capacity=sum(FIG2_ALLOCS))
-    rs2 = runners(p2, N2, R2, 2520, ("device",))
-    feed_all(rs2, *sample2(100_000))
-    for d in dists:
-        run_chunks(rs2, sample2, 16_384, {"device": d}, "Fig. 2")
+    plan2 = {f"d{d}": ("device", d) for d in dists}
+    rs2 = runners(p2, N2, R2, 2520, plan2)
+    feed_all(rs2, *sample2(args.fig2_warm))
+    run_chunks(rs2, sample2, 16_384, plan2, "Fig. 2")
     return 0
 
 

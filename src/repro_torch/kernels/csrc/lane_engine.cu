@@ -1,37 +1,47 @@
-// The lane engine on the card: one block per lane. One thread of the
-// block (the walker) takes the lane's chunk of requests through
-// lane_engine.cuh's step, in order; the other threads feed it. This is the
-// serial form of the reference's XLA lane engine (core/fastsim_jax.py:138
-// and :364); one launch advances every lane by one chunk, and the state
-// stays in device memory between launches, in the reference's layout. See
-// lane_engine.cuh for the semantics.
+// The lane engine on the card: one block per lane. Its warp 0 (the
+// walker) takes the lane's chunk of requests through lane_engine.cuh's
+// step, in order; the other warps feed it. This is the serial form of the
+// reference's XLA lane engine (core/fastsim_jax.py:138 and :364); one
+// launch advances every lane by one chunk, and the state stays in device
+// memory between launches, in the reference's layout. See lane_engine.cuh
+// for the semantics.
 //
-// A lane is a chain of dependent accesses, bound by the latency of the
-// memory that holds its state. Two routes, chosen by the host from a
-// lane's shared-memory words (lane_engine.cuh shared_words) against the
-// card's opt-in limit per block, one route per launch:
+// What bounds a lane: its steps form one chain, each waiting on the last,
+// so a lane runs at the latency of that chain and never at a rate of bytes
+// or operations. On an H100 the chain is mostly the walker's own
+// instructions: a Table I lane in shared memory runs only about 1.2 times
+// as fast as the same lane in the L2 (scripts/time_lane_engine.py). The
+// design shortens the chain where it can:
+//
+//  - the walker is a whole warp (the team Warp below): list j's entries of
+//    the J-wide arrays live in lane j's registers, so the step's J-wide
+//    loops are one instruction a lane and a vote, and head[i], tail[i] or
+//    vlen[i] is a shuffle, not a load and a store;
+//  - the requests come through NBUF tiles of TILE in shared memory: while
+//    the walker takes tile t, the other warps load tile t + NBUF - 1, so
+//    the walker never waits on device memory for a request.
+//
+// Two routes, chosen by the host from a lane's shared-memory words
+// (lane_engine.cuh shared_words) against the card's opt-in limit per
+// block, one route per launch:
 //
 //  1. Shared memory (WHOLE = true), for lanes that fit (the Table I system,
-//     J=3, N=1000: 92 KB with the tiles, two blocks an SM). The block
-//     copies the whole lane into shared memory at launch start, coalesced,
-//     and back at the end; every access of the walk is then a shared-memory
-//     access (about 30 cycles). Only the evictions histogram stays in
-//     device memory (a miss touches it once).
+//     J=3, N=1000: 90 KB with the tiles, two blocks an SM). The block
+//     copies the lane's arrays into shared memory at launch start,
+//     coalesced, and back at the end (about 0.1 ms a launch); every access
+//     of the walk is then a shared-memory access. Only the evictions
+//     histogram stays in device memory (a miss touches it once).
 //  2. Device memory (WHOLE = false), for larger lanes (the Fig. 2 system,
-//     J=9, N=1e6: 200 MB a lane). The J-wide arrays and share go to shared
-//     memory; the rest stays where it is. The walker knows the requests
-//     ahead of it, so `dist` requests ahead (0: none) it prefetches into
-//     the L2 the lines that request's step will touch: hold, nxt, prv and res_since
-//     at i*N + k, length, hcnt and isghost at k, and k's holder column. The
-//     value is never loaded early, because the walker rewrites those lines.
-//     An eviction's tail victim is known only when the eviction runs, so
-//     its lines cannot be prefetched: each eviction still waits on device
-//     memory.
-//
-// On both routes the requests come to the walker through NBUF tiles of
-// TILE requests in shared memory: while the walker takes tile t, warps 1..
-// load tile t + NBUF - 1 from device memory, so the walker never waits on
-// device memory for a request, and can read up to TILE requests ahead.
+//     J=9, N=1e6: 200 MB a lane). The arrays stay where they are. The
+//     walker posts the request it takes, and warp 1 follows it: it brings
+//     into the L2 the lines of the requests up to `dist` ahead (0: no
+//     prefetch warp), one request a lane: hold, nxt, prv and res_since at
+//     i*N + k, length, hcnt and isghost at k, and k's holder column. No
+//     value is loaded early, because the walker rewrites those lines. An
+//     eviction's tail victim is known only when the eviction runs, so its
+//     lines cannot be prefetched: each eviction still waits on the memory
+//     that holds it. (A prefetch issued by the walker itself stalled it and
+//     cost a Fig. 2 lane 40%.)
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,7 +1,7 @@
 // The lane engine: one request of one lane of the flat shared-LRU cache,
 // written once as plain serial C++ and compiled twice — by nvcc into the
-// CUDA kernels of lane_engine.cu (one block per lane, one thread of it
-// walking the requests), and by g++ into the host library of
+// CUDA kernels of lane_engine.cu (one block per lane, its warp 0 walking
+// the requests), and by g++ into the host library of
 // lane_engine_host.cpp (the kernels' plain version, which the CPU tests
 // hold to the reference package).
 //
@@ -32,17 +32,18 @@
 // is int32, exact inside fastsim._xla_applicable's envelope, which also
 // keeps J*N < 2^31: indices inside a lane are int32.
 //
-// What bounds it: a lane is a chain of dependent memory accesses, so it
-// runs at the latency of the memory that holds its state, never at a rate
-// of bytes or operations. The step is written for that: everything a step
-// reads before its first store (hold[ik], length[k], hcnt[k], isghost[k],
-// head[i], prv/nxt of k and k's holder column) is loaded at once, from
-// cells that no earlier part of the step writes, so a list hit is one
-// level of loads and its stores, and each eviction one level after the
-// argmax that picks its list (the victim's cells and holder column at
-// once). On the card the state lives in shared memory when a lane fits
-// (lane_engine.cu, route 1: about 30 cycles a level) and in device memory
-// otherwise (route 2, prefetched ahead of the walker into the L2).
+// What bounds it: a lane is one chain of dependent steps, so it runs at
+// the latency of that chain, never at a rate of bytes or operations. The
+// step is written to keep the chain short: everything it reads before its
+// first store (hold[ik], length[k], hcnt[k], isghost[k], prv/nxt of k,
+// k's holder column and head[i]) is read at once, from cells that no
+// earlier part of the step writes, so a list hit is one level of loads and
+// then stores, an attach adds share[hcnt[k]], and each eviction two levels
+// (the victim's cells and holder column at once, then share[hcnt[v]])
+// after the argmax that picks its list. The J-wide arrays
+// and loops go through a team (Serial here; the kernels' walker warp keeps
+// them in registers, lane_engine.cu). The walker's own instructions, not
+// the memory, take most of a step on an H100 (lane_engine.cu).
 #pragma once
 
 #include <stdint.h>

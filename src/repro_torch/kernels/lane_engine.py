@@ -39,9 +39,11 @@ HIST = 1024   # fastsim.HIST_BUCKETS (the last bucket clamps)
 TILE, NBUF = 256, 3   # lane_engine.cuh: request tiles of a block in shared memory
 MAX_J = 62            # lane_engine.cuh: the holder column is a 64-bit mask
 ROUTES = ("shared", "device")
-# Requests ahead of the walker whose lines the device-memory route
-# prefetches into the L2 (at most TILE; 0 turns it off).
-PREFETCH_DISTANCE = 16
+# Requests ahead of the walker whose lines the device-memory route's
+# prefetch warp brings into the L2 (at most TILE; 0: no prefetch warp).
+# Found on an H100 with scripts/time_lane_engine.py: the Fig. 2 lanes gain
+# about 5% at any distance from 4 to 32, the Table I lanes nothing.
+PREFETCH_DISTANCE = 8
 # The state tensors in the order of lane_engine.cuh's Field enum.
 FIELDS = (
     "nxt", "prv", "hold", "res_since", "tot_time",   # (R, J*N)

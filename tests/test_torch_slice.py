@@ -13,6 +13,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.cacheblocks import layout_for as jlayout_for
@@ -194,3 +195,35 @@ def test_chip_smoke_estimator_phase_on_cpu_at_small_size():
     rep = est["scenario"]["report"]
     assert rep.backend == "cuda" and rep.replications == 4 and rep.ensemble["batched"]
     assert cs.profile_scenario(torch.device("cpu"), est)["busy_ms"] is None
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(ghost_retention=False),
+                                 dict(ripple_allocations=(10, 12, 9))])
+def test_chip_smoke_counts_a_chunks_evictions_from_the_holder_bits(kw):
+    """chip_smoke.chunk_mix derives a chunk's evictions from the lanes'
+    counters and holder bits (no counter of its own); it equals the
+    evictions the per-operation engine (FastSharedLRU) reports for the
+    same requests."""
+    import chip_smoke as cs
+    from repro_torch.core import fastsim_cuda
+    from repro_torch.core.fastsim import FastSharedLRU, SimParams
+    from repro_torch.core.irm import rate_matrix, sample_trace
+
+    N, n, cut = 200, 6_000, 2_000
+    tr = sample_trace(rate_matrix(N, [0.8, 1.0, 0.6]), n, seed=5)
+    p = SimParams(allocations=(8, 8, 6), physical_capacity=60, **kw)
+    run = fastsim_cuda.CudaChunkRunner(p, N, np.ones(N, np.int64), 1_000, 1_000, 6,
+                                       device="cpu")
+    ref = FastSharedLRU(N, (8, 8, 6), 60, **kw)
+    requests = list(zip(tr.proxies.tolist(), tr.objects.tolist()))
+    run.feed(tr.proxies[:cut], tr.objects[:cut])
+    for i, k in requests[:cut]:
+        ref.get_autofetch(i, k, 1)
+    before = cs.lane_sums(run)
+    run.feed(tr.proxies[cut:], tr.objects[cut:])
+    n_ev = sum(len(ref.get_autofetch(i, k, 1)[1]) for i, k in requests[cut:])
+    mix = cs.chunk_mix(before, cs.lane_sums(run))
+    assert mix["steps"] == n - cut and n_ev > 0
+    assert round(mix["evictions"] * (n - cut)) == n_ev
+    assert mix["list_hits"] + mix["attaches"] + mix["misses"] == pytest.approx(1.0)
+    assert mix["levels"] > 1.0
