@@ -92,10 +92,9 @@ struct Warp {
   __device__ __forceinline__ static uint64_t column(const int32_t* hold, int J, int32_t N,
                                                     int32_t k) {
     const int l = lane();
-    uint64_t m = __ballot_sync(FULL, l < J && hold[l * N + k] != 0);
-    if (J > 32) m |= (uint64_t)__ballot_sync(FULL, l + 32 < J && hold[(l + 32) * N + k] != 0)
-                     << 32;
-    return m;
+    const unsigned lo = __ballot_sync(FULL, l < J && hold[l * N + k] != 0);
+    const unsigned hi = __ballot_sync(FULL, l + 32 < J && hold[(l + 32) * N + k] != 0);
+    return (uint64_t)hi << 32 | lo;
   }
   __device__ __forceinline__ static int worst(const Vec& vlen, const Vec& b, const Vec& bhat,
                                               int J, int32_t i) {
@@ -103,10 +102,9 @@ struct Warp {
     const int32_t o0 = l < J ? vlen.lo - (l == i ? b.lo : bhat.lo) : INT32_MIN;
     const int32_t o1 = l + 32 < J ? vlen.hi - (l + 32 == i ? b.hi : bhat.hi) : INT32_MIN;
     const int32_t best = __reduce_max_sync(FULL, max(o0, o1));
-    if (best <= 0) return -1;
     const unsigned lo = __ballot_sync(FULL, o0 == best);
-    if (lo) return __ffs(lo) - 1;
-    return 31 + __ffs(__ballot_sync(FULL, o1 == best));
+    const unsigned hi = __ballot_sync(FULL, o1 == best);
+    return best <= 0 ? -1 : lo ? __ffs(lo) - 1 : 31 + __ffs(hi);
   }
   // Lane l's entries of a J-wide array in device memory, and back.
   __device__ __forceinline__ static Vec load(const int32_t* g, int J) {
@@ -219,15 +217,14 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
     const int b0 = t * TILE, e = min(m, b0 + TILE);
     const int ahead = min(m, (t + NBUF - 1) * TILE);   // requests loaded so far
     if (walker) {
-      int32_t i = req(b0, 0), k = req(b0, 1);
-      for (int off = b0; off < e; ++off) {
-        int32_t i_next = 0, k_next = 0;
-        if (off + 1 < e) {
-          i_next = req(off + 1, 0);
-          k_next = req(off + 1, 1);
-        }
-        if (!WHOLE && dist > 0 && threadIdx.x == 0) *walker_at = off;
-        lane_step(s, la, a.idx0 + off, i, k);
+      const int32_t* tp = tiles + (t % NBUF) * 2 * TILE;   // this tile's proxies, objects
+      const int n = e - b0;
+      int32_t i = tp[0], k = tp[TILE];
+      for (int x = 0; x < n; ++x) {
+        const int32_t i_next = x + 1 < n ? tp[x + 1] : 0;   // read a step ahead
+        const int32_t k_next = x + 1 < n ? tp[TILE + x + 1] : 0;
+        if (!WHOLE && dist > 0 && threadIdx.x == 0) *walker_at = b0 + x;
+        lane_step(s, la, a.idx0 + b0 + x, i, k);
         i = i_next;
         k = k_next;
       }

@@ -239,10 +239,10 @@ LE_FN void lane_step(LaneT<T>& s, const Args& a, int32_t idx, int32_t i, int32_t
   const bool resident = len_k > 0;
   const bool att = !held;                 // a cache hit or a miss attaches k to list i
   const bool miss = !held && !resident;
-  if (held) s.n_hit_list++;
-  else if (resident) s.n_hit_cache++;
-  else s.n_miss++;
-  if (held && post) T::add(s.hits_p, i, 1);
+  s.n_hit_list += held;                   // counters without branches
+  s.n_hit_cache += att && resident;
+  s.n_miss += miss;
+  T::add(s.hits_p, i, held && post);
 
   // miss: make physical room among the ghosts, become resident
   int32_t l = len_k;
@@ -345,7 +345,7 @@ LE_FN void lane_step(LaneT<T>& s, const Args& a, int32_t idx, int32_t i, int32_t
       s.n_prim += n_ev - n_rip;
     }
   }
-  if (post) T::add(s.reqs_p, i, 1);
+  T::add(s.reqs_p, i, post);
 }
 
 // Lane r walks its m requests of this chunk (the host build's loop; the
