@@ -127,9 +127,10 @@ def main(argv=None) -> int:
 
     def chunk_fn(r, Pd, Od, dist):
         def go():
+            le.PREFETCH_DISTANCE = dist
             le.lane_engine(r.st, Pd, Od, idx0=r.idx, lengths=r.lengths, share=r.share,
                            B=r.B, warmup=r.warmup, ripple_from=r.ripple_from,
-                           ghost=r.ghost_retention, table=r._table, route=r.route, dist=dist)
+                           ghost=r.ghost_retention, table=r._table, route=r.route)
         return go
 
     def run_chunks(rs, sample, m, plan, label):

@@ -234,20 +234,19 @@ def route_for(st, device: torch.device, route: Optional[str] = None) -> str:
 
 
 def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
-                ripple_from: int, ghost: bool, table=None, route: Optional[str] = None,
-                dist: int = PREFETCH_DISTANCE) -> None:
+                ripple_from: int, ghost: bool, table=None, route: Optional[str] = None) -> None:
     """Advance every lane by one chunk: lane r runs requests
     ``(P[r, j], O[r, j])`` at absolute indices ``idx0 + j``, updating
     ``st`` in place. ``P`` and ``O`` are (R, m) int32 with proxies in
     [0, J) and objects in [0, N) (the caller checks them). CUDA tensors
     launch the kernel on the current stream (no synchronisation) on
-    :func:`route_for`'s route (``route`` forces one; ``dist`` is the
-    device-memory route's prefetch distance in requests); CPU tensors run
+    :func:`route_for`'s route (``route`` forces one; the device-memory
+    route prefetches :data:`PREFETCH_DISTANCE` requests ahead); CPU tensors run
     :func:`lane_engine_plain`, which has no routes; m = 0 does nothing.
     ``table`` is :func:`field_table` of ``st``, if the caller keeps one."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; options: {', '.join(ROUTES)}")
-    if not 0 <= dist <= TILE:
+    if not 0 <= PREFETCH_DISTANCE <= TILE:
         raise ValueError(f"the prefetch distance must lie in [0, {TILE}]")
     if P.dim() == 2 and P.shape[1] == 0:
         _check(st, P, O, lengths, share, idx0)
@@ -263,7 +262,7 @@ def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
     fn = _fn(P.device)
     with torch.cuda.device(P.device):
         rc = _call(fn, st, table, P, O, lengths, share, idx0, B, warmup, ripple_from, ghost,
-                   int(route == "shared"), int(dist),
+                   int(route == "shared"), PREFETCH_DISTANCE,
                    torch.cuda.current_stream(P.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lane engine kernel launch failed: cudaError {rc}")

@@ -3,9 +3,11 @@
 This file imports no JAX and nothing of the reference package (the
 card's machine has neither), so it runs there whole. Here on the CPU its
 cases hold the runners' host side (the warmup split, pieces of a long
-chunk, the id checks, the device rule) to the port's host C engine; the
-cases marked ``cuda`` run the kernel against its host build (the same
-step body, built by g++) and the host C engine, and skip without a card:
+chunk, the id checks, the device rule), the route choice and the memory
+rule of ``backend="auto"`` to the port's host C engine and to the
+kernel's layout; the cases marked ``cuda`` run the kernel on each route
+against its host build (the same step body, built by g++) and the host C
+engine, and skip without a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lane_engine.py
 """
@@ -204,7 +206,7 @@ def test_scenario_ensemble_that_does_not_fit_runs_on_the_host(monkeypatch):
         assert got.same_estimates(want) and want.same_estimates(got)
 
 
-def test_route_and_distance_arguments_are_checked():
+def test_route_and_distance_arguments_are_checked(monkeypatch):
     p = SimParams(allocations=(8, 8, 6), physical_capacity=60)
     run = fastsim_cuda.CudaChunkRunner(p, N_OBJ, np.ones(N_OBJ, np.int64), 0, 0, 6,
                                        device="cpu")
@@ -214,8 +216,10 @@ def test_route_and_distance_arguments_are_checked():
               ghost=True)
     with pytest.raises(ValueError, match="route"):
         le.lane_engine(run.st, P, P, route="global", **kw)
+    monkeypatch.setattr(le, "PREFETCH_DISTANCE", le.TILE + 1)
     with pytest.raises(ValueError, match="prefetch distance"):
-        le.lane_engine(run.st, P, P, dist=le.TILE + 1, **kw)
+        le.lane_engine(run.st, P, P, **kw)
+    monkeypatch.undo()
     big = le.init_state(63, 1, 1, [1] * 63, [1] * 63, torch.device("cpu"))
     with pytest.raises(ValueError, match="at most 62 lists"):
         le.lane_engine(big, P, P, idx0=0, lengths=torch.ones(1, dtype=torch.int32),
