@@ -1335,7 +1335,7 @@ def time_lane_engine(device, sizes: Sizes, est: dict) -> dict:
     mix = chunk_mix(before, lane_sums(card))
     state = sum(t.numel() * 4 for t in card.st.values())
     n_bytes = 2 * state + 2 * L * m * 4 + card.lengths.numel() * 4 + card.share.numel() * 4
-    r = dict(ms=ms, ms_device_route=ms_dev, plain_ms=plain_ms, library_ms=c_med,
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=c_med,
              shape=f"{L} lanes x {m} requests",
              library="host C engine (fastsim_c), the lanes one after another")
     r["bound_ms"], r["bound_by"] = n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
