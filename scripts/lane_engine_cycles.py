@@ -115,7 +115,7 @@ def main(argv=None) -> int:
     lib = ctypes.CDLL(str(so))
     fn = lib.repro_lane_engine
     fn.restype = ctypes.c_int
-    fn.argtypes = le._ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = le._ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
     cycles = lib.repro_lane_engine_cycles
     cycles.restype = ctypes.c_int
     dev = torch.device("cuda")
@@ -127,7 +127,7 @@ def main(argv=None) -> int:
         rc = le._call(fn, runner.st, runner._table, Pd, Od, runner.lengths, runner.share,
                       runner.idx, runner.B, runner.warmup, runner.ripple_from,
                       runner.ghost_retention, int(runner.route == "shared"),
-                      le.PREFETCH_DISTANCE, torch.cuda.current_stream(dev).cuda_stream)
+                      torch.cuda.current_stream(dev).cuda_stream)
         torch.cuda.synchronize()
         if rc != 0 or cycles(buf) != 0:
             raise RuntimeError(f"instrumented launch failed: cudaError {rc}")

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Times the lane engine (E1) of one source tree on one NVIDIA card.
 
-    python3 scripts/time_lane_engine.py [--src TREE/src] [--dists 0,8,16,32,64]
+    python3 scripts/time_lane_engine.py [--src TREE/src] [--dists 4,8,16,32]
 
 Imports ``repro_torch`` from ``--src`` (this repository's ``src`` by
 default), builds its lane engine with ``nvcc`` and prints the ptxas report
 and, where the toolkit has ``cuobjdump``, the memory instructions of each
 kernel's SASS (shared ``LDS``/``STS``, generic ``LD``/``ST``, global
-``LDG``/``STG``, prefetches ``CCTL``). Then, with CUDA events (median of
-the timed chunks, each after the runner's own synchronize):
+``LDG``/``STG``, prefetches ``CCTL``, atomics ``ATOMS``/``ATOMG``/``RED``/``REDG``,
+address-space tests ``QSPC``). The device-memory route's prefetch
+distance is a constant of ``lane_engine.cu``; for each distance of
+``--dists`` the script builds a copy of the kernel with
+``-DLE_PREFETCH=<d>`` into ``kernels/_build/prefetch/`` (ignored by git),
+one ``nvcc`` each, in parallel. Then, with CUDA events (median of the
+timed chunks, each after the runner's own synchronize):
 
 - the Table I system (J=3, N=1000, Zipf 0.75/0.5/1.0, its 8 b-combos x 4
   replicas = 32 sweep lanes, warmed by 200,000 requests a lane): chunks of
@@ -30,6 +35,7 @@ Prints the card's name and power limit first. Exits 2 without a card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import re
 import shutil
 import subprocess
@@ -44,7 +50,8 @@ ROOT = Path(__file__).resolve().parents[1]
 TABLE1_GRID = ((8, 8, 8), (8, 8, 64), (8, 64, 8), (8, 64, 64),
                (64, 8, 8), (64, 8, 64), (64, 64, 8), (64, 64, 64))
 FIG2_ALLOCS = (1000, 1000, 1000, 2000, 2000, 2000, 7000, 7000, 7000)
-SASS_OPS = ("LDS", "STS", "LD", "ST", "LDG", "STG", "CCTL", "BAR")
+SASS_OPS = ("LDS", "STS", "LD", "ST", "LDG", "STG", "CCTL", "BAR", "ATOMS", "ATOMG", "RED",
+            "REDG", "QSPC")
 
 
 def sass_counts(so: Path) -> dict:
@@ -68,6 +75,29 @@ def sass_counts(so: Path) -> dict:
             for f, c in counts.items()}
 
 
+def distance_builds(_build, le, dists) -> dict:
+    """{d: the entry point of the lane engine built with -DLE_PREFETCH=d}."""
+    out = _build.BUILD_DIR / "prefetch"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for d in dists:
+        so = out / f"lane_engine_d{d}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DLE_PREFETCH={d}", "-o", str(so),
+               str(_build.CSRC / "lane_engine.cu")]
+        procs[d] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for d, (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the build at prefetch distance {d} failed:\n{log}")
+        fn = ctypes.CDLL(str(so)).repro_lane_engine
+        fn.restype = ctypes.c_int
+        fn.argtypes = le._ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
+        fns[d] = fn
+    return fns
+
+
 def timed(fn) -> float:
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -81,7 +111,8 @@ def timed(fn) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--dists", default="0,8,16,32,64")
+    ap.add_argument("--dists", default="4,8,16,32",
+                    help="prefetch distances of the device-memory route, each in [1, 256]")
     ap.add_argument("--chunks", type=int, default=3, help="timed chunks per setting")
     ap.add_argument("--fig2-warm", type=int, default=300_000)
     args = ap.parse_args(argv)
@@ -107,6 +138,7 @@ def main(argv=None) -> int:
             print(f"ptxas: {line.strip()}")
     for fn, c in sass_counts(_build.library_path("lane_engine")).items():
         print(f"sass {fn}: {c}")
+    launch = distance_builds(_build, le, dists)
 
     def runners(params, N, R, scale, plan, **kw):
         """{setting: runner} for plan {setting: (route, prefetch distance)}."""
@@ -126,11 +158,19 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"settings disagree on {k}")
 
     def chunk_fn(r, Pd, Od, dist):
+        if r.route == "shared":
+            def go():
+                le.lane_engine(r.st, Pd, Od, idx0=r.idx, lengths=r.lengths, share=r.share,
+                               B=r.B, warmup=r.warmup, ripple_from=r.ripple_from,
+                               ghost=r.ghost_retention, table=r._table, route="shared")
+            return go
+
         def go():
-            le.PREFETCH_DISTANCE = dist
-            le.lane_engine(r.st, Pd, Od, idx0=r.idx, lengths=r.lengths, share=r.share,
-                           B=r.B, warmup=r.warmup, ripple_from=r.ripple_from,
-                           ghost=r.ghost_retention, table=r._table, route=r.route)
+            rc = le._call(launch[dist], r.st, r._table, Pd, Od, r.lengths, r.share, r.idx,
+                          r.B, r.warmup, r.ripple_from, r.ghost_retention, 0,
+                          torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"prefetch distance {dist}: launch failed, cudaError {rc}")
         return go
 
     def run_chunks(rs, sample, m, plan, label):
@@ -149,7 +189,8 @@ def main(argv=None) -> int:
         for key, t in times.items():
             med = float(np.median(t))
             route, d = plan[key]
-            print(f"{label} route {route} dist {d}: {med:.4f} ms per chunk of "
+            at = "" if d is None else f" dist {d}"
+            print(f"{label} route {route}{at}: {med:.4f} ms per chunk of "
                   f"{rs[key].R} lanes x {m} (median of {len(t)}; all "
                   f"{[round(x, 4) for x in t]}), {m / med * 1e3:.0f} requests/s a lane",
                   flush=True)
@@ -170,7 +211,7 @@ def main(argv=None) -> int:
         return P[rep].astype(np.int32), O[rep].astype(np.int32)
 
     p1 = SimParams(allocations=TABLE1_GRID[-1], physical_capacity=N)
-    plan = {"shared": ("shared", 0)} | {f"d{d}": ("device", d) for d in dists}
+    plan = {"shared": ("shared", None)} | {f"d{d}": ("device", d) for d in dists}
     rs = runners(p1, N, L, 6, plan, b_sweep=combos, bhat_sweep=combos)
     feed_all(rs, *sample1(200_000))
     same(rs)
@@ -179,7 +220,7 @@ def main(argv=None) -> int:
     Pd, Od = torch.from_numpy(P).to(dev), torch.from_numpy(O).to(dev)
     short = []
     for _ in range(5):
-        short.append(timed(chunk_fn(rs["shared"], Pd, Od, 0)))
+        short.append(timed(chunk_fn(rs["shared"], Pd, Od, None)))
         rs["shared"].idx += le.TILE
     print(f"Table I route shared: one tile ({le.TILE} requests a lane, {L} lanes) "
           f"{float(np.median(short)):.4f} ms (median of 5)", flush=True)

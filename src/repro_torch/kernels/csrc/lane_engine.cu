@@ -28,14 +28,14 @@
 //  1. Shared memory (WHOLE = true), for lanes that fit (the Table I system,
 //     J=3, N=1000: 90 KB with the tiles, two blocks an SM). The block
 //     copies the lane's arrays into shared memory at launch start,
-//     coalesced, and back at the end (about 0.1 ms a launch); every access
+//     coalesced, and back at the end (about 0.08 ms a launch); every access
 //     of the walk is then a shared-memory access. Only the evictions
 //     histogram stays in device memory (a miss touches it once).
 //  2. Device memory (WHOLE = false), for larger lanes (the Fig. 2 system,
 //     J=9, N=1e6: 200 MB a lane). The arrays stay where they are. The
 //     walker posts the request it takes, and warp 1 follows it: it brings
-//     into the L2 the lines of the requests up to `dist` ahead (0: no
-//     prefetch warp), one request a lane: hold, nxt, prv and res_since at
+//     into the L2 the lines of the requests up to PREFETCH ahead, one
+//     request a lane: hold, nxt, prv and res_since at
 //     i*N + k, length, hcnt and isghost at k, and k's holder column. No
 //     value is loaded early, because the walker rewrites those lines. An
 //     eviction's tail victim is known only when the eviction runs, so its
@@ -51,7 +51,17 @@ namespace {
 
 using namespace lane_engine;
 
-constexpr int THREADS = 128;   // warp 0 walks; warps 1-3 load tiles
+constexpr int THREADS = 128;   // warp 0 walks; warps 1-3 load tiles (route 2: warp 1 prefetches)
+
+// Requests ahead of the walker whose lines route 2's prefetch warp brings
+// into the L2. Found on an H100 with scripts/time_lane_engine.py, which
+// builds copies with -DLE_PREFETCH=<d>: the Fig. 2 lanes gain about 5% at
+// any distance from 4 to 32 over no prefetch warp, the Table I lanes nothing.
+#ifndef LE_PREFETCH
+#define LE_PREFETCH 8
+#endif
+constexpr int PREFETCH = LE_PREFETCH;
+static_assert(PREFETCH >= 1 && PREFETCH <= TILE, "prefetch distance out of [1, TILE]");
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
@@ -63,7 +73,17 @@ constexpr unsigned FULL = 0xffffffffu;
 // step's J-wide loops are one instruction a lane and a vote, and reading
 // head[i], tail[i] or vlen[i] is a shuffle from lane i. All 32 lanes run
 // the rest of the step together on the same values, so their stores to
-// the lane's other arrays agree and each lane reads back what it wrote.
+// the lane's other arrays agree. The warp is not assumed to run in step:
+// one lane may run ahead of another between the warp's votes and shuffles.
+// A cell that the step reads and then rewrites with no vote between would
+// then be read by a late lane after an early one rewrote it, so those
+// three sites go through add_to and swap: swap has every lane load before
+// any lane stores (__syncwarp); add_to does the same in shared memory, and
+// in device memory lets lane 0 alone add atomically (no lane of the step
+// reads such a cell, and the walker does not wait on device memory for a
+// victim's residence total: a Fig. 2 lane ran 6% slower with __syncwarp
+// there). The step rewrites no other cell it has read since its last
+// vote; that is the only ordering the team relies on.
 struct Warp {
   struct Vec {
     int32_t lo, hi;   // entries l and l + 32 of lane l
@@ -83,6 +103,21 @@ struct Warp {
       if (j < 32) v.lo += x;
       else v.hi += x;
     }
+  }
+  __device__ __forceinline__ static void add_to(int32_t* p, int32_t d) {
+    if (__isShared(p)) {   // each such cell of a route lies in one space
+      const int32_t v = *p;
+      __syncwarp();
+      *p = v + d;
+    } else if (lane() == 0) {
+      atomicAdd(p, d);
+    }
+  }
+  __device__ __forceinline__ static int32_t swap(int32_t* p, int32_t x) {
+    const int32_t v = *p;
+    __syncwarp();
+    *p = x;
+    return v;
   }
   __device__ __forceinline__ static void add_mask(Vec& v, int, uint64_t mask, int32_t x) {
     const int l = lane();
@@ -137,7 +172,7 @@ __device__ __forceinline__ void block_copy(int32_t* dst, const int32_t* src, int
 }
 
 template <bool WHOLE>
-__global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, const int dist) {
+__global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a) {
   extern __shared__ int32_t sm[];
   const int r = blockIdx.x;
   const int J = a.J;
@@ -207,9 +242,9 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
   };
   // Route 2's prefetch warp (warp 1) follows the walker: the walker posts
   // the request it takes, and the prefetch warp issues the lines of the
-  // requests up to dist ahead of it, one request a lane.
-  const bool prefetcher = !WHOLE && dist > 0 && threadIdx.x >= 32 && threadIdx.x < 64;
-  const int first_loader = !WHOLE && dist > 0 ? 64 : 32;
+  // requests up to PREFETCH ahead of it, one request a lane.
+  const bool prefetcher = !WHOLE && threadIdx.x >= 32 && threadIdx.x < 64;
+  const int first_loader = WHOLE ? 32 : 64;
   if (threadIdx.x == 0) *walker_at = -1;
   for (int t = 0; t < NBUF - 1 && t < ntiles; ++t) load_tile(t, 0, THREADS);
   __syncthreads();
@@ -223,7 +258,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
       for (int x = 0; x < n; ++x) {
         const int32_t i_next = x + 1 < n ? tp[x + 1] : 0;   // read a step ahead
         const int32_t k_next = x + 1 < n ? tp[TILE + x + 1] : 0;
-        if (!WHOLE && dist > 0 && threadIdx.x == 0) *walker_at = b0 + x;
+        if (!WHOLE && threadIdx.x == 0) *walker_at = b0 + x;
         lane_step(s, la, a.idx0 + b0 + x, i, k);
         i = i_next;
         k = k_next;
@@ -231,7 +266,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
     } else if (prefetcher) {
       for (int done = b0;;) {
         const int at = *walker_at;
-        const int upto = min(ahead, max(at, b0 - 1) + 1 + dist);
+        const int upto = min(ahead, max(at, b0 - 1) + 1 + PREFETCH);
         for (int x = done + (threadIdx.x & 31); x < upto; x += 32)
           prefetch_request(g, J, N, req(x, 0), req(x, 1));
         done = max(done, upto);
@@ -264,7 +299,7 @@ __global__ void __launch_bounds__(THREADS) lane_engine_kernel(const Args a, cons
 }
 
 template <bool WHOLE>
-int launch(const Args& a, int dist, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   const int64_t bytes = 4 * shared_words(a.J, a.N, WHOLE);
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -275,7 +310,7 @@ int launch(const Args& a, int dist, cudaStream_t stream) {
   err = cudaFuncSetAttribute(lane_engine_kernel<WHOLE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lane_engine_kernel<WHOLE><<<a.R, THREADS, (size_t)bytes, stream>>>(a, dist);
+  lane_engine_kernel<WHOLE><<<a.R, THREADS, (size_t)bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,16 +341,15 @@ extern "C" int64_t repro_lane_engine_shared_words(int J, int N, int whole) {
 
 // Advance R lanes by one chunk of m requests each on route 1 (whole = 1:
 // the lane in shared memory) or route 2 (whole = 0: in device memory,
-// prefetched dist requests ahead). Returns the launch's cudaError_t; a lane
+// prefetched PREFETCH requests ahead). Returns the launch's cudaError_t; a lane
 // too large for route 1 is refused (cudaErrorInvalidValue), never moved.
 extern "C" int repro_lane_engine(const uint64_t* fields, const int32_t* P, const int32_t* O,
                                  const int32_t* lengths, const int32_t* share, int R, int J,
                                  int N, int m, int idx0, int B, int warmup, int ripple_from,
-                                 int ghost, int whole, int dist, void* stream) {
-  if (lane_engine::check_shape(R, J, N, m) != 0 || dist < 0 || dist > lane_engine::TILE)
-    return cudaErrorInvalidValue;
+                                 int ghost, int whole, void* stream) {
+  if (lane_engine::check_shape(R, J, N, m) != 0) return cudaErrorInvalidValue;
   const lane_engine::Args a = lane_engine::make_args(fields, P, O, lengths, share, R, J, N, m,
                                                      idx0, B, warmup, ripple_from, ghost);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return whole ? launch<true>(a, dist, st) : launch<false>(a, dist, st);
+  return whole ? launch<true>(a, st) : launch<false>(a, st);
 }

@@ -42,8 +42,11 @@
 // (the victim's cells and holder column at once, then share[hcnt[v]])
 // after the argmax that picks its list. The J-wide arrays
 // and loops go through a team (Serial here; the kernels' walker warp keeps
-// them in registers, lane_engine.cu). The walker's own instructions, not
-// the memory, take most of a step on an H100 (lane_engine.cu).
+// them in registers, lane_engine.cu), and so do the three cells the step
+// reads and rewrites in place (a residence total, a histogram bucket and
+// an evicted ghost's length: T::add_to, T::swap). The walker's own
+// instructions, not the memory, take most of a step on an H100
+// (lane_engine.cu).
 #pragma once
 
 #include <stdint.h>
@@ -106,11 +109,20 @@ struct Args {
 };
 
 // How the step reaches a lane's J-wide arrays (head, tail, vlen, hits_p,
-// reqs_p, b, b_hat) and runs its J-wide loops. Serial: one thread, the
-// arrays in memory; lane_engine.cu's kernels pass a team of their own with
-// the same members (the walker's warp, list j in lane j's registers).
+// reqs_p, b, b_hat), runs its J-wide loops and rewrites a cell it has just
+// read. Serial: one thread, the arrays in memory; lane_engine.cu's kernels
+// pass a team of their own with the same members (the walker's warp, list
+// j in lane j's registers).
 struct Serial {
   using Vec = int32_t*;
+  // *p += d, and *p = x returning the old value: the step's only writes to
+  // a cell of the lane's arrays that it read since its last J-wide vote.
+  LE_FN static void add_to(int32_t* p, int32_t d) { *p += d; }
+  LE_FN static int32_t swap(int32_t* p, int32_t x) {
+    const int32_t v = *p;
+    *p = x;
+    return v;
+  }
   LE_FN static int32_t at(const Vec& v, int j) { return v[j]; }
   LE_FN static void put(Vec& v, int j, int32_t x) { v[j] = x; }
   LE_FN static void add(Vec& v, int j, int32_t x) { v[j] += x; }
@@ -209,8 +221,7 @@ LE_FN void ghost_evict_head(LaneT<T>& s) {
   if (gn == NIL) s.gtail = NIL;
   else s.gprv[gn] = NIL;
   s.isghost[g] = 0;
-  s.phys -= s.length[g];
-  s.length[g] = 0;
+  s.phys -= T::swap(s.length + g, 0);
 }
 
 // One request (proxy i, object k) at absolute index idx.
@@ -308,7 +319,7 @@ LE_FN void lane_step(LaneT<T>& s, const Args& a, int32_t idx, int32_t i, int32_t
       if (nv == NIL) T::put(s.head, worst, NIL);
       else s.prv[wbase + nv] = NIL;
       // close its residence interval
-      if (since >= 0) s.tot_time[wv] += idx - (since > s.t_start ? since : s.t_start);
+      if (since >= 0) T::add_to(s.tot_time + wv, idx - (since > s.t_start ? since : s.t_start));
       s.res_since[wv] = NIL;
       // share re-apportionment: the remaining holders inflate
       const int32_t sh_old = share[vp_old];
@@ -340,7 +351,7 @@ LE_FN void lane_step(LaneT<T>& s, const Args& a, int32_t idx, int32_t i, int32_t
     while (s.phys > a.B && s.ghead != NIL) ghost_evict_head(s);
     if (idx >= a.ripple_from) {
       s.n_sets++;
-      s.hist[n_ev < HIST - 1 ? n_ev : HIST - 1]++;
+      T::add_to(s.hist + (n_ev < HIST - 1 ? n_ev : HIST - 1), 1);
       s.n_rip += n_rip;
       s.n_prim += n_ev - n_rip;
     }

@@ -13,7 +13,7 @@ yardstick, so the plain version is the same serial body on the host.
 The kernel has two routes (``csrc/lane_engine.cu``): ``"shared"`` copies
 the whole lane into its block's shared memory for the launch, and
 ``"device"`` keeps it in device memory and prefetches the lines of the
-requests ahead of the walker into the L2. :func:`pick_route` chooses from
+requests ahead of the walker into the L2 (a distance fixed in the .cu). :func:`pick_route` chooses from
 a lane's shared-memory bytes (:func:`shared_bytes`) against the card's
 opt-in limit per block (:func:`shared_limit`); a caller may force either,
 and a lane forced onto ``"shared"`` that does not fit raises.
@@ -39,11 +39,6 @@ HIST = 1024   # fastsim.HIST_BUCKETS (the last bucket clamps)
 TILE, NBUF = 256, 3   # lane_engine.cuh: request tiles of a block in shared memory
 MAX_J = 62            # lane_engine.cuh: the holder column is a 64-bit mask
 ROUTES = ("shared", "device")
-# Requests ahead of the walker whose lines the device-memory route's
-# prefetch warp brings into the L2 (at most TILE; 0: no prefetch warp).
-# Found on an H100 with scripts/time_lane_engine.py: the Fig. 2 lanes gain
-# about 5% at any distance from 4 to 32, the Table I lanes nothing.
-PREFETCH_DISTANCE = 8
 # The state tensors in the order of lane_engine.cuh's Field enum.
 FIELDS = (
     "nxt", "prv", "hold", "res_since", "tot_time",   # (R, J*N)
@@ -143,7 +138,7 @@ def _fn(device: torch.device):
         fn = _build.load("lane_engine").repro_lane_engine
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
     else:
         fn = _build.load_host("lane_engine").repro_lane_engine_host
         if fn.argtypes is None:
@@ -240,14 +235,11 @@ def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
     ``st`` in place. ``P`` and ``O`` are (R, m) int32 with proxies in
     [0, J) and objects in [0, N) (the caller checks them). CUDA tensors
     launch the kernel on the current stream (no synchronisation) on
-    :func:`route_for`'s route (``route`` forces one; the device-memory
-    route prefetches :data:`PREFETCH_DISTANCE` requests ahead); CPU tensors run
+    :func:`route_for`'s route (``route`` forces one); CPU tensors run
     :func:`lane_engine_plain`, which has no routes; m = 0 does nothing.
     ``table`` is :func:`field_table` of ``st``, if the caller keeps one."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; options: {', '.join(ROUTES)}")
-    if not 0 <= PREFETCH_DISTANCE <= TILE:
-        raise ValueError(f"the prefetch distance must lie in [0, {TILE}]")
     if P.dim() == 2 and P.shape[1] == 0:
         _check(st, P, O, lengths, share, idx0)
         return
@@ -262,8 +254,7 @@ def lane_engine(st, P, O, *, idx0: int, lengths, share, B: int, warmup: int,
     fn = _fn(P.device)
     with torch.cuda.device(P.device):
         rc = _call(fn, st, table, P, O, lengths, share, idx0, B, warmup, ripple_from, ghost,
-                   int(route == "shared"), PREFETCH_DISTANCE,
-                   torch.cuda.current_stream(P.device).cuda_stream)
+                   int(route == "shared"), torch.cuda.current_stream(P.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lane engine kernel launch failed: cudaError {rc}")
     lane_engine.launches += 1

@@ -206,7 +206,7 @@ def test_scenario_ensemble_that_does_not_fit_runs_on_the_host(monkeypatch):
         assert got.same_estimates(want) and want.same_estimates(got)
 
 
-def test_route_and_distance_arguments_are_checked(monkeypatch):
+def test_route_and_distance_arguments_are_checked():
     p = SimParams(allocations=(8, 8, 6), physical_capacity=60)
     run = fastsim_cuda.CudaChunkRunner(p, N_OBJ, np.ones(N_OBJ, np.int64), 0, 0, 6,
                                        device="cpu")
@@ -216,10 +216,6 @@ def test_route_and_distance_arguments_are_checked(monkeypatch):
               ghost=True)
     with pytest.raises(ValueError, match="route"):
         le.lane_engine(run.st, P, P, route="global", **kw)
-    monkeypatch.setattr(le, "PREFETCH_DISTANCE", le.TILE + 1)
-    with pytest.raises(ValueError, match="prefetch distance"):
-        le.lane_engine(run.st, P, P, **kw)
-    monkeypatch.undo()
     big = le.init_state(63, 1, 1, [1] * 63, [1] * 63, torch.device("cpu"))
     with pytest.raises(ValueError, match="at most 62 lists"):
         le.lane_engine(big, P, P, idx0=0, lengths=torch.ones(1, dtype=torch.int32),
