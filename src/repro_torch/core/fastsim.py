@@ -886,7 +886,7 @@ def simulate_trace(
     engine (:mod:`repro_torch.core.fastsim_cuda`) on ``device`` for the
     flat shared LRU without delayed batching inside the lane engine's
     int32 envelope, when the lane fits the device's free memory;
-    elsewhere (and for ``engine="host"``) a host engine — the native C loop
+    elsewhere a host engine — the native C loop
     (:mod:`repro_torch.core.fastsim_c`, compiled on demand with the
     system compiler) for the flat shared-LRU and not-shared variants,
     the allocation-free inlined Python loop when no C compiler is
@@ -950,18 +950,41 @@ def simulate_chunks(
     ``n_requests`` must equal the total chunk length (it fixes the
     default warmup before the stream is consumed). With ``sparse=True``
     (default) occupancy comes back as :class:`SparseOccupancy`.
-    ``engine="auto"`` resolves as in :func:`simulate_trace`, and
-    ``engine="host"`` is what "auto" runs where the lane engine does not
-    apply (the host engines' own choice); ``device`` is read only by the
-    lane engine and by "auto" (whether the lane fits it).
+    ``engine="auto"`` resolves as in :func:`simulate_trace`; ``device``
+    is read only by the lane engine and by "auto" (whether the lane fits
+    it).
     """
-    if engine not in ("auto", "host", "c", "flat", "generic", "cuda"):
+    return _simulate_chunks(
+        params, chunks, n_objects, n_requests, lengths=lengths, warmup=warmup,
+        ripple_from=ripple_from, engine=engine, sparse=sparse, device=device,
+    )
+
+
+def _simulate_chunks(
+    params: SimParams,
+    chunks,
+    n_objects: int,
+    n_requests: int,
+    *,
+    lengths: Optional[np.ndarray],
+    warmup: Optional[int],
+    ripple_from: Optional[int],
+    engine: str,
+    sparse: bool,
+    device: DeviceLike,
+    replicas: int = 1,
+) -> SimResult:
+    """:func:`simulate_chunks` for one of ``replicas`` runs of an
+    ensemble: "auto" takes the lane engine only where ``replicas`` lanes
+    fit the device at once (the Scenario ensemble path runs its replicas
+    one by one when they do not)."""
+    if engine not in ("auto", "c", "flat", "generic", "cuda"):
         raise ValueError(
-            f"unknown engine {engine!r}; options: auto, host, c, flat, generic, cuda"
+            f"unknown engine {engine!r}; options: auto, c, flat, generic, cuda"
         )
     _validate_params(params)
     allowed = _ENGINES_BY_VARIANT[params.variant]
-    if engine not in ("auto", "host") and engine not in allowed:
+    if engine != "auto" and engine not in allowed:
         raise ValueError(
             f"engine {engine!r} does not support variant {params.variant!r}; "
             f"options: auto, {', '.join(allowed)}"
@@ -983,10 +1006,8 @@ def simulate_chunks(
             raise ValueError("object lengths must be positive")
 
     J = len(params.allocations)
-    engine = (
-        "auto"
-        if engine == "host"
-        else pick_engine(engine, params, n, N, lengths_a, device=device)
+    engine = pick_engine(
+        engine, params, n, N, lengths_a, replicas=replicas, device=device
     )
     driver, engine_name, vlen_scale = make_chunk_driver(
         params, N, lengths_a, warmup, ripple_from, engine=engine, n_requests=n,

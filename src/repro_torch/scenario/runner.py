@@ -479,11 +479,16 @@ def _run_monte_carlo_ensemble(
     batched, one lane each, on ``device`` via
     :func:`repro_torch.core.fastsim_cuda.simulate_ensemble`;
     every other backend runs the replicas sequentially with identical
-    per-replica results ("auto" then runs the host engines for each).
+    per-replica results ("auto" then runs the host engines for each, as
+    it judges each replica one of R lanes).
     The Report carries cross-replica means in the main fields and the
     per-replica estimates in ``Report.ensemble``.
     """
-    from repro_torch.core.fastsim import _xla_applicable, pick_engine
+    from repro_torch.core.fastsim import (
+        _simulate_chunks,
+        _xla_applicable,
+        pick_engine,
+    )
 
     system, est = sc.system, sc.estimator
     R = est.replications
@@ -496,8 +501,6 @@ def _run_monte_carlo_ensemble(
             engine, params, n, sc.workload.n_objects, np.asarray(lengths),
             replicas=R, device=device,
         )
-        if engine == "auto":    # the R lanes do not go to the lane engine
-            engine = "host"
     batched = False
     results = None
     if (
@@ -538,34 +541,24 @@ def _run_monte_carlo_ensemble(
                 )
                 res.engine = "reference"
                 results.append(res)
-            elif streaming:
+            else:
                 results.append(
-                    simulate_chunks(
+                    _simulate_chunks(
                         params,
                         sc.workload.iter_chunks(
                             n, s, chunk_size=est.chunk_size
-                        ),
+                        )
+                        if streaming
+                        else (sc.workload.sample(n, s),),
                         sc.workload.n_objects,
                         n,
                         lengths=lengths,
                         warmup=warmup,
                         ripple_from=ripple_from,
                         engine=engine,
-                        sparse=True,
+                        sparse=streaming,
                         device=device,
-                    )
-                )
-            else:
-                results.append(
-                    simulate_trace(
-                        params,
-                        sc.workload.sample(n, s),
-                        sc.workload.n_objects,
-                        lengths=lengths,
-                        warmup=warmup,
-                        ripple_from=ripple_from,
-                        engine=engine,
-                        device=device,
+                        replicas=R,
                     )
                 )
     return _ensemble_report(sc, results, streaming, batched)
