@@ -23,12 +23,19 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 4. grouped   8 prefix groups of 16 resident requests decode through
              shared-prefix attention (K2) + suffix attention + LSE merge,
              held to the plain version and to K1 over each full table;
-5. live      the engine in live mode with qwen3-1.7b at full width and
-             depth (bf16 weights from --seed) serves 8 requests of 1280
-             tokens, 16 new tokens each: each prompt is prefilled with its
-             attention in flash attention (K3), then decoded greedily on
-             dense caches; the first prefill is held to the same prefill
-             with K3's plain version;
+5. live      the engine in live mode serves 8 requests of 1280 tokens, 16
+             new tokens each, with each of three models at full width and
+             depth (bf16 weights from --seed): qwen3-1.7b (dense), granite-
+             moe-1b (MoE, 32 experts top-8) and recurrentgemma-2b (RG-LRU
+             and local-attention blocks). Each prompt is prefilled, then
+             decoded greedily on dense caches and recurrent states. The
+             global attention of qwen3's and granite's prefills runs flash
+             attention (K3), one launch a layer, and their first prefill is
+             held to the same prefill with K3's plain version (granite's
+             replaying the K3 prefill's MoE routing, RouteTape);
+             recurrentgemma's windowed prefills run the plain chunked
+             attention (no K3 launch), and its prefill of T-1 tokens and one
+             decode step are held to its prefill of T tokens;
 6. admission the working-set virtual allocations on the card against the
              port's own CPU solve;
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
@@ -106,7 +113,7 @@ from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
     shared_prefix_attention,
     shared_prefix_attention_plain,
 )
-from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models import make_model, moe, shardctx  # noqa: E402
 from repro_torch.scenario import get_preset  # noqa: E402
 from repro_torch.scenario.runner import _rates_for, derive_seeds, ensemble_seeds  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
@@ -125,6 +132,16 @@ ADMISSION_RTOL = 1e-4   # card vs CPU float32 solve: sums in another order
 # values that differ in the last bits; 28 layers carry those differences
 # down the residual stream: 28 x 2^-9 = 0.055 if none cancelled.
 LIVE_LOGITS_RTOL = 0.05
+# recurrentgemma-2b in bf16, prefill(T-1) + one decode step against
+# prefill(T): last-token logits within 5% of their largest magnitude. The
+# two paths compute the last token in another order (the RG-LRU's doubling
+# scan against its step, the conv's shifted adds against its einsum, the
+# attention's chunked scan over T keys against one decode step), each
+# rounded to bf16 per layer: 26 x 2^-9 = 0.051 if none cancelled.
+DECODE_LOGITS_RTOL = 0.05
+
+# phase 5 serves each in turn: dense, MoE (K3 at D=64), hybrid (no K3)
+LIVE_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "recurrentgemma-2b")
 
 KERNELS = {
     "paged_attention": dict(
@@ -169,7 +186,7 @@ class Sizes:
     groups: int = 8                 # P prefix groups ...
     group_size: int = 16            # ... of M resident requests
     n_objects: int = 1024           # admission catalogue (engine.py's N)
-    live_requests: int = 8          # phase 5: requests served by the model ...
+    live_requests: int = 8          # phase 5: requests served by each model ...
     live_prompts: int = 2           # ... shared prompts of tenants A, B ...
     new_tokens: int = 16            # ... and tokens decoded for each
     # phase 8: requests per lane (the paper: 10^7 for Table I, 3 x 10^6
@@ -182,8 +199,8 @@ class Sizes:
     scenario_requests: int = 1_000_000
     est_chunk: int = 1 << 16        # requests per lane in a timed chunk
 
-    def arch_config(self):
-        cfg = get_config(self.arch)
+    def arch_config(self, name: str = ""):
+        cfg = get_config(name or self.arch)
         return cfg.reduced() if self.reduced else cfg
 
 
@@ -263,7 +280,8 @@ def launch_plans(sizes: Sizes) -> None:
     clusters the card holds at once) at the serving, grouped and
     small-batch timing shapes and for one sequence, of K2 (cluster,
     tiles, stages, shared memory) at the grouped phase's and the
-    long-prefix timing shapes, and of K3 at the model's head size."""
+    long-prefix timing shapes, and of K3 at the head size of each live
+    model that runs it."""
     cfg = sizes.arch_config()
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx = sizes.prefix_tokens + sizes.user_tokens
@@ -277,8 +295,11 @@ def launch_plans(sizes: Sizes) -> None:
                     (LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S)):
         _log(f"[env] launch K2 bf16 P={P} M={M} H={H} KV={KV} D={D} S={S}: "
              f"{k2_module.launch_plan(P, M, H, KV, D, S)}")
-    for dtype in (torch.bfloat16, torch.float32):
-        _log(f"[env] launch K3 {str(dtype)[6:]} D={D}: {k3_module.launch_plan(D, dtype)}")
+    k3_dims = sorted({c.head_dim for c in map(sizes.arch_config, LIVE_ARCHS)
+                      if attn_layers(c)})
+    for D in k3_dims:                                 # each live model's that runs K3
+        for dtype in (torch.bfloat16, torch.float32):
+            _log(f"[env] launch K3 {str(dtype)[6:]} D={D}: {k3_module.launch_plan(D, dtype)}")
 
 
 # -- phase 2: kernels against their plain versions ----------------------
@@ -331,7 +352,9 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
     k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens),
                     (4, LONG_PREFIX_M, H, KV, D, LONG_PREFIX_S)]
     T = sizes.prefix_tokens + sizes.user_tokens
-    k3 = K3_GRID + [(1, T, T, H, KV, D, True)]    # the live phase's prefill
+    k3 = K3_GRID + [(1, T, T, c.n_heads, c.n_kv_heads, c.head_dim, True)   # the live prefills
+                    for c in dict.fromkeys(sizes.arch_config(a) for a in LIVE_ARCHS)
+                    if attn_layers(c)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, H_, KV_, D_, page, P, pps_ in k1:
             q = _randn(gen, (B, H_, D_), dtype, device)
@@ -585,8 +608,17 @@ def plain_prefill_attention():
         ops.flash_attention = kernel
 
 
-def phase_live(device, sizes: Sizes, seed: int) -> dict:
-    cfg = sizes.arch_config()
+def attn_layers(cfg) -> int:
+    """The layers of global attention: each runs K3 once a prefill."""
+    G = len(cfg.block_pattern)
+    return sum(cfg.block_pattern[i % G] == "attn" for i in range(cfg.n_layers))
+
+
+def phase_live(device, sizes: Sizes, seed: int, arch: str = "") -> dict:
+    """The engine in live mode with the model ``arch`` (default
+    ``sizes.arch``): ``sizes.live_requests`` requests, each prefilled and
+    decoded; the prefill and decode times of each."""
+    cfg = sizes.arch_config(arch)
     model = make_model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(seed))
@@ -643,32 +675,158 @@ def phase_live(device, sizes: Sizes, seed: int) -> dict:
          f"steps); prefix-hit token ratio {st['prefix_hit_token_ratio']:.4f}, sharing ratio "
          f"{st['sharing_ratio']:.4f}")
     return dict(cfg=cfg, model=model, params=params, timed=timed, results=results,
-                requests=requests)
+                requests=requests, n_params=n_params)
+
+
+def phase_live_models(device, sizes: Sizes, seed: int, card: str) -> List[dict]:
+    """Phase 5 with each model of LIVE_ARCHS in turn: its launch
+    counts from 0 across its requests (the main path), then its checks
+    (K3 against the plain prefill where its prefills run K3, else the
+    decode consistency) and a profiled prefill and decode step. Returns a
+    summary per model; the models' tensors are freed between models."""
+    out = []
+    for arch in LIVE_ARCHS:
+        reset_launches()                              # this model's path starts here
+        live = phase_live(device, sizes, seed, arch)
+        got = launches()                              # ... and ends here
+        cfg, timed = live["cfg"], live["timed"]
+        r = dict(name=cfg.name, launches=got, k3_per_request=attn_layers(cfg),
+                 n_params=live["n_params"],
+                 prefill_ms=1e3 * float(np.median(timed.prefill_s[1:])),
+                 decode_ms=1e3 * float(np.median(timed.decode_s)))
+        if r["k3_per_request"]:
+            r["k3_err"] = check_live_against_plain(live, sizes)
+        else:
+            r["decode_err"] = check_decode_consistency(live, sizes)
+        profile_live(live, sizes)
+        _log(f"[live] {cfg.name} on {card}: {r['n_params'] / 1e9:.3f} B parameters "
+             f"({2 * r['n_params'] / 1e9:.2f} GB bf16), prefill {r['prefill_ms']:.2f} ms per "
+             f"request, decode {r['decode_ms']:.2f} ms per token; launches {got} "
+             f"({r['k3_per_request']} K3 launches a request)")
+        out.append(r)
+        del live, timed
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+class RouteTape:
+    """A launcher-style ``moe_apply`` override (``models.shardctx``) that
+    records the routing of each MoE layer of a prefill (``routes=None``)
+    or replays a recorded one, so that two prefills of an MoE model can
+    differ only where their attention does. The layer's output is the
+    port's own ``moe_combine`` under that routing."""
+
+    def __init__(self, routes=None) -> None:
+        self.replay = routes is not None
+        self.routes = [] if routes is None else routes
+        self.i = 0
+
+    def __call__(self, h, p, cfg, *, capacity_factor):
+        xf = h.reshape(-1, h.shape[-1])
+        if self.replay:
+            r = self.routes[self.i]
+            self.i += 1
+        else:
+            r = moe.moe_route(xf, p, cfg, capacity_factor=capacity_factor)
+            self.routes.append(r)
+        return moe.moe_combine(xf, p, cfg, r).reshape(h.shape), r["aux"]
+
+
+def route_changes(a: List[dict], b: List[dict]) -> dict:
+    """How far two recorded routings differ, over all layers: tokens whose
+    top-k experts differ, and routing choices kept in one but dropped in
+    the other, of all tokens and choices; and the last token's choices
+    dropped in each."""
+    return dict(tokens=sum(int((x["top_i"] != y["top_i"]).any(-1).sum()) for x, y in zip(a, b)),
+                of_tokens=sum(x["top_i"].shape[0] for x in a),
+                kept=sum(int((x["keep"] != y["keep"]).sum()) for x, y in zip(a, b)),
+                of_choices=sum(x["keep"].numel() for x in a),
+                last_dropped=(sum(int((~x["keep"][-1]).sum()) for x in a),
+                              sum(int((~y["keep"][-1]).sum()) for y in b)))
 
 
 def check_live_against_plain(live: dict, sizes: Sizes) -> float:
     """The first request's prefill again, with K3's plain version: the
     last-token logits within LIVE_LOGITS_RTOL of their scale and the same
-    first greedy token."""
-    tokens = live["requests"][0]
-    dev = live["params"]["embed"].device
+    first greedy token. For an MoE model the plain prefill replays the K3
+    prefill's routing (RouteTape): top-k and the capacity drops are
+    discontinuous in their inputs, so a last bit of attention can move a
+    token to another expert or drop it, which the bf16 argument of
+    LIVE_LOGITS_RTOL does not cover. The plain prefill with its own
+    routing is run as well, and how far it and its routing moved is
+    printed."""
+    tokens, model, params, cfg = live["requests"][0], live["model"], live["params"], live["cfg"]
+    dev = params["embed"].device
     batch = {"tokens": torch.as_tensor(tokens[None, :], device=dev)}
-    with torch.inference_mode(), plain_prefill_attention():
-        want, _ = live["model"].prefill(live["params"], batch, len(tokens) + sizes.new_tokens)
-    got, want = live["timed"].first_logits, want.float()
+    S = len(tokens) + sizes.new_tokens
+    got = live["timed"].first_logits
+    with torch.inference_mode():
+        if cfg.moe:
+            k3_tape, own_tape = RouteTape(), RouteTape()
+            with shardctx.rules({"moe_apply": k3_tape}):
+                again, _ = model.prefill(params, batch, S)            # K3, its routing recorded
+            with plain_prefill_attention(), shardctx.rules({"moe_apply": own_tape}):
+                own, _ = model.prefill(params, batch, S)              # plain, its own routing
+            with plain_prefill_attention(), shardctx.rules({"moe_apply": RouteTape(k3_tape.routes)}):
+                want, _ = model.prefill(params, batch, S)             # plain, K3's routing
+            got = again.float()
+            own = own.float()
+            ch = route_changes(k3_tape.routes, own_tape.routes)
+            _log(f"[live] {cfg.name} first prefill again with K3: logits max abs diff "
+                 f"{float((got - live['timed'].first_logits).abs().max()):.3e} from the served "
+                 f"one; the plain prefill with its own routing: last-token logits max abs err "
+                 f"{float((got - own).abs().max()):.3e} (scale {float(own.abs().max()):.3e}), "
+                 f"greedy token {int(torch.argmax(own[0, -1]))}; its routing moved "
+                 f"{ch['tokens']} of {ch['of_tokens']} tokens' experts and {ch['kept']} of "
+                 f"{ch['of_choices']} kept choices; the last token's choices dropped "
+                 f"{ch['last_dropped'][0]} (K3) and {ch['last_dropped'][1]} (plain) over "
+                 f"{len(k3_tape.routes)} layers")
+        else:
+            with plain_prefill_attention():
+                want, _ = model.prefill(params, batch, S)
+    want = want.float()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
+    what = "K3 vs plain attention" + (", the routing held" if cfg.moe else "")
     if not (torch.isfinite(got).all() and err <= LIVE_LOGITS_RTOL * scale):
-        _fail(f"live: K3 prefill logits differ from the plain prefill by {err:.3e} "
+        _fail(f"live: {cfg.name}: {what}: the prefill logits differ by {err:.3e} "
               f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
     first = int(live["results"][0].output[0, 0])
     top2 = torch.topk(want[0, -1], 2).values
     if first != int(torch.argmax(want[0, -1])):
-        _fail(f"live: first greedy token {first} != plain prefill's "
+        _fail(f"live: {cfg.name}: first greedy token {first} != plain prefill's "
               f"{int(torch.argmax(want[0, -1]))}")
-    _log(f"[live] first prefill, K3 vs plain attention: last-token logits max abs err "
-         f"{err:.3e} (scale {scale:.3e}, limit {LIVE_LOGITS_RTOL * scale:.3e}); first greedy "
-         f"token {first} in both (plain top-2 margin {float(top2[0] - top2[1]):.3e})")
+    _log(f"[live] {cfg.name} first prefill, {what}: last-token logits max abs err {err:.3e} "
+         f"(scale {scale:.3e}, limit {LIVE_LOGITS_RTOL * scale:.3e}); first greedy token "
+         f"{first} in both (plain top-2 margin {float(top2[0] - top2[1]):.3e})")
+    return err
+
+
+def check_decode_consistency(live: dict, sizes: Sizes) -> float:
+    """The first request's prefill of T-1 tokens and one decode step of
+    its last token against its prefill of T tokens (tests/test_models.py's
+    decode consistency): the last-token logits within DECODE_LOGITS_RTOL
+    of their scale. Returns the max abs difference."""
+    tokens = live["requests"][0]
+    T, dev = len(tokens), live["params"]["embed"].device
+    model, params = live["model"], live["params"]
+    toks = torch.as_tensor(tokens[None, :], device=dev)
+    with torch.inference_mode():
+        want, _ = model.prefill(params, {"tokens": toks}, T + sizes.new_tokens)
+        _, caches = model.prefill(params, {"tokens": toks[:, :T - 1]}, T + sizes.new_tokens)
+        got, _ = model.decode_step(params, toks[:, T - 1:], caches,
+                                   torch.full((1,), T - 1, dtype=torch.int32, device=dev))
+    got, want = got[0, -1].float(), want[0, -1].float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and err <= DECODE_LOGITS_RTOL * scale):
+        _fail(f"live: {live['cfg'].name} prefill(T-1) + decode differs from prefill(T) by "
+              f"{err:.3e} (> {DECODE_LOGITS_RTOL} x scale {scale:.3e})")
+    _log(f"[live] {live['cfg'].name} prefill({T - 1}) + decode step vs prefill({T}): last-token "
+         f"logits max abs err {err:.3e} (scale {scale:.3e}, limit "
+         f"{DECODE_LOGITS_RTOL * scale:.3e}); greedy token {int(torch.argmax(got))} vs "
+         f"{int(torch.argmax(want))}")
     return err
 
 
@@ -720,22 +878,23 @@ def profile_live(live: dict, sizes: Sizes) -> dict:
         for name, fn in (("prefill", prefill), ("decode step", decode)):
             r = out[name] = _device_profile(fn, dev)
             if r["busy_ms"] is None:
-                _log(f"[live] profile {name}: {r['wall_ms']:.2f} ms (host clock); device time "
-                     f"not measured (the profiler saw no device activity)")
+                _log(f"[live] {live['cfg'].name} profile {name}: {r['wall_ms']:.2f} ms (host "
+                     f"clock); device time not measured (the profiler saw no device activity)")
                 continue
             top = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in r["top"])
-            _log(f"[live] profile {name}: {r['wall_ms']:.2f} ms (host clock), card busy "
-                 f"{r['busy_ms']:.2f} ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; "
-                 f"largest: {top}")
+            _log(f"[live] {live['cfg'].name} profile {name}: {r['wall_ms']:.2f} ms (host clock), "
+                 f"card busy {r['busy_ms']:.2f} ms, idle share "
+                 f"{1 - r['busy_ms'] / r['wall_ms']:.3f}; largest: {top}")
     return out
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
+    """The tensors of a tree of dicts and lists (the parameters)."""
+    if isinstance(tree, torch.Tensor):
         yield tree
+        return
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from _leaves(v)
 
 
 # -- phase 6: admission ----------------------------------------------------
@@ -913,7 +1072,30 @@ def _log_timing(name: str, r: dict) -> None:
          f"({r['bound_by']}){seq}")
 
 
-def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -> Dict[str, dict]:
+def _time_k3(q3, k3, v3, flush) -> dict:
+    """K3, its plain version and an SDPA yardstick on one causal prefill;
+    the bound counts q, k, v and out once and the (t, s <= t) pairs."""
+    B, T, H, D = q3.shape
+    KV = k3.shape[2]
+    k3_bytes = 2 * (q3.numel() + k3.numel() + v3.numel() + q3.numel())
+    k3_flops = 4.0 * B * H * D * T * (T + 1) / 2
+    # yardstick: one SDPA call, layouts permuted beforehand (not timed)
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q3, k3, v3))
+    r = dict(
+        ms=median_ms(lambda: flash_attention(q3, k3, v3, causal=True), flush),
+        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=True), flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), flush),
+        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal",
+    )
+    r["bound_ms"], r["bound_by"] = bound_ms(k3_bytes, k3_flops, q3.dtype)
+    return r
+
+
+def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int,
+                 models: List[dict]) -> Dict[str, dict]:
+    """Each kernel at the main path's shapes; K3 also at the prefill of
+    every live model that runs it (``k3_by_model``: name -> ms)."""
     cfg = sizes.arch_config()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     k_pages, v_pages = served["engine"].pool.layer_pool(0)
@@ -944,26 +1126,27 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int) -
     _log_timing("shared_prefix_attention, long prefix", long)
     res["shared_prefix_attention"] = _time_k2(grouped["q"], grouped["pk"], grouped["pv"],
                                               grouped["plens"], flush)
-    # K3 at the live phase's prefill: one prompt of T tokens, causal
-    B, T = 1, sizes.prefix_tokens + sizes.user_tokens
-    gen = torch.Generator(device=device).manual_seed(seed + 4)
-    q3 = _randn(gen, (B, T, H, D), torch.bfloat16, device)
-    k3, v3 = (_randn(gen, (B, T, KV, D), torch.bfloat16, device) for _ in range(2))
-    k3_bytes = 2 * (q3.numel() + k3.numel() + v3.numel() + q3.numel())
-    k3_flops = 4.0 * B * H * D * T * (T + 1) / 2         # the (t, s <= t) pairs only
-    # yardstick: one SDPA call, layouts permuted beforehand (not timed)
-    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q3, k3, v3))
-    res["flash_attention"] = dict(
-        ms=median_ms(lambda: flash_attention(q3, k3, v3, causal=True), flush),
-        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=True), flush),
-        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True), flush),
-        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal",
-    )
-    res["flash_attention"]["bound_ms"], res["flash_attention"]["bound_by"] = bound_ms(
-        k3_bytes, k3_flops, q3.dtype)
+    # K3 at each live model's prefill: one prompt of T tokens, causal; the
+    # kernels row at sizes.arch's, the others on lines of their own
+    T = sizes.prefix_tokens + sizes.user_tokens
+    by_model = {}
+    for m in models:
+        c = sizes.arch_config(m["name"])
+        if not m["k3_per_request"]:
+            continue
+        gen = torch.Generator(device=device).manual_seed(seed + 4)
+        q3 = _randn(gen, (1, T, c.n_heads, c.head_dim), torch.bfloat16, device)
+        k3, v3 = (_randn(gen, (1, T, c.n_kv_heads, c.head_dim), torch.bfloat16, device)
+                  for _ in range(2))
+        r = _time_k3(q3, k3, v3, flush)
+        by_model[m["name"]] = r["ms"]
+        if c.name == cfg.name:
+            res["flash_attention"] = r
+        else:
+            _log_timing(f"flash_attention, {c.name} prefill", r)
     for name, r in res.items():
         _log_timing(name, r)
+    res["k3_by_model"] = by_model
     return res
 
 
@@ -1385,24 +1568,24 @@ def main(argv=None) -> int:
     if served_launches["paged_attention"] == 0 or (
             main_launches["shared_prefix_attention"] == 0):
         _fail(f"a kernel of the serving path was not launched: {main_launches}")
-    reset_launches()                                  # the live path starts here
-    live = phase_live(device, sizes, args.seed)
-    live_launches = launches()                        # ... and ends here
-    _log(f"[live] launches: {live_launches}")
-    want = live["cfg"].n_layers * sizes.live_requests
-    if live_launches["flash_attention"] != want:
-        _fail(f"live: K3 launched {live_launches['flash_attention']} times, not "
-              f"{live['cfg'].n_layers} layers x {sizes.live_requests} prefills = {want}")
-    check_live_against_plain(live, sizes)
-    profile_live(live, sizes)
-    prefill_ms = 1e3 * float(np.median(live["timed"].prefill_s[1:]))
-    del live
+    models = phase_live_models(device, sizes, args.seed, card)   # the live paths
+    for m in models:
+        want = m["k3_per_request"] * sizes.live_requests
+        got = m["launches"]["flash_attention"]
+        if got != want:
+            _fail(f"live: {m['name']}: K3 launched {got} times, not {m['k3_per_request']} "
+                  f"global-attention layers x {sizes.live_requests} prefills = {want}")
+    live_k3 = sum(m["launches"]["flash_attention"] for m in models)
+    _log(f"[live] K3 launches: {live_k3} ("
+         f"{', '.join(str(m['launches']['flash_attention']) + ' ' + m['name'] for m in models)})")
     phase_admission(device, sizes)
-    timing = phase_timing(device, sizes, served, grouped, args.seed)
-    k3_ms = timing["flash_attention"]["ms"]
-    _log(f"[live] K3 share of prefill: {live_launches['flash_attention'] // sizes.live_requests}"
-         f" x {k3_ms:.4f} ms / {prefill_ms:.2f} ms = "
-         f"{live_launches['flash_attention'] / sizes.live_requests * k3_ms / prefill_ms:.4f}")
+    timing = phase_timing(device, sizes, served, grouped, args.seed, models)
+    for m in models:
+        if m["k3_per_request"]:
+            k3_ms = timing["k3_by_model"][m["name"]]
+            _log(f"[live] {m['name']} K3 share of prefill: {m['k3_per_request']} x "
+                 f"{k3_ms:.4f} ms / {m['prefill_ms']:.2f} ms = "
+                 f"{m['k3_per_request'] * k3_ms / m['prefill_ms']:.4f}")
     reset_launches()                                  # the estimator path starts here
     t_est = time.perf_counter()
     est = phase_estimator(device, sizes, errs, args.seed)
@@ -1416,7 +1599,7 @@ def main(argv=None) -> int:
     timing["lane_engine"] = time_lane_engine(device, sizes, est)
     _log(f"[estimator] phase 8 took {time.perf_counter() - t_est:.1f} s (host clock, its "
          f"checks, profile and timing included)")
-    path_launches = dict(main_launches, flash_attention=live_launches["flash_attention"],
+    path_launches = dict(main_launches, flash_attention=live_k3,
                          lane_engine=est_launches["lane_engine"])
 
     rows = []

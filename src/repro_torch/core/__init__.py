@@ -21,6 +21,10 @@ data plane and of the estimator loop.
   L1/Lstar/L2/full; one allocation vector or a batch of them).
 * :mod:`~repro_torch.core.admission` — Section IV-C: overbooking +
   admission (host copy over the torch solver).
+* :mod:`~repro_torch.core.rre` — Section IV-D: reducing ripple evictions
+  (host copy).
+* :mod:`~repro_torch.core.mcdos` — Section VI: the MCD-OS server, the
+  plain MCD baseline and consistent routing (host copies).
 """
 
 from .shared_lru import (  # noqa: F401
@@ -64,6 +68,7 @@ from .admission import (  # noqa: F401
     Tenant,
     virtual_allocations,
 )
+from .rre import RRECache, RREConfig, compare_ripple  # noqa: F401
 from .cluster import (  # noqa: F401
     FaultEvent,
     FaultSpec,
@@ -73,4 +78,5 @@ from .cluster import (  # noqa: F401
     key_positions,
     simulate_cluster,
 )
+from .mcdos import MCDOSServer, MCDServer, consistent_route, run_trace  # noqa: F401
 from .metrics import HitRecorder, LatencyRecorder, RippleStats, table_rows  # noqa: F401

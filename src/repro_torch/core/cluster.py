@@ -196,8 +196,8 @@ class HashRing:
 @lru_cache(maxsize=128)
 def default_ring(n_nodes: int, vnodes: int = DEFAULT_VNODES) -> HashRing:
     """The canonical ring over nodes ``0..n_nodes-1`` (cached) — what
-    the MCD-OS router ``consistent_route`` (``core/mcdos.py``, not
-    ported yet) routes against. Ring ``n-1`` is ring ``n`` minus node ``n-1``'s vnodes, so shrinking the
+    the MCD-OS router ``consistent_route`` (``core/mcdos.py``) routes
+    against. Ring ``n-1`` is ring ``n`` minus node ``n-1``'s vnodes, so shrinking the
     server count remaps only that node's arcs."""
     return HashRing(range(int(n_nodes)), vnodes)
 

@@ -1,5 +1,6 @@
-"""GQA attention layer of the dense transformer (qwen3, stablelm,
-deepseek-7b, yi): projections, qk-norm, RoPE, and three attention paths.
+"""GQA attention layer of the models (qwen3, stablelm, deepseek-7b, yi,
+granite-moe-1b, and recurrentgemma-2b's local blocks): projections,
+qk-norm, RoPE, and three attention paths.
 
 * Prefill with full (windowless) causal attention runs K3, the Hopper
   flash-attention kernel, through :func:`repro_torch.kernels.ops.flash_attention`

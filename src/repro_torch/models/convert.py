@@ -18,24 +18,50 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def _block_shapes(cfg, kind: str, lead: tuple) -> Dict:
+    """One block's parameter shapes, with ``lead`` axes in front."""
+    d, hd = cfg.d_model, cfg.head_dim
+    s = lambda *shape: lead + shape
+    mlp = lambda f: {"w_gate": s(d, f), "w_up": s(d, f), "w_down": s(f, d)}
+    tree = {"ln1": {"scale": s(d)}}
+    if kind == "rglru":
+        W, K = cfg.lru_width, cfg.conv1d_size
+        tree["core"] = {"wx": s(d, W), "wgate": s(d, W), "conv": {"w": s(K, W), "b": s(W)},
+                        "w_input_gate": s(W, W), "w_rec_gate": s(W, W),
+                        "log_lambda": s(W), "w_out": s(W, d)}
+    else:
+        attn = {"wq": s(d, cfg.n_heads * hd), "wk": s(d, cfg.n_kv_heads * hd),
+                "wv": s(d, cfg.n_kv_heads * hd), "wo": s(cfg.n_heads * hd, d)}
+        if cfg.qk_norm:
+            attn.update(q_norm={"scale": s(hd)}, k_norm={"scale": s(hd)})
+        tree["attn"] = attn
+    tree["ln2"] = {"scale": s(d)}
+    if cfg.moe and kind == "attn":
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        tree["ffn"] = {"router": s(d, E), "w_gate": s(E, d, f), "w_up": s(E, d, f),
+                       "w_down": s(E, f, d)}
+        if cfg.n_shared_experts > 0:
+            tree["ffn"]["shared"] = mlp(f * cfg.n_shared_experts)
+    else:
+        tree["ffn"] = mlp(cfg.d_ff)
+    return tree
+
+
 def param_shapes(cfg) -> Dict:
-    """The tree of the dense model's parameter shapes, ``blocks`` stacked
-    over its ``n_layers`` one-layer tiles."""
-    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
-    attn = {"wq": (L, d, cfg.n_heads * hd), "wk": (L, d, cfg.n_kv_heads * hd),
-            "wv": (L, d, cfg.n_kv_heads * hd), "wo": (L, cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        attn.update(q_norm={"scale": (L, hd)}, k_norm={"scale": (L, hd)})
-    tree = {
-        "embed": (cfg.vocab_size, d),
-        "blocks": {"g0": {
-            "ln1": {"scale": (L, d)}, "attn": attn, "ln2": {"scale": (L, d)},
-            "ffn": {"w_gate": (L, d, ff), "w_up": (L, d, ff), "w_down": (L, ff, d)},
-        }},
-        "final_norm": {"scale": (d,)},
-    }
+    """The tree of the model's parameter shapes: ``blocks`` holds one entry
+    per kind of ``cfg.block_pattern``, stacked over ``n_layers // G``
+    tiles; ``tail`` lists the ``n_layers % G`` blocks left over."""
+    G = len(cfg.block_pattern)
+    n_tiles, n_tail = cfg.n_layers // G, cfg.n_layers % G
+    tree = {"embed": (cfg.vocab_size, cfg.d_model)}
+    if n_tiles:
+        tree["blocks"] = {f"g{g}": _block_shapes(cfg, kind, (n_tiles,))
+                          for g, kind in enumerate(cfg.block_pattern)}
+    if n_tail:
+        tree["tail"] = [_block_shapes(cfg, kind, ()) for kind in cfg.block_pattern[:n_tail]]
+    tree["final_norm"] = {"scale": (cfg.d_model,)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = (d, cfg.vocab_size)
+        tree["lm_head"] = (cfg.d_model, cfg.vocab_size)
     return tree
 
 
@@ -47,6 +73,11 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _convert(tree, shapes, device, path: str):
+    if isinstance(shapes, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree).__name__
+            raise ValueError(f"{path}: expected a list of {len(shapes)} blocks, got {got}")
+        return [_convert(t, sh, device, f"{path}/{i}") for i, (t, sh) in enumerate(zip(tree, shapes))]
     if isinstance(shapes, dict):
         if not isinstance(tree, dict) or set(tree) != set(shapes):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
@@ -59,6 +90,6 @@ def _convert(tree, shapes, device, path: str):
 
 def from_jax_params(tree, cfg, *, device: DeviceLike = None) -> Dict:
     """The reference's parameter tree (numpy leaves) as the port's, on
-    ``device`` (None: the card). Raises on a missing or extra key or a
-    shape that does not fit ``cfg``."""
+    ``device`` (None: the card). Raises on a missing or extra key, a tail
+    of another length or a shape that does not fit ``cfg``."""
     return _convert(tree, param_shapes(cfg), resolve_device(device), "")

@@ -1,5 +1,6 @@
-"""Foundational layers of the dense transformer: RMSNorm, RoPE, linear and
-embedding initializers, the SwiGLU MLP. Functional, as in the reference
+"""Foundational layers of the model zoo: RMSNorm, RoPE, linear and
+embedding initializers, the SwiGLU MLP, the causal depthwise conv1d of
+the RG-LRU blocks. Functional, as in the reference
 (``repro.models.layers``): parameters are plain dicts of tensors and the
 apply functions take them explicitly.
 
@@ -11,7 +12,7 @@ f32 ``W`` is an f32 product (``torch.matmul`` refuses mixed types, so
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -99,3 +100,35 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
 def mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
     gate = F.silu(matmul(x, p["w_gate"]))
     return matmul(gate * matmul(x, p["w_up"]), p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Causal temporal conv1d (RG-LRU blocks)
+# ---------------------------------------------------------------------------
+def conv1d_init(gen: torch.Generator, width: int, kernel: int, dtype=torch.float32,
+                device=None, lead: tuple = ()) -> Params:
+    w = torch.empty(lead + (kernel, width), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return {"w": (w * (1.0 / math.sqrt(kernel))).to(dtype),
+            "b": torch.zeros(lead + (width,), dtype=dtype, device=device)}
+
+
+def causal_conv1d(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, T, W); kernel (K, W). K shifted adds,
+    as the reference computes it."""
+    k, T = p["w"].shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + T, :] * p["w"][i]
+    return out + p["b"]
+
+
+def causal_conv1d_step(x_t: torch.Tensor, state: torch.Tensor,
+                       p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step. x_t: (B, W); state: (B, K-1, W) past inputs.
+    Returns the output (B, W) and the new state."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)                 # (B, K, W)
+    dt = torch.promote_types(window.dtype, p["w"].dtype)
+    out = torch.einsum("bkw,kw->bw", window.to(dt), p["w"].to(dt)) + p["b"]
+    return out, window[:, 1:, :]

@@ -1,16 +1,21 @@
-"""The dense decoder transformer of the reference's model skeleton
-(``repro.models.transformer``), for the ``("attn",)`` block pattern
-without MoE: qwen3-1.7b, stablelm-1.6b, deepseek-7b and yi-34b.
+"""The reference's pattern-driven model skeleton (``repro.models.transformer``)
+for the decoder models whose blocks the port has: global attention
+(``"attn"``) with a SwiGLU or MoE feed-forward, windowed local attention
+(``"local"``) and RG-LRU (``"rglru"``) blocks. That covers the dense
+models (qwen3-1.7b, stablelm-1.6b, deepseek-7b, yi-34b), granite-moe-1b
+and recurrentgemma-2b.
 
 Functional, as the reference: :meth:`TransformerLM.init` returns a dict
 of tensors and every method takes it explicitly, so the serving engine
 passes ``model`` and ``params`` as the reference's does. Parameters keep
-the reference's tree: ``embed``, ``blocks["g0"]`` stacked with a leading
-``n_tiles`` axis (one tile is one layer for this pattern, so there is no
-``tail``), ``final_norm`` and, untied, ``lm_head``; weights are
-``(in, out)`` for ``x @ W``. :mod:`repro_torch.models.convert` carries
-the reference's parameters across. The reference's ``lax.scan`` over
-tiles is a loop over layers here.
+the reference's tree: ``embed``; ``blocks["g0".."g{G-1}"]``, one entry per
+kind of ``cfg.block_pattern``, stacked with a leading ``n_tiles =
+n_layers // G`` axis; ``tail``, a list of the ``n_layers % G`` blocks
+left over (the pattern's first kinds); ``final_norm`` and, untied,
+``lm_head``. Weights are ``(in, out)`` for ``x @ W``.
+:mod:`repro_torch.models.convert` carries the reference's parameters
+across. The reference's ``lax.scan`` over tiles is a loop over layers
+here, in the same order: tile by tile, then the tail.
 
 API:
   init(gen) -> params
@@ -19,7 +24,7 @@ API:
   prefill(params, batch, cache_len) -> (last_logits, caches)
   decode_step(params, tokens, caches, position) -> (logits, caches)
 
-Other block kinds, MLA, MoE and the audio/vision frontends raise
+xLSTM blocks, MLA, the audio/vision frontends and encoders raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1, the models path).
 """
 
@@ -33,22 +38,22 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import shardctx
 from .layers import Params, dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 _LATER = {   # what the port's models path does not have yet (ROADMAP.md, Queue 1)
-    "local": "windowed local attention blocks",
-    "rglru": "RG-LRU blocks",
     "mlstm": "xLSTM blocks",
     "slstm": "xLSTM blocks",
 }
+KINDS = ("attn", "local", "rglru")
 
 
 def _unsupported(cfg) -> str:
     for kind in cfg.block_pattern:
-        if kind != "attn":
+        if kind not in KINDS:
             return _LATER.get(kind, f"block kind {kind!r}")
-    if cfg.moe:
-        return "MoE feed-forward"
     if cfg.attention == "mla":
         return "MLA attention"
     if cfg.modality != "text":
@@ -59,10 +64,26 @@ def _unsupported(cfg) -> str:
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of a tree stacked over tiles (views, no copies)."""
+    """Tile ``i`` of a tree stacked over tiles (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stack(trees):
+    """Trees of equal structure stacked along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _write(dst, src) -> None:
+    """Copies the tree ``src`` into the tree ``dst`` (views into the caches)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 class TransformerLM(nn.Module):
@@ -76,55 +97,120 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
-        self.n_tiles = cfg.n_layers          # pattern ("attn",): one layer per tile
+        G = len(cfg.block_pattern)
+        self.n_tiles = cfg.n_layers // G
+        self.n_tail = cfg.n_layers % G
+        self.tail_kinds = cfg.block_pattern[: self.n_tail]
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def _block_init(self, gen, device, lead: tuple = ()) -> Params:
+    def _block_init(self, gen, device, kind: str, lead: tuple = ()) -> Params:
         cfg, dt = self.cfg, self.param_dtype
-        return {
-            "ln1": rmsnorm_init(cfg.d_model, dt, device, lead),
-            "attn": attn.gqa_init(gen, cfg, dt, device, lead),
-            "ln2": rmsnorm_init(cfg.d_model, dt, device, lead),
-            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device, lead),
-        }
+        p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, device, lead)}
+        if kind == "rglru":
+            p["core"] = rglru_mod.rglru_init(gen, cfg, dt, device, lead)
+        else:
+            p["attn"] = attn.gqa_init(gen, cfg, dt, device, lead)
+        p["ln2"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+        if cfg.moe and kind == "attn":
+            p["ffn"] = moe_mod.moe_init(gen, cfg, dt, device, lead)
+        else:
+            p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device, lead)
+        return p
 
     def init(self, gen: torch.Generator) -> Params:
         """Parameters drawn from ``gen`` on the generator's device, with the
         reference's distributions (not its bits)."""
         cfg, dt, dev = self.cfg, self.param_dtype, gen.device
-        params: Params = {
-            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-            "blocks": {"g0": self._block_init(gen, dev, (self.n_tiles,))},
-        }
+        params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
+        if self.n_tiles > 0:
+            params["blocks"] = {f"g{g}": self._block_init(gen, dev, kind, (self.n_tiles,))
+                                for g, kind in enumerate(cfg.block_pattern)}
+        if self.n_tail:
+            params["tail"] = [self._block_init(gen, dev, kind) for kind in self.tail_kinds]
         params["final_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
         return params
 
-    def _layers(self, params) -> Iterator[Params]:
+    def _layers(self, tree) -> Iterator[Tuple[str, object]]:
+        """(kind, layer's subtree) of ``tree`` (the parameters or the
+        caches) in the order the layers run: tile by tile, then the tail."""
         for i in range(self.n_tiles):
-            yield _index(params["blocks"]["g0"], i)
+            for g, kind in enumerate(self.cfg.block_pattern):
+                yield kind, _index(tree["blocks"][f"g{g}"], i)
+        for i, kind in enumerate(self.tail_kinds):
+            yield kind, tree["tail"][i]
+
+    def _collect(self, per_layer):
+        """Per-layer trees in :meth:`_layers` order, as the reference's
+        ``blocks`` (stacked over tiles) and ``tail``."""
+        out, G = {}, len(self.cfg.block_pattern)
+        if self.n_tiles > 0:
+            out["blocks"] = {f"g{g}": _stack(per_layer[g:self.n_tiles * G:G]) for g in range(G)}
+        if self.n_tail:
+            out["tail"] = list(per_layer[self.n_tiles * G:])
+        return out
 
     # ------------------------------------------------------------------
-    # blocks (pre-norm attention + SwiGLU)
+    # blocks: pre-norm mixer (attention or RG-LRU) + SwiGLU or MoE
     # ------------------------------------------------------------------
-    def _block_forward(self, x, p):
-        x = x + attn.gqa_forward(rmsnorm(x, p["ln1"], self.cfg.norm_eps), p["attn"], self.cfg)
-        return x + mlp_apply(rmsnorm(x, p["ln2"], self.cfg.norm_eps), p["ffn"])
+    def _moe(self, h, p_ffn):
+        """MoE FFN: the launcher-installed override when there is one, else
+        the gather dispatch of :mod:`repro_torch.models.moe`."""
+        override = shardctx.get("moe_apply")
+        if override is not None:
+            res = override(h, p_ffn, self.cfg, capacity_factor=self.cfg.capacity_factor)
+            if res is not None:
+                return res
+        return moe_mod.moe_apply(h, p_ffn, self.cfg, capacity_factor=self.cfg.capacity_factor)
 
-    def _block_prefill(self, x, p, cache_len: int):
-        a, cache = attn.gqa_prefill(rmsnorm(x, p["ln1"], self.cfg.norm_eps), p["attn"],
-                                    self.cfg, cache_len)
-        x = x + a
-        return x + mlp_apply(rmsnorm(x, p["ln2"], self.cfg.norm_eps), p["ffn"]), cache
+    def _ffn(self, x, p, kind: str, decode: bool = False):
+        h2 = rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        if self.cfg.moe and kind == "attn":
+            if decode:
+                f, aux = moe_mod.moe_apply(h2, p["ffn"], self.cfg, no_drop=True)
+            else:
+                f, aux = self._moe(h2, p["ffn"])
+            return x + f, aux
+        return x + mlp_apply(h2, p["ffn"]), None
 
-    def _block_decode(self, x, p, cache, position):
-        a, cache = attn.gqa_decode_step(rmsnorm(x, p["ln1"], self.cfg.norm_eps), p["attn"],
-                                        self.cfg, cache, position)
-        x = x + a
-        return x + mlp_apply(rmsnorm(x, p["ln2"], self.cfg.norm_eps), p["ffn"]), cache
+    def _window(self, kind: str) -> int:
+        return self.cfg.window if kind == "local" else 0
+
+    def _block_forward(self, x, p, kind: str):
+        h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        if kind == "rglru":
+            x = x + rglru_mod.rglru_block_forward(h, p["core"], self.cfg)
+        else:
+            x = x + attn.gqa_forward(h, p["attn"], self.cfg, window=self._window(kind))
+        return self._ffn(x, p, kind)
+
+    def _block_prefill(self, x, p, kind: str, cache_len: int):
+        h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        if kind == "rglru":
+            a, cache = rglru_mod.rglru_block_prefill(h, p["core"], self.cfg)
+        else:
+            window = self._window(kind)
+            a, cache = attn.gqa_prefill(h, p["attn"], self.cfg, cache_len, window=window)
+            T, W = x.shape[1], cache["k"].shape[1]
+            if window > 0 and T >= W:
+                # ring-buffer alignment: the token at position q sits in
+                # slot q % window (see gqa_decode_step)
+                shift = (T - W) % W
+                cache = {n: torch.roll(c, shift, dims=1) for n, c in cache.items()}
+        return self._ffn(x + a, p, kind)[0], cache
+
+    def _block_decode(self, x, p, kind: str, cache, position):
+        h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        if kind == "rglru":
+            a, new = rglru_mod.rglru_block_step(h, p["core"], self.cfg, cache)
+            _write(cache, new)
+        else:       # the new K/V row is written into the cache in place
+            a, _ = attn.gqa_decode_step(h, p["attn"], self.cfg, cache, position,
+                                        window=self._window(kind))
+        return self._ffn(x + a, p, kind, decode=True)[0]
 
     # ------------------------------------------------------------------
     # embedding and head
@@ -144,10 +230,14 @@ class TransformerLM(nn.Module):
     # full-sequence forward
     # ------------------------------------------------------------------
     def forward_hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The last hidden states and the sum of the MoE aux losses."""
         x = self._embed(params, batch)
-        for p in self._layers(params):
-            x = self._block_forward(x, p)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p in self._layers(params):
+            x, a = self._block_forward(x, p, kind)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def forward_logits(self, params, batch) -> torch.Tensor:
         x, _ = self.forward_hidden(params, batch)
@@ -158,34 +248,51 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # serving: cache init / prefill / decode
     # ------------------------------------------------------------------
+    def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = ()):
+        cfg, cdt = self.cfg, self.compute_dtype
+        if kind == "rglru":
+            return {"h": torch.zeros(lead + (batch, cfg.lru_width), dtype=torch.float32,
+                                     device=dev),
+                    "conv": torch.zeros(lead + (batch, cfg.conv1d_size - 1, cfg.lru_width),
+                                        dtype=cdt, device=dev)}
+        S = min(cache_len, cfg.window) if kind == "local" else cache_len
+        shape = lead + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=cdt, device=dev) for n in ("k", "v")}
+
     def init_cache(self, batch: int, cache_len: int, *, device: DeviceLike = None):
-        """Zeroed caches in ``compute_dtype`` on ``device`` (None: the card)."""
-        shape = (self.n_tiles, batch, cache_len, self.cfg.n_kv_heads, self.cfg.head_dim)
+        """Zeroed caches on ``device`` (None: the card): attention K/V in
+        ``compute_dtype`` (a local block's holds ``min(cache_len, window)``
+        rows), an RG-LRU block's f32 state ``h`` and its conv inputs."""
         dev = resolve_device(device)
-        return {"blocks": {"g0": {n: torch.zeros(shape, dtype=self.compute_dtype, device=dev)
-                                  for n in ("k", "v")}}}
+        caches = {}
+        if self.n_tiles > 0:
+            caches["blocks"] = {f"g{g}": self._cache_one(kind, batch, cache_len, dev,
+                                                         (self.n_tiles,))
+                                for g, kind in enumerate(self.cfg.block_pattern)}
+        if self.n_tail:
+            caches["tail"] = [self._cache_one(kind, batch, cache_len, dev)
+                              for kind in self.tail_kinds]
+        return caches
 
     def prefill(self, params, batch, cache_len: int):
-        """Logits of the last token (B, 1, V) and the caches, in k's dtype,
-        padded to ``cache_len``."""
+        """Logits of the last token (B, 1, V) and the caches: attention K/V
+        in k's dtype padded to ``cache_len`` (a local block's ring buffer
+        aligned for decode), RG-LRU states."""
         x = self._embed(params, batch)
         per_layer = []
-        for p in self._layers(params):
-            x, c = self._block_prefill(x, p, cache_len)
+        for kind, p in self._layers(params):
+            x, c = self._block_prefill(x, p, kind, cache_len)
             per_layer.append(c)
-        caches = {"blocks": {"g0": {n: torch.stack([c[n] for c in per_layer])
-                                    for n in ("k", "v")}}}
-        return self._head(params, x[:, -1:, :]), caches
+        return self._head(params, x[:, -1:, :]), self._collect(per_layer)
 
     def decode_step(self, params, tokens, caches, position):
         """tokens: (B, 1) int; position: (B,). The caches are updated in
         place and returned."""
         x = params["embed"][tokens].to(self.compute_dtype)
-        for i, p in enumerate(self._layers(params)):
-            x, _ = self._block_decode(x, p, _index(caches["blocks"]["g0"], i), position)
+        for (kind, p), (_, c) in zip(self._layers(params), self._layers(caches)):
+            x = self._block_decode(x, p, kind, c, position)
         return self._head(params, x), caches
 
 
 def make_model(cfg, **kw) -> TransformerLM:
     return TransformerLM(cfg, **kw)
-

@@ -16,6 +16,7 @@ from repro.cacheblocks import layout_for as jlayout_for
 from repro.configs import get_config as jget_config
 from repro_torch.cacheblocks import BlockPool, SharedPrefixCache, layout_for
 from repro_torch.configs import get_config
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 L, KV, NB, BT, D = 2, 2, 12, 4, 8
 

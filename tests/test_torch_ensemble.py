@@ -29,6 +29,7 @@ from repro_torch.core.irm import rate_matrix, sample_trace, sample_trace_chunks
 from repro_torch.scenario import Estimator, Scenario, System, Workload
 from repro_torch.scenario.report import Report
 from repro_torch.scenario.runner import ensemble_seeds
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 N_OBJ, N_REQ, WARMUP, R = 250, 6_000, 600, 4
 CPU = "cpu"

@@ -25,6 +25,7 @@ from repro.core.irm import rate_matrix, sample_trace, sample_trace_chunks
 from repro_torch.core import fastsim, fastsim_c, fastsim_cuda
 from repro_torch.core.fastsim import HIST_BUCKETS, SimParams, simulate_chunks, simulate_trace
 from repro_torch.core.irm import IRMTrace
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 N_OBJ, N_REQ, WARMUP = 200, 4_000, 700
 KWS = [

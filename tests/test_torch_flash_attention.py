@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 DTYPES = ["float32", "bfloat16"]
 GRID = [                              # B, T, S, H, KV, D, causal (tests/test_kernels.py)

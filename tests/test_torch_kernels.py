@@ -27,6 +27,7 @@ from repro_torch.kernels.shared_prefix_attention import (
     shared_prefix_attention,
     shared_prefix_attention_plain,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 DTYPES = ["float32", "bfloat16"]
 K1_GRID = [                      # B, H, KV, D, page, P, pps (tests/test_kernels.py)

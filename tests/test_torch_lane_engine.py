@@ -24,6 +24,7 @@ from repro_torch.core.irm import rate_matrix, sample_trace, sample_trace_chunks
 from repro_torch.core.shared_lru import _lcm_1_to
 from repro_torch.kernels import lane_engine as le
 from repro_torch.scenario import get_preset
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 N_OBJ, N_REQ, WARMUP = 200, 4_000, 700
 KWS = [

@@ -1,12 +1,16 @@
-"""The port's dense transformer against the reference's, on the CPU.
+"""The port's models against the reference's, on the CPU.
 
 Reduced configs: qwen3-1.7b with ``n_kv_heads=2`` (G = 2, qk-norm, tied
-embeddings) and stablelm-1.6b (MHA, untied head). The reference's
-parameters are carried across with ``from_jax_params``; inputs are numpy
-arrays from a seed. In f32 both packages do the same arithmetic with sums
-in another order (the port's prefill attention is the dense plain version
-of K3, the reference's a chunked scan), so they are held to atol 1e-4 on
-logits of scale ~4 (observed ~3e-6).
+embeddings), stablelm-1.6b (MHA, untied head), granite-moe-1b (MoE, E = 8
+top-2, global attention through K3's plain version) and recurrentgemma-2b
+(tiles of ``(rglru, rglru, local)``, MQA, window 32); recurrentgemma also
+with a tail of two RG-LRU blocks and with prompts longer than its window.
+The reference's parameters are carried across with ``from_jax_params``;
+inputs are numpy arrays from a seed. In f32 both packages do the same
+arithmetic with sums in another order (the port's prefill attention is
+the dense plain version of K3, the reference's a chunked scan; the port's
+RG-LRU scan a doubling scan), so logits of scale ~4 and every cache are
+held to atol 1e-4 (observed below 1e-5).
 """
 
 import dataclasses
@@ -24,21 +28,23 @@ from repro.models import make_model as jmake_model
 from repro_torch.configs import get_config
 from repro_torch.models import attention, from_jax_params, layers, make_model
 from repro_torch.models.convert import param_shapes
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
-ARCHS = {"qwen3-1.7b": {"n_kv_heads": 2}, "stablelm-1.6b": {}}
+ARCHS = {"qwen3-1.7b": {"n_kv_heads": 2}, "stablelm-1.6b": {}, "granite-moe-1b-a400m": {},
+         "recurrentgemma-2b": {}}
 F32_ATOL = 1e-4
 B, T = 2, 24
 
 
-def _cfgs(name):
-    kw = ARCHS[name]
+def _cfgs(name, **extra):
+    kw = dict(ARCHS[name], **extra)
     return (dataclasses.replace(jget_config(name).reduced(), **kw),
             dataclasses.replace(get_config(name).reduced(), **kw))
 
 
-def _models(name, dtype="float32"):
+def _models(name, dtype="float32", **extra):
     """(reference model, its params, port model, port params)."""
-    jcfg, cfg = _cfgs(name)
+    jcfg, cfg = _cfgs(name, **extra)
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     jm = jmake_model(jcfg, param_dtype=jdt, compute_dtype=jdt)
@@ -53,6 +59,17 @@ def _tokens(cfg, seed=0):
 
 def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _same_tree(got, want, atol):
+    """Two cache trees (port: tensors; reference: arrays) of one structure,
+    shapes equal, values within atol."""
+    got = jax.tree.map(_np, got)
+    want = jax.tree.map(_np, want)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=atol)
 
 
 # -- layers -------------------------------------------------------------------
@@ -125,7 +142,7 @@ def test_gqa_prefill_and_decode_match_the_reference(window):
     np.testing.assert_allclose(_np(out), _np(jout), atol=1e-5)
     np.testing.assert_allclose(_np(c["k"]), _np(jc["k"]), atol=1e-5)
     np.testing.assert_allclose(_np(c["v"]), _np(jc["v"]), atol=1e-5)
-    if window:      # the transformer's ring-buffer alignment is not ported: start empty
+    if window:      # the ring-buffer alignment is the transformer's (tested below): start empty
         jc = {n: jnp.zeros_like(a) for n, a in jc.items()}
         c = {n: torch.zeros_like(a) for n, a in c.items()}
     for t in range(10, 13):
@@ -150,43 +167,62 @@ def test_param_tree_matches_reference_init(name):
     assert jax.tree.map(lambda a: tuple(a.shape), port) == shapes
 
 
-@pytest.mark.parametrize("name", ARCHS)
-def test_forward_prefill_decode_match_reference_f32(name):
-    jm, jp, m, p = _models(name)
-    toks = _tokens(m.cfg)
+def _forward_prefill_decode(name, T_, **extra):
+    """forward, the zeroed caches, prefill of T_ - 1 tokens and a decode
+    step, each against the reference in f32."""
+    jm, jp, m, p = _models(name, **extra)
+    toks = np.random.default_rng(0).integers(0, m.cfg.vocab_size, (B, T_))
     full_j = jm.forward_logits(jp, {"tokens": jnp.asarray(toks)})
     full = m.forward_logits(p, {"tokens": torch.as_tensor(toks)})
-    assert full.shape == (B, T, m.cfg.vocab_size)
+    assert full.shape == (B, T_, m.cfg.vocab_size)
     np.testing.assert_allclose(_np(full), _np(full_j), atol=F32_ATOL)
 
-    zeros, jzeros = m.init_cache(B, T + 8, device="cpu"), jm.init_cache(B, T + 8)
-    for n in ("k", "v"):
-        assert zeros["blocks"]["g0"][n].shape == jzeros["blocks"]["g0"][n].shape
-        assert zeros["blocks"]["g0"][n].dtype == torch.float32 and not zeros["blocks"]["g0"][n].any()
+    zeros, jzeros = m.init_cache(B, T_ + 8, device="cpu"), jm.init_cache(B, T_ + 8)
+    _same_tree(zeros, jzeros, 0.0)
+    assert all(t.dtype == torch.float32 and not t.any() for t in jax.tree.leaves(zeros))
 
-    jlast, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :-1])}, T + 8)
-    last, c = m.prefill(p, {"tokens": torch.as_tensor(toks[:, :-1])}, T + 8)
+    jlast, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :-1])}, T_ + 8)
+    last, c = m.prefill(p, {"tokens": torch.as_tensor(toks[:, :-1])}, T_ + 8)
     assert last.shape == (B, 1, m.cfg.vocab_size)
     np.testing.assert_allclose(_np(last), _np(jlast), atol=F32_ATOL)
-    for n in ("k", "v"):
-        assert c["blocks"]["g0"][n].shape == jc["blocks"]["g0"][n].shape
-        np.testing.assert_allclose(_np(c["blocks"]["g0"][n]), _np(jc["blocks"]["g0"][n]),
-                                   atol=F32_ATOL)
+    _same_tree(c, jc, F32_ATOL)
 
-    pos = np.full(B, T - 1, np.int32)
-    jd, jc2 = jm.decode_step(jp, jnp.asarray(toks[:, -1:]), jc, jnp.asarray(pos))
-    d, c2 = m.decode_step(p, torch.as_tensor(toks[:, -1:]), c, torch.as_tensor(pos))
+    pos = np.full(B, T_ - 1, np.int32)
+    jd, jc = jm.decode_step(jp, jnp.asarray(toks[:, -1:]), jc, jnp.asarray(pos))
+    d, c = m.decode_step(p, torch.as_tensor(toks[:, -1:]), c, torch.as_tensor(pos))
     np.testing.assert_allclose(_np(d), _np(jd), atol=F32_ATOL)
-    for n in ("k", "v"):
-        np.testing.assert_allclose(_np(c2["blocks"]["g0"][n]), _np(jc2["blocks"]["g0"][n]),
-                                   atol=F32_ATOL)
+    _same_tree(c, jc, F32_ATOL)
+    return m
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_forward_prefill_decode_match_reference_f32(name):
+    _forward_prefill_decode(name, T)
+
+
+@pytest.mark.parametrize("case,T_,extra", [
+    ("tail", T, dict(n_layers=8)),             # 2 tiles of 3 blocks and a tail of 2
+    ("past-window", 44, dict(n_layers=8)),     # prompt 43 > window 32: roll, decode wraps
+])
+def test_recurrentgemma_tail_and_ring_buffer_match_reference(case, T_, extra):
+    m = _forward_prefill_decode("recurrentgemma-2b", T_, **extra)
+    assert m.n_tiles == 2 and m.tail_kinds == ("rglru", "rglru")
+    if case == "past-window":
+        assert T_ - 1 > m.cfg.window
+        _, c = m.prefill(m.init(torch.Generator().manual_seed(0)),
+                         {"tokens": torch.zeros((1, T_), dtype=torch.long)}, T_ + 8)
+        assert c["blocks"]["g2"]["k"].shape[2] == m.cfg.window     # the ring buffer
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_decode_consistency(name):
     """prefill(T-1) + decode(token T-1) == forward logits at T-1, within
-    3e-3 of the logits' scale (tests/test_models.py's check)."""
-    _, _, m, p = _models(name)
+    3e-3 of the logits' scale (tests/test_models.py's check, MoE drop-free
+    as there)."""
+    extra = {}
+    if get_config(name).moe:        # drop-free: the capacity grows with the tokens
+        extra["capacity_factor"] = float(get_config(name).reduced().n_experts)
+    _, _, m, p = _models(name, **extra)
     toks = torch.as_tensor(_tokens(m.cfg, seed=3))
     full = m.forward_logits(p, {"tokens": toks})
     last, caches = m.prefill(p, {"tokens": toks[:, : T - 1]}, cache_len=T + 8)
@@ -205,13 +241,13 @@ def test_bf16_model_matches_reference(name):
     toks = _tokens(m.cfg, seed=4)
     jlast, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, T + 4)
     last, c = m.prefill(p, {"tokens": torch.as_tensor(toks)}, T + 4)
-    assert last.dtype == c["blocks"]["g0"]["k"].dtype == torch.bfloat16
+    attn_cache = c["blocks"]["g2" if "g2" in c["blocks"] else "g0"]["k"]
+    assert last.dtype == attn_cache.dtype == torch.bfloat16
     scale = float(np.abs(_np(jlast)).max())
     np.testing.assert_allclose(_np(last), _np(jlast), atol=0.03 * scale)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "deepseek-v2-236b",
-                                  "recurrentgemma-2b", "xlstm-125m", "hubert-xlarge",
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "xlstm-125m", "hubert-xlarge",
                                   "llava-next-mistral-7b"])
 def test_unported_architectures_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -232,3 +268,9 @@ def test_from_jax_params_checks_the_tree():
     bad = dict(tree, embed=tree["embed"][:10])
     with pytest.raises(ValueError, match="embed: expected shape"):
         from_jax_params(bad, m.cfg, device="cpu")
+    jm, jp, m, _ = _models("recurrentgemma-2b", n_layers=8)
+    tree = jax.tree.map(np.asarray, jp)
+    p = from_jax_params(tree, m.cfg, device="cpu")
+    assert len(p["tail"]) == 2 and p["blocks"]["g0"]["core"]["log_lambda"].dtype == torch.float32
+    with pytest.raises(ValueError, match="tail: expected a list of 2 blocks"):
+        from_jax_params(dict(tree, tail=tree["tail"][:1]), m.cfg, device="cpu")

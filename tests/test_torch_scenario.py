@@ -3,7 +3,8 @@ reference package, and its host copies.
 
 The paper's presets, scaled down (request counts and catalogue), run on
 the lane engine (``backend="cuda"``, its host build with
-``device="cpu"``) and on the port's C loop; each Report passes
+``device="cpu"``), on the port's C loop and on "auto" (S-LRU on the
+generic engine, the cluster on the C loop); each Report passes
 ``same_estimates`` against the reference's Report of the same scenario,
 through ``Report.from_dict`` in both directions. The working-set preset
 runs the port's torch solver. The host copies (``slru``, ``baselines``,
@@ -52,23 +53,38 @@ from repro_torch.core.metrics import HitRecorder, OccupancyRecorder, RippleStats
 from repro_torch.scenario import get_preset
 from repro_torch.scenario.report import Report
 from repro_torch.serving import costs, trace
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 CPU = "cpu"
-# preset, its arguments, scale (requests, catalogue)
+# preset, its arguments, scale (requests, catalogue), the engine "auto"
+# picks for it on the CPU: the lane engine's host build ("cuda") for the
+# flat-LRU Monte-Carlo presets, the generic engine for S-LRU, the C loop
+# for a cluster. A preset runs on "auto" and on each engine that accepts
+# it, the reference on its C loop (generic for S-LRU, which the C loop
+# refuses); every engine gives the same estimates.
 PRESETS = [
-    ("table1", dict(b=(8, 64, 8)), (5e-4, 1.0)),
-    ("fig2_ripple", {}, (2e-3, 1e-2)),
-    ("rre", {}, (6e-3, 1e-2)),
+    ("table1", dict(b=(8, 64, 8)), (5e-4, 1.0), "cuda"),
+    ("fig2_ripple", {}, (2e-3, 1e-2), "cuda"),
+    ("rre", {}, (6e-3, 1e-2), "cuda"),
+    ("slru", {}, (1e-3, 1.0), "generic"),
+    ("j2_bounds", {}, (1e-3, 1.0), "cuda"),
+    ("shot_noise", {}, (1e-3, 1.0), "cuda"),
+    ("admission_overbooking", {}, (2e-3, 1.0), "cuda"),
+    ("cluster_failover", {}, (2e-3, 1e-2), "c"),
+    ("quickstart", {}, (5e-3, 1.0), "cuda"),
 ]
+_ENGINES = {"cuda": ("cuda", "c", "auto"), "c": ("c", "auto"), "generic": ("generic", "auto")}
+PRESET_RUNS = [pytest.param(name, kw, scale, backend, auto, id=f"{name}-{backend}")
+               for name, kw, scale, auto in PRESETS for backend in _ENGINES[auto]]
 
 
-def _pair(name, kw, scale, backend, replications=1):
-    """The same scaled preset in both packages; the reference always on
-    its C loop (every engine gives the same estimates)."""
+def _pair(name, kw, scale, backend, replications=1, ref_backend="c"):
+    """The same scaled preset in both packages; the reference on
+    ``ref_backend`` (every engine gives the same estimates)."""
     out = []
     for get in (get_preset, jget_preset):
         sc = get(name, **kw).scaled(*scale)
-        sys_kw = dict(backend=backend if get is get_preset else "c")
+        sys_kw = dict(backend=backend if get is get_preset else ref_backend)
         est = dataclasses.replace(sc.estimator, replications=replications)
         out.append(dataclasses.replace(sc, system=dataclasses.replace(sc.system, **sys_kw),
                                        estimator=est))
@@ -82,14 +98,14 @@ def _same_both_ways(port: Report, ref: JReport) -> None:
     assert as_port.same_estimates(port) and port.same_estimates(as_port)
 
 
-@pytest.mark.parametrize("backend", ["cuda", "c", "auto"])
-@pytest.mark.parametrize("name,kw,scale", PRESETS, ids=[p[0] for p in PRESETS])
-def test_preset_report_equals_reference(name, kw, scale, backend):
-    """"auto" runs these flat-LRU presets on the lane engine."""
-    port_sc, ref_sc = _pair(name, kw, scale, backend)
+@pytest.mark.parametrize("name,kw,scale,backend,auto", PRESET_RUNS)
+def test_preset_report_equals_reference(name, kw, scale, backend, auto):
+    """"auto" runs the flat-LRU presets on the lane engine."""
+    port_sc, ref_sc = _pair(name, kw, scale, backend,
+                            ref_backend="generic" if auto == "generic" else "c")
     assert port_sc.to_dict()["workload"] == ref_sc.to_dict()["workload"]
     port, ref = port_sc.run(device=CPU), ref_sc.run()
-    ran = "cuda" if backend == "auto" else backend
+    ran = auto if backend == "auto" else backend
     assert port.backend == ran and port.n_requests == ref.n_requests > 0
     _same_both_ways(port, ref)
     assert port.ripple["n_sets_recorded"] > 0

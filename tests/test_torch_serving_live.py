@@ -1,7 +1,8 @@
 """The port's live serving mode against the reference's, on the CPU.
 
-Both engines get the same reduced model (the reference's parameters
-carried across with ``from_jax_params``, f32 compute) and the same numpy
+Both engines get the same reduced model (qwen3, stablelm, granite-moe and
+recurrentgemma; the reference's parameters carried across with
+``from_jax_params``, f32 compute) and the same numpy
 request stream; greedy decode must give the same tokens, and the cache
 accounting the same results and stats. Temperature / top-k sampling is
 held in distribution only: a ``torch.Generator`` does not give
@@ -27,6 +28,7 @@ from repro_torch.cacheblocks import layout_for
 from repro_torch.configs import get_config
 from repro_torch.models import from_jax_params, make_model
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec, greedy_decode, sample_token
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 BT, POOL, PREFIX, USER, NEW = 4, 48, 12, 6, 4
 
@@ -54,8 +56,10 @@ def _engines(name="qwen3-1.7b", kw=None):
     return out
 
 
-def test_live_engine_matches_reference():
-    jeng, teng = _engines()
+def _serve_both(name="qwen3-1.7b", kw=None):
+    """Six requests (shared prompts and a private one) through both
+    engines: the same tokens, results and stats."""
+    jeng, teng = _engines(name, kw)
     rng = np.random.default_rng(0)
     vocab = teng.cfg.vocab_size
     prompts = [rng.integers(0, vocab, PREFIX) for _ in range(2)]
@@ -71,6 +75,18 @@ def test_live_engine_matches_reference():
         assert ra == rb
     assert teng.stats() == jeng.stats()
     assert teng.stats()["prefix_hit_token_ratio"] > 0      # the shared prompts hit
+
+
+def test_live_engine_matches_reference():
+    _serve_both()
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "recurrentgemma-2b"])
+def test_live_engine_matches_reference_moe_and_hybrid(name):
+    """granite-moe-1b (MoE; decode drop-free) and recurrentgemma-2b (RG-LRU
+    states and a local ring buffer; its cache objects are state snapshots,
+    so the pool accounts them as the reference does)."""
+    _serve_both(name, {})
 
 
 def test_live_engine_decode_round_trip():

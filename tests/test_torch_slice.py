@@ -6,7 +6,8 @@ decode through paged attention (K1) and grouped shared-prefix decode (K2
 ``tests/test_kernels.py`` (2e-2). The reference kernels run in Pallas
 interpret mode. Also runs ``chip_smoke.py``'s phases on the CPU at a
 small size, so the script the card runs stays exercised here, its live
-phase (the reduced model served by the engine in live mode) included.
+phase (the reduced qwen3, granite-moe-1b and recurrentgemma-2b served by
+the engine in live mode) included.
 """
 
 import dataclasses
@@ -26,6 +27,7 @@ from repro_torch.cacheblocks import layout_for
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 BT, POOL, N_REQ, PREFIX, USER, EVERY = 4, 96, 40, 16, 8, 8
 BF16_ATOL = 2e-2
@@ -174,6 +176,82 @@ def test_chip_smoke_live_phase_on_cpu_at_small_size():
     assert cs.check_live_against_plain(live, sizes) == 0.0   # plain against itself here
     prof = cs.profile_live(live, sizes)
     assert prof["prefill"]["wall_ms"] > 0 and prof["decode step"]["busy_ms"] is None
+
+
+def test_chip_smoke_live_phase_serves_three_models_on_cpu_at_small_size():
+    """The extended live phase: the reduced qwen3, granite-moe-1b and
+    recurrentgemma-2b in turn, each with its check (K3 against the plain
+    prefill; recurrentgemma's decode consistency, its prompts longer than
+    its window of 32). On the CPU the wrappers run their plain versions
+    and count no launch."""
+    import chip_smoke as cs
+
+    sizes = cs.Sizes(reduced=True, pool_blocks=256, block_tokens=4, prefix_tokens=32,
+                     user_tokens=8, new_tokens=4)
+    models = cs.phase_live_models(torch.device("cpu"), sizes, seed=0, card="cpu")
+    assert [m["name"] for m in models] == ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                           "recurrentgemma-2b"]
+    assert [m["k3_per_request"] for m in models] == [2, 2, 0]
+    assert all(m["launches"] == dict.fromkeys(cs.KERNELS, 0) for m in models)
+    assert models[0]["k3_err"] == models[1]["k3_err"] == 0.0    # plain against itself here
+    assert 0.0 < models[2]["decode_err"] < 1.0
+    assert all(m["prefill_ms"] > 0 and m["decode_ms"] > 0 and m["n_params"] > 0
+               for m in models)
+    assert sizes.prefix_tokens + sizes.user_tokens > sizes.arch_config("recurrentgemma-2b").window
+    # the parameter count walks the whole tree, a tail of blocks included
+    import dataclasses
+    import math
+
+    from repro_torch.models import make_model
+    from repro_torch.models.convert import param_shapes
+
+    def numel(shapes):
+        if isinstance(shapes, dict):
+            return sum(numel(v) for v in shapes.values())
+        if isinstance(shapes, list):
+            return sum(numel(v) for v in shapes)
+        return math.prod(shapes)
+
+    for m in models:
+        assert m["n_params"] == numel(param_shapes(sizes.arch_config(m["name"])))
+    cfg = dataclasses.replace(sizes.arch_config("recurrentgemma-2b"), n_layers=8)
+    params = make_model(cfg).init(torch.Generator().manual_seed(0))
+    assert len(params["tail"]) == 2
+    assert sum(t.numel() for t in cs._leaves(params)) == numel(param_shapes(cfg))
+
+
+def test_chip_smoke_route_tape_replays_an_moe_prefill():
+    """chip_smoke.RouteTape: a prefill replaying a recorded routing gives
+    the recorded prefill's logits, and pins it where the attention
+    differs (here: the plain prefill with a perturbed attention output)."""
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model, shardctx
+    from repro_torch.kernels import ops
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    m = make_model(cfg, compute_dtype=torch.float32)
+    p = m.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 40),
+                                     generator=torch.Generator().manual_seed(1))}
+    tape = cs.RouteTape()
+    with shardctx.rules({"moe_apply": tape}):
+        want, _ = m.prefill(p, batch, 44)
+    assert len(tape.routes) == cfg.n_layers
+    with shardctx.rules({"moe_apply": cs.RouteTape(tape.routes)}):
+        got, _ = m.prefill(p, batch, 44)
+    assert torch.equal(got, want)
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True: 1.01 * kernel(q, k, v, causal=causal)
+    try:
+        own = cs.RouteTape()
+        with shardctx.rules({"moe_apply": own}):
+            m.prefill(p, batch, 44)
+    finally:
+        ops.flash_attention = kernel
+    ch = cs.route_changes(tape.routes, own.routes)
+    assert ch["of_tokens"] == 40 * cfg.n_layers and ch["of_choices"] == 40 * cfg.n_layers * 2
+    assert ch["tokens"] > 0 and cs.route_changes(tape.routes, tape.routes)["tokens"] == 0
 
 
 def test_chip_smoke_estimator_phase_on_cpu_at_small_size():

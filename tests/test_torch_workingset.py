@@ -15,6 +15,7 @@ from repro.core import irm as jirm
 from repro.core import workingset as jws
 from repro_torch.core import admission, irm
 from repro_torch.core import workingset as ws
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 J, N = 3, 64
 ALPHAS = (0.75, 0.5, 1.0)
