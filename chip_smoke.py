@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              over the shape grids of tests/test_kernels.py and the port's
              tests in f32 and bf16 and at this run's own shapes, K2 also at
-             a 4096-token prefix with lengths from 0 to S;
+             a 4096-token prefix with lengths from 0 to S, K3 through the
+             op that pads the widths it is not built for (MLA's 192/128,
+             hubert's 80) against the unpadded plain version;
 3. serving   the engine at the full qwen3-1.7b KV geometry admits three
              tenants over a 16384-block pool and takes 1024 requests; pages
              are written once when allocated, and every 64 requests the
@@ -35,7 +37,15 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              replaying the K3 prefill's MoE routing, RouteTape);
              recurrentgemma's windowed prefills run the plain chunked
              attention (no K3 launch), and its prefill of T-1 tokens and one
-             decode step are held to its prefill of T tokens;
+             decode step are held to its prefill of T tokens; then 4
+             requests each with deepseek-v2-236b (MLA and 160 experts at
+             full width, 4 of its 60 layers: K3 padded 192/128 -> 256, the
+             routing replayed in its check), xlstm-125m (no K3; its decode
+             consistency held in f32) and llava-next-mistral-7b (and one
+             request with 1152 image tokens first, held to the plain
+             prefill too), and 4 forwards of hubert-xlarge over 1000
+             frames (the encoder: K3 padded 80 -> 128, non-causal; no
+             engine, no decode);
 6. admission the working-set virtual allocations on the card against the
              port's own CPU solve;
 7. timing    each kernel, its plain version and a PyTorch yardstick at the
@@ -43,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              K1 first at a small batch with a long context (B=4, ctx=4096),
              and also back to back in a CUDA graph and host-inclusive (the
              host clock around a call and a synchronize), K2 first at a
-             long prefix with a small group;
+             long prefix with a small group, K3 at each live model's shape
+             (the padded ones with the true work's bound, the padded
+             work's and the kernel alone on padded inputs);
 8. estimator the paper's estimator loop at its published widths on the
              lane engine (one block per lane, its warp 0 walking the
              requests; the lane in shared memory where it fits, else in
@@ -102,6 +114,7 @@ from repro_torch.kernels import shared_prefix_attention as k2_module  # noqa: E4
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+    kernel_head_dim,
 )
 from repro_torch.kernels import lane_engine as le_module  # noqa: E402
 from repro_torch.kernels.lane_engine import SCALARS, lane_engine  # noqa: E402
@@ -139,9 +152,40 @@ LIVE_LOGITS_RTOL = 0.05
 # attention's chunked scan over T keys against one decode step), each
 # rounded to bf16 per layer: 26 x 2^-9 = 0.051 if none cancelled.
 DECODE_LOGITS_RTOL = 0.05
+# xlstm-125m's decode consistency is held in f32 (an f32 copy of its
+# parameters): its gates are exponential and its outputs num / max(|n q|,
+# e^-m), so a last-bit difference between the prefill's chunkwise form and
+# the step comes back amplified. At full width on the CPU (seed 0, T=1280)
+# the f32 difference was 1.4e-4 of the logits' scale and the bf16 one
+# 6.6-10% (three prompts; one greedy token differed): bf16 cannot be held
+# to a rounding argument, f32 to 1e-3 (7x what the CPU showed).
+DECODE_IN_F32 = {"xlstm-125m": 1e-3}
 
-# phase 5 serves each in turn: dense, MoE (K3 at D=64), hybrid (no K3)
+# phase 5 serves each in turn: dense, MoE (K3 at D=64), hybrid (no K3) ...
 LIVE_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "recurrentgemma-2b")
+# ... then MLA (K3 padded from 192/128 to 256), xLSTM (no K3), the vision
+# model (K3 at D=128; one more request with an image, 1152 tokens first)
+# and the audio encoder (forwards over frames, no engine: K3 padded from 80
+# to 128, non-causal), each serving sizes.more_requests requests
+MORE_ARCHS = ("deepseek-v2-236b", "xlstm-125m", "llava-next-mistral-7b", "hubert-xlarge")
+# layers kept where the full depth does not fit the card with room for its
+# activations: deepseek-v2's 60 layers are 3.97 B parameters each (160
+# routed experts), 4 of them and the embedding and head 33.9 GB in bf16
+DEPTH = {"deepseek-v2-236b": 4}
+# K3 against its plain version in the new models' full-depth bf16 prefill
+# (or forward), as LIVE_LOGITS_RTOL: L layers x 2^-9 if none cancelled,
+# plus one bf16 step of the logits themselves (up to 2^-7 of their scale
+# just above a power of two), which at 4 layers is no longer small:
+# deepseek-v2 (4 layers) 2^-7 + 4 x 2^-9 = 0.0156; llava (32 layers)
+# 2^-7 + 32 x 2^-9 = 0.070; hubert's encoder (48 layers, every frame's
+# logits compared) 2^-7 + 48 x 2^-9 = 0.102.
+K3_LOGITS_RTOL = {"deepseek-v2-236b": 2**-7 + 4 * 2**-9,
+                  "llava-next-mistral-7b": 2**-7 + 32 * 2**-9,
+                  "hubert-xlarge": 2**-7 + 48 * 2**-9}
+# the engine's accounting pool in live mode holds at most this many bytes
+# of K+V pages (deepseek-v2's 128 heads of 192 would take 25.8 GB at
+# 16384 blocks); the other models' pools are smaller than this
+LIVE_POOL_BYTES = 2 << 30
 
 KERNELS = {
     "paged_attention": dict(
@@ -189,6 +233,8 @@ class Sizes:
     live_requests: int = 8          # phase 5: requests served by each model ...
     live_prompts: int = 2           # ... shared prompts of tenants A, B ...
     new_tokens: int = 16            # ... and tokens decoded for each
+    more_requests: int = 4          # requests (or forwards) of each of MORE_ARCHS
+    audio_frames: int = 1000        # hubert's frames a forward: 20 s at 50 Hz
     # phase 8: requests per lane (the paper: 10^7 for Table I, 3 x 10^6
     # for Fig. 2) and lanes; the catalogue is cut only in CPU rehearsals
     table1_requests: int = 4_000_000
@@ -201,7 +247,11 @@ class Sizes:
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
-        return cfg.reduced() if self.reduced else cfg
+        if self.reduced:
+            return cfg.reduced()
+        if cfg.name in DEPTH:
+            return dataclasses.replace(cfg, n_layers=DEPTH[cfg.name])
+        return cfg
 
 
 def _log(msg: str) -> None:
@@ -295,9 +345,10 @@ def launch_plans(sizes: Sizes) -> None:
                     (LONG_PREFIX_P, LONG_PREFIX_M, LONG_PREFIX_S)):
         _log(f"[env] launch K2 bf16 P={P} M={M} H={H} KV={KV} D={D} S={S}: "
              f"{k2_module.launch_plan(P, M, H, KV, D, S)}")
-    k3_dims = sorted({c.head_dim for c in map(sizes.arch_config, LIVE_ARCHS)
+    k3_dims = sorted({kernel_head_dim(max(k3_shape(c)[2:4]))
+                      for c in map(sizes.arch_config, LIVE_ARCHS + MORE_ARCHS)
                       if attn_layers(c)})
-    for D in k3_dims:                                 # each live model's that runs K3
+    for D in k3_dims:                # each live model's that runs K3 (padded where it must be)
         for dtype in (torch.bfloat16, torch.float32):
             _log(f"[env] launch K3 {str(dtype)[6:]} D={D}: {k3_module.launch_plan(D, dtype)}")
 
@@ -323,11 +374,15 @@ K2_GRID = [  # P, M, H, KV, D, S
     (2, 8, 10, 1, 256, 300), (1, 20, 8, 1, 256, 130),
 ]
 K1_WIDE = [(3, 8, 1, 256, 64, 8, 3)]   # G=8, D=256, pages wider than a warp's 32 tokens
-K3_GRID = [  # B, T, S, H, KV, D, causal (tests/test_kernels.py, then causal T < S)
-    (2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 128, True),
-    (2, 100, 100, 4, 1, 64, False), (1, 64, 192, 4, 4, 64, False),
-    (1, 128, 128, 4, 4, 256, True), (1, 64, 192, 4, 2, 64, True),
-    (1, 200, 200, 8, 2, 128, True),
+K3_GRID = [  # B, T, S, H, KV, D_qk, D_v, causal (tests/test_kernels.py, then causal T < S,
+    # then the padded widths: MLA's 192/128 and 80, non-causal and causal, and
+    # llava's T of an image request with G = 4 at fewer heads)
+    (2, 128, 128, 4, 2, 64, 64, True), (1, 256, 256, 8, 8, 128, 128, True),
+    (2, 100, 100, 4, 1, 64, 64, False), (1, 64, 192, 4, 4, 64, 64, False),
+    (1, 128, 128, 4, 4, 256, 256, True), (1, 64, 192, 4, 2, 64, 64, True),
+    (1, 200, 200, 8, 2, 128, 128, True),
+    (1, 200, 200, 16, 16, 192, 128, True), (1, 200, 200, 4, 4, 80, 80, False),
+    (2, 100, 100, 4, 2, 80, 80, True), (1, 2432, 2432, 4, 1, 128, 128, True),
 ]
 # K2's long-prefix, small-group shape (with the model's heads): many chunks
 # of S per (p, h), and in the kernels phase lengths from 0 to S, so that
@@ -351,10 +406,7 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
                      sizes.decode_every * pps, pps)]
     k2 = K2_GRID + [(sizes.groups, sizes.group_size, H, KV, D, sizes.prefix_tokens),
                     (4, LONG_PREFIX_M, H, KV, D, LONG_PREFIX_S)]
-    T = sizes.prefix_tokens + sizes.user_tokens
-    k3 = K3_GRID + [(1, T, T, c.n_heads, c.n_kv_heads, c.head_dim, True)   # the live prefills
-                    for c in dict.fromkeys(sizes.arch_config(a) for a in LIVE_ARCHS)
-                    if attn_layers(c)]
+    k3 = list(dict.fromkeys(K3_GRID + live_k3_shapes(sizes)))
     for dtype in (torch.float32, torch.bfloat16):
         for B, H_, KV_, D_, page, P, pps_ in k1:
             q = _randn(gen, (B, H_, D_), dtype, device)
@@ -390,15 +442,20 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
                 _fail("K2: prefix_len = 0 must give out = 0, lse = -1e30")
             _log(f"[kernels] K2 {str(dtype)[6:]:8s} P={P} M={M:2d} H={H_:2d} KV={KV_} "
                  f"D={D_:3d} S={S:4d}: max abs err out {err:.3e} lse {lerr:.3e}")
-        for B, T_, S, H_, KV_, D_, causal in k3:
+        for B, T_, S, H_, KV_, D_, Dv, causal in k3:
             q = _randn(gen, (B, T_, H_, D_), dtype, device)
             k = _randn(gen, (B, S, KV_, D_), dtype, device)
-            v = _randn(gen, (B, S, KV_, D_), dtype, device)
-            err = errs.check("flash_attention", flash_attention(q, k, v, causal=causal),
+            v = _randn(gen, (B, S, KV_, Dv), dtype, device)
+            # through the op, which pads widths the kernel is not built for
+            # (one launch either way), against the unpadded plain version
+            err = errs.check("flash_attention", ops.flash_attention(q, k, v, causal=causal),
                              flash_attention_plain(q, k, v, causal=causal), ATOL[dtype],
-                             f"K3 {dtype} B={B} T={T_} S={S} H={H_} KV={KV_} D={D_} causal={causal}")
-            _log(f"[kernels] K3 {str(dtype)[6:]:8s} B={B} T={T_:4d} S={S:4d} H={H_:2d} KV={KV_} "
-                 f"D={D_:3d} causal={int(causal)}: max abs err {err:.3e}")
+                             f"K3 {dtype} B={B} T={T_} S={S} H={H_} KV={KV_} D={D_}/{Dv} "
+                             f"causal={causal}")
+            pad = kernel_head_dim(max(D_, Dv))
+            _log(f"[kernels] K3 {str(dtype)[6:]:8s} B={B} T={T_:4d} S={S:4d} H={H_:3d} KV={KV_:3d} "
+                 f"D={D_:3d}/{Dv:3d}{f' (padded to {pad})' if pad != D_ or pad != Dv else ''} "
+                 f"causal={int(causal)}: max abs err {err:.3e}")
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -609,34 +666,77 @@ def plain_prefill_attention():
 
 
 def attn_layers(cfg) -> int:
-    """The layers of global attention: each runs K3 once a prefill."""
+    """The layers of global attention: each runs K3 once a prefill (or an
+    encoder's forward)."""
     G = len(cfg.block_pattern)
     return sum(cfg.block_pattern[i % G] == "attn" for i in range(cfg.n_layers))
 
 
-def phase_live(device, sizes: Sizes, seed: int, arch: str = "") -> dict:
-    """The engine in live mode with the model ``arch`` (default
-    ``sizes.arch``): ``sizes.live_requests`` requests, each prefilled and
-    decoded; the prefill and decode times of each."""
-    cfg = sizes.arch_config(arch)
+def k3_shape(cfg) -> tuple:
+    """(H, KV, D_qk, D_v, causal) of the model's K3 launches: MLA's
+    expanded heads (nope + rope against v), an encoder's non-causal
+    attention, else GQA."""
+    if cfg.attention == "mla":
+        return (cfg.n_heads, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                cfg.v_head_dim, True)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim, not cfg.is_encoder
+
+
+def k3_lengths(cfg, sizes: Sizes) -> List[int]:
+    """The sequence lengths K3 runs at in the model's live path: a served
+    prompt's (and, for a vision model, with its image tokens first), or
+    an encoder's frames."""
+    if cfg.modality == "audio":
+        return [sizes.audio_frames]
+    T = sizes.prefix_tokens + sizes.user_tokens
+    return [T, T + cfg.n_image_tokens] if cfg.modality == "vision_text" else [T]
+
+
+def live_k3_shapes(sizes: Sizes) -> List[tuple]:
+    """K3's (B, T, S, H, KV, D_qk, D_v, causal) in the live phase."""
+    out = []
+    for cfg in dict.fromkeys(map(sizes.arch_config, LIVE_ARCHS + MORE_ARCHS)):
+        if attn_layers(cfg):
+            out += [(1, n, n) + k3_shape(cfg) for n in k3_lengths(cfg, sizes)]
+    return out
+
+
+def _init_model(device, cfg, seed: int, what: str):
+    """The model in bf16 and its parameters drawn on ``device`` from the
+    seed; the parameter count."""
     model = make_model(cfg, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(seed))
     if device.type == "cuda":
         torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    _log(f"[live] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, H={cfg.n_heads} "
-         f"KV={cfg.n_kv_heads} D={cfg.head_dim}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
-         f"bf16 parameters ({2 * n_params / 1e9:.2f} GB) drawn on {device} from seed {seed} in "
-         f"{time.perf_counter() - t0:.2f} s (set-up)")
+    cut = (f" (of {get_config(cfg.name).n_layers}: depth cut)"
+           if cfg.n_layers == DEPTH.get(cfg.name) else "")
+    _log(f"[{what}] {cfg.name}: {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.head_dim}, vocab {cfg.vocab_size}: "
+         f"{n_params / 1e9:.3f} B bf16 parameters ({2 * n_params / 1e9:.2f} GB) drawn on {device} "
+         f"from seed {seed} in {time.perf_counter() - t0:.2f} s (set-up)")
+    return model, params, n_params
+
+
+def phase_live(device, sizes: Sizes, seed: int, arch: str = "", n_requests: int = 0) -> dict:
+    """The engine in live mode with the model ``arch`` (default
+    ``sizes.arch``): ``n_requests`` requests (default
+    ``sizes.live_requests``), each prefilled and decoded; the prefill and
+    decode times of each."""
+    cfg = sizes.arch_config(arch)
+    n_requests = n_requests or sizes.live_requests
+    model, params, n_params = _init_model(device, cfg, seed, "live")
     layout = layout_for(cfg, block_tokens=sizes.block_tokens)
-    pool_bytes = sizes.pool_blocks * layout.bytes_per_block
+    page_bytes = 2 * 2 * sizes.block_tokens * cfg.n_kv_heads * cfg.head_dim   # K+V, bf16
+    pool_blocks = min(sizes.pool_blocks, LIVE_POOL_BYTES // page_bytes)
+    pool_bytes = pool_blocks * layout.bytes_per_block
     timed = TimedModel(model, device)
     engine = ServingEngine(
         cfg,
         [TenantSpec("tenantA", 0.35 * pool_bytes), TenantSpec("tenantB", 0.35 * pool_bytes),
          TenantSpec("tenantC", 0.20 * pool_bytes)],
-        EngineConfig(block_tokens=sizes.block_tokens, pool_blocks=sizes.pool_blocks),
+        EngineConfig(block_tokens=sizes.block_tokens, pool_blocks=pool_blocks),
         model=timed, params=params, device=device,
     )
     rng = np.random.default_rng(seed + 3)
@@ -644,7 +744,7 @@ def phase_live(device, sizes: Sizes, seed: int, arch: str = "") -> dict:
                for _ in range(sizes.live_prompts)]
     results, requests = [], []
     t0 = time.perf_counter()
-    for i in range(sizes.live_requests):
+    for i in range(n_requests):
         t = i % 3                        # A, B, C in turn; A and B share the prompts
         pi = (i // 3) % sizes.live_prompts if t < 2 else -1
         head = prompts[pi] if t < 2 else rng.integers(0, cfg.vocab_size, sizes.prefix_tokens)
@@ -668,9 +768,9 @@ def phase_live(device, sizes: Sizes, seed: int, arch: str = "") -> dict:
         _fail(f"live: tenant B's shared prompt was not served from the cache "
               f"({results[1].cached_tokens} of {sizes.prefix_tokens} tokens)")
     st = engine.stats()
-    _log(f"[live] {sizes.live_requests} requests in {wall:.2f} s (host clock): prefill "
+    _log(f"[live] {n_requests} requests in {wall:.2f} s (host clock): prefill "
          f"{1e3 * np.median(timed.prefill_s[1:]):.2f} ms per request (median of requests "
-         f"1-{sizes.live_requests - 1}; the first took {1e3 * timed.prefill_s[0]:.2f} ms), decode "
+         f"1-{n_requests - 1}; the first took {1e3 * timed.prefill_s[0]:.2f} ms), decode "
          f"{1e3 * np.median(timed.decode_s):.2f} ms per token (median of {len(timed.decode_s)} "
          f"steps); prefix-hit token ratio {st['prefix_hit_token_ratio']:.4f}, sharing ratio "
          f"{st['sharing_ratio']:.4f}")
@@ -678,19 +778,30 @@ def phase_live(device, sizes: Sizes, seed: int, arch: str = "") -> dict:
                 requests=requests, n_params=n_params)
 
 
-def phase_live_models(device, sizes: Sizes, seed: int, card: str) -> List[dict]:
-    """Phase 5 with each model of LIVE_ARCHS in turn: its launch
-    counts from 0 across its requests (the main path), then its checks
-    (K3 against the plain prefill where its prefills run K3, else the
-    decode consistency) and a profiled prefill and decode step. Returns a
-    summary per model; the models' tensors are freed between models."""
+def phase_live_models(device, sizes: Sizes, seed: int, card: str,
+                      archs=LIVE_ARCHS) -> List[dict]:
+    """Phase 5 with each model of ``archs`` in turn: its launch counts
+    from 0 across its requests (the main path: the engine's requests, a
+    vision model's request with an image too; an encoder's forwards),
+    then its checks (K3 against the plain prefill or forward where it
+    runs K3, else the decode consistency) and a profiled prefill and
+    decode step (an encoder's forward). Returns a summary per model
+    (``k3_want``: the K3 launches its path must make); the models'
+    tensors are freed between models."""
     out = []
-    for arch in LIVE_ARCHS:
+    for arch in archs:
+        cfg = sizes.arch_config(arch)
+        n = sizes.live_requests if arch in LIVE_ARCHS else sizes.more_requests
+        if cfg.is_encoder:
+            out.append(encode_model(device, sizes, seed, cfg, n, card))
+            continue
         reset_launches()                              # this model's path starts here
-        live = phase_live(device, sizes, seed, arch)
+        live = phase_live(device, sizes, seed, arch, n)
+        image = image_request(live, sizes, seed) if cfg.modality == "vision_text" else None
         got = launches()                              # ... and ends here
-        cfg, timed = live["cfg"], live["timed"]
+        timed = live["timed"]
         r = dict(name=cfg.name, launches=got, k3_per_request=attn_layers(cfg),
+                 k3_want=attn_layers(cfg) * (n + (image is not None)),
                  n_params=live["n_params"],
                  prefill_ms=1e3 * float(np.median(timed.prefill_s[1:])),
                  decode_ms=1e3 * float(np.median(timed.decode_s)))
@@ -698,16 +809,122 @@ def phase_live_models(device, sizes: Sizes, seed: int, card: str) -> List[dict]:
             r["k3_err"] = check_live_against_plain(live, sizes)
         else:
             r["decode_err"] = check_decode_consistency(live, sizes)
+        if image is not None:
+            r["image_err"] = check_image_against_plain(live, image)
+            r["image_prefill_ms"], r["image_decode_ms"] = image["prefill_ms"], image["decode_ms"]
         profile_live(live, sizes)
         _log(f"[live] {cfg.name} on {card}: {r['n_params'] / 1e9:.3f} B parameters "
              f"({2 * r['n_params'] / 1e9:.2f} GB bf16), prefill {r['prefill_ms']:.2f} ms per "
              f"request, decode {r['decode_ms']:.2f} ms per token; launches {got} "
              f"({r['k3_per_request']} K3 launches a request)")
         out.append(r)
-        del live, timed
+        del live, timed, image
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def image_request(live: dict, sizes: Sizes, seed: int) -> dict:
+    """A vision model's request with an image: the projected image tokens
+    (``n_image_tokens`` patch embeddings drawn from the seed: the vision
+    tower is a stub in the reference too) first, then the first request's
+    prompt, prefilled through ``TransformerLM.prefill`` and decoded
+    greedily from position ``n_image_tokens + len(prompt)``; its prefill
+    and decode times, tokens and last-token logits."""
+    from repro_torch.serving import greedy_decode
+
+    cfg, model, params, timed = live["cfg"], live["model"], live["params"], live["timed"]
+    dev = params["embed"].device
+    tokens = live["requests"][0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=dev),
+             "image_embeds": _randn(gen, (1, cfg.n_image_tokens, cfg.vision_dim),
+                                    torch.bfloat16, dev)}
+    T = cfg.n_image_tokens + len(tokens)
+    n_decode = len(timed.decode_s)
+    with torch.inference_mode():
+        logits, caches = timed.prefill(params, batch, T + sizes.new_tokens)
+        prefill_s = timed.prefill_s.pop()
+        out = greedy_decode(timed, params, logits, caches, start_pos=T,
+                            n_steps=sizes.new_tokens).cpu().numpy()
+    decode_s = timed.decode_s[n_decode:]
+    del timed.decode_s[n_decode:]
+    if out.shape != (1, sizes.new_tokens) or not (0 <= out.min() and out.max() < cfg.vocab_size):
+        _fail(f"live: {cfg.name}: the image request gave {out.shape} {out.min()}..{out.max()}")
+    r = dict(batch=batch, S=T + sizes.new_tokens, logits=logits.float(), tokens=out,
+             prefill_ms=1e3 * prefill_s, decode_ms=1e3 * float(np.median(decode_s)))
+    _log(f"[live] {cfg.name} request with an image: {cfg.n_image_tokens} image tokens + "
+         f"{len(tokens)} text tokens = {T}, prefill {r['prefill_ms']:.2f} ms, decode "
+         f"{r['decode_ms']:.2f} ms/token from position {T}, tokens {out[0, :6].tolist()}...")
+    return r
+
+
+def check_image_against_plain(live: dict, image: dict) -> float:
+    """The image request's prefill again with K3's plain version: the
+    last-token logits within the model's K3_LOGITS_RTOL of their scale
+    and the same first greedy token."""
+    cfg = live["cfg"]
+    with torch.inference_mode(), plain_prefill_attention():
+        want, _ = live["model"].prefill(live["params"], image["batch"], image["S"])
+    return _hold_logits(cfg, image["logits"], want.float(), int(image["tokens"][0, 0]),
+                        "image request, K3 vs plain attention")
+
+
+def encode_model(device, sizes: Sizes, seed: int, cfg, n: int, card: str) -> dict:
+    """An encoder (hubert-xlarge) on ``n`` inputs of ``sizes.audio_frames``
+    precomputed frames (the reference's audio frontend is a stub): each
+    through ``TransformerLM.forward_logits``, timed; its launches counted
+    from 0 across them; then its first forward held to the same forward
+    with K3's plain version (every frame's logits) and one more forward
+    profiled. It has no decode step (the model raises there, as the
+    reference's does)."""
+    reset_launches()                                  # this model's path starts here
+    model, params, n_params = _init_model(device, cfg, seed, "encode")
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    frames = [_randn(gen, (1, sizes.audio_frames, cfg.d_model), torch.bfloat16, device)
+              for _ in range(n)]
+    times, first = [], None
+    with torch.inference_mode():
+        for i, f in enumerate(frames):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model.forward_logits(params, {"frames": f})
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if logits.shape != (1, sizes.audio_frames, cfg.vocab_size):
+                _fail(f"encode: {cfg.name}: logits {tuple(logits.shape)}")
+            if first is None:
+                first = logits.float().clone()
+            _log(f"[encode] {cfg.name} input {i}: {sizes.audio_frames} frames, forward "
+                 f"{1e3 * times[-1]:.2f} ms, frame 0's argmax {int(torch.argmax(logits[0, 0]))}")
+    got = launches()                                  # ... and ends here
+    try:
+        model.decode_step(params, torch.zeros((1, 1), dtype=torch.long, device=device), {},
+                          torch.zeros(1, dtype=torch.int32, device=device))
+    except ValueError:
+        pass
+    else:
+        _fail(f"encode: {cfg.name} decoded a step; an encoder has none")
+    with torch.inference_mode(), plain_prefill_attention():
+        want = model.forward_logits(params, {"frames": frames[0]}).float()
+    r = dict(name=cfg.name, launches=got, k3_per_request=attn_layers(cfg),
+             k3_want=attn_layers(cfg) * n, n_params=n_params,
+             prefill_ms=1e3 * float(np.median(times[1:] if n > 1 else times)), decode_ms=None)
+    r["k3_err"] = _hold_logits(cfg, first, want, None, "forward, K3 vs plain attention")
+    with torch.inference_mode():
+        prof = _device_profile(lambda: model.forward_logits(params, {"frames": frames[0]}),
+                               device)
+    _log_profile(cfg.name, "forward", prof)
+    _log(f"[encode] {cfg.name} on {card}: {n_params / 1e9:.3f} B parameters "
+         f"({2 * n_params / 1e9:.2f} GB bf16), forward {r['prefill_ms']:.2f} ms per "
+         f"{sizes.audio_frames} frames (median of inputs 1-{n - 1}; the first took "
+         f"{1e3 * times[0]:.2f} ms); launches {got} ({r['k3_per_request']} K3 launches a forward)")
+    del model, params, frames, first, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return r
 
 
 class RouteTape:
@@ -785,49 +1002,86 @@ def check_live_against_plain(live: dict, sizes: Sizes) -> float:
         else:
             with plain_prefill_attention():
                 want, _ = model.prefill(params, batch, S)
-    want = want.float()
+    what = "first prefill, K3 vs plain attention" + (", the routing held" if cfg.moe else "")
+    return _hold_logits(cfg, got, want.float(), int(live["results"][0].output[0, 0]), what)
+
+
+def _hold_logits(cfg, got, want, first, what: str) -> float:
+    """Logits (B, T, V) from K3 against the plain version's, within the
+    model's tolerance (K3_LOGITS_RTOL, else LIVE_LOGITS_RTOL) of their
+    scale; where a greedy token ``first`` was served from them, it must
+    be the plain last token's argmax. Returns the max abs difference."""
+    rtol = K3_LOGITS_RTOL.get(cfg.name, LIVE_LOGITS_RTOL)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    what = "K3 vs plain attention" + (", the routing held" if cfg.moe else "")
-    if not (torch.isfinite(got).all() and err <= LIVE_LOGITS_RTOL * scale):
-        _fail(f"live: {cfg.name}: {what}: the prefill logits differ by {err:.3e} "
-              f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
-    first = int(live["results"][0].output[0, 0])
-    top2 = torch.topk(want[0, -1], 2).values
-    if first != int(torch.argmax(want[0, -1])):
-        _fail(f"live: {cfg.name}: first greedy token {first} != plain prefill's "
-              f"{int(torch.argmax(want[0, -1]))}")
-    _log(f"[live] {cfg.name} first prefill, {what}: last-token logits max abs err {err:.3e} "
-         f"(scale {scale:.3e}, limit {LIVE_LOGITS_RTOL * scale:.3e}); first greedy token "
-         f"{first} in both (plain top-2 margin {float(top2[0] - top2[1]):.3e})")
+    if not (torch.isfinite(got).all() and err <= rtol * scale):
+        _fail(f"{cfg.name}: {what}: the logits differ by {err:.3e} "
+              f"(> {rtol:.4f} x scale {scale:.3e})")
+    tail = ""
+    if first is not None:
+        top2 = torch.topk(want[0, -1], 2).values
+        if first != int(torch.argmax(want[0, -1])):
+            _fail(f"{cfg.name}: {what}: first greedy token {first} != the plain one's "
+                  f"{int(torch.argmax(want[0, -1]))}")
+        tail = (f"; first greedy token {first} in both (plain top-2 margin "
+                f"{float(top2[0] - top2[1]):.3e})")
+    _log(f"[live] {cfg.name} {what}: {'last-token ' if first is not None else ''}logits max "
+         f"abs err {err:.3e} (scale {scale:.3e}, limit {rtol * scale:.3e}){tail}")
     return err
 
 
-def check_decode_consistency(live: dict, sizes: Sizes) -> float:
-    """The first request's prefill of T-1 tokens and one decode step of
-    its last token against its prefill of T tokens (tests/test_models.py's
-    decode consistency): the last-token logits within DECODE_LOGITS_RTOL
-    of their scale. Returns the max abs difference."""
-    tokens = live["requests"][0]
-    T, dev = len(tokens), live["params"]["embed"].device
-    model, params = live["model"], live["params"]
+def _decode_vs_prefill(model, params, tokens, sizes: Sizes) -> tuple:
+    """The last-token logits of a prefill of T-1 tokens and one decode
+    step of the last, and of a prefill of all T."""
+    T, dev = len(tokens), params["embed"].device
     toks = torch.as_tensor(tokens[None, :], device=dev)
     with torch.inference_mode():
         want, _ = model.prefill(params, {"tokens": toks}, T + sizes.new_tokens)
         _, caches = model.prefill(params, {"tokens": toks[:, :T - 1]}, T + sizes.new_tokens)
         got, _ = model.decode_step(params, toks[:, T - 1:], caches,
                                    torch.full((1,), T - 1, dtype=torch.int32, device=dev))
-    got, want = got[0, -1].float(), want[0, -1].float()
+    return got[0, -1].float(), want[0, -1].float()
+
+
+def check_decode_consistency(live: dict, sizes: Sizes) -> float:
+    """The first request's prefill of T-1 tokens and one decode step of
+    its last token against its prefill of T tokens (tests/test_models.py's
+    decode consistency): the last-token logits within DECODE_LOGITS_RTOL
+    of their scale. A model in DECODE_IN_F32 is held in f32 instead, on
+    an f32 copy of its parameters, within its rtol there; the served bf16
+    model's difference is printed beside it. Returns the max abs
+    difference held."""
+    cfg, tokens = live["cfg"], live["requests"][0]
+    T = len(tokens)
+    got, want = _decode_vs_prefill(live["model"], live["params"], tokens, sizes)
+    rtol, what = DECODE_LOGITS_RTOL, "bf16"
+    if cfg.name in DECODE_IN_F32:
+        bf16 = (f"; the served bf16 model: {float((got - want).abs().max()):.3e} (scale "
+                f"{float(want.abs().max()):.3e}), greedy token {int(torch.argmax(got))} vs "
+                f"{int(torch.argmax(want))} (printed, not held)")
+        model = make_model(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+        params = _tree_map(lambda t: t.float(), live["params"])
+        got, want = _decode_vs_prefill(model, params, tokens, sizes)
+        del params
+        rtol, what = DECODE_IN_F32[cfg.name], "f32 copy of the parameters"
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    if not (torch.isfinite(got).all() and err <= DECODE_LOGITS_RTOL * scale):
-        _fail(f"live: {live['cfg'].name} prefill(T-1) + decode differs from prefill(T) by "
-              f"{err:.3e} (> {DECODE_LOGITS_RTOL} x scale {scale:.3e})")
-    _log(f"[live] {live['cfg'].name} prefill({T - 1}) + decode step vs prefill({T}): last-token "
-         f"logits max abs err {err:.3e} (scale {scale:.3e}, limit "
-         f"{DECODE_LOGITS_RTOL * scale:.3e}); greedy token {int(torch.argmax(got))} vs "
-         f"{int(torch.argmax(want))}")
+    if not (torch.isfinite(got).all() and err <= rtol * scale):
+        _fail(f"live: {cfg.name} ({what}) prefill(T-1) + decode differs from prefill(T) by "
+              f"{err:.3e} (> {rtol} x scale {scale:.3e})")
+    _log(f"[live] {cfg.name} prefill({T - 1}) + decode step vs prefill({T}), {what}: last-token "
+         f"logits max abs err {err:.3e} (scale {scale:.3e}, limit {rtol * scale:.3e}); greedy "
+         f"token {int(torch.argmax(got))} vs {int(torch.argmax(want))}"
+         f"{bf16 if cfg.name in DECODE_IN_F32 else ''}")
     return err
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _device_profile(fn, device) -> dict:
@@ -876,16 +1130,20 @@ def profile_live(live: dict, sizes: Sizes) -> dict:
     out = {}
     with torch.inference_mode():
         for name, fn in (("prefill", prefill), ("decode step", decode)):
-            r = out[name] = _device_profile(fn, dev)
-            if r["busy_ms"] is None:
-                _log(f"[live] {live['cfg'].name} profile {name}: {r['wall_ms']:.2f} ms (host "
-                     f"clock); device time not measured (the profiler saw no device activity)")
-                continue
-            top = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in r["top"])
-            _log(f"[live] {live['cfg'].name} profile {name}: {r['wall_ms']:.2f} ms (host clock), "
-                 f"card busy {r['busy_ms']:.2f} ms, idle share "
-                 f"{1 - r['busy_ms'] / r['wall_ms']:.3f}; largest: {top}")
+            out[name] = _device_profile(fn, dev)
+            _log_profile(live["cfg"].name, name, out[name])
     return out
+
+
+def _log_profile(model: str, name: str, r: dict) -> None:
+    if r["busy_ms"] is None:
+        _log(f"[live] {model} profile {name}: {r['wall_ms']:.2f} ms (host clock); device time "
+             f"not measured (the profiler saw no device activity)")
+        return
+    top = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in r["top"])
+    _log(f"[live] {model} profile {name}: {r['wall_ms']:.2f} ms (host clock), card busy "
+         f"{r['busy_ms']:.2f} ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; "
+         f"largest: {top}")
 
 
 def _leaves(tree):
@@ -1065,6 +1323,9 @@ def _log_timing(name: str, r: dict) -> None:
     if r.get("library"):
         lib += f" ({r['library']})"
     seq = f", per-sequence bound {r['seq_bound_ms']:.4f} ms" if "seq_bound_ms" in r else ""
+    if "kernel_ms" in r:
+        seq += (f"; the kernel alone on the padded inputs {r['kernel_ms']:.4f} ms, padded "
+                f"work's bound {r['padded_bound_ms']:.4f} ms")
     extra = (f" (back to back {r['graph_ms']:.4f} ms, host-inclusive {r['host_ms']:.4f} ms)"
              if "graph_ms" in r else "")
     _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms{extra}, plain "
@@ -1072,23 +1333,42 @@ def _log_timing(name: str, r: dict) -> None:
          f"({r['bound_by']}){seq}")
 
 
-def _time_k3(q3, k3, v3, flush) -> dict:
-    """K3, its plain version and an SDPA yardstick on one causal prefill;
-    the bound counts q, k, v and out once and the (t, s <= t) pairs."""
+def _time_k3(q3, k3, v3, flush, causal: bool = True) -> dict:
+    """K3 through the op (which pads widths the kernel is not built for,
+    its copies timed with it), its plain version and an SDPA yardstick on
+    one prefill (T = S) or encoder forward. The bound is the true work's:
+    q, k, v and out once at their own widths, and the (t, s) pairs
+    attended (s <= t when causal), each a D_qk and a D_v product; where
+    the op pads, the kernel alone on the padded inputs is timed too
+    (``kernel_ms``) and the padded work's bound given (``padded_bound_ms``)."""
     B, T, H, D = q3.shape
-    KV = k3.shape[2]
-    k3_bytes = 2 * (q3.numel() + k3.numel() + v3.numel() + q3.numel())
-    k3_flops = 4.0 * B * H * D * T * (T + 1) / 2
+    KV, Dv = k3.shape[2], v3.shape[-1]
+    es = q3.element_size()
+    pairs = T * (T + 1) / 2 if causal else T * T
+    k3_bytes = es * (q3.numel() + k3.numel() + v3.numel() + B * T * H * Dv)
+    k3_flops = 2.0 * B * H * pairs * (D + Dv)
+    Dp = kernel_head_dim(max(D, Dv))
     # yardstick: one SDPA call, layouts permuted beforehand (not timed)
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q3, k3, v3))
     r = dict(
-        ms=median_ms(lambda: flash_attention(q3, k3, v3, causal=True), flush),
-        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=True), flush),
+        ms=median_ms(lambda: ops.flash_attention(q3, k3, v3, causal=causal), flush),
+        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=causal), flush),
         library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True), flush),
-        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal",
+            qs, ks, vs, is_causal=causal, enable_gqa=True), flush),
+        shape=f"B={B} T=S={T} H={H} KV={KV} D={D}" + (f"/{Dv}" if Dv != D else "")
+        + (" causal" if causal else " non-causal"),
     )
     r["bound_ms"], r["bound_by"] = bound_ms(k3_bytes, k3_flops, q3.dtype)
+    if Dp != D or Dp != Dv:
+        qp, kp, vp = (F.pad(x, (0, Dp - x.shape[-1])) for x in (q3, k3, v3))
+        scale = 1.0 / D ** 0.5
+        r["kernel_ms"] = median_ms(lambda: flash_attention(qp, kp, vp, causal=causal,
+                                                           sm_scale=scale), flush)
+        r["padded_bound_ms"], _ = bound_ms(es * (qp.numel() + kp.numel() + vp.numel()
+                                                 + qp.numel()),
+                                           4.0 * B * H * pairs * Dp, q3.dtype)
+        r["shape"] += (f", padded to {Dp}: {k3_flops / 1e9:.1f} GFLOP of true work, "
+                       f"{4.0 * B * H * pairs * Dp / 1e9:.1f} padded")
     return r
 
 
@@ -1126,24 +1406,33 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int,
     _log_timing("shared_prefix_attention, long prefix", long)
     res["shared_prefix_attention"] = _time_k2(grouped["q"], grouped["pk"], grouped["pv"],
                                               grouped["plens"], flush)
-    # K3 at each live model's prefill: one prompt of T tokens, causal; the
-    # kernels row at sizes.arch's, the others on lines of their own
-    T = sizes.prefix_tokens + sizes.user_tokens
+    # K3 at each live model's prefill (one prompt of T tokens, causal; a
+    # vision model's also with its image tokens) or encoder forward (its
+    # frames, non-causal); the kernels row at sizes.arch's, the others on
+    # lines of their own
     by_model = {}
     for m in models:
         c = sizes.arch_config(m["name"])
         if not m["k3_per_request"]:
             continue
-        gen = torch.Generator(device=device).manual_seed(seed + 4)
-        q3 = _randn(gen, (1, T, c.n_heads, c.head_dim), torch.bfloat16, device)
-        k3, v3 = (_randn(gen, (1, T, c.n_kv_heads, c.head_dim), torch.bfloat16, device)
-                  for _ in range(2))
-        r = _time_k3(q3, k3, v3, flush)
-        by_model[m["name"]] = r["ms"]
-        if c.name == cfg.name:
-            res["flash_attention"] = r
-        else:
-            _log_timing(f"flash_attention, {c.name} prefill", r)
+        H, KV, Dqk, Dv, causal = k3_shape(c)
+        lengths = k3_lengths(c, sizes)
+        for n in lengths:
+            gen = torch.Generator(device=device).manual_seed(seed + 4)
+            q3 = _randn(gen, (1, n, H, Dqk), torch.bfloat16, device)
+            k3 = _randn(gen, (1, n, KV, Dqk), torch.bfloat16, device)
+            v3 = _randn(gen, (1, n, KV, Dv), torch.bfloat16, device)
+            r = _time_k3(q3, k3, v3, flush, causal)
+            del q3, k3, v3
+            if n != lengths[0]:
+                _log_timing(f"flash_attention, {c.name} prefill with an image", r)
+                continue
+            by_model[m["name"]] = r["ms"]
+            if c.name == cfg.name:
+                res["flash_attention"] = r
+            else:
+                _log_timing(f"flash_attention, {c.name} "
+                            f"{'forward' if c.is_encoder else 'prefill'}", r)
     for name, r in res.items():
         _log_timing(name, r)
     res["k3_by_model"] = by_model
@@ -1568,13 +1857,14 @@ def main(argv=None) -> int:
     if served_launches["paged_attention"] == 0 or (
             main_launches["shared_prefix_attention"] == 0):
         _fail(f"a kernel of the serving path was not launched: {main_launches}")
-    models = phase_live_models(device, sizes, args.seed, card)   # the live paths
+    models = phase_live_models(device, sizes, args.seed, card,
+                               LIVE_ARCHS + MORE_ARCHS)           # the live paths
     for m in models:
-        want = m["k3_per_request"] * sizes.live_requests
         got = m["launches"]["flash_attention"]
-        if got != want:
+        if got != m["k3_want"]:
             _fail(f"live: {m['name']}: K3 launched {got} times, not {m['k3_per_request']} "
-                  f"global-attention layers x {sizes.live_requests} prefills = {want}")
+                  f"global-attention layers x {m['k3_want'] // max(m['k3_per_request'], 1)} "
+                  f"prefills or forwards = {m['k3_want']}")
     live_k3 = sum(m["launches"]["flash_attention"] for m in models)
     _log(f"[live] K3 launches: {live_k3} ("
          f"{', '.join(str(m['launches']['flash_attention']) + ' ' + m['name'] for m in models)})")
@@ -1583,8 +1873,8 @@ def main(argv=None) -> int:
     for m in models:
         if m["k3_per_request"]:
             k3_ms = timing["k3_by_model"][m["name"]]
-            _log(f"[live] {m['name']} K3 share of prefill: {m['k3_per_request']} x "
-                 f"{k3_ms:.4f} ms / {m['prefill_ms']:.2f} ms = "
+            _log(f"[live] {m['name']} K3 share of {'forward' if m['decode_ms'] is None else 'prefill'}"
+                 f": {m['k3_per_request']} x {k3_ms:.4f} ms / {m['prefill_ms']:.2f} ms = "
                  f"{m['k3_per_request'] * k3_ms / m['prefill_ms']:.4f}")
     reset_launches()                                  # the estimator path starts here
     t_est = time.perf_counter()

@@ -26,6 +26,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)       # the D the kernel is instantiated for
 
 
+def kernel_head_dim(d: int) -> int:
+    """The smallest head size the kernel is built for that holds ``d``
+    columns (:func:`repro_torch.kernels.ops.flash_attention` pads to it)."""
+    for D in _HEAD_DIMS:
+        if d <= D:
+            return D
+    raise ValueError(f"the kernel takes D up to {_HEAD_DIMS[-1]}; got D={d}")
+
+
 def flash_attention_plain(
     q: torch.Tensor,            # (B, T, H, D)
     k: torch.Tensor,            # (B, S, KV, D)

@@ -8,20 +8,37 @@ to build or launch raises.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import ref
 from .flash_attention import flash_attention as _flash
+from .flash_attention import kernel_head_dim
 from .paged_attention import paged_attention as _paged
 from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """(B,T,H,D) x (B,S,KV,D) -> (B,T,H,D); FA2 with GQA, top-left causal
-    mask, kv tiles past the diagonal skipped."""
-    return _flash(q, k, v, causal=causal)
+    """(B,T,H,Dqk) x (B,S,KV,Dqk) x (B,S,KV,Dv) -> (B,T,H,Dv); FA2 with
+    GQA, top-left causal mask, kv tiles past the diagonal skipped; scores
+    scaled by 1/sqrt(Dqk).
+
+    The kernel is built for a few head sizes (``kernel_head_dim``); other
+    widths, and Dv != Dqk (MLA: 192 and 128), are padded with zero
+    columns to the smallest one that holds both. A zero column adds an
+    exact zero to every dot product, and a zero column of V gives a zero
+    output column, cut off after: the result is the unpadded function's,
+    in one launch."""
+    Dqk, Dv = q.shape[-1], v.shape[-1]
+    D = kernel_head_dim(max(Dqk, Dv))
+    if D == Dqk == Dv:
+        return _flash(q, k, v, causal=causal)
+    q, k, v = (F.pad(x, (0, D - x.shape[-1])) for x in (q, k, v))
+    out = _flash(q, k, v, causal=causal, sm_scale=1.0 / math.sqrt(Dqk))
+    return out[..., :Dv]
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens) -> torch.Tensor:

@@ -1,17 +1,21 @@
-"""GQA attention layer of the models (qwen3, stablelm, deepseek-7b, yi,
-granite-moe-1b, and recurrentgemma-2b's local blocks): projections,
-qk-norm, RoPE, and three attention paths.
+"""Attention layers of the models: GQA (qwen3, stablelm, deepseek-7b, yi,
+granite-moe-1b, llava's mistral backbone, hubert's encoder and
+recurrentgemma-2b's local blocks) and MLA (deepseek-v2-236b):
+projections, qk-norm, RoPE, and three attention paths.
 
-* Prefill with full (windowless) causal attention runs K3, the Hopper
+* Full-sequence attention without a window (prefill, and the forward of
+  an encoder or of a whole sequence), causal or not, runs K3, the Hopper
   flash-attention kernel, through :func:`repro_torch.kernels.ops.flash_attention`
-  (its plain version for CPU tensors). The reference computes the same
-  function with its chunked online-softmax scan; its docstring names the
-  Pallas flash kernel as what plugs in there.
-* Windowed prefill and decode run :func:`chunked_attention`, the
-  reference's chunked online-softmax attention in plain PyTorch, as the
-  reference runs them outside any Pallas kernel.
+  (its plain version for CPU tensors; the op pads head sizes the kernel
+  is not built for, MLA's 192/128 and hubert's 80). The reference
+  computes the same function with its chunked online-softmax scan; its
+  docstring names the Pallas flash kernel as what plugs in there.
+* Windowed prefill and decode (MLA's absorbed decode too) run
+  :func:`chunked_attention`, the reference's chunked online-softmax
+  attention in plain PyTorch, as the reference runs them outside any
+  Pallas kernel.
 
-Not ported here: MLA, the training VJP, and the launcher's ``shardctx``
+Not ported here: the training VJP, and the launcher's ``shardctx``
 decode override (ROADMAP.md, Queue 1).
 """
 
@@ -127,6 +131,14 @@ def _project_qkv(x, p, cfg, positions):
     return q, k, v
 
 
+def _sequence_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """A whole sequence's attention: K3 without a window, else the chunked
+    scan."""
+    if window > 0:
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+
+
 def gqa_forward(
     x: torch.Tensor, p: Params, cfg, *, causal: bool = True, window: int = 0,
     positions: Optional[torch.Tensor] = None,
@@ -136,7 +148,7 @@ def gqa_forward(
     if positions is None:
         positions = torch.arange(T, device=x.device)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    out = chunked_attention(q, k, v, causal=causal, window=window)
+    out = _sequence_attention(q, k, v, causal=causal, window=window)
     return matmul(out.reshape(B, T, -1), p["wo"])
 
 
@@ -148,11 +160,8 @@ def gqa_prefill(
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    if window > 0:
-        out = chunked_attention(q, k, v, causal=True, window=window)
-    else:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    out = matmul(out.reshape(B, T, -1), p["wo"])
+    out = matmul(_sequence_attention(q, k, v, causal=True, window=window).reshape(B, T, -1),
+                 p["wo"])
     if window > 0:
         cache_len = min(cache_len, window)
         k_c, v_c = k[:, -cache_len:], v[:, -cache_len:]
@@ -196,3 +205,132 @@ def gqa_decode_step(
     valid = torch.clamp(position + 1, max=S) if window > 0 else position + 1
     out = chunked_attention(q, k_cache, v_cache, causal=False, kv_valid_len=valid)
     return matmul(out.reshape(B, 1, -1), p["wo"]), {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLA, Multi-head Latent Attention (deepseek-v2-236b)
+#
+# Prefill runs the expanded form through K3; decode the "absorbed" form
+# over the compressed latent cache (c_kv 512 + k_rope 64 values a token),
+# which is what makes MLA prefix blocks about 9x smaller than the
+# MHA-equivalent in the shared KV cache.
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
+             lead: tuple = ()) -> Params:
+    H = cfg.n_heads
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    R = cfg.kv_lora_rank
+    return {
+        # query path (low-rank as in DeepSeek-V2)
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype, device, lead),
+        "q_a_norm": rmsnorm_init(cfg.q_lora_rank, dtype, device, lead),
+        "wq_b": dense_init(gen, cfg.q_lora_rank, H * dq, dtype, device, lead),
+        # kv path: compressed to the latent + a decoupled rope key
+        "wkv_a": dense_init(gen, cfg.d_model, R + cfg.qk_rope_head_dim, dtype, device, lead),
+        "kv_a_norm": rmsnorm_init(R, dtype, device, lead),
+        "w_uk": dense_init(gen, R, H * cfg.qk_nope_head_dim, dtype, device, lead),
+        "w_uv": dense_init(gen, R, H * cfg.v_head_dim, dtype, device, lead),
+        "wo": dense_init(gen, H * cfg.v_head_dim, cfg.d_model, dtype, device, lead),
+    }
+
+
+def _mla_q(x, p, cfg, positions):
+    B, T, _ = x.shape
+    q = matmul(rmsnorm(matmul(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps), p["wq_b"])
+    q = q.reshape(B, T, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_nope = q[..., : cfg.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(x, p, cfg, positions):
+    """The compressed latent c_kv (B,T,R) and the rotary key k_rope
+    (B,T,1,Dr), one head shared by all."""
+    kv = matmul(x, p["wkv_a"])
+    c_kv = rmsnorm(kv[..., : cfg.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_expanded(x, p, cfg, causal, positions):
+    """The expanded form: K and V per head from the latent, one K3 launch.
+    Returns the output and the latent."""
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    c_kv, k_rope = _mla_latent(x, p, cfg, positions)
+    k_nope = matmul(c_kv, p["w_uk"]).reshape(B, T, H, cfg.qk_nope_head_dim)
+    v = matmul(c_kv, p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, cfg.qk_rope_head_dim)], dim=-1)
+    out = ops.flash_attention(q, k, v.contiguous(), causal=causal)   # scale 1/sqrt(192)
+    return matmul(out.reshape(B, T, -1), p["wo"]), c_kv, k_rope
+
+
+def mla_forward(
+    x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence forward, expanded K/V."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_expanded(x, p, cfg, causal, positions)[0]
+
+
+def mla_prefill(
+    x: torch.Tensor, p: Params, cfg, cache_len: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: the causal forward and the latent cache padded/trimmed to
+    ``cache_len`` (the reference computes the latent twice, the same
+    values)."""
+    T = x.shape[1]
+    out, c_kv, k_rope = _mla_expanded(x, p, cfg, True, torch.arange(T, device=x.device))
+    pad = max(cache_len - T, 0)
+    cache = {
+        "c_kv": torch.nn.functional.pad(c_kv[:, :cache_len], (0, 0, 0, pad)),
+        "k_rope": torch.nn.functional.pad(k_rope[:, :cache_len, 0, :], (0, 0, 0, pad)),
+    }
+    return out, cache
+
+
+def mla_decode_step(
+    x: torch.Tensor,            # (B, 1, d)
+    p: Params,
+    cfg,
+    cache: Dict[str, torch.Tensor],   # c_kv (B,S,R), k_rope (B,S,Dr)
+    position: torch.Tensor,     # (B,)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-form decode: attention runs in the latent space.
+
+    score_h(s) = q_nope_h . (W_uk_h c_s) + q_rope_h . k_rope_s
+               = (W_uk_h^T q_nope_h) . c_s + q_rope_h . k_rope_s
+    out_h = (sum_s p_s c_s) @ W_uv_h
+
+    The new latent row is written into ``cache`` in place (cast to the
+    cache's dtype) and the same tensors are returned.
+    """
+    B = x.shape[0]
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    position = position.to(x.device)
+    q_nope, q_rope = _mla_q(x, p, cfg, position[:, None])           # (B,1,H,*)
+    c_new, k_rope_new = _mla_latent(x, p, cfg, position[:, None])
+    batch_idx = torch.arange(B, device=x.device)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[batch_idx, position] = c_new[:, 0].to(c_cache.dtype)
+    r_cache[batch_idx, position] = k_rope_new[:, 0, 0].to(r_cache.dtype)
+
+    w_uk = p["w_uk"].reshape(R, H, cfg.qk_nope_head_dim)
+    dt = torch.promote_types(q_nope.dtype, w_uk.dtype)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(dt), w_uk.to(dt))   # absorb W_uk
+    # latent MQA: queries (B,H,R+Dr) against keys (B,S,R+Dr), one kv head
+    q_cat = torch.cat([q_lat, q_rope[:, 0].to(dt)], dim=-1)[:, None]
+    k_cat = torch.cat([c_cache, r_cache], dim=-1)[:, :, None, :]
+    # the scores are the expanded form's dot products, whose query width
+    # is nope + rope, not the latent's
+    mla_scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    o_lat = chunked_attention(q_cat, k_cat, c_cache[:, :, None, :], causal=False,
+                              kv_valid_len=position + 1, scale=mla_scale)   # (B,1,H,R)
+    w_uv = p["w_uv"].reshape(R, H, cfg.v_head_dim)
+    dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
+    out = torch.einsum("bhr,rhv->bhv", o_lat[:, 0].to(dt), w_uv.to(dt)).reshape(B, 1, -1)
+    return matmul(out, p["wo"]), {"c_kv": c_cache, "k_rope": r_cache}

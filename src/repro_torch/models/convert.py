@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
+from .xlstm import slstm_ff
+
 
 def _block_shapes(cfg, kind: str, lead: tuple) -> Dict:
     """One block's parameter shapes, with ``lead`` axes in front."""
@@ -24,11 +26,33 @@ def _block_shapes(cfg, kind: str, lead: tuple) -> Dict:
     s = lambda *shape: lead + shape
     mlp = lambda f: {"w_gate": s(d, f), "w_up": s(d, f), "w_down": s(f, d)}
     tree = {"ln1": {"scale": s(d)}}
+    if kind == "mlstm":
+        up, H = 2 * d, cfg.n_heads
+        tree["core"] = {"w_up": s(d, up), "w_gate_up": s(d, up),
+                        "conv": {"w": s(4, up), "b": s(up)},
+                        "wq": s(up, up), "wk": s(up, up), "wv": s(up, up),
+                        "w_igate": s(up, H), "w_fgate": s(up, H),
+                        "out_norm": {"scale": s(up)}, "w_down": s(up, d)}
+        return tree
+    if kind == "slstm":
+        H = cfg.n_heads
+        ff, rec = slstm_ff(cfg), s(H, d // H, d // H)
+        tree["core"] = {"w_in": s(d, 4 * d), "r_i": rec, "r_f": rec, "r_z": rec, "r_o": rec,
+                        "out_norm": {"scale": s(d)}, "w_ff_up": s(d, 2 * ff),
+                        "w_ff_down": s(ff, d)}
+        return tree
     if kind == "rglru":
         W, K = cfg.lru_width, cfg.conv1d_size
         tree["core"] = {"wx": s(d, W), "wgate": s(d, W), "conv": {"w": s(K, W), "b": s(W)},
                         "w_input_gate": s(W, W), "w_rec_gate": s(W, W),
                         "log_lambda": s(W), "w_out": s(W, d)}
+    elif cfg.attention == "mla" and kind == "attn":
+        H, R, Dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        tree["attn"] = {"wq_a": s(d, cfg.q_lora_rank), "q_a_norm": {"scale": s(cfg.q_lora_rank)},
+                        "wq_b": s(cfg.q_lora_rank, H * (cfg.qk_nope_head_dim + Dr)),
+                        "wkv_a": s(d, R + Dr), "kv_a_norm": {"scale": s(R)},
+                        "w_uk": s(R, H * cfg.qk_nope_head_dim), "w_uv": s(R, H * cfg.v_head_dim),
+                        "wo": s(H * cfg.v_head_dim, d)}
     else:
         attn = {"wq": s(d, cfg.n_heads * hd), "wk": s(d, cfg.n_kv_heads * hd),
                 "wv": s(d, cfg.n_kv_heads * hd), "wo": s(cfg.n_heads * hd, d)}
@@ -48,12 +72,22 @@ def _block_shapes(cfg, kind: str, lead: tuple) -> Dict:
 
 
 def param_shapes(cfg) -> Dict:
-    """The tree of the model's parameter shapes: ``blocks`` holds one entry
-    per kind of ``cfg.block_pattern``, stacked over ``n_layers // G``
-    tiles; ``tail`` lists the ``n_layers % G`` blocks left over."""
+    """The tree of the model's parameter shapes: the frontend (``embed``,
+    or an audio model's ``frontend_proj``, ``conv_pos`` and
+    ``mask_embed``; a vision model's ``projector`` too); ``blocks`` holds
+    one entry per kind of ``cfg.block_pattern``, stacked over
+    ``n_layers // G`` tiles; ``tail`` lists the ``n_layers % G`` blocks
+    left over."""
     G = len(cfg.block_pattern)
     n_tiles, n_tail = cfg.n_layers // G, cfg.n_layers % G
-    tree = {"embed": (cfg.vocab_size, cfg.d_model)}
+    d = cfg.d_model
+    if cfg.modality == "audio":
+        tree = {"frontend_proj": (d, d), "conv_pos": {"w": (128, d), "b": (d,)},
+                "mask_embed": (d,)}
+    else:
+        tree = {"embed": (cfg.vocab_size, d)}
+    if cfg.modality == "vision_text":
+        tree["projector"] = {"w1": (cfg.vision_dim, d), "w2": (d, d)}
     if n_tiles:
         tree["blocks"] = {f"g{g}": _block_shapes(cfg, kind, (n_tiles,))
                           for g, kind in enumerate(cfg.block_pattern)}

@@ -34,10 +34,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype=torch.float32,
                device=None, lead: tuple = ()) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) truncated at +-2, times
-    1/sqrt(in_dim). ``lead`` prepends axes (a stack of layers)."""
-    w = torch.empty(lead + (in_dim, out_dim), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    1/sqrt(in_dim). ``lead`` prepends axes (a stack of layers, of
+    experts). Drawn one (in_dim, out_dim) matrix at a time in f32, so a
+    large stack in bf16 never has an f32 copy (deepseek-v2's routed
+    experts of 4 layers: 5 G elements)."""
+    w = torch.empty(lead + (in_dim, out_dim), dtype=dtype, device=device)
+    f32 = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
+    for m in w.view(-1, in_dim, out_dim):
+        torch.nn.init.trunc_normal_(f32, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        m.copy_(f32.mul_(1.0 / math.sqrt(in_dim)))
+    return w
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32,

@@ -1,14 +1,20 @@
 """The reference's pattern-driven model skeleton (``repro.models.transformer``)
-for the decoder models whose blocks the port has: global attention
-(``"attn"``) with a SwiGLU or MoE feed-forward, windowed local attention
-(``"local"``) and RG-LRU (``"rglru"``) blocks. That covers the dense
-models (qwen3-1.7b, stablelm-1.6b, deepseek-7b, yi-34b), granite-moe-1b
-and recurrentgemma-2b.
+for all ten of its models: global attention (``"attn"``, GQA or MLA) with
+a SwiGLU or MoE feed-forward, windowed local attention (``"local"``),
+RG-LRU (``"rglru"``) and the self-contained xLSTM blocks (``"mlstm"``,
+``"slstm"``); the vision projector (image tokens first) and the audio
+frontend (a projection of precomputed frames, masked frames, a conv
+positional embedding) with an encoder's bidirectional attention. That
+covers the dense models (qwen3-1.7b, stablelm-1.6b, deepseek-7b, yi-34b),
+granite-moe-1b, deepseek-v2-236b, recurrentgemma-2b, xlstm-125m,
+llava-next-mistral-7b and hubert-xlarge.
 
 Functional, as the reference: :meth:`TransformerLM.init` returns a dict
 of tensors and every method takes it explicitly, so the serving engine
 passes ``model`` and ``params`` as the reference's does. Parameters keep
-the reference's tree: ``embed``; ``blocks["g0".."g{G-1}"]``, one entry per
+the reference's tree: ``embed`` (an audio model has ``frontend_proj``,
+``conv_pos`` and ``mask_embed`` instead; a vision one ``projector`` too);
+``blocks["g0".."g{G-1}"]``, one entry per
 kind of ``cfg.block_pattern``, stacked with a leading ``n_tiles =
 n_layers // G`` axis; ``tail``, a list of the ``n_layers % G`` blocks
 left over (the pattern's first kinds); ``final_norm`` and, untied,
@@ -24,8 +30,8 @@ API:
   prefill(params, batch, cache_len) -> (last_logits, caches)
   decode_step(params, tokens, caches, position) -> (logits, caches)
 
-xLSTM blocks, MLA, the audio/vision frontends and encoders raise
-``NotImplementedError`` (ROADMAP.md, Queue 1, the models path).
+An encoder (hubert-xlarge) has no decode step: it raises there, as the
+reference does. Not ported: ``loss`` and training (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -41,25 +47,21 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import shardctx
+from . import xlstm as xlstm_mod
 from .layers import Params, dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
-_LATER = {   # what the port's models path does not have yet (ROADMAP.md, Queue 1)
-    "mlstm": "xLSTM blocks",
-    "slstm": "xLSTM blocks",
-}
-KINDS = ("attn", "local", "rglru")
+KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+XLSTM = ("mlstm", "slstm")          # self-contained blocks: no ln2, no FFN
+_SUPPORTED = {"attention": ("full", "mla"), "modality": ("text", "vision_text", "audio")}
 
 
 def _unsupported(cfg) -> str:
     for kind in cfg.block_pattern:
         if kind not in KINDS:
-            return _LATER.get(kind, f"block kind {kind!r}")
-    if cfg.attention == "mla":
-        return "MLA attention"
-    if cfg.modality != "text":
-        return f"the {cfg.modality} frontend"
-    if cfg.is_encoder:
-        return "encoder-only models"
+            return f"block kind {kind!r}"
+    for field, values in _SUPPORTED.items():
+        if getattr(cfg, field) not in values:
+            return f"{field} {getattr(cfg, field)!r}"
     return ""
 
 
@@ -91,9 +93,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         missing = _unsupported(cfg)
         if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} are not ported yet (ROADMAP.md, Queue 1, models path)"
-            )
+            raise NotImplementedError(f"{cfg.name}: {missing} is not a part of the models")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
@@ -105,11 +105,20 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
+    def _mla(self, kind: str) -> bool:
+        return self.cfg.attention == "mla" and kind == "attn"
+
     def _block_init(self, gen, device, kind: str, lead: tuple = ()) -> Params:
         cfg, dt = self.cfg, self.param_dtype
         p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, device, lead)}
+        if kind in XLSTM:
+            init = xlstm_mod.mlstm_init if kind == "mlstm" else xlstm_mod.slstm_init
+            p["core"] = init(gen, cfg, dt, device, lead)
+            return p
         if kind == "rglru":
             p["core"] = rglru_mod.rglru_init(gen, cfg, dt, device, lead)
+        elif self._mla(kind):
+            p["attn"] = attn.mla_init(gen, cfg, dt, device, lead)
         else:
             p["attn"] = attn.gqa_init(gen, cfg, dt, device, lead)
         p["ln2"] = rmsnorm_init(cfg.d_model, dt, device, lead)
@@ -123,7 +132,19 @@ class TransformerLM(nn.Module):
         """Parameters drawn from ``gen`` on the generator's device, with the
         reference's distributions (not its bits)."""
         cfg, dt, dev = self.cfg, self.param_dtype, gen.device
-        params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev)}
+        d = cfg.d_model
+        params: Params = {}
+        if cfg.modality == "audio":
+            params["frontend_proj"] = dense_init(gen, d, d, dt, dev)
+            w = 0.02 * torch.randn((128, d), generator=gen, dtype=torch.float32, device=dev)
+            params["conv_pos"] = {"w": w.to(dt), "b": torch.zeros((d,), dtype=dt, device=dev)}
+            params["mask_embed"] = (0.02 * torch.randn((d,), generator=gen, dtype=torch.float32,
+                                                       device=dev)).to(dt)
+        else:
+            params["embed"] = embed_init(gen, cfg.vocab_size, d, dt, dev)
+        if cfg.modality == "vision_text":
+            params["projector"] = {"w1": dense_init(gen, cfg.vision_dim, d, dt, dev),
+                                   "w2": dense_init(gen, d, d, dt, dev)}
         if self.n_tiles > 0:
             params["blocks"] = {f"g{g}": self._block_init(gen, dev, kind, (self.n_tiles,))
                                 for g, kind in enumerate(cfg.block_pattern)}
@@ -154,7 +175,8 @@ class TransformerLM(nn.Module):
         return out
 
     # ------------------------------------------------------------------
-    # blocks: pre-norm mixer (attention or RG-LRU) + SwiGLU or MoE
+    # blocks: pre-norm mixer (attention, MLA or RG-LRU) + SwiGLU or MoE,
+    # or a self-contained xLSTM block
     # ------------------------------------------------------------------
     def _moe(self, h, p_ffn):
         """MoE FFN: the launcher-installed override when there is one, else
@@ -180,17 +202,32 @@ class TransformerLM(nn.Module):
         return self.cfg.window if kind == "local" else 0
 
     def _block_forward(self, x, p, kind: str):
-        h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        cfg = self.cfg
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if kind == "mlstm":
+            return x + xlstm_mod.mlstm_block_forward(h, p["core"], cfg), None
+        if kind == "slstm":
+            return x + xlstm_mod.slstm_block_forward(h, p["core"], cfg), None
+        causal = not cfg.is_encoder
         if kind == "rglru":
-            x = x + rglru_mod.rglru_block_forward(h, p["core"], self.cfg)
+            x = x + rglru_mod.rglru_block_forward(h, p["core"], cfg)
+        elif self._mla(kind):
+            x = x + attn.mla_forward(h, p["attn"], cfg, causal=causal)
         else:
-            x = x + attn.gqa_forward(h, p["attn"], self.cfg, window=self._window(kind))
+            x = x + attn.gqa_forward(h, p["attn"], cfg, causal=causal, window=self._window(kind))
         return self._ffn(x, p, kind)
 
     def _block_prefill(self, x, p, kind: str, cache_len: int):
         h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        if kind in XLSTM:
+            prefill = (xlstm_mod.mlstm_block_prefill if kind == "mlstm"
+                       else xlstm_mod.slstm_block_prefill)
+            a, cache = prefill(h, p["core"], self.cfg)
+            return x + a, cache
         if kind == "rglru":
             a, cache = rglru_mod.rglru_block_prefill(h, p["core"], self.cfg)
+        elif self._mla(kind):
+            a, cache = attn.mla_prefill(h, p["attn"], self.cfg, cache_len)
         else:
             window = self._window(kind)
             a, cache = attn.gqa_prefill(h, p["attn"], self.cfg, cache_len, window=window)
@@ -204,9 +241,16 @@ class TransformerLM(nn.Module):
 
     def _block_decode(self, x, p, kind: str, cache, position):
         h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
+        if kind in XLSTM:
+            step = xlstm_mod.mlstm_block_step if kind == "mlstm" else xlstm_mod.slstm_block_step
+            a, new = step(h, p["core"], self.cfg, cache)
+            _write(cache, new)
+            return x + a
         if kind == "rglru":
             a, new = rglru_mod.rglru_block_step(h, p["core"], self.cfg, cache)
             _write(cache, new)
+        elif self._mla(kind):   # the new latent row is written into the cache in place
+            a, _ = attn.mla_decode_step(h, p["attn"], self.cfg, cache, position)
         else:       # the new K/V row is written into the cache in place
             a, _ = attn.gqa_decode_step(h, p["attn"], self.cfg, cache, position,
                                         window=self._window(kind))
@@ -216,9 +260,32 @@ class TransformerLM(nn.Module):
     # embedding and head
     # ------------------------------------------------------------------
     def _embed(self, params, batch) -> torch.Tensor:
+        """Token embeddings (with a vision model's projected image tokens
+        first, where the batch has ``image_embeds``), or an audio model's
+        frames (B, T, d_model) through its frontend."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        if cfg.modality == "audio":
+            x = batch["frames"].to(cdt) @ params["frontend_proj"].to(cdt)
+            if "mask" in batch:     # masked prediction: masked frames replaced before the conv
+                x = torch.where(batch["mask"][..., None].to(x.device),
+                                params["mask_embed"].to(cdt), x)
+            # conv positional embedding: kernel 128, depthwise, padded
+            # (64, 63), a cross-correlation as the reference's
+            w = params["conv_pos"]["w"].to(cdt)                       # (K, d)
+            K = w.shape[0]
+            xp = torch.nn.functional.pad(x.transpose(1, 2), (K // 2, K - 1 - K // 2))
+            pos = torch.nn.functional.conv1d(xp, w.T[:, None, :], groups=cfg.d_model)
+            pos = pos.transpose(1, 2) + params["conv_pos"]["b"].to(cdt)
+            return x + torch.nn.functional.gelu(pos, approximate="tanh")
         # row gather first, then the cast: the same values as the
         # reference's cast-then-gather, without casting the whole table
-        return params["embed"][batch["tokens"]].to(self.compute_dtype)
+        x = params["embed"][batch["tokens"]].to(cdt)
+        if cfg.modality == "vision_text" and "image_embeds" in batch:
+            pj = params["projector"]
+            img = batch["image_embeds"].to(cdt) @ pj["w1"].to(cdt)
+            img = torch.nn.functional.gelu(img, approximate="tanh") @ pj["w2"].to(cdt)
+            x = torch.cat([img, x], dim=1)                           # image tokens first
+        return x
 
     def _head(self, params, x) -> torch.Tensor:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
@@ -250,6 +317,15 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = ()):
         cfg, cdt = self.cfg, self.compute_dtype
+        if kind == "mlstm":
+            return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead)
+        if kind == "slstm":
+            return xlstm_mod.slstm_state_init(batch, cfg, dev, lead)
+        if self._mla(kind):
+            return {"c_kv": torch.zeros(lead + (batch, cache_len, cfg.kv_lora_rank), dtype=cdt,
+                                        device=dev),
+                    "k_rope": torch.zeros(lead + (batch, cache_len, cfg.qk_rope_head_dim),
+                                          dtype=cdt, device=dev)}
         if kind == "rglru":
             return {"h": torch.zeros(lead + (batch, cfg.lru_width), dtype=torch.float32,
                                      device=dev),
@@ -262,7 +338,9 @@ class TransformerLM(nn.Module):
     def init_cache(self, batch: int, cache_len: int, *, device: DeviceLike = None):
         """Zeroed caches on ``device`` (None: the card): attention K/V in
         ``compute_dtype`` (a local block's holds ``min(cache_len, window)``
-        rows), an RG-LRU block's f32 state ``h`` and its conv inputs."""
+        rows; MLA's the latent ``c_kv`` and ``k_rope``), an RG-LRU block's
+        f32 state ``h`` and its conv inputs, the xLSTM blocks' f32 states
+        (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs."""
         dev = resolve_device(device)
         caches = {}
         if self.n_tiles > 0:
@@ -277,7 +355,9 @@ class TransformerLM(nn.Module):
     def prefill(self, params, batch, cache_len: int):
         """Logits of the last token (B, 1, V) and the caches: attention K/V
         in k's dtype padded to ``cache_len`` (a local block's ring buffer
-        aligned for decode), RG-LRU states."""
+        aligned for decode; MLA's latent), recurrent states. A vision
+        model's image tokens come first, so its decode positions start
+        at ``n_image_tokens + len(tokens)``."""
         x = self._embed(params, batch)
         per_layer = []
         for kind, p in self._layers(params):
@@ -288,6 +368,8 @@ class TransformerLM(nn.Module):
     def decode_step(self, params, tokens, caches, position):
         """tokens: (B, 1) int; position: (B,). The caches are updated in
         place and returned."""
+        if self.cfg.modality == "audio":
+            raise ValueError("encoder-only arch has no decode step")
         x = params["embed"][tokens].to(self.compute_dtype)
         for (kind, p), (_, c) in zip(self._layers(params), self._layers(caches)):
             x = self._block_decode(x, p, kind, c, position)

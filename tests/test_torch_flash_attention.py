@@ -33,6 +33,12 @@ GRID = [                              # B, T, S, H, KV, D, causal (tests/test_ke
     (1, 200, 200, 8, 2, 128, True),   # G = 4, T not a multiple of the query tile
 ]
 SLICE = (1, 1280, 1280, 16, 8, 128, True)   # qwen3-1.7b prefill of a served prompt
+IMAGE = (1, 2432, 2432, 32, 8, 128, True)   # llava's prefill of 1152 image + 1280 text tokens
+PADDED = [   # B, T, S, H, KV, D_qk, D_v, causal: widths the op pads for the kernel
+    (1, 1280, 1280, 128, 128, 192, 128, True),  # deepseek-v2's MLA prefill -> 256
+    (1, 1000, 1000, 16, 16, 80, 80, False),     # hubert-xlarge's encoder -> 128
+    (1, 200, 200, 8, 2, 80, 80, True),          # D=80 causal with GQA
+]
 
 
 def _tol(dtype):
@@ -105,7 +111,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,T,S,H,KV,D,causal", GRID + [SLICE])
+@pytest.mark.parametrize("B,T,S,H,KV,D,causal", GRID + [SLICE, IMAGE])
 def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, H, KV, D, causal, dtype):
     q, k, v = (_t(a, dtype, cuda_device) for a in _inputs(2, B, T, S, H, KV, D))
     before = flash_attention.launches
@@ -113,6 +119,34 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, T, S, H, KV, D, ca
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     want = flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,S,H,KV,Dqk,Dv,causal", PADDED)
+def test_padded_flash_attention_kernel_matches_plain(monkeypatch, cuda_device, B, T, S, H, KV,
+                                                     Dqk, Dv, causal, dtype):
+    """The op's padded path on the card: one launch of the unchanged
+    kernel at the padded width, never the plain version, within the
+    tolerance of the unpadded plain version."""
+    import repro_torch.kernels.flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32), dtype, cuda_device)
+               for s in ((B, T, H, Dqk), (B, S, KV, Dqk), (B, S, KV, Dv)))
+    want = flash_attention_plain(q, k, v, causal=causal)
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (B, T, H, Dv) and got.dtype == q.dtype
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=_tol(dtype))
 
@@ -140,6 +174,35 @@ def test_model_prefill_on_the_card_runs_k3_in_every_layer(cuda_device):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
     np.testing.assert_allclose(got_c["blocks"]["g0"]["k"].cpu().numpy(),
                                want_c["blocks"]["g0"]["k"].numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "llava-next-mistral-7b", "hubert-xlarge"])
+def test_mla_vision_and_encoder_models_on_the_card_run_k3_in_every_layer(cuda_device, name):
+    """The reduced deepseek-v2 (MLA: 24/16 padded to 64), llava (with an
+    image) and hubert (a non-causal forward over frames) on the card in
+    f32: one K3 launch a layer, logits as on the CPU within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+
+    cfg = get_config(name).reduced()
+    model = make_model(cfg, compute_dtype=torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    if cfg.modality == "audio":
+        batch = {"frames": torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model))
+                                            .astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))}
+    if cfg.modality == "vision_text":
+        batch["image_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32))
+    want = model.forward_logits(params, batch)
+    before = flash_attention.launches
+    got = model.forward_logits(_to(params, cuda_device), _to(batch, cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
 
 
 def _to(tree, device):

@@ -1,7 +1,8 @@
 """The port stands alone: importing it, or chip_smoke.py, loads neither
 ``jax`` nor the reference package ``repro``; and it never falls back to
 the CPU on its own. The probe walks every module of the package, the
-RRE and MCD-OS copies and the MoE, RG-LRU and shardctx models included."""
+RRE and MCD-OS copies and the MoE, RG-LRU, xLSTM and shardctx models
+included."""
 
 import subprocess
 import sys
@@ -35,7 +36,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 59          # every subpackage and module was imported
+    assert int(n) >= 60          # every subpackage and module was imported
     assert bad == "[]"
 
 

@@ -4,7 +4,13 @@ Reduced configs: qwen3-1.7b with ``n_kv_heads=2`` (G = 2, qk-norm, tied
 embeddings), stablelm-1.6b (MHA, untied head), granite-moe-1b (MoE, E = 8
 top-2, global attention through K3's plain version) and recurrentgemma-2b
 (tiles of ``(rglru, rglru, local)``, MQA, window 32); recurrentgemma also
-with a tail of two RG-LRU blocks and with prompts longer than its window.
+with a tail of two RG-LRU blocks and with prompts longer than its window;
+deepseek-v2-236b (MLA: the expanded prefill through K3's plain version,
+the absorbed decode over the latent cache; MoE with shared experts),
+xlstm-125m (tiles of five mLSTM blocks and an sLSTM) and
+llava-next-mistral-7b's text path (GQA G = 4; its image path is in
+tests/test_torch_frontends.py); hubert-xlarge's parameter tree (its
+encoder in that file too).
 The reference's parameters are carried across with ``from_jax_params``;
 inputs are numpy arrays from a seed. In f32 both packages do the same
 arithmetic with sums in another order (the port's prefill attention is
@@ -31,13 +37,15 @@ from repro_torch.models.convert import param_shapes
 from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
 
 ARCHS = {"qwen3-1.7b": {"n_kv_heads": 2}, "stablelm-1.6b": {}, "granite-moe-1b-a400m": {},
-         "recurrentgemma-2b": {}}
+         "recurrentgemma-2b": {}, "deepseek-v2-236b": {}, "xlstm-125m": {},
+         "llava-next-mistral-7b": {}}
+TREES = list(ARCHS) + ["hubert-xlarge"]     # the encoder: its tree here, the rest elsewhere
 F32_ATOL = 1e-4
 B, T = 2, 24
 
 
 def _cfgs(name, **extra):
-    kw = dict(ARCHS[name], **extra)
+    kw = dict(ARCHS.get(name, {}), **extra)
     return (dataclasses.replace(jget_config(name).reduced(), **kw),
             dataclasses.replace(get_config(name).reduced(), **kw))
 
@@ -157,7 +165,7 @@ def test_gqa_prefill_and_decode_match_the_reference(window):
 
 # -- the model --------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", TREES)
 def test_param_tree_matches_reference_init(name):
     jcfg, cfg = _cfgs(name)
     jtree = jax.eval_shape(jmake_model(jcfg).init, jax.random.PRNGKey(0))
@@ -179,7 +187,9 @@ def _forward_prefill_decode(name, T_, **extra):
 
     zeros, jzeros = m.init_cache(B, T_ + 8, device="cpu"), jm.init_cache(B, T_ + 8)
     _same_tree(zeros, jzeros, 0.0)
-    assert all(t.dtype == torch.float32 and not t.any() for t in jax.tree.leaves(zeros))
+    # zeros, but for the xLSTM blocks' stabilizers m, which start at -1e30
+    assert all(t.dtype == torch.float32 and (not t.any() or bool((t == -1e30).all()))
+               for t in jax.tree.leaves(zeros))
 
     jlast, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :-1])}, T_ + 8)
     last, c = m.prefill(p, {"tokens": torch.as_tensor(toks[:, :-1])}, T_ + 8)
@@ -232,7 +242,7 @@ def test_decode_consistency(name):
     assert float((lg[:, 0] - full[:, T - 1]).abs().max()) < 3e-3 * max(scale, 1)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", [n for n in ARCHS if n != "xlstm-125m"])
 def test_bf16_model_matches_reference(name):
     """bf16 parameters and compute, as on the card. Both round every
     product to bf16 (relative spacing 2^-8), at different points, so the
@@ -241,17 +251,53 @@ def test_bf16_model_matches_reference(name):
     toks = _tokens(m.cfg, seed=4)
     jlast, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, T + 4)
     last, c = m.prefill(p, {"tokens": torch.as_tensor(toks)}, T + 4)
-    attn_cache = c["blocks"]["g2" if "g2" in c["blocks"] else "g0"]["k"]
+    block = c["blocks"]["g2" if "g2" in c["blocks"] else "g0"]
+    attn_cache = block.get("k", block.get("c_kv", block.get("conv")))   # GQA, MLA, mLSTM
     assert last.dtype == attn_cache.dtype == torch.bfloat16
     scale = float(np.abs(_np(jlast)).max())
     np.testing.assert_allclose(_np(last), _np(jlast), atol=0.03 * scale)
 
 
+def test_bf16_xlstm_matches_reference_block_by_block():
+    """xlstm in bf16: each block, from the same input, within 3% of its
+    output's scale (observed 0.4-1.7%: the two packages' bf16 products
+    differ by a step in a few elements, the conv and the gates carry
+    that on). The whole model is not compared: 12 blocks carry those
+    steps down the residual stream through exponential gates (11% of the
+    logits' scale at the reduced width; in f32 the models agree to 1e-4,
+    test_forward_prefill_decode_match_reference_f32)."""
+    from repro.models import layers as jl
+    from repro.models import xlstm as jx
+    from repro_torch.models import xlstm
+
+    jm, jp, m, p = _models("xlstm-125m", "bfloat16")
+    x = np.random.default_rng(4).standard_normal((B, T, m.cfg.d_model)).astype(np.float32)
+    for g, kind in enumerate(m.cfg.block_pattern):
+        jb = jax.tree.map(lambda a: a[0], jp["blocks"][f"g{g}"])
+        tb = jax.tree.map(lambda a: a[0], p["blocks"][f"g{g}"])
+        jh = jl.rmsnorm(jnp.asarray(x).astype(jnp.bfloat16), jb["ln1"], m.cfg.norm_eps)
+        th = layers.rmsnorm(torch.from_numpy(x).bfloat16(), tb["ln1"], m.cfg.norm_eps)
+        np.testing.assert_array_equal(_np(th), _np(jh))
+        fwd = {"mlstm": (jx.mlstm_block_forward, xlstm.mlstm_block_forward),
+               "slstm": (jx.slstm_block_forward, xlstm.slstm_block_forward)}[kind]
+        want = _np(fwd[0](jh, jb["core"], jm.cfg))
+        got = fwd[1](th, tb["core"], m.cfg)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), want, atol=0.03 * float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "xlstm-125m", "hubert-xlarge",
                                   "llava-next-mistral-7b"])
 def test_unported_architectures_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_model(get_config(name).reduced())
+    """The four models that raised until MLA, xLSTM and the frontends were
+    ported build now; a block kind, an attention or a modality that no
+    model has still raises."""
+    cfg = get_config(name).reduced()
+    assert make_model(cfg).n_tiles == 2
+    for bad in (dict(block_pattern=("mamba",)), dict(attention="linear"),
+                dict(modality="video")):
+        with pytest.raises(NotImplementedError, match="not a part of the models"):
+            make_model(dataclasses.replace(cfg, **bad))
 
 
 def test_from_jax_params_checks_the_tree():

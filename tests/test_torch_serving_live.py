@@ -1,7 +1,8 @@
 """The port's live serving mode against the reference's, on the CPU.
 
-Both engines get the same reduced model (qwen3, stablelm, granite-moe and
-recurrentgemma; the reference's parameters carried across with
+Both engines get the same reduced model (qwen3, stablelm, granite-moe,
+recurrentgemma, deepseek-v2, xlstm and llava's text path; the
+reference's parameters carried across with
 ``from_jax_params``, f32 compute) and the same numpy
 request stream; greedy decode must give the same tokens, and the cache
 accounting the same results and stats. Temperature / top-k sampling is
@@ -86,6 +87,15 @@ def test_live_engine_matches_reference_moe_and_hybrid(name):
     """granite-moe-1b (MoE; decode drop-free) and recurrentgemma-2b (RG-LRU
     states and a local ring buffer; its cache objects are state snapshots,
     so the pool accounts them as the reference does)."""
+    _serve_both(name, {})
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "xlstm-125m", "llava-next-mistral-7b"])
+def test_live_engine_matches_reference_mla_xlstm_and_vision(name):
+    """deepseek-v2 (MLA's latent cache written in place at each step; MoE
+    with shared experts, decode drop-free), xlstm (mLSTM and sLSTM states;
+    state-snapshot objects in the pool) and llava (text requests: the
+    engine is text-only, as the reference's)."""
     _serve_both(name, {})
 
 

@@ -6,8 +6,9 @@ decode through paged attention (K1) and grouped shared-prefix decode (K2
 ``tests/test_kernels.py`` (2e-2). The reference kernels run in Pallas
 interpret mode. Also runs ``chip_smoke.py``'s phases on the CPU at a
 small size, so the script the card runs stays exercised here, its live
-phase (the reduced qwen3, granite-moe-1b and recurrentgemma-2b served by
-the engine in live mode) included.
+phase (the reduced qwen3, granite-moe-1b, recurrentgemma-2b, deepseek-v2,
+xlstm and llava served by the engine in live mode, hubert's forwards)
+included.
 """
 
 import dataclasses
@@ -218,6 +219,42 @@ def test_chip_smoke_live_phase_serves_three_models_on_cpu_at_small_size():
     params = make_model(cfg).init(torch.Generator().manual_seed(0))
     assert len(params["tail"]) == 2
     assert sum(t.numel() for t in cs._leaves(params)) == numel(param_shapes(cfg))
+
+
+def test_chip_smoke_live_phase_serves_the_mla_xlstm_and_frontend_models_on_cpu_at_small_size():
+    """The live phase's other models: the reduced deepseek-v2 (MLA, MoE
+    with shared experts, its routing replayed in the check), xlstm (its
+    decode consistency), llava (text requests and one with an image, each
+    prefill held to the plain one) and hubert (forwards over frames, no
+    engine, no decode step). On the CPU the wrappers run their plain
+    versions and count no launch."""
+    import chip_smoke as cs
+
+    sizes = cs.Sizes(reduced=True, pool_blocks=256, block_tokens=4, prefix_tokens=32,
+                     user_tokens=8, new_tokens=4, audio_frames=40)
+    models = cs.phase_live_models(torch.device("cpu"), sizes, seed=0, card="cpu",
+                                  archs=cs.MORE_ARCHS)
+    assert [m["name"] for m in models] == list(cs.MORE_ARCHS)
+    assert [m["k3_per_request"] for m in models] == [2, 0, 2, 2]
+    # four requests each; llava one more with its image
+    assert [m["k3_want"] for m in models] == [8, 0, 10, 8]
+    assert all(m["launches"] == dict.fromkeys(cs.KERNELS, 0) for m in models)
+    ds, xl, lv, hb = models
+    assert ds["k3_err"] == lv["k3_err"] == lv["image_err"] == hb["k3_err"] == 0.0
+    assert 0.0 < xl["decode_err"] < 1.0
+    assert hb["decode_ms"] is None and hb["prefill_ms"] > 0
+    assert lv["image_prefill_ms"] > 0 and lv["image_decode_ms"] > 0
+    assert all(m["n_params"] > 0 for m in models)
+    # the K3 shapes the kernels and timing phases take from the live phase
+    shapes = cs.live_k3_shapes(sizes)
+    assert (1, 40, 40, 4, 4, 24, 16, True) in shapes                   # MLA, padded
+    assert (1, 40 + 8, 40 + 8, 4, 4, 16, 16, True) in shapes            # llava's image request
+    assert (1, 40, 40, 4, 4, 16, 16, False) in shapes                   # the encoder
+    full = cs.Sizes()
+    assert full.arch_config("deepseek-v2-236b").n_layers == 4
+    assert (1, 1280, 1280, 128, 128, 192, 128, True) in cs.live_k3_shapes(full)
+    assert (1, 2432, 2432, 32, 8, 128, 128, True) in cs.live_k3_shapes(full)
+    assert (1, 1000, 1000, 16, 16, 80, 80, False) in cs.live_k3_shapes(full)
 
 
 def test_chip_smoke_route_tape_replays_an_moe_prefill():
