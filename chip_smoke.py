@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's serving paths and its estimator loop
-once on one NVIDIA card.
+"""Runs the PyTorch/CUDA port's serving paths, its estimator loop and its
+training path once on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,8 +8,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. env       card name and power limit, torch/CUDA versions, the build
              of every kernel under src/repro_torch/kernels/csrc with nvcc
-             (one nvcc per source, all started together: K1, K2, K3 and
-             the lane engine), each kernel's
+             (one nvcc per source, all started together: K1, K2, K3,
+             K3-bwd and the lane engine), each kernel's
              ptxas report (registers, spills) and the launch K1, K2 and K3
              get at this run's shapes (cluster size, stages, shared memory);
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
@@ -75,11 +75,31 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              engine and its byte bound, with the timed chunk's mix of
              steps read from the lanes' counters and its evictions from
              their holder bits. Request counts per lane are cut from the
-             paper's (printed); widths never are.
+             paper's (printed); widths never are;
+9. train     training on the card: (a) K3-bwd, the backward of flash
+             attention, against its plain version in f32 and bf16 (and K3's
+             lse against the plain lse) over tests/test_kernels.py's
+             gradient shape and the training shapes of qwen3-1.7b (B=4,
+             T=1024), granite-moe-1b, deepseek-v2's MLA (192/128 padded to
+             256), hubert (80 padded to 128, non-causal), G = 1 and G = 8;
+             (b) qwen3-1.7b at full width and 4 of its 28 layers, bf16
+             compute over f32 masters, B=4 x T=1024: one step's loss and
+             gradients through K3 + K3-bwd against the same with both
+             plain versions on the card, and the attention parameters'
+             gradients nonzero; (c) qwen3-1.7b at full width and depth
+             (1.72 B f32 masters) takes 6 optimizer steps of B=4 x T=1024
+             SyntheticLMData tokens through the launcher
+             (repro_torch.launch.train.main, lr 3e-3, warmup 1, --remat),
+             with per-step loss, ms, tokens/s and launches, the peak device
+             memory and one step under torch.profiler; the loss must be
+             finite and lower at step 6 than at step 1; (d) K3-bwd timed
+             at qwen3's shape beside its plain version, the backward of
+             SDPA through autograd and its bound.
 
 The line before the last lists each kernel as JSON (launches on its path:
-K1 and K2 in phases 3-4, K3 in phase 5, the lane engine in phase 8; max
-error; times; bound); the last line is {"ok": true, "device": {...}}.
+K1 and K2 in phases 3-4, K3 in phases 5 and 9, the lane engine in phase
+8, K3-bwd in phase 9; max error; times; bound); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -113,6 +133,10 @@ from repro_torch.kernels import paged_attention as k1_module  # noqa: E402
 from repro_torch.kernels import shared_prefix_attention as k2_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
     flash_attention_plain,
     kernel_head_dim,
 )
@@ -130,6 +154,11 @@ from repro_torch.models import make_model, moe, shardctx  # noqa: E402
 from repro_torch.scenario import get_preset  # noqa: E402
 from repro_torch.scenario.runner import _rates_for, derive_seeds, ensemble_seeds  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.training import TrainConfig  # noqa: E402
+from repro_torch.training.train_step import make_grad_fn  # noqa: E402
+from repro_torch.training.tree import flatten_with_paths  # noqa: E402
 
 # Tolerances of tests/test_kernels.py: out f32 / bf16, lse f32 / bf16.
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -203,6 +232,13 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:34",
     ),
+    # not a Pallas kernel: the XLA custom VJP of the reference's training
+    # attention (_flash_grouped_bwd)
+    "flash_attention_bwd": dict(
+        fn=flash_attention_bwd,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:123",
+    ),
     # not a Pallas kernel: the reference's XLA lane engine (_drive_impl;
     # _drive_batched_impl at :364)
     "lane_engine": dict(
@@ -244,6 +280,14 @@ class Sizes:
     fig2_catalogue: float = 1.0     # 1.0 = the published N = 10^6
     scenario_requests: int = 1_000_000
     est_chunk: int = 1 << 16        # requests per lane in a timed chunk
+    # phase 9: the training batch (sequences x tokens), the optimizer
+    # steps of the full-depth run, the layers of the gradient hold, and
+    # the sequence length of the K3-bwd checks at the models' shapes
+    train_batch: int = 4
+    train_seq: int = 1024
+    train_steps: int = 6
+    grad_layers: int = 4
+    bwd_seq: int = 1024
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
@@ -1089,7 +1133,6 @@ def _device_profile(fn, device) -> dict:
     (the sum of kernel and copy times; one stream, so they do not
     overlap) and the largest device consumers. Device figures are None
     where the profiler saw no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -1101,11 +1144,37 @@ def _device_profile(fn, device) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+    busy, top, _, _ = _busy(prof)
+    return dict(wall_ms=wall, busy_ms=busy, top=top[:6])
+
+
+# kernels of a training step by name: cuBLAS's products, K3, K3-bwd; the
+# rest are PyTorch's elementwise kernels, reductions and copies
+STEP_KERNELS = (("matmuls (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+                ("K3", ("flash_tma_kernel", "flash_fma_kernel")),
+                ("K3-bwd", ("bwd_dkdv", "bwd_dq", "bwd_delta")))
+
+
+def _busy(prof) -> tuple:
+    """The card's busy ms under a finished profiler (None where it saw no
+    device activity), the largest device consumers, the busy ms by
+    STEP_KERNELS' groups (and "other"), and the device ms of the kernels
+    launched inside the train step's ``train_step.*`` ranges (on the
+    calling thread: the backward runs on autograd's own)."""
+    from torch.autograd import DeviceType
+
+    ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+              if e.key.startswith("train_step.") and e.device_type == DeviceType.CPU}
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
-    busy = sum(ms for _, ms, _ in rows)
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not e.key.startswith("train_step.")]      # the ranges' own device rows
     rows.sort(key=lambda r: -r[1])
-    return dict(wall_ms=wall, busy_ms=busy if rows else None, top=rows[:6])
+    groups = {name: 0.0 for name, _ in STEP_KERNELS}
+    groups["other"] = 0.0
+    for key, ms, _ in rows:
+        name = next((n for n, pats in STEP_KERNELS if any(p in key for p in pats)), "other")
+        groups[name] += ms
+    return (sum(ms for _, ms, _ in rows) if rows else None), rows[:8], groups, ranges
 
 
 def profile_live(live: dict, sizes: Sizes) -> dict:
@@ -1437,6 +1506,273 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int,
         _log_timing(name, r)
     res["k3_by_model"] = by_model
     return res
+
+
+# -- phase 9: train ------------------------------------------------------------
+
+# K3-bwd against its plain version: f32 within 2e-4 (tests/test_kernels.py's
+# gradient bound); bf16 within 2^-6 of the plain gradient's largest
+# magnitude: the kernel rounds P and dS to bf16 as the operands of the next
+# products (2^-9 relative each) and the gradients themselves (2^-9), about
+# 2^-8 of the scale, with a 4x margin.
+BWD_ATOL_F32 = 2e-4
+BWD_BF16_REL = 2.0**-6
+# The 4-layer full-width bf16 gradient hold, K3 + K3-bwd against both plain
+# versions: each leaf's relative L2 error within 0.05. The forward and the
+# backward each carry a bf16 rounding of 2^-9 a layer that the two routes
+# make at other places (2 x 4 x 2^-9 = 0.016), and the kernels round P and
+# dS to bf16 besides (another 0.016); 0.05 leaves a margin. The loss, a mean
+# of 4096 cross-entropies near ln(151936) = 11.9, within 0.05 (2^-8 of it).
+GRAD_REL_L2 = 0.05
+GRAD_LOSS_ATOL = 0.05
+# the profiled step of the full-depth run (0-based)
+PROFILED_STEP = 4
+
+
+def bwd_shapes(sizes: Sizes) -> List[tuple]:
+    """(B, T, H, KV, D_qk, D_v, causal) of phase 9's K3-bwd checks:
+    tests/test_kernels.py's gradient shape (D=16, padded to 64 by the op),
+    then the training shapes of sizes.arch (sizes.train_batch sequences),
+    granite-moe-1b, deepseek-v2's MLA and hubert's encoder (its frames),
+    then G = 1 and G = 8 at sizes.arch's head size."""
+    out = [(2, 32, 4, 2, 16, 16, True)]
+    for name in (sizes.arch, "granite-moe-1b-a400m", "deepseek-v2-236b", "hubert-xlarge"):
+        cfg = sizes.arch_config(name)
+        B = sizes.train_batch if name == sizes.arch else 1
+        out.append((B, sizes.audio_frames if cfg.is_encoder else sizes.bwd_seq) + k3_shape(cfg))
+    D = sizes.arch_config().head_dim
+    return out + [(1, sizes.bwd_seq // 2, 8, 8, D, D, True),
+                  (1, sizes.bwd_seq // 2, 16, 2, D, D, True)]
+
+
+def _padded(x: torch.Tensor, D: int) -> torch.Tensor:
+    return F.pad(x, (0, D - x.shape[-1])) if x.shape[-1] != D else x
+
+
+def phase_train_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
+    """(a) K3 with its lse and K3-bwd against their plain versions on the
+    same inputs, zero-padded as the op pads them (scale 1/sqrt(D_qk))."""
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, H, KV, Dqk, Dv, causal in bwd_shapes(sizes):
+            D = kernel_head_dim(max(Dqk, Dv))
+            q, do = (_padded(_randn(gen, (B, T, H, d), dtype, device), D) for d in (Dqk, Dv))
+            k, v = (_padded(_randn(gen, (B, T, KV, d), dtype, device), D) for d in (Dqk, Dv))
+            kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+            what = (f"K3-bwd {str(dtype)[6:]} B={B} T={T} H={H} KV={KV} D={Dqk}/{Dv}"
+                    f"{f' (padded to {D})' if D != Dqk or D != Dv else ''} causal={int(causal)}")
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want_out, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
+            errs.check("flash_attention", out, want_out, ATOL[dtype], what + ": K3 out")
+            lse_err = float((lse - want_lse).abs().max())
+            if not lse_err <= LSE_ATOL[dtype]:
+                _fail(f"{what}: K3 lse max abs err {lse_err:.3e} > {LSE_ATOL[dtype]:.1e}")
+            got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+            line = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                atol = (BWD_ATOL_F32 if dtype == torch.float32
+                        else BWD_BF16_REL * float(w.float().abs().max()))
+                err = errs.check("flash_attention_bwd", g, w, atol, f"{what}: {name}")
+                line.append(f"{name} {err:.3e} (bound {atol:.2e})")
+            _log(f"[train] {what}: K3 lse err {lse_err:.3e}; max abs err " + ", ".join(line))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextmanager
+def plain_training_attention():
+    """Within the block, the autograd function of the models' windowless
+    attention runs K3's and K3-bwd's plain versions (this script only; the
+    port has no such switch)."""
+    fwd, bwd = k3_module.flash_attention_fwd, k3_module.flash_attention_bwd
+    k3_module.flash_attention_fwd = flash_attention_fwd_plain
+    k3_module.flash_attention_bwd = flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        k3_module.flash_attention_fwd, k3_module.flash_attention_bwd = fwd, bwd
+
+
+def _train_batch(cfg, sizes: Sizes, seed: int, device) -> dict:
+    data = SyntheticLMData(cfg.vocab_size, sizes.train_seq, sizes.train_batch, seed=seed)
+    return {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+
+
+def phase_train_grads(device, sizes: Sizes, seed: int) -> dict:
+    """(b) sizes.arch at full width and sizes.grad_layers layers, f32
+    masters and bf16 compute (the launcher's TrainConfig): one step's loss
+    and gradients through K3 + K3-bwd, then through both plain versions on
+    the same device; each leaf's relative L2 error, the loss difference,
+    and the attention parameters' gradients nonzero on the kernel route."""
+    cfg = dataclasses.replace(sizes.arch_config(), n_layers=sizes.grad_layers)
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    batch = _train_batch(cfg, sizes, seed, device)
+    grad_fn = make_grad_fn(model, TrainConfig())
+    n3, nb = flash_attention.launches, flash_attention_bwd.launches
+    loss, _, grads = grad_fn(params, batch)
+    got = (flash_attention.launches - n3, flash_attention_bwd.launches - nb)
+    if device.type == "cuda" and got != (cfg.n_layers, cfg.n_layers):
+        _fail(f"train grads: K3 / K3-bwd launched {got}, not {cfg.n_layers} each")
+    with plain_training_attention():
+        want_loss, _, want = grad_fn(params, batch)
+    worst, worst_path, zero = 0.0, "", []
+    for (path, g), (_, w) in zip(flatten_with_paths(grads), flatten_with_paths(want)):
+        rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp(min=1e-30))
+        if rel > worst:
+            worst, worst_path = rel, path
+        if any(f"['{n}']" in path for n in ("wq", "wk", "wv", "q_norm", "k_norm")):
+            if not float(g.abs().max()) > 0.0:
+                zero.append(path)
+    dloss = abs(float(loss) - float(want_loss))
+    n_params = sum(p.numel() for _, p in flatten_with_paths(params))
+    _log(f"[train] gradient hold {cfg.name} at full width, {cfg.n_layers} of "
+         f"{get_config(cfg.name).n_layers} layers ({n_params / 1e9:.3f} B f32 masters, bf16 "
+         f"compute), B={sizes.train_batch} x T={sizes.train_seq}: loss {float(loss):.5f} "
+         f"(plain route {float(want_loss):.5f}, |diff| {dloss:.2e}, bound {GRAD_LOSS_ATOL}); "
+         f"worst leaf relative L2 error {worst:.3e} ({worst_path}, bound {GRAD_REL_L2}); "
+         f"K3 / K3-bwd launches {got}")
+    if zero:
+        _fail(f"train grads: zero gradients on the card for {zero}")
+    if not (dloss <= GRAD_LOSS_ATOL and worst <= GRAD_REL_L2):
+        _fail(f"train grads: loss diff {dloss:.3e} or leaf rel L2 {worst:.3e} ({worst_path}) "
+              f"out of bounds")
+    return dict(loss_diff=dloss, worst_rel=worst, worst_path=worst_path)
+
+
+def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
+    """(c) the launcher's training run at sizes.arch's full width and depth
+    (--remat): the loss, host-clock ms, tokens/s and K3 / K3-bwd launches
+    of each step, the peak device memory, and step PROFILED_STEP under
+    torch.profiler (started and stopped around it by the step callback).
+    Returns the per-step records and the run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    argv = ["--arch", sizes.arch, "--steps", str(sizes.train_steps), "--batch",
+            str(sizes.train_batch), "--seq", str(sizes.train_seq), "--lr", "3e-3", "--remat",
+            "--seed", str(seed), "--data-seed", str(seed), "--log-every", "1"]
+    argv += ["--reduced"] * sizes.reduced + ["--device", device.type]
+    cfg = sizes.arch_config()
+    tokens = sizes.train_batch * sizes.train_seq
+    steps, prof = [], {}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    last = [0, 0]
+
+    def on_step(step: int, loss: float, dt: float) -> None:
+        k3_n, bwd_n = flash_attention.launches, flash_attention_bwd.launches
+        steps.append(dict(step=step, loss=loss, ms=1e3 * dt, tokens_per_s=tokens / dt,
+                          k3=k3_n - last[0], k3_bwd=bwd_n - last[1]))
+        last[:] = [k3_n, bwd_n]
+        _log(f"[train] step {step}: loss {loss:.5f}, {1e3 * dt:.2f} ms (host clock), "
+             f"{tokens / dt:.1f} tokens/s, launches K3 {steps[-1]['k3']} K3-bwd "
+             f"{steps[-1]['k3_bwd']}")
+        if step == PROFILED_STEP - 1:
+            prof["p"] = profile(activities=acts)
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        elif step == PROFILED_STEP and "p" in prof:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            prof["wall_ms"] = 1e3 * (time.perf_counter() - prof["t0"])
+            prof["p"].stop()
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()                                  # the training path starts here
+    t0 = time.perf_counter()
+    rc = train_launcher.main(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
+    run_launches = launches()                         # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    losses = [r["loss"] for r in steps]
+    if rc != 0 or len(steps) != sizes.train_steps:
+        _fail(f"train run: the launcher returned {rc} after {len(steps)} steps")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        _fail(f"train run: losses {losses} not finite, or not lower at the last step")
+    per_step = (2 * attn_layers(cfg), attn_layers(cfg))   # --remat runs each forward twice
+    for r in steps:
+        if device.type == "cuda" and (r["k3"], r["k3_bwd"]) != per_step:
+            _fail(f"train run: step {r['step']} launched K3 / K3-bwd {(r['k3'], r['k3_bwd'])}, "
+                  f"not {per_step}")
+    busy, top, groups, ranges = _busy(prof["p"]) if "p" in prof else (None, [], {}, {})
+    med = float(np.median([r["ms"] for r in steps[1:]]))
+    _log(f"[train] {cfg.name} on {card}: {sizes.train_steps} steps of {sizes.train_batch} x "
+         f"{sizes.train_seq} tokens in {wall:.2f} s (host clock, set-up included); loss "
+         f"{losses[0]:.5f} -> {losses[-1]:.5f}; median step {med:.2f} ms ({tokens / med * 1e3:.1f}"
+         f" tokens/s; the first {steps[0]['ms']:.2f} ms); peak device memory "
+         + (f"{peak:.2f} GB" if peak is not None else "not measured") + f"; launches {run_launches}")
+    if busy is None:
+        _log(f"[train] profiled step {PROFILED_STEP}: {prof.get('wall_ms', 0):.2f} ms (host "
+             f"clock); device time not measured (the profiler saw no device activity)")
+    else:
+        shown = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in top)
+        _log(f"[train] profiled step {PROFILED_STEP}: {prof['wall_ms']:.2f} ms (host clock, "
+             f"profiler on), card busy {busy:.2f} ms, idle share "
+             f"{1 - busy / prof['wall_ms']:.3f}; largest: {shown}")
+        _log(f"[train] profiled step {PROFILED_STEP}, busy ms by kernel: "
+             + ", ".join(f"{k} {ms:.2f}" for k, ms in groups.items())
+             + "; by range (device ms of the kernels each launched): "
+             + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(ranges.items()))
+             + f", the backward (remat's forward in it) and the rest "
+             f"{busy - sum(ranges.values()):.2f}")
+    return dict(steps=steps, launches=run_launches, peak_gb=peak, median_ms=med,
+                profile_busy_ms=busy, profile_wall_ms=prof.get("wall_ms"),
+                profile_groups=groups, profile_ranges=ranges)
+
+
+def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
+    """(d) K3-bwd at sizes.arch's training shape (bf16, causal), its plain
+    version, and the backward of SDPA through autograd on the same inputs
+    (the yardstick). The bound: 2.5 x the forward's causal matmul work at
+    the bf16 dense peak, against q, k, v, out, dout, lse read once and dq,
+    dk, dv written once."""
+    cfg = sizes.arch_config()
+    B, T, H, KV, D = sizes.train_batch, sizes.train_seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    dt = torch.bfloat16
+    q, do = (_randn(gen, (B, T, H, D), dt, device) for _ in range(2))
+    k, v = (_randn(gen, (B, T, KV, D), dt, device) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v)
+    es = q.element_size()
+    n_bytes = es * (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + do.numel()) \
+        + 4 * lse.numel()
+    flops = 2.5 * 4.0 * B * H * D * T * (T + 1) / 2
+    qs, ks, vs = (x.permute(0, 2, 1, 3).detach().requires_grad_() for x in (q, k, v))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.permute(0, 2, 1, 3)
+    r = dict(
+        ms=median_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), flush),
+        plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do), flush),
+        library_ms=median_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                                         retain_graph=True), flush),
+        library="the backward of F.scaled_dot_product_attention (is_causal, enable_gqa) "
+                "through autograd",
+        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal, bf16",
+    )
+    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, dt)
+    return r
+
+
+def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
+    """Phase 9: (a) the kernels, (b) the gradient hold, (c) the training
+    run (its launches: the training path's), (d) K3-bwd's timing."""
+    t0 = time.perf_counter()
+    phase_train_kernels(device, sizes, errs, seed)
+    grads = phase_train_grads(device, sizes, seed)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    run = phase_train_run(device, sizes, seed, card)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    timing = None
+    if device.type == "cuda":
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+        timing = time_k3_bwd(device, sizes, seed, flush)
+        _log_timing("flash_attention_bwd", timing)
+    _log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(grads=grads, run=run, timing=timing)
 
 
 # -- phase 8: estimator ------------------------------------------------------
@@ -1889,7 +2225,12 @@ def main(argv=None) -> int:
     timing["lane_engine"] = time_lane_engine(device, sizes, est)
     _log(f"[estimator] phase 8 took {time.perf_counter() - t_est:.1f} s (host clock, its "
          f"checks, profile and timing included)")
-    path_launches = dict(main_launches, flash_attention=live_k3,
+    train = phase_train(device, sizes, errs, args.seed, card)     # the training path
+    timing["flash_attention_bwd"] = train["timing"]
+    train_k3 = train["run"]["launches"]["flash_attention"]
+    _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training path")
+    path_launches = dict(main_launches, flash_attention=live_k3 + train_k3,
+                         flash_attention_bwd=train["run"]["launches"]["flash_attention_bwd"],
                          lane_engine=est_launches["lane_engine"])
 
     rows = []
@@ -1901,7 +2242,7 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
-        if name == "lane_engine":      # its yardstick is no PyTorch call
+        if name in ("lane_engine", "flash_attention_bwd"):   # what the yardstick is
             rows[-1]["library"] = t["library"]
     print(card)
     print(json.dumps({"kernels": rows}))

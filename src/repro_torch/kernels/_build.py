@@ -38,7 +38,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("paged_attention", "shared_prefix_attention", "flash_attention", "lane_engine")
+KERNELS = ("paged_attention", "shared_prefix_attention", "flash_attention",
+           "flash_attention_bwd", "lane_engine")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 600
 NVCC_FLAGS = (

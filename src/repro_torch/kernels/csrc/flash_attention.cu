@@ -48,6 +48,12 @@
 //   K2. A block owns 16 rows (t, g) of one (b, kv head): the G heads of
 //   a group share each staged K/V tile. The layout is K2's: each warp 4
 //   rows, each lane 2 keys for the scores and D/32 columns for P V.
+//
+// Training asks for the rows' log-sum-exp as well (the residual the
+// backward, flash_attention_bwd.cu, recomputes P from): given a non-null
+// `lse` (B, H, T) f32, both paths write lse = m + log(max(l, 1e-30)) in
+// natural units, the bf16 path from the row's (m, l) once its quad of
+// lanes has summed l. A null `lse` writes nothing (every serving launch).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -66,8 +72,9 @@ constexpr int K3F_MAX_COLS = 8;                  // output columns per lane: D <
 
 __global__ void __launch_bounds__(THREADS)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Tq, int S, int H,
-                 int KV, int D, int causal, float sm_scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int Tq, int S, int H, int KV, int D, int causal,
+                 float sm_scale) {
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * K3F_ROWS;   // heaviest tiles first
@@ -192,6 +199,10 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < K3F_MAX_COLS; ++c)
         if (c < n_cols) out[o * D + lane + 32 * c] = acc[rr][c] / l;
+      if (lse != nullptr && lane == 0) {
+        const int t = r / G, h = kvh * G + (r - t * G);
+        lse[((long long)b * H + h) * Tq + t] = m_run[rr] + logf(l);
+      }
     }
   }
 }
@@ -228,7 +239,8 @@ template <int D, int BK, int NC>
 __global__ void __launch_bounds__(K3TLayout<D, BK, NC>::THREADS, 1)
 flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                 int Tq, int S, int H, int KV, int causal, float scale2) {
+                 float* __restrict__ lse, int Tq, int S, int H, int KV, int causal,
+                 float scale2) {
   using L = K3TLayout<D, BK, NC>;
   constexpr int NS = L::NS;
   extern __shared__ unsigned char smem_raw[];
@@ -440,6 +452,11 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
     }
     const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    if (lse != nullptr && tq == 0) {   // m is in log2 units: lse = m ln 2 + log(l)
+      float* lb = lse + ((long long)b * H + h) * Tq;
+      if (row_a < Tq) lb[row_a] = m_a * LN2 + logf(fmaxf(l_a, 1e-30f));
+      if (row_b < Tq) lb[row_b] = m_b * LN2 + logf(fmaxf(l_b, 1e-30f));
+    }
     const long long q_stride = (long long)H * D;
     __nv_bfloat16* ob = out + ((long long)b * Tq * H + h) * D;
 #pragma unroll
@@ -466,8 +483,9 @@ void k3t_plan(int (&v)[5]) {
 }
 
 template <int D, int BK, int NC>
-cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out, int B, int T,
-                          int S, int H, int KV, int causal, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int B, int T, int S, int H, int KV, int causal, float sm_scale,
+                          cudaStream_t stream) {
   using L = K3TLayout<D, BK, NC>;
   CUtensorMap tm_q, tm_k, tm_v;
   // per batch (4-D): a box never runs from batch b into b + 1, and rows
@@ -488,48 +506,63 @@ cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (T + L::BQ - 1) / L::BQ);
   flash_tma_kernel<D, BK, NC><<<grid, L::THREADS, L::smem_bytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), T, S, H, KV, causal,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, T, S, H, KV, causal,
       sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_k3_fma(const void* q, const void* k, const void* v, void* out, int B,
-                                 int T, int S, int H, int KV, int D, int causal, float sm_scale,
-                                 cudaStream_t stream) {
+inline cudaError_t launch_k3_fma(const void* q, const void* k, const void* v, void* out,
+                                 float* lse, int B, int T, int S, int H, int KV, int D,
+                                 int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = k3f_smem_bytes(D);
   cudaError_t err = prepare_smem(flash_fma_kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (T * (H / KV) + K3F_ROWS - 1) / K3F_ROWS;
   flash_fma_kernel<<<dim3(tiles, KV, B), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), T, S, H, KV, D, causal, sm_scale);
+      static_cast<float*>(out), lse, T, S, H, KV, D, causal, sm_scale);
   return cudaGetLastError();
+}
+
+__global__ void fill_kernel(float* __restrict__ x, long long n, float value) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = value;
 }
 
 }  // namespace repro
 
 // Plain C entry point, bound with ctypes. q (B, T, H, D), k/v (B, S, KV, D)
-// and out (B, T, H, D), contiguous. Returns the cudaError_t of the launch
-// (0 on success); it does not synchronise.
+// and out (B, T, H, D), contiguous; lse (B, H, T) f32 or null (not
+// written). Returns the cudaError_t of the launch (0 on success); it does
+// not synchronise.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int T, int S, int H, int KV, int D, int causal,
-                                     float sm_scale, int dtype, void* stream) {
+                                     void* lse_, int B, int T, int S, int H, int KV, int D,
+                                     int causal, float sm_scale, int dtype, void* stream) {
+  float* lse = static_cast<float*>(lse_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV != 0 || S < 0) return cudaErrorInvalidValue;
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   switch (dtype) {
     case repro::F32:
-      return repro::launch_k3_fma(q, k, v, out, B, T, S, H, KV, D, causal, sm_scale, st);
+      return repro::launch_k3_fma(q, k, v, out, lse, B, T, S, H, KV, D, causal, sm_scale, st);
     case repro::BF16:
-      if (S == 0)   // no key: out = acc / max(l, 1e-30) = 0
-        return cudaMemsetAsync(out, 0, (size_t)B * T * H * D * sizeof(__nv_bfloat16), st);
+      if (S == 0) {   // no key: out = acc / max(l, 1e-30) = 0, lse = -1e30 + log(1e-30)
+        cudaError_t err =
+            cudaMemsetAsync(out, 0, (size_t)B * T * H * D * sizeof(__nv_bfloat16), st);
+        if (err != cudaSuccess || lse == nullptr) return err;
+        repro::fill_kernel<<<64, 256, 0, st>>>(lse, (long long)B * H * T, repro::NEG_INF);
+        return cudaGetLastError();
+      }
       if (D == 64)
-        return repro::launch_k3_tma<64, 128, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale, st);
+        return repro::launch_k3_tma<64, 128, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
+                                                sm_scale, st);
       if (D == 128)
-        return repro::launch_k3_tma<128, 128, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale,
-                                                 st);
-      return repro::launch_k3_tma<256, 64, 2>(q, k, v, out, B, T, S, H, KV, causal, sm_scale, st);
+        return repro::launch_k3_tma<128, 128, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
+                                                 sm_scale, st);
+      return repro::launch_k3_tma<256, 64, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
+                                              sm_scale, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -15,8 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
+from .flash_attention import FlashAttention, kernel_head_dim
 from .flash_attention import flash_attention as _flash
-from .flash_attention import kernel_head_dim
 from .paged_attention import paged_attention as _paged
 from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
 
@@ -31,14 +31,23 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     columns to the smallest one that holds both. A zero column adds an
     exact zero to every dot product, and a zero column of V gives a zero
     output column, cut off after: the result is the unpadded function's,
-    in one launch."""
+    in one launch.
+
+    When autograd records (grad mode on and an input that requires grad),
+    the call goes through :class:`FlashAttention`: K3 also writes its lse,
+    and the backward runs K3-bwd. It sits under the padding, so ``F.pad``
+    and the slice carry the gradient of the padded widths. Otherwise (every
+    serving call) K3 runs without the lse."""
     Dqk, Dv = q.shape[-1], v.shape[-1]
     D = kernel_head_dim(max(Dqk, Dv))
-    if D == Dqk == Dv:
-        return _flash(q, k, v, causal=causal)
-    q, k, v = (F.pad(x, (0, D - x.shape[-1])) for x in (q, k, v))
-    out = _flash(q, k, v, causal=causal, sm_scale=1.0 / math.sqrt(Dqk))
-    return out[..., :Dv]
+    scale = 1.0 / math.sqrt(Dqk)
+    if D != Dqk or D != Dv:
+        q, k, v = (F.pad(x, (0, D - x.shape[-1])) for x in (q, k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttention.apply(q, k, v, causal, scale)
+    else:
+        out = _flash(q, k, v, causal=causal, sm_scale=scale)
+    return out if out.shape[-1] == Dv else out[..., :Dv]
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens) -> torch.Tensor:

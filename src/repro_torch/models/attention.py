@@ -9,14 +9,20 @@ projections, qk-norm, RoPE, and three attention paths.
   (its plain version for CPU tensors; the op pads head sizes the kernel
   is not built for, MLA's 192/128 and hubert's 80). The reference
   computes the same function with its chunked online-softmax scan; its
-  docstring names the Pallas flash kernel as what plugs in there.
+  docstring names the Pallas flash kernel as what plugs in there. Under
+  autograd (training) the op's backward is K3-bwd, the port of the
+  reference's ``_flash_grouped_bwd``.
 * Windowed prefill and decode (MLA's absorbed decode too) run
   :func:`chunked_attention`, the reference's chunked online-softmax
   attention in plain PyTorch, as the reference runs them outside any
-  Pallas kernel.
+  Pallas kernel. In the reference's own case for its memory-safe VJP (no
+  ``kv_valid_len``, an int ``q_offset``: a window's training forward and
+  prefill) it runs through :class:`FlashGrouped`, whose backward
+  recomputes P per chunk from the saved (q, k, v, out, lse) instead of
+  keeping the (T, S) probabilities.
 
-Not ported here: the training VJP, and the launcher's ``shardctx``
-decode override (ROADMAP.md, Queue 1).
+Not ported here: the launcher's ``shardctx`` decode override (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -27,11 +33,11 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import KV_CHUNK, flash_attention_bwd_plain
 
 from .layers import Params, apply_rope, dense_init, matmul, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
-KV_CHUNK = 1024     # the reference's default chunk (repro.launch.tuning.kv_chunk)
 
 
 def _chunk_bias(q_pos, kv_pos, causal, window, kv_valid_len):
@@ -50,6 +56,67 @@ def _chunk_bias(q_pos, kv_pos, causal, window, kv_valid_len):
     return bias
 
 
+def _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale, kv_valid_len):
+    """The reference's ``_flash_fwd``: the chunked online-softmax scan over
+    KV in f32. Returns out (B, T, KV, G, Dv) f32 and lse (B, T, KV, G); a
+    short last chunk is sliced, not padded (its keys past S do not exist)."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    qf = q.float().reshape(B, T, KV, G, D) * scale
+    q_pos = torch.as_tensor(q_offset, device=q.device) + torch.arange(T, device=q.device)
+    acc = torch.zeros((B, T, KV, G, Dv), dtype=torch.float32, device=q.device)
+    m = torch.full((B, T, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((B, T, KV, G), dtype=torch.float32, device=q.device)
+    for lo in range(0, S, kv_chunk):
+        hi = min(lo + kv_chunk, S)
+        kv_pos = torch.arange(lo, hi, device=q.device)
+        s = torch.einsum("btkgd,bckd->btkgc", qf, k[:, lo:hi].float())
+        s = s + _chunk_bias(q_pos, kv_pos, causal, window, kv_valid_len)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("btkgc,bckv->btkgv", p, v[:, lo:hi].float())
+        m = m_new
+    denom = torch.clamp(denom, min=1e-30)
+    return acc / denom[..., None], m + torch.log(denom)
+
+
+class FlashGrouped(torch.autograd.Function):
+    """The reference's ``_flash_grouped`` custom VJP: the forward is the
+    chunked scan (:func:`_flash_fwd`) and keeps (q, k, v, out, lse); the
+    backward (``_flash_grouped_bwd``: K3-bwd's plain version, with the
+    window) recomputes p = exp(s - lse) chunk by chunk, so no (T, S)
+    matrix is kept for it. Plain PyTorch: it serves windowed attention,
+    which no kernel runs. Unlike the reference, which
+    pads an S that is not a multiple of ``kv_chunk`` and then falls back to
+    plain AD through ``_flash_fwd``, it covers that case too (the short last
+    chunk sliced): the same function, the same gradient.
+    ``FlashGrouped.apply(q, k, v, causal, window, q_offset, kv_chunk,
+    scale)`` -> out (B, T, H, Dv) f32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_chunk, scale):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale, None)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, kv_chunk, scale)
+        B, T, H = q.shape[:3]
+        return out.reshape(B, T, H, -1)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset, kv_chunk, scale = ctx.args
+        B, T, KV, G, Dv = out.shape
+        dq, dk, dv = flash_attention_bwd_plain(
+            q, k, v, out.reshape(B, T, KV * G, Dv), lse.permute(0, 2, 3, 1).reshape(B, -1, T),
+            dout, causal=causal, sm_scale=scale, kv_chunk=kv_chunk, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def chunked_attention(
     q: torch.Tensor,            # (B, T, H, D)
     k: torch.Tensor,            # (B, S, KV, D)
@@ -63,39 +130,23 @@ def chunked_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks in f32. Returns (B, T, H, Dv)
-    in q's dtype. The same steps as the reference's scan; a short last
-    chunk is masked by ``kv_valid_len`` as the reference masks its padding."""
+    in q's dtype. The same steps as the reference's scan; with no
+    ``kv_valid_len`` and an int ``q_offset`` (training and prefill) it runs
+    through :class:`FlashGrouped`, whose backward is the reference's
+    memory-safe one."""
     if kv_chunk is None:
         kv_chunk = KV_CHUNK
     B, T, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    G = H // KV
+    S = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    kv_chunk = min(kv_chunk, S)
-    n_chunks = (S + kv_chunk - 1) // kv_chunk
-    if n_chunks * kv_chunk != S and kv_valid_len is None:
-        kv_valid_len = torch.full((B,), S, dtype=torch.int32, device=q.device)
-
-    qf = q.float().reshape(B, T, KV, G, D) * scale
-    q_pos = torch.as_tensor(q_offset, device=q.device) + torch.arange(T, device=q.device)
-    acc = torch.zeros((B, T, KV, G, Dv), dtype=torch.float32, device=q.device)
-    m = torch.full((B, T, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
-    denom = torch.zeros((B, T, KV, G), dtype=torch.float32, device=q.device)
-    for c in range(n_chunks):
-        lo, hi = c * kv_chunk, min((c + 1) * kv_chunk, S)
-        kv_pos = torch.arange(lo, hi, device=q.device)
-        s = torch.einsum("btkgd,bckd->btkgc", qf, k[:, lo:hi].float())
-        s = s + _chunk_bias(q_pos, kv_pos, causal, window, kv_valid_len)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        denom = denom * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("btkgc,bckv->btkgv", p, v[:, lo:hi].float())
-        m = m_new
-    out = acc / torch.clamp(denom, min=1e-30)[..., None]
-    return out.reshape(B, T, H, Dv).to(q.dtype)
+    kv_chunk = max(min(kv_chunk, S), 1)
+    if kv_valid_len is None and isinstance(q_offset, int):
+        out = FlashGrouped.apply(q, k, v, causal, window, q_offset, kv_chunk, scale)
+    else:
+        out = _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale,
+                         kv_valid_len)[0].reshape(B, T, H, -1)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ f32 ``W`` is an f32 product (``torch.matmul`` refuses mixed types, so
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -138,3 +138,23 @@ def causal_conv1d_step(x_t: torch.Tensor, state: torch.Tensor,
     dt = torch.promote_types(window.dtype, p["w"].dtype)
     out = torch.einsum("bkw,kw->bw", window.to(dt), p["w"].to(dt)) + p["b"]
     return out, window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over the masked positions; logits (..., V) are
+    taken to f32 first, labels (...) are integer ids."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss > 0.0:
+        loss = loss + z_loss * lse.square()
+    if mask is None:
+        return loss.mean()
+    mask = mask.float()
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -25,13 +25,21 @@ here, in the same order: tile by tile, then the tail.
 
 API:
   init(gen) -> params
+  loss(params, batch) -> (scalar, metrics)
   forward_logits(params, batch) -> logits          # full sequence
   init_cache(batch_size, cache_len) -> caches      # zeroed decode cache
   prefill(params, batch, cache_len) -> (last_logits, caches)
   decode_step(params, tokens, caches, position) -> (logits, caches)
 
 An encoder (hubert-xlarge) has no decode step: it raises there, as the
-reference does. Not ported: ``loss`` and training (ROADMAP.md, Queue 1).
+reference does.
+
+``remat=True`` recomputes each tile's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant) while autograd records. It
+saves nothing inside the tile but its inputs, where the reference's
+default ``"dots"`` policy also keeps the matmul outputs: PyTorch's
+checkpoint has no policy by operation, and the point of remat is the
+memory. Either way the numbers are the same.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Iterator, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -48,7 +57,16 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import shardctx
 from . import xlstm as xlstm_mod
-from .layers import Params, dense_init, embed_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from .layers import (
+    Params,
+    dense_init,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+    rmsnorm_init,
+    softmax_cross_entropy,
+)
 
 KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
 XLSTM = ("mlstm", "slstm")          # self-contained blocks: no ln2, no FFN
@@ -72,6 +90,16 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int):
+    """The ``n`` tiles of a tree stacked over tiles, as a list of trees of
+    views (``torch.unbind``: its backward stacks the tiles' gradients in
+    one pass, where indexing would add a stack-sized gradient per tile)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def _stack(trees):
     """Trees of equal structure stacked along a new leading axis."""
     if isinstance(trees[0], dict):
@@ -89,7 +117,8 @@ def _write(dst, src) -> None:
 
 
 class TransformerLM(nn.Module):
-    def __init__(self, cfg, *, param_dtype=torch.float32, compute_dtype=torch.bfloat16) -> None:
+    def __init__(self, cfg, *, param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                 remat: bool = False) -> None:
         super().__init__()
         missing = _unsupported(cfg)
         if missing:
@@ -97,6 +126,7 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
+        self.remat = remat
         G = len(cfg.block_pattern)
         self.n_tiles = cfg.n_layers // G
         self.n_tail = cfg.n_layers % G
@@ -296,19 +326,50 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # full-sequence forward
     # ------------------------------------------------------------------
-    def forward_hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The last hidden states and the sum of the MoE aux losses."""
-        x = self._embed(params, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in self._layers(params):
+    def _blocks_forward(self, x, aux, blocks, kinds):
+        for p, kind in zip(blocks, kinds):
             x, a = self._block_forward(x, p, kind)
             if a is not None:
                 aux = aux + a
         return x, aux
 
+    def forward_hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The last hidden states and the sum of the MoE aux losses."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.remat and torch.is_grad_enabled()
+        if self.n_tiles > 0:
+            G = len(cfg.block_pattern)
+            groups = [_unstack(params["blocks"][f"g{g}"], self.n_tiles) for g in range(G)]
+            for i in range(self.n_tiles):
+                tile = [groups[g][i] for g in range(G)]
+                if remat:
+                    x, aux = checkpoint(self._blocks_forward, x, aux, tile, cfg.block_pattern,
+                                        use_reentrant=False)
+                else:
+                    x, aux = self._blocks_forward(x, aux, tile, cfg.block_pattern)
+        if self.n_tail:
+            x, aux = self._blocks_forward(x, aux, params["tail"], self.tail_kinds)
+        return x, aux
+
     def forward_logits(self, params, batch) -> torch.Tensor:
         x, _ = self.forward_hidden(params, batch)
         return self._head(params, x)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
+        ``batch["mask"]`` where given: an encoder's masked frames), plus
+        0.01 x the MoE aux loss; a vision model's image positions carry no
+        loss. Returns (loss, {"ce", "aux", "loss"})."""
+        cfg = self.cfg
+        x, aux = self.forward_hidden(params, batch)
+        if cfg.modality == "vision_text":
+            x = x[:, -batch["tokens"].shape[1]:, :]      # image positions carry no loss
+        logits = self._head(params, x)
+        ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        loss = ce + (0.01 if cfg.moe else 0.0) * aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     forward = forward_logits
 

@@ -1,0 +1,188 @@
+"""K3-bwd and K3's lse on the card, against their plain versions; no JAX
+(this file is collected on the card's machine).
+
+Every case is marked ``cuda`` and skips without a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_grad_cuda.py
+
+Tolerances: f32 atol 2e-4 (``tests/test_kernels.py``'s gradient bound)
+for the gradients and 1e-4 for the lse. bf16: each gradient within 2^-6 of
+the plain version's largest magnitude: the kernel rounds P and dS to bf16
+as the operands of the next products (2^-9 relative each) and the
+gradients themselves to bf16 (2^-9), so about 2^-8 of the scale, with a
+4x margin; the lse within 5e-2 (the bound on K2's lse in bf16).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as k3
+from repro_torch.kernels import ops
+from torch_threads import one_intra_op_thread  # noqa: F401  (an autouse fixture)
+
+GRID = [  # B, T, S, H, KV, D, causal
+    (2, 32, 32, 4, 2, 64, True), (2, 32, 32, 4, 2, 64, False),
+    (1, 100, 100, 4, 1, 64, True),      # G = 4, ragged tiles
+    (1, 64, 192, 4, 4, 64, True),       # causal T < S: keys past T see no query
+    (1, 192, 64, 4, 2, 128, False),     # T > S
+    (2, 200, 200, 8, 2, 128, True),
+    (1, 128, 128, 4, 4, 256, True), (1, 130, 130, 2, 1, 256, False),
+    (1, 256, 256, 8, 1, 64, True),      # G = 8
+    (1, 1024, 1024, 16, 8, 128, True),  # qwen3-1.7b's attention, one sequence
+]
+PADDED = [  # B, T, H, KV, Dqk, Dv, causal: widths the op pads (D=16 of the reduced configs)
+    (2, 32, 4, 2, 16, 16, True), (1, 96, 4, 4, 192, 128, True), (2, 80, 4, 4, 80, 80, False),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(seed, shapes, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+            for s in shapes]
+
+
+def _hold(got, want, dtype, what):
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(g).all(), what
+    atol = 2e-4 if dtype == torch.float32 else 2.0**-6 * max(float(np.abs(w).max()), 1e-30)
+    np.testing.assert_allclose(g, w, atol=atol, rtol=0, err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,D,causal", GRID)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, H, KV, D, causal,
+                                                  dtype):
+    q, k, v, do = _inputs(0, [(B, T, H, D), (B, S, KV, D), (B, S, KV, D), (B, T, H, D)], dtype,
+                          cuda_device)
+    out, lse = k3.flash_attention_fwd_plain(q, k, v, causal=causal)
+    before = k3.flash_attention_bwd.launches
+    got = k3.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert k3.flash_attention_bwd.launches == before + 1
+    want = k3.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        _hold(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,D,causal", GRID + [(1, 16, 0, 2, 1, 64, False)])
+def test_flash_attention_lse_matches_plain(cuda_device, B, T, S, H, KV, D, causal, dtype):
+    """K3 with its lse: the same output as without it, and the plain
+    lse (S = 0: -1e30)."""
+    q, k, v = _inputs(1, [(B, T, H, D), (B, S, KV, D), (B, S, KV, D)], dtype, cuda_device)
+    out, lse = k3.flash_attention_fwd(q, k, v, causal=causal)
+    want_out, want_lse = k3.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, k3.flash_attention(q, k, v, causal=causal), rtol=0, atol=0)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-4 if dtype == torch.float32 else 5e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,Dqk,Dv,causal", PADDED)
+def test_op_gradients_on_the_card_never_run_plain(monkeypatch, cuda_device, B, T, H, KV, Dqk,
+                                                  Dv, causal, dtype):
+    """``ops.flash_attention`` under autograd on CUDA tensors: one K3 and one
+    K3-bwd launch, through the op's padding, never a plain version; the
+    gradients are the plain route's (the same op on the CPU)."""
+    arrays = [np.random.default_rng(2).standard_normal(s).astype(np.float32)
+              for s in ((B, T, H, Dqk), (B, T, KV, Dqk), (B, T, KV, Dv))]
+
+    def grads(device):
+        ts = [torch.from_numpy(a).to(device, dtype).requires_grad_() for a in arrays]
+        (ops.flash_attention(*ts, causal=causal).float() ** 2).sum().backward()
+        return [t.grad for t in ts]
+
+    want = grads("cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("flash_attention_plain", "flash_attention_fwd_plain",
+                 "flash_attention_bwd_plain"):
+        monkeypatch.setattr(k3, name, refuse)
+    n3, nb = k3.flash_attention.launches, k3.flash_attention_bwd.launches
+    got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert (k3.flash_attention.launches, k3.flash_attention_bwd.launches) == (n3 + 1, nb + 1)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _hold(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+def test_failed_backward_launch_raises(monkeypatch, cuda_device):
+    """A K3-bwd launch that fails raises; nothing falls back to the plain
+    backward."""
+    class Refused:
+        def repro_flash_attention_bwd(self, *args):
+            return 1            # cudaErrorInvalidValue
+
+    monkeypatch.setattr(k3, "_bwd_lib", lambda: Refused())
+    q, k, v = _inputs(3, [(1, 64, 2, 64), (1, 64, 1, 64), (1, 64, 1, 64)], torch.bfloat16,
+                      cuda_device)
+    q.requires_grad_()
+    out = ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd kernel launch failed"):
+        out.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_gradients_on_the_card(cuda_device):
+    """A reduced qwen3 (G = 2, head_dim 64) in f32 throughout (parameters,
+    the cast copy and the model's activations): the loss's gradients on
+    the card (K3 and K3-bwd in every layer) against the CPU's (the plain
+    versions), every leaf within 1e-4 of its scale; the attention
+    parameters' gradients are nonzero. Then one train step on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state, make_loss_fn
+    from repro_torch.training.tree import flatten_with_paths, leaves, tree_map, unflatten
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), n_kv_heads=2, head_dim=64)
+    model = make_model(cfg, compute_dtype=torch.float32)
+    tcfg = TrainConfig(compute_dtype=torch.float32)
+    state = init_train_state(model, torch.Generator().manual_seed(0), tcfg)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))) for k in
+             ("tokens", "labels")}
+    loss_fn = make_loss_fn(model, tcfg)
+
+    def grads(params, batch):
+        ps = [p.detach().requires_grad_() for p in leaves(params)]
+        loss, _ = loss_fn(unflatten(params, ps), batch)
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    want_loss, want = grads(state["params"], batch)
+    on_card = tree_map(lambda t: t.to(cuda_device), state)
+    card_batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    n3, nb = k3.flash_attention.launches, k3.flash_attention_bwd.launches
+    got_loss, got = grads(on_card["params"], card_batch)
+    torch.cuda.synchronize()
+    assert k3.flash_attention.launches == n3 + cfg.n_layers
+    assert k3.flash_attention_bwd.launches == nb + cfg.n_layers
+    assert abs(got_loss - want_loss) < 1e-4
+    for (path, _), g, w in zip(flatten_with_paths(state["params"]), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy() / scale, w.numpy() / scale, atol=1e-4,
+                                   err_msg=path)
+        if any(n in path for n in ("'wq'", "'wk'", "'wv'", "'q_norm'", "'k_norm'")):
+            assert float(g.abs().max()) > 0, path
+    on_card, metrics = make_train_step(model, tcfg)(on_card, card_batch)
+    assert np.isfinite(float(metrics["loss"])) and int(on_card["opt"]["step"]) == 1

@@ -1,8 +1,8 @@
 """The port stands alone: importing it, or chip_smoke.py, loads neither
 ``jax`` nor the reference package ``repro``; and it never falls back to
 the CPU on its own. The probe walks every module of the package, the
-RRE and MCD-OS copies and the MoE, RG-LRU, xLSTM and shardctx models
-included."""
+RRE and MCD-OS copies, the MoE, RG-LRU, xLSTM and shardctx models, and
+the training slice (``data``, ``training``, ``launch.train``) included."""
 
 import subprocess
 import sys
@@ -22,6 +22,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.data", "repro_torch.training", "repro_torch.training.checkpoint",
+             "repro_torch.launch.train"):
+    assert name in names, name
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -36,7 +39,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 60          # every subpackage and module was imported
+    assert int(n) >= 71          # every subpackage and module was imported
     assert bad == "[]"
 
 

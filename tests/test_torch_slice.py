@@ -8,7 +8,7 @@ interpret mode. Also runs ``chip_smoke.py``'s phases on the CPU at a
 small size, so the script the card runs stays exercised here, its live
 phase (the reduced qwen3, granite-moe-1b, recurrentgemma-2b, deepseek-v2,
 xlstm and llava served by the engine in live mode, hubert's forwards)
-included.
+and its training phase included.
 """
 
 import dataclasses
@@ -289,6 +289,25 @@ def test_chip_smoke_route_tape_replays_an_moe_prefill():
     ch = cs.route_changes(tape.routes, own.routes)
     assert ch["of_tokens"] == 40 * cfg.n_layers and ch["of_choices"] == 40 * cfg.n_layers * 2
     assert ch["tokens"] > 0 and cs.route_changes(tape.routes, tape.routes)["tokens"] == 0
+
+
+def test_chip_smoke_train_phase_on_cpu_at_small_size():
+    """Phase 9 at a small size: the K3-bwd checks over its shape grid
+    (the plain versions against themselves on the CPU), the gradient hold
+    (2 layers of the reduced qwen3), the launcher's run with its per-step
+    records and the profiled step."""
+    import chip_smoke as cs
+
+    sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
+                     bwd_seq=32, audio_frames=24)
+    assert len(cs.bwd_shapes(sizes)) == 7
+    errs = cs.Errors()
+    out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
+    assert errs.max["flash_attention_bwd"] == 0.0 and out["grads"]["worst_rel"] == 0.0
+    steps = out["run"]["steps"]
+    assert [r["step"] for r in steps] == [0, 1, 2, 3, 4]
+    assert steps[-1]["loss"] < steps[0]["loss"] and out["run"]["profile_wall_ms"] > 0
+    assert out["run"]["profile_busy_ms"] is None and out["timing"] is None
 
 
 def test_chip_smoke_estimator_phase_on_cpu_at_small_size():
