@@ -281,13 +281,12 @@ class Sizes:
     scenario_requests: int = 1_000_000
     est_chunk: int = 1 << 16        # requests per lane in a timed chunk
     # phase 9: the training batch (sequences x tokens), the optimizer
-    # steps of the full-depth run, the layers of the gradient hold, and
-    # the sequence length of the K3-bwd checks at the models' shapes
+    # steps of the full-depth run and the layers of the gradient hold;
+    # the K3-bwd checks at the models' shapes take train_seq too
     train_batch: int = 4
     train_seq: int = 1024
     train_steps: int = 6
     grad_layers: int = 4
-    bwd_seq: int = 1024
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
@@ -1532,17 +1531,18 @@ PROFILED_STEP = 4
 def bwd_shapes(sizes: Sizes) -> List[tuple]:
     """(B, T, H, KV, D_qk, D_v, causal) of phase 9's K3-bwd checks:
     tests/test_kernels.py's gradient shape (D=16, padded to 64 by the op),
-    then the training shapes of sizes.arch (sizes.train_batch sequences),
+    then the training shapes of sizes.arch (sizes.train_batch sequences of
+    sizes.train_seq tokens, the main path's own shape),
     granite-moe-1b, deepseek-v2's MLA and hubert's encoder (its frames),
     then G = 1 and G = 8 at sizes.arch's head size."""
     out = [(2, 32, 4, 2, 16, 16, True)]
     for name in (sizes.arch, "granite-moe-1b-a400m", "deepseek-v2-236b", "hubert-xlarge"):
         cfg = sizes.arch_config(name)
         B = sizes.train_batch if name == sizes.arch else 1
-        out.append((B, sizes.audio_frames if cfg.is_encoder else sizes.bwd_seq) + k3_shape(cfg))
+        out.append((B, sizes.audio_frames if cfg.is_encoder else sizes.train_seq) + k3_shape(cfg))
     D = sizes.arch_config().head_dim
-    return out + [(1, sizes.bwd_seq // 2, 8, 8, D, D, True),
-                  (1, sizes.bwd_seq // 2, 16, 2, D, D, True)]
+    return out + [(1, sizes.train_seq // 2, 8, 8, D, D, True),
+                  (1, sizes.train_seq // 2, 16, 2, D, D, True)]
 
 
 def _padded(x: torch.Tensor, D: int) -> torch.Tensor:

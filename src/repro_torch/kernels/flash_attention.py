@@ -60,22 +60,13 @@ def flash_attention_plain(
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               sm_scale: Optional[float] = None):
     """The plain version of K3 with its lse: (out in q's dtype, contiguous
-    as the kernel's, lse (B, H, T) f32). The out is
-    :func:`flash_attention_plain`'s; lse is
-    ``logsumexp`` of the masked scores (the kernel's m + log(l)), -1e30
-    where there is no key."""
-    B, T, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    out = flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale).contiguous()
-    qf = q.float().reshape(B, T, KV, H // KV, D) * sm_scale
-    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        s = s.masked_fill(pos[None, :] > torch.arange(T, device=q.device)[:, None], NEG_INF)
-    lse = torch.clamp(torch.logsumexp(s, dim=-1), min=NEG_INF)
-    return out, lse.reshape(B, H, T)
+    as the kernel's, lse (B, H, T) f32), from one pass of the reference's
+    scores. The out is :func:`flash_attention_plain`'s; lse is the
+    kernel's m + log(l), -1e30 where there is no key."""
+    out, lse = ref.reference_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                       return_lse=True)
+    lse = torch.clamp(lse, min=NEG_INF).permute(0, 2, 1).contiguous()
+    return out.contiguous(), lse
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,

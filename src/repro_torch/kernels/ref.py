@@ -28,8 +28,10 @@ def reference_attention(
     causal: bool = True,
     sm_scale: Optional[float] = None,
     kv_valid_len: Optional[torch.Tensor] = None,   # (B,)
-) -> torch.Tensor:
-    """Dense masked softmax attention with GQA broadcast."""
+    return_lse: bool = False,
+):
+    """Dense masked softmax attention with GQA broadcast; with
+    ``return_lse``, (out, the rows' logsumexp (B, T, H) in f32)."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -46,7 +48,10 @@ def reference_attention(
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("btkgs,bskv->btkgv", p, v.float())
-    return out.reshape(B, T, H, -1).to(q.dtype)
+    out = out.reshape(B, T, H, -1).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, T, H)
+    return out
 
 
 def reference_attention_with_lse(

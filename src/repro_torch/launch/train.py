@@ -135,6 +135,8 @@ def main(argv=None, *, on_step: Optional[Callable[[int, float, float], None]] = 
     first, last = np.mean(losses[:n]), np.mean(losses[-n:])
     print(f"done: loss {first:.4f} -> {last:.4f} "
           f"({len(monitor.stragglers)} stragglers flagged)")
+    if device.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     return 0 if (last < first or args.steps < 20) else 1
 
 

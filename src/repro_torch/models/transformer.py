@@ -44,7 +44,7 @@ memory. Either way the numbers are the same.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -81,13 +81,6 @@ def _unsupported(cfg) -> str:
         if getattr(cfg, field) not in values:
             return f"{field} {getattr(cfg, field)!r}"
     return ""
-
-
-def _index(tree, i: int):
-    """Tile ``i`` of a tree stacked over tiles (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _unstack(tree, n: int):
@@ -185,12 +178,20 @@ class TransformerLM(nn.Module):
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev)
         return params
 
+    def _tiles(self, tree) -> List[list]:
+        """The tiles of ``tree`` (the parameters or the caches), each the
+        list of its blocks' subtrees in ``block_pattern`` order (views)."""
+        if self.n_tiles == 0:
+            return []
+        groups = [_unstack(tree["blocks"][f"g{g}"], self.n_tiles)
+                  for g in range(len(self.cfg.block_pattern))]
+        return [[grp[i] for grp in groups] for i in range(self.n_tiles)]
+
     def _layers(self, tree) -> Iterator[Tuple[str, object]]:
-        """(kind, layer's subtree) of ``tree`` (the parameters or the
-        caches) in the order the layers run: tile by tile, then the tail."""
-        for i in range(self.n_tiles):
-            for g, kind in enumerate(self.cfg.block_pattern):
-                yield kind, _index(tree["blocks"][f"g{g}"], i)
+        """(kind, layer's subtree) of ``tree`` in the order the layers run:
+        tile by tile, then the tail."""
+        for tile in self._tiles(tree):
+            yield from zip(self.cfg.block_pattern, tile)
         for i, kind in enumerate(self.tail_kinds):
             yield kind, tree["tail"][i]
 
@@ -339,16 +340,12 @@ class TransformerLM(nn.Module):
         x = self._embed(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.remat and torch.is_grad_enabled()
-        if self.n_tiles > 0:
-            G = len(cfg.block_pattern)
-            groups = [_unstack(params["blocks"][f"g{g}"], self.n_tiles) for g in range(G)]
-            for i in range(self.n_tiles):
-                tile = [groups[g][i] for g in range(G)]
-                if remat:
-                    x, aux = checkpoint(self._blocks_forward, x, aux, tile, cfg.block_pattern,
-                                        use_reentrant=False)
-                else:
-                    x, aux = self._blocks_forward(x, aux, tile, cfg.block_pattern)
+        for tile in self._tiles(params):
+            if remat:
+                x, aux = checkpoint(self._blocks_forward, x, aux, tile, cfg.block_pattern,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._blocks_forward(x, aux, tile, cfg.block_pattern)
         if self.n_tail:
             x, aux = self._blocks_forward(x, aux, params["tail"], self.tail_kinds)
         return x, aux

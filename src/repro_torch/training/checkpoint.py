@@ -18,9 +18,10 @@ leaf is stored as its 16-bit patterns (``uint16``) and the manifest says
 
 Crash-safety: writes go to ``.tmp`` and are committed by ``os.replace``
 of the directory and then of LATEST, so a checkpoint is either fully
-present or invisible. ``save_async`` copies the tensors to the host
-synchronously (the next step updates the state in place) and writes the
-files on a thread; the loop joins it before the next save.
+present or invisible. ``save_async`` copies the tensors synchronously,
+into new host memory even for a state already on the CPU (the next step
+updates the state in place), and writes the files on a thread; the loop
+joins it before the next save.
 
 Restore loads each leaf to the host, checks its shape against the target
 tree and moves it to the target leaf's device (or ``device``): a state
@@ -44,7 +45,9 @@ from .tree import flatten_with_paths, unflatten
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    # A copy even when t is already on the host: the train step updates the
+    # state in place, and an async save must not see the next step's values.
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

@@ -299,7 +299,7 @@ def test_chip_smoke_train_phase_on_cpu_at_small_size():
     import chip_smoke as cs
 
     sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
-                     bwd_seq=32, audio_frames=24)
+                     audio_frames=24)
     assert len(cs.bwd_shapes(sizes)) == 7
     errs = cs.Errors()
     out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")

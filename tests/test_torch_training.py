@@ -123,6 +123,35 @@ def test_checkpoint_roundtrip_bf16_and_device_move(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_save_async_is_not_changed_by_the_next_step(tmp_path):
+    """save_async copies a host state before it returns: the train step
+    updates the state in place while the thread is still writing, and the
+    checkpoint keeps the values of the step it was taken at."""
+    import threading
+
+    gen = torch.Generator().manual_seed(2)
+    tree = {"w": torch.randn((3, 5), generator=gen),
+            "m": {"b": torch.randn(4, generator=gen).bfloat16()}}
+    saved = tree_map(torch.clone, tree)
+    ck = Checkpointer(tmp_path)
+    write, go = ck._save_impl, threading.Event()
+
+    def held_write(*args):
+        go.wait()  # the file IO starts only after the in-place update
+        return write(*args)
+
+    ck._save_impl = held_write
+    ck.save_async(1, tree, {"step": 1})
+    for leaf in leaves(tree):
+        leaf.add_(1.0)
+    go.set()
+    ck.wait()
+    back, _ = ck.restore(None, tree)
+    for a, b in zip(leaves(saved), leaves(back)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_resume_equals_uninterrupted_run(tmp_path):
     """5 steps + ckpt + restore + 5 steps == 10 straight steps."""
     def run(n_steps, ckpt_at=None, resume_from=None):
