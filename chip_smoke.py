@@ -81,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              lse against the plain lse) over tests/test_kernels.py's
              gradient shape and the training shapes of qwen3-1.7b (B=4,
              T=1024), granite-moe-1b, deepseek-v2's MLA (192/128 padded to
-             256), hubert (80 padded to 128, non-causal), G = 1 and G = 8;
+             256), hubert (80 padded to 128, non-causal), G = 1 and G = 8,
+             and qwen3's at a ragged T=1000;
              (b) qwen3-1.7b at full width and 4 of its 28 layers, bf16
              compute over f32 masters, B=4 x T=1024: one step's loss and
              gradients through K3 + K3-bwd against the same with both
@@ -93,8 +94,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              with per-step loss, ms, tokens/s and launches, the peak device
              memory and one step under torch.profiler; the loss must be
              finite and lower at step 6 than at step 1; (d) K3-bwd timed
-             at qwen3's shape beside its plain version, the backward of
-             SDPA through autograd and its bound.
+             (flushed, and back to back in a CUDA graph) at qwen3's,
+             granite's, MLA's and hubert's shapes (B=4) beside its plain
+             version, the backward of SDPA through autograd (median and
+             min) and its bound.
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phases 5 and 9, the lane engine in phase
@@ -373,8 +376,9 @@ def launch_plans(sizes: Sizes) -> None:
     clusters the card holds at once) at the serving, grouped and
     small-batch timing shapes and for one sequence, of K2 (cluster,
     tiles, stages, shared memory) at the grouped phase's and the
-    long-prefix timing shapes, and of K3 at the head size of each live
-    model that runs it."""
+    long-prefix timing shapes, of K3 at the head size of each live
+    model that runs it, and of K3-bwd (bf16) at each head size it is
+    timed at."""
     cfg = sizes.arch_config()
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx = sizes.prefix_tokens + sizes.user_tokens
@@ -394,6 +398,8 @@ def launch_plans(sizes: Sizes) -> None:
     for D in k3_dims:                # each live model's that runs K3 (padded where it must be)
         for dtype in (torch.bfloat16, torch.float32):
             _log(f"[env] launch K3 {str(dtype)[6:]} D={D}: {k3_module.launch_plan(D, dtype)}")
+    for D in sorted({kernel_head_dim(max(s[4:6])) for s in bwd_timing_shapes(sizes)}):
+        _log(f"[env] launch K3-bwd bf16 D={D}: {k3_module.bwd_launch_plan(D, torch.bfloat16)}")
 
 
 # -- phase 2: kernels against their plain versions ----------------------
@@ -1251,10 +1257,10 @@ def phase_admission(device, sizes: Sizes) -> float:
 
 # -- phase 7: timing -------------------------------------------------------
 
-def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
-    """Median of n launches, each timed with CUDA events, the L2 cache
-    flushed before each by a 256 MiB write (which leaves the cache full of
-    dirty lines that the launch pays to write back as it evicts them)."""
+def times_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> List[float]:
+    """n launches, each timed with CUDA events, the L2 cache flushed
+    before each by a 256 MiB write (which leaves the cache full of dirty
+    lines that the launch pays to write back as it evicts them); sorted."""
     for _ in range(warmup):
         fn()
     times = []
@@ -1266,7 +1272,12 @@ def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return sorted(times)
+
+
+def median_ms(fn, flush: torch.Tensor, n: int = 30, warmup: int = 5) -> float:
+    """Median of times_ms."""
+    return float(np.median(times_ms(fn, flush, n, warmup)))
 
 
 def graph_ms(fn, n: int = 20) -> float:
@@ -1534,7 +1545,9 @@ def bwd_shapes(sizes: Sizes) -> List[tuple]:
     then the training shapes of sizes.arch (sizes.train_batch sequences of
     sizes.train_seq tokens, the main path's own shape),
     granite-moe-1b, deepseek-v2's MLA and hubert's encoder (its frames),
-    then G = 1 and G = 8 at sizes.arch's head size."""
+    then G = 1 and G = 8 at sizes.arch's head size, and sizes.arch's
+    shape at a ragged length (1000 of 1024 tokens: the kernels' last
+    tiles part full)."""
     out = [(2, 32, 4, 2, 16, 16, True)]
     for name in (sizes.arch, "granite-moe-1b-a400m", "deepseek-v2-236b", "hubert-xlarge"):
         cfg = sizes.arch_config(name)
@@ -1542,7 +1555,8 @@ def bwd_shapes(sizes: Sizes) -> List[tuple]:
         out.append((B, sizes.audio_frames if cfg.is_encoder else sizes.train_seq) + k3_shape(cfg))
     D = sizes.arch_config().head_dim
     return out + [(1, sizes.train_seq // 2, 8, 8, D, D, True),
-                  (1, sizes.train_seq // 2, 16, 2, D, D, True)]
+                  (1, sizes.train_seq // 2, 16, 2, D, D, True),
+                  (sizes.train_batch, sizes.train_seq * 125 // 128) + out[1][2:]]
 
 
 def _padded(x: torch.Tensor, D: int) -> torch.Tensor:
@@ -1722,37 +1736,79 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
                 profile_groups=groups, profile_ranges=ranges)
 
 
-def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
-    """(d) K3-bwd at sizes.arch's training shape (bf16, causal), its plain
-    version, and the backward of SDPA through autograd on the same inputs
-    (the yardstick). The bound: 2.5 x the forward's causal matmul work at
-    the bf16 dense peak, against q, k, v, out, dout, lse read once and dq,
-    dk, dv written once."""
-    cfg = sizes.arch_config()
-    B, T, H, KV, D = sizes.train_batch, sizes.train_seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=device).manual_seed(seed + 10)
+def bwd_timing_shapes(sizes: Sizes) -> List[tuple]:
+    """(B, T, H, KV, D_qk, D_v, causal) at which K3-bwd is timed, each at
+    sizes.train_batch sequences: sizes.arch's training shape (the main
+    path's, first), granite-moe-1b's (D=64), deepseek-v2's MLA (H=128,
+    192/128, padded to 256) and hubert's encoder (its frames, 80 padded to
+    128, non-causal)."""
+    out = []
+    for name in (sizes.arch, "granite-moe-1b-a400m", "deepseek-v2-236b", "hubert-xlarge"):
+        cfg = sizes.arch_config(name)
+        T = sizes.audio_frames if cfg.is_encoder else sizes.train_seq
+        out.append((sizes.train_batch, T) + k3_shape(cfg))
+    return out
+
+
+def k3_bwd_times(shape: tuple, gen, device, flush, plain: bool = True) -> dict:
+    """K3-bwd at one (B, T, H, KV, D_qk, D_v, causal) shape in bf16, on
+    inputs zero-padded as the op pads them: flushed (median_ms) and back
+    to back in a CUDA graph (graph_ms); its plain version (unless not
+    ``plain``); and the backward of SDPA through autograd on the unpadded
+    inputs (the yardstick; the min and median of its flushed times, which
+    moved most between calls). The bound is the true work's: five
+    products of the attended (t, s) pairs (S, dK, dQ of D_qk; dP, dV of
+    D_v) at the bf16 dense peak, against q, k, v, out, dout and lse read
+    once and dq, dk, dv written once, at their own widths."""
+    B, T, H, KV, Dqk, Dv, causal = shape
+    D = kernel_head_dim(max(Dqk, Dv))
     dt = torch.bfloat16
-    q, do = (_randn(gen, (B, T, H, D), dt, device) for _ in range(2))
-    k, v = (_randn(gen, (B, T, KV, D), dt, device) for _ in range(2))
-    out, lse = flash_attention_fwd(q, k, v)
-    es = q.element_size()
-    n_bytes = es * (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + do.numel()) \
+    q, do = (_randn(gen, (B, T, H, d), dt, device) for d in (Dqk, Dv))
+    k, v = (_randn(gen, (B, T, KV, d), dt, device) for d in (Dqk, Dv))
+    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+    qp, kp, vp, dop = (_padded(x, D) for x in (q, k, v, do))
+    out, lse = flash_attention_fwd(qp, kp, vp, **kw)
+    pairs = T * (T + 1) / 2 if causal else T * T
+    flops = 2.0 * B * H * pairs * (3 * Dqk + 2 * Dv)
+    n_bytes = q.element_size() * (2 * (q.numel() + k.numel() + v.numel()) + 2 * do.numel()) \
         + 4 * lse.numel()
-    flops = 2.5 * 4.0 * B * H * D * T * (T + 1) / 2
     qs, ks, vs = (x.permute(0, 2, 1, 3).detach().requires_grad_() for x in (q, k, v))
-    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
     dos = do.permute(0, 2, 1, 3)
+    lib = times_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True), flush)
+    fn = lambda: flash_attention_bwd(qp, kp, vp, out, lse, dop, **kw)  # noqa: E731
     r = dict(
-        ms=median_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), flush),
-        plain_ms=median_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do), flush),
-        library_ms=median_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
-                                                         retain_graph=True), flush),
-        library="the backward of F.scaled_dot_product_attention (is_causal, enable_gqa) "
-                "through autograd",
-        shape=f"B={B} T=S={T} H={H} KV={KV} D={D} causal, bf16",
+        ms=median_ms(fn, flush), graph_ms=graph_ms(fn),
+        plain_ms=median_ms(lambda: flash_attention_bwd_plain(qp, kp, vp, out, lse, dop, **kw),
+                           flush) if plain else None,
+        library_ms=float(np.median(lib)), library_min_ms=lib[0],
+        library="the backward of F.scaled_dot_product_attention (enable_gqa) through autograd",
+        shape=f"B={B} T=S={T} H={H} KV={KV} D={Dqk}" + (f"/{Dv}" if Dv != Dqk else "")
+        + (f" (padded to {D})" if D != Dqk or D != Dv else "")
+        + (" causal" if causal else " non-causal") + ", bf16",
     )
     r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, dt)
     return r
+
+
+def _log_bwd_timing(r: dict) -> None:
+    plain = "not timed" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
+    _log(f"[timing] flash_attention_bwd ({r['shape']}): kernel {r['ms']:.4f} ms (back to "
+         f"back {r['graph_ms']:.4f} ms), plain {plain}, library {r['library_ms']:.4f} ms "
+         f"median, {r['library_min_ms']:.4f} min ({r['library']}), bound {r['bound_ms']:.4f} "
+         f"ms ({r['bound_by']}), {r['ms'] / r['bound_ms']:.2f}x it")
+
+
+def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
+    """(d) K3-bwd at each of bwd_timing_shapes (k3_bwd_times), each
+    logged; returns the main path's shape's times (the first)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    times = []
+    for shape in bwd_timing_shapes(sizes):
+        times.append(k3_bwd_times(shape, gen, device, flush))
+        _log_bwd_timing(times[-1])
+        torch.cuda.empty_cache()
+    return times[0]
 
 
 def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
@@ -1770,7 +1826,6 @@ def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dic
     if device.type == "cuda":
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
         timing = time_k3_bwd(device, sizes, seed, flush)
-        _log_timing("flash_attention_bwd", timing)
     _log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
     return dict(grads=grads, run=run, timing=timing)
 

@@ -24,39 +24,72 @@
 // Bound: operations. A causal backward does 2.5 times the forward's
 // matmul work (S, dP, dV, dK, dQ: five products of the (t, s) pairs
 // against the forward's two); with bytes read once it is far above the
-// card's ~295 flops per byte in bf16.
+// card's ~295 flops per byte in bf16 (qwen3-1.7b's training shape: 4.3e10
+// flop, 0.0435 ms at 989 TFLOP/s, against 0.030 ms for its bytes).
 //
 // Layout, deterministic and free of atomics: three launches.
-// 1. delta: one warp per row (b, t, h).
-// 2. dK/dV: a block per (b, kv head, key tile, column chunk) owns the
-//    tile's keys and loops over the query tiles of all G heads of its
-//    group, so GQA's sum over heads is a sum in the block's registers.
-//    Causal: the loop starts at the tile's own diagonal.
-// 3. dQ: a block per (b, head, query tile) loops over the key tiles up
+// 1. delta: a row's D elements read 16 bytes a lane (a warp takes 32 / (D
+//    / 8) rows in bf16), summed by shuffles. It stays a launch of its own:
+//    it reads O and dO once, 0.013 of 0.164 ms at qwen3's shape (below),
+//    near the card's memory rate; folded into the dQ kernel, which holds
+//    dO already, it would save one read of dO, about 0.004 ms.
+// 2. dK/dV: a block per (kv head, b, key tile) owns the tile's keys and
+//    loops over the query tiles of all G heads of its group, so GQA's sum
+//    over heads is a sum in the block's registers. Causal: the loop starts
+//    at the tile's own diagonal.
+// 3. dQ: a block per (head, b, query tile) loops over the key tiles up
 //    to its diagonal.
-// The pair (2, 3) recomputes S and P once more than FA2's atomic dQ
-// (seven products where FA2 does five), the price of no atomics.
+// The pair (2, 3) computes S and dP in both kernels: seven products where
+// FA2 does five. Five need dQ summed across key tiles (atomics, which are
+// not deterministic, or a semaphore-ordered or cluster reduction): that
+// is a later redesign, so the design's own floor is 7/5 of the bound.
 //
 // Two paths, by input type:
-// * bf16: tensor cores through mma.sync m16n8k16 (mma.cuh) with f32
-//   accumulation; a warp owns 16 rows of its block's side (keys in 2,
-//   queries in 3) and keeps their f32 accumulators in registers. Tiles
-//   come in by cp.async into shared memory rows padded by 16 bytes (so
-//   ldmatrix reads 8 rows without bank conflicts); operands that the
-//   products need transposed are read with ldmatrix.trans as they lie.
-//   P and dS are rounded to bf16 as the A operands of the next products
-//   (as K3 rounds P for P V). At D = 256 the dK/dV accumulators of 16
-//   rows would take 256 registers a thread, so that kernel takes the
-//   output columns 128 at a time (a grid axis; each chunk recomputes S
-//   and dP), and dQ's key tiles are 32 wide. No wgmma or TMA yet: that
-//   is a later redesign.
+// * bf16, D = 64, 128 and 256: warp-specialised, in the shape of K3's
+//   forward (flash_attention.cu). A block of 384 threads: two consumer
+//   warpgroups of 64 own rows each (keys in 2, queries in 3) and a
+//   producer warpgroup. The own side's two tiles (K and V; Q and dO) come
+//   in once by TMA; the producer's one thread keeps TMA loads of the
+//   other side's two tiles (Q and dO of one head; K and V) in flight,
+//   STEP rows a step, into a ring behind mbarriers; in 2 a second
+//   producer warp stages each step's lse (times log2 e) and delta into the
+//   same stage. Tiles land with the 128-byte swizzle through per-batch
+//   4-D tensor maps (D, heads, rows, batch): a box never runs from batch
+//   b into b + 1, and rows past T or S arrive as zeros. The own rows sit
+//   on wgmma's M: S^T = K Q^T and dP^T = V dO^T in 2 (S = Q K^T and dP =
+//   dO V^T in 3) run as wgmma with both operands K-major as they lie; P =
+//   exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) are
+//   computed in the accumulator registers (masks as selects, not
+//   branches: ptxas serialises wgmma under branches, C7520), rounded to
+//   bf16 and fed back as the A operands of dV += P^T dO and dK += dS^T Q
+//   in 2 (dQ += dS K in 3), whose B (dO and Q; K) is read MN-major from
+//   the same swizzled tiles (the descriptor transposes them). The
+//   producer drops its registers to 24 and the consumers take 240
+//   (setmaxnreg): 64 keys of dK and dV are 128 f32 registers a thread at
+//   D = 128. Key tile 0 (2) and the last query tile (3), the heaviest
+//   when causal, are launched first. D = 64 and 128: steps of 64 rows,
+//   four stages. D = 256 (MLA's padded width): the own tiles alone take
+//   128 KB, so steps of 32 rows and three stages (231 KB in all), and
+//   since 64 keys of dK and dV over 256 columns would take 256 registers
+//   a thread, a dK/dV block accumulates 128 of the columns (a grid axis;
+//   each chunk computes S^T and dP^T again) where holding dV in shared
+//   memory would cost a round trip through it every step.
 // * f32: f32 FMA on CUDA cores, never TF32 (held to 2e-4): 16 x 16
 //   tiles staged in shared memory, each thread two (row, column) pairs
 //   of the scores and D/8 output elements.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; scripts/time_flash_attention_bwd.py,
+// flushed, B = 4, bf16): qwen3-1.7b's shape (T = 1024, H = 16, KV = 8, D =
+// 128, causal) 0.164 ms against 0.46 for the mma.sync form it replaces:
+// delta 0.013, dK/dV 0.081 and dQ 0.059 ms, each near 480 TFLOP/s on the
+// products it issues (3.8x the bound; the seven products and the
+// diagonal tiles' masked half are 1.6x of it). D = 64 0.107 ms (0.26);
+// MLA's 256 3.57 ms (6.9); ptxas: no spills at any D.
+//
 // The outputs are written in the input dtype, as the reference casts its
 // f32 gradients back.
 #include "common.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 #include <cstdint>
 
@@ -65,19 +98,33 @@ namespace repro {
 // ---------------------------------------------------------------------------
 // 1. delta = rowsum(dO * O), f32, (B, H, T)
 // ---------------------------------------------------------------------------
-template <typename T>
+// A row of D elements is read 16 bytes a lane by LPR lanes (the rest of
+// the warp takes the next rows), summed across them by shuffles.
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-                 int Tq, int H, int D, long long rows) {
-  const long long row = blockIdx.x * (long long)WARPS + (threadIdx.x >> 5);   // (b T + t) H + h
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;   // the whole warp: row is per warp
-  const T* orow = o + row * D;
-  const T* drow = dout + row * D;
+                 int Tq, int H, long long rows) {
+  constexpr int VEC = 16 / sizeof(T), CHUNKS = D / VEC;
+  constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32;        // lanes a row
+  constexpr int RPW = 32 / LPR;                         // rows a warp
+  const int lane = threadIdx.x & 31, sub = lane % LPR;
+  const long long row = (blockIdx.x * (long long)WARPS + (threadIdx.x >> 5)) * RPW + lane / LPR;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(drow[d]), to_f32(orow[d]), s);
-  s = warp_sum(s);
-  if (lane == 0) {
+  if (row < rows) {                                     // (b T + t) H + h
+    const uint4* orow = reinterpret_cast<const uint4*>(o + row * D);
+    const uint4* drow = reinterpret_cast<const uint4*>(dout + row * D);
+#pragma unroll
+    for (int c = sub; c < CHUNKS; c += LPR) {
+      const uint4 ov = orow[c], dv = drow[c];
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s = fmaf(to_f32(de[j]), to_f32(oe[j]), s);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && sub == 0) {
     const long long h = row % H, bt = row / H, t = bt % Tq, b = bt / Tq;
     delta[(b * H + h) * Tq + t] = s;
   }
@@ -241,285 +288,427 @@ inline size_t bwd_f32_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: mma.sync m16n8k16, f32 accumulation
+// bf16 path: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
-constexpr int BR = 16 * WARPS;   // rows of the block's own side: 16 a warp
-
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-// rows [r0, r0 + rows) of a (rows, heads, D) bf16 slab at head `hd` into
-// shared memory rows of `ld` elements by cp.async, zeros past n
+// Both kernels: a block of 384 threads, two consumer warpgroups of 64 rows
+// of the block's own side (keys for dK/dV, queries for dQ) and a producer
+// warpgroup. The own side's two tiles (K and V; Q and dO) come in once by
+// TMA; the producer streams the other side's two tiles, STEP rows a step,
+// into a ring of NS stages behind mbarriers. Every tile is a set of
+// (rows, 64) boxes with the 128-byte swizzle, each 1024-byte aligned; TMA
+// boxes are STEP rows, an own tile's 64-row boxes two of them at D = 256.
 template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
-                                           int r0, int rows, int n, int heads, int hd) {
-  constexpr int CH = D / 8;   // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i - (i / CH) * CH) * 8;
-    const bool ok = r0 + r < n;
-    cp_async_16(dst + r * ld + c,
-                ok ? src + ((long long)(r0 + r) * heads + hd) * D + c : src, ok);
+struct BwdTLayout {
+  static constexpr int NB = D / 64;                          // 64-column boxes
+  static constexpr int THREADS = 384;
+  static constexpr int TILE = 128;                           // own rows a block
+  static constexpr int STEP = D > 128 ? 32 : 64;             // streamed rows a step
+  static constexpr int NS = D > 128 ? 3 : 4;                 // ring stages
+  static constexpr int DC = D > 128 ? 128 : D;               // dK/dV columns a block
+  static constexpr size_t OWN = (size_t)TILE * D * 2;        // K or V; Q or dO
+  static constexpr size_t RING = (size_t)STEP * D * 2;       // one streamed tile
+  static constexpr size_t ROWS = 2 * NS * STEP * sizeof(float);   // lse, delta a stage
+  static constexpr size_t A_RING = 2 * OWN;                  // offsets from the base
+  static constexpr size_t B_RING = A_RING + NS * RING;
+  static constexpr size_t ROW_OFF = B_RING + NS * RING;
+  static constexpr size_t BAR = ROW_OFF + ROWS;
+  static constexpr size_t smem_bytes = 1024 + BAR + 8 * (1 + 2 * NS);
+  static_assert(smem_bytes <= 232448, "the ring does not fit the block's shared memory");
+};
+
+__device__ __forceinline__ float ex2_sel(bool keep, float x) {
+  return keep ? ex2_approx(x) : 0.f;
+}
+
+// A fragments of 16 columns from pairs of 8-column accumulator tiles
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    f[kc][0] = pack_bf16(x[8 * kc], x[8 * kc + 1]);
+    f[kc][1] = pack_bf16(x[8 * kc + 2], x[8 * kc + 3]);
+    f[kc][2] = pack_bf16(x[8 * kc + 4], x[8 * kc + 5]);
+    f[kc][3] = pack_bf16(x[8 * kc + 6], x[8 * kc + 7]);
   }
 }
 
-// shared-memory element offsets of the mma fragments (ldmatrix addressing):
-// an A fragment (16 rows x 16) of a row-major tile, and the B fragments of
-// two 8-column blocks read from the tile that holds B^T row-major (n, k)
-__device__ __forceinline__ int a_off(int ld, int row0, int k0, int lane) {
-  return (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int bt_off(int ld, int n0, int k0, int lane) {
-  return (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8;
-}
-// ... and of two 8-column blocks of B read from B row-major (k, n), transposed
-__device__ __forceinline__ int b_trans_off(int ld, int k0, int n0, int lane) {
-  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-}
-
-// C (16 x 8N) += A (16 rows at a_row of tile `a`, all D columns) times the
-// transposes of N * 8 rows of tile `bt` (B^T row-major): a warp's scores
+// C (64 x N) = A (64 x D, K-major, a warpgroup's NB boxes of (64, 64))
+// times B^T, B (N x D, K-major, NB boxes of (N, 64)): both operands as
+// they lie, D / 16 wgmmas, one commit group
 template <int D, int N>
-__device__ __forceinline__ void mma_abt(float (&c)[N][4], const __nv_bfloat16* a, int a_row,
-                                        const __nv_bfloat16* bt, int ld, int lane) {
+__device__ __forceinline__ void issue_abt(float (&c)[N / 2], const __nv_bfloat16* a,
+                                          const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + a_off(ld, a_row, kc * 16, lane));
-#pragma unroll
-    for (int n = 0; n < N; n += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, bt + bt_off(ld, n * 8, kc * 16, lane));
-      mma_bf16_16816(c[n], af, bf[0], bf[1]);
-      mma_bf16_16816(c[n + 1], af, bf[2], bf[3]);
-    }
-  }
+  for (int kc = 0; kc < D / 16; ++kc)
+    wgmma_ss<N>(c, gmma_desc(a + (kc / 4) * 64 * 64 + (kc % 4) * 16, 16, 1024),
+                gmma_desc(b + (kc / 4) * N * 64 + (kc % 4) * 16, 16, 1024), kc > 0);
+  wgmma_commit();
 }
 
-// C (16 x NC) += X (16 x 8N, f32 accumulator layout, rounded to bf16 as
-// A fragments) times rows 0 .. 8N of tile `b` (row-major, k = row),
-// columns c0 .. c0 + NC
-template <int N, int NC>
-__device__ __forceinline__ void mma_xb(float (&c)[NC / 8][4], const float (&x)[N][4],
-                                       const __nv_bfloat16* b, int ld, int c0, int lane) {
+// C (64 x D) += X (64 x K, A fragments in registers) times B (K x D), B
+// the K rows of a tile of NB boxes (K, 64) read MN-major: 16 rows (2048 B)
+// a k-step, K * 128 B between boxes
+template <int D, int K>
+__device__ __forceinline__ void issue_xb(float (&c)[D / 2], const uint32_t (&x)[K / 16][4],
+                                         const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kc = 0; kc < N / 2; ++kc) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                            pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                            pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                            pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-#pragma unroll
-    for (int n = 0; n < NC / 8; n += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + b_trans_off(ld, kc * 16, c0 + n * 8, lane));
-      mma_bf16_16816(c[n], af, bf[0], bf[1]);
-      mma_bf16_16816(c[n + 1], af, bf[2], bf[3]);
-    }
-  }
+  for (int kc = 0; kc < K / 16; ++kc)
+    wgmma_rs<D>(c, x[kc], gmma_desc(b + kc * 16 * 64, K * 128, 1024));
 }
 
-template <int D, int DC, int BQ>
-struct DkdvLayout {
-  static constexpr int LD = D + 8;                   // padded row, elements
-  static constexpr size_t smem_bytes =
-      2 * (size_t)(2 * BR + 2 * BQ) * LD + 2 * sizeof(float) * BQ;
-};
+// dK/dV: block (kv head, b, key tile x column chunk), key tile 0 first
+// (when causal it sees every query). Step i is query tile j0 + i %
+// per_head of head kvh G + i / per_head: the G heads of the group in
+// turn, from the tile's diagonal on when causal. The producer's warp 0 issues the TMA loads;
+// its warp 1 stages the step's lse (times log2 e) and delta.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq, int S,
+                    int H, int KV, int causal, float scale) {
+  using L = BwdTLayout<D>;
+  constexpr int NS = L::NS, NB = L::NB, BQ = L::STEP, DC = L::DC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(base);   // warpgroup c: NB boxes (64, 64)
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(base + L::OWN);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base + L::A_RING);   // NS x NB boxes (BQ, 64)
+  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(base + L::B_RING);
+  float* rows_s = reinterpret_cast<float*>(base + L::ROW_OFF);   // stage: lse log2(e) [BQ], delta [BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
 
-// dK/dV: block (key tile x column chunk, kv head, b); warp w owns keys
-// s0 + 16 w .. + 15 and output columns c0 .. c0 + DC
-template <int D, int DC, int BQ>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
-                     int S, int H, int KV, int causal, float scale) {
-  using L = DkdvLayout<D, DC, BQ>;
-  constexpr int LD = L::LD, NQ = BQ / 8, NC = DC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // (BR, LD)
-  __nv_bfloat16* v_s = k_s + BR * LD;
-  __nv_bfloat16* q_s = v_s + BR * LD;                                // (BQ, LD)
-  __nv_bfloat16* do_s = q_s + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + BQ * LD);           // lse log2(e)
-  float* dl_s = lse_s + BQ;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int s0 = blockIdx.z / (D / DC) * L::TILE, c0 = blockIdx.z % (D / DC) * DC;
+  const int G = H / KV;
+  const int n_t = (Tq + BQ - 1) / BQ;
+  const int j0 = causal ? min(s0 / BQ, n_t) : 0;
+  const int per_head = n_t - j0;
+  const int n_steps = G * per_head;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);   // warp-uniform to the compiler
 
-  const int n_chunks = D / DC;
-  const int s0 = (blockIdx.x / n_chunks) * BR, c0 = (blockIdx.x % n_chunks) * DC;
-  const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g8 = lane >> 2, tq = lane & 3;
-  const float scale2 = scale * LOG2E;
-  const __nv_bfloat16* qb = q + (long long)b * Tq * H * D;
-  const __nv_bfloat16* dob = dout + (long long)b * Tq * H * D;
-  stage_bf16<D>(k_s, LD, k + (long long)b * S * KV * D, s0, BR, S, KV, kvh);
-  stage_bf16<D>(v_s, LD, v + (long long)b * S * KV * D, s0, BR, S, KV, kvh);
-  cp_async_commit();
-  cp_async_wait<0>();   // (the first step's barrier publishes them)
-
-  float acc_k[NC][4], acc_v[NC][4];
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-  const int key_a = s0 + 16 * w + g8;   // this lane's keys: key_a, key_a + 8
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int t0 = causal ? s0 : 0; t0 < Tq; t0 += BQ) {
-      __syncthreads();   // the previous step's tiles are no longer read
-      stage_bf16<D>(q_s, LD, qb, t0, BQ, Tq, H, h);
-      stage_bf16<D>(do_s, LD, dob, t0, BQ, Tq, H, h);
-      cp_async_commit();
-      for (int i = threadIdx.x; i < BQ; i += THREADS) {
-        const long long o = ((long long)b * H + h) * Tq + t0 + i;
-        lse_s[i] = t0 + i < Tq ? lse[o] * LOG2E : 0.f;
-        dl_s[i] = t0 + i < Tq ? delta[o] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      // a warp whose keys all lie past the step's last query sees nothing
-      if (causal && s0 + 16 * w > t0 + BQ - 1) continue;
-
-      float st[NQ][4], dp[NQ][4];   // S^T and dP^T (16 keys x BQ queries)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dp[n][e] = 0.f;
-      mma_abt<D, NQ>(st, k_s, 16 * w, q_s, LD, lane);
-      mma_abt<D, NQ>(dp, v_s, 16 * w, do_s, LD, lane);
-      // P^T = exp(scale s - lse) where attendable, dS^T = P^T (dP^T - delta)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = n * 8 + 2 * tq + (e & 1), t = t0 + i, key = key_a + (e >> 1) * 8;
-          const bool ok = key < S && t < Tq && (!causal || key <= t);
-          const float p = ok ? ex2_approx(fmaf(st[n][e], scale2, -lse_s[i])) : 0.f;
-          st[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dl_s[i]);
-        }
-      mma_xb<NQ, DC>(acc_v, st, do_s, LD, c0, lane);   // dV += P^T dO
-      mma_xb<NQ, DC>(acc_k, dp, q_s, LD, c0, lane);    // dK += dS^T Q
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1 + 32);   // the TMA thread's and warp 1's lanes' arrivals
+      mbar_init(&empty[i], 8);       // one arrival per consumer warp
     }
-  }
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int key = key_a + 8 * hf, col = c0 + n * 8 + 2 * tq;
-      if (key < S) {
-        const long long o = (((long long)b * S + key) * KV + kvh) * D + col;
-        *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-            __floats2bfloat162_rn(acc_k[n][2 * hf] * scale, acc_k[n][2 * hf + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-            __floats2bfloat162_rn(acc_v[n][2 * hf], acc_v[n][2 * hf + 1]);
-      }
-    }
-}
-
-template <int D, int BK>
-struct DqLayout {
-  static constexpr int LD = D + 8;
-  static constexpr size_t smem_bytes =
-      2 * (size_t)(2 * BR + 2 * BK) * LD + 2 * sizeof(float) * BR;
-};
-
-// dQ: block (query tile, head, b); warp w owns queries t0 + 16 w .. + 15
-template <int D, int BK>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KV, int causal,
-                   float scale) {
-  using L = DqLayout<D, BK>;
-  constexpr int LD = L::LD, NK = BK / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // (BR, LD)
-  __nv_bfloat16* do_s = q_s + BR * LD;
-  __nv_bfloat16* k_s = do_s + BR * LD;                               // (BK, LD)
-  __nv_bfloat16* v_s = k_s + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(v_s + BK * LD);            // lse log2(e)
-  float* dl_s = lse_s + BR;
-
-  const int t0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g8 = lane >> 2, tq = lane & 3;
-  const float scale2 = scale * LOG2E;
-  const __nv_bfloat16* kb = k + (long long)b * S * KV * D;
-  const __nv_bfloat16* vb = v + (long long)b * S * KV * D;
-  stage_bf16<D>(q_s, LD, q + (long long)b * Tq * H * D, t0, BR, Tq, H, h);
-  stage_bf16<D>(do_s, LD, dout + (long long)b * Tq * H * D, t0, BR, Tq, H, h);
-  cp_async_commit();
-  cp_async_wait<0>();
-  for (int i = threadIdx.x; i < BR; i += THREADS) {
-    const long long o = ((long long)b * H + h) * Tq + t0 + i;
-    lse_s[i] = t0 + i < Tq ? lse[o] * LOG2E : 0.f;
-    dl_s[i] = t0 + i < Tq ? delta[o] : 0.f;
+    fence_barrier_init();
   }
   __syncthreads();
-  const int r_a = 16 * w + g8, t_a = t0 + r_a;   // this lane's rows: r_a, r_a + 8
-  const float lse_a = lse_s[r_a], lse_b = lse_s[r_a + 8];
-  const float dl_a = dl_s[r_a], dl_b = dl_s[r_a + 8];
 
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const int kv_end = causal ? min(S, min(t0 + BR, Tq)) : S;
-  for (int s0 = 0; s0 < kv_end; s0 += BK) {
-    __syncthreads();   // the previous tile is no longer read
-    stage_bf16<D>(k_s, LD, kb, s0, BK, S, KV, kvh);
-    stage_bf16<D>(v_s, LD, vb, s0, BK, S, KV, kvh);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // a warp whose queries all lie before the tile's first key sees nothing
-    if (causal && s0 > t0 + 16 * w + 15) continue;
-
-    float s[NK][4], dp[NK][4];   // S and dP (16 queries x BK keys)
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, NK>(s, q_s, 16 * w, k_s, LD, lane);
-    mma_abt<D, NK>(dp, do_s, 16 * w, v_s, LD, lane);
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = s0 + n * 8 + 2 * tq + (e & 1), t = t_a + (e >> 1) * 8;
-        const bool ok = key < S && t < Tq && (!causal || key <= t);
-        const float p = ok ? ex2_approx(fmaf(s[n][e], scale2, e < 2 ? -lse_a : -lse_b)) : 0.f;
-        dp[n][e] = p * (dp[n][e] - (e < 2 ? dl_a : dl_b));
+  if (wg == 2) {
+    setmaxnreg_dec24();
+    const int pw = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0), lane = threadIdx.x & 31;
+    if (pw == 0 && lane == 0 && n_steps > 0) {
+      mbar_expect_tx(own_full, (uint32_t)(2 * L::OWN));
+      for (int c = 0; c < 2; ++c)
+        for (int bx = 0; bx < NB; ++bx)
+          for (int r = 0; r < 64; r += BQ) {
+            const int o = (c * NB + bx) * 64 * 64 + r * 64, row = s0 + 64 * c + r;
+            tma_load_4d(k_s + o, &tm_k, own_full, bx * 64, kvh, row, b);
+            tma_load_4d(v_s + o, &tm_v, own_full, bx * 64, kvh, row, b);
+          }
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % NS, g = i / per_head;
+        const int h = kvh * G + g, t0 = (j0 + i - g * per_head) * BQ;
+        if (i >= NS) mbar_wait(&empty[st], ((i / NS) - 1) & 1);
+        mbar_expect_tx(&full[st], (uint32_t)(2 * L::RING));
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load_4d(q_s + ((size_t)st * NB + bx) * BQ * 64, &tm_q, &full[st], bx * 64, h, t0, b);
+          tma_load_4d(do_s + ((size_t)st * NB + bx) * BQ * 64, &tm_do, &full[st], bx * 64, h, t0, b);
+        }
       }
-    mma_xb<NK, D>(acc, dp, k_s, LD, 0, lane);   // dQ += dS K
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int t = t_a + 8 * hf, col = n * 8 + 2 * tq;
-      if (t < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * Tq + t) * H + h) * D + col) =
-            __floats2bfloat162_rn(acc[n][2 * hf] * scale, acc[n][2 * hf + 1] * scale);
+    } else if (pw == 1) {
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % NS, g = i / per_head;
+        const int h = kvh * G + g, t0 = (j0 + i - g * per_head) * BQ;
+        if (i >= NS) mbar_wait(&empty[st], ((i / NS) - 1) & 1);
+        float* r = rows_s + st * 2 * BQ;
+        const long long o = ((long long)b * H + h) * Tq + t0;
+        for (int e = lane; e < BQ; e += 32) {
+          const bool ok = t0 + e < Tq;
+          r[e] = ok ? lse[o + e] * LOG2E : 0.f;
+          r[BQ + e] = ok ? delta[o + e] : 0.f;
+        }
+        mbar_arrive(&full[st]);
+      }
     }
+  } else {
+    // consumer warpgroup wg: keys s0 + 64 wg .. + 63
+    setmaxnreg_inc240();
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31, tq = lane & 3;
+    const int key_a = s0 + 64 * wg + 16 * w + (lane >> 2), key_b = key_a + 8;
+    const __nv_bfloat16* kw = k_s + (size_t)wg * 64 * D;
+    const __nv_bfloat16* vw = v_s + (size_t)wg * 64 * D;
+    const float scale2 = scale * LOG2E;
+    constexpr int BIG = 1 << 30;
+
+    float acc_v[DC / 2], acc_k[DC / 2];   // dV, dK (64 keys x DC columns from c0), f32
+    float s[BQ / 2], dp[BQ / 2];        // S^T, dP^T (64 keys x BQ queries), then P^T, dS^T
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+    if (n_steps > 0) mbar_wait(own_full, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % NS, g = i / per_head;
+      const int t0 = (j0 + i - g * per_head) * BQ;
+      const __nv_bfloat16* qs = q_s + (size_t)st * BQ * D;
+      const __nv_bfloat16* dos = do_s + (size_t)st * BQ * D;
+      const float* lr = rows_s + st * 2 * BQ;
+      mbar_wait(&full[st], (i / NS) & 1);
+      wgmma_fence();
+      issue_abt<D, BQ>(s, kw, qs);     // S^T = K Q^T
+      issue_abt<D, BQ>(dp, vw, dos);   // dP^T = V dO^T
+      // query t0 + 2 tq + c (c = 8 j + e) is kept for key k when c >= lo
+      // (causal: k <= t) and c <= hi (t < T); a key at or past S keeps
+      // nothing. Selects, not branches: s and dp are wgmma operands.
+      const int hi = Tq - 1 - t0 - 2 * tq;
+      const int lo_a = key_a >= S ? BIG : causal ? key_a - t0 - 2 * tq : -BIG;
+      const int lo_b = key_b >= S ? BIG : causal ? key_b - t0 - 2 * tq : -BIG;
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          const float le = e ? l2.y : l2.x;
+          s[4 * j + e] = ex2_sel(c >= lo_a && c <= hi, fmaf(s[4 * j + e], scale2, -le));
+          s[4 * j + 2 + e] = ex2_sel(c >= lo_b && c <= hi, fmaf(s[4 * j + 2 + e], scale2, -le));
+        }
+      }
+      pack_frags<BQ>(pa, s);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(lr + BQ + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float de = e ? d2.y : d2.x;
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - de);
+          dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - de);
+        }
+      }
+      pack_frags<BQ>(da, dp);
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      wgmma_fence();
+      issue_xb<DC, BQ>(acc_v, pa, dos + c0 * BQ);   // dV += P^T dO (its columns from c0)
+      issue_xb<DC, BQ>(acc_k, da, qs + c0 * BQ);    // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();                   // stage st and the fragments are free
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    const long long row_stride = (long long)KV * D;
+    __nv_bfloat16* dkb = dk + ((long long)b * S * KV + kvh) * D;
+    __nv_bfloat16* dvb = dv + ((long long)b * S * KV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j) {
+      const int col = c0 + j * 8 + tq * 2;
+      if (key_a < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_a * row_stride + col) =
+            __floats2bfloat162_rn(acc_k[4 * j] * scale, acc_k[4 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_a * row_stride + col) =
+            __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
+      }
+      if (key_b < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_b * row_stride + col) =
+            __floats2bfloat162_rn(acc_k[4 * j + 2] * scale, acc_k[4 * j + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_b * row_stride + col) =
+            __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// dQ: block (head, b, query tile), the last query tile first (when causal
+// it sees every key). The producer's one thread streams the K and V tiles
+// up to the block's last diagonal; a warpgroup skips the tiles wholly past
+// its rows' diagonal (it still frees their stages).
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KV, int causal,
+                  float scale) {
+  using L = BwdTLayout<D>;
+  constexpr int NS = L::NS, NB = L::NB, BK = L::STEP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);   // warpgroup c: NB boxes (64, 64)
+  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(base + L::OWN);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(base + L::A_RING);   // NS x NB boxes (BK, 64)
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(base + L::B_RING);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::TILE;
+  const int kvh = h / (H / KV);
+  const int q_last = min(q0 + L::TILE, Tq) - 1;
+  const int kv_end = causal ? min(S, q_last + 1) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec24();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(own_full, (uint32_t)(2 * L::OWN));
+      for (int c = 0; c < 2; ++c)
+        for (int bx = 0; bx < NB; ++bx)
+          for (int r = 0; r < 64; r += BK) {
+            const int o = (c * NB + bx) * 64 * 64 + r * 64, row = q0 + 64 * c + r;
+            tma_load_4d(q_s + o, &tm_q, own_full, bx * 64, h, row, b);
+            tma_load_4d(do_s + o, &tm_do, own_full, bx * 64, h, row, b);
+          }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % NS;
+        if (i >= NS) mbar_wait(&empty[st], ((i / NS) - 1) & 1);
+        mbar_expect_tx(&full[st], (uint32_t)(2 * L::RING));
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load_4d(k_s + ((size_t)st * NB + bx) * BK * 64, &tm_k, &full[st], bx * 64, kvh, i * BK, b);
+          tma_load_4d(v_s + ((size_t)st * NB + bx) * BK * 64, &tm_v, &full[st], bx * 64, kvh, i * BK, b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg .. + 63
+    setmaxnreg_inc240();
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31, tq = lane & 3;
+    const int row_base = q0 + 64 * wg;
+    const int row_a = row_base + 16 * w + (lane >> 2), row_b = row_a + 8;
+    const float* lb = lse + ((long long)b * H + h) * Tq;
+    const float* db = delta + ((long long)b * H + h) * Tq;
+    const float lse_a = row_a < Tq ? lb[row_a] * LOG2E : 0.f;
+    const float lse_b = row_b < Tq ? lb[row_b] * LOG2E : 0.f;
+    const float dl_a = row_a < Tq ? db[row_a] : 0.f;
+    const float dl_b = row_b < Tq ? db[row_b] : 0.f;
+    const float scale2 = scale * LOG2E;
+    const __nv_bfloat16* qw = q_s + (size_t)wg * 64 * D;
+    const __nv_bfloat16* dow = do_s + (size_t)wg * 64 * D;
+    const int n_wg = causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK) : n_tiles;
+    const int last_a = causal ? min(S - 1, row_a) : S - 1;
+    const int last_b = causal ? min(S - 1, row_b) : S - 1;
+
+    float acc[D / 2];                // dQ (64 queries x D), f32
+    float s[BK / 2], dp[BK / 2];     // S, dP (64 queries x BK keys), then P, dS
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(own_full, 0);
+    for (int i = 0; i < n_wg; ++i) {
+      const int st = i % NS;
+      const __nv_bfloat16* ks = k_s + (size_t)st * BK * D;
+      const __nv_bfloat16* vs = v_s + (size_t)st * BK * D;
+      mbar_wait(&full[st], (i / NS) & 1);
+      wgmma_fence();
+      issue_abt<D, BK>(s, qw, ks);     // S = Q K^T
+      issue_abt<D, BK>(dp, dow, vs);   // dP = dO V^T
+      // key i BK + 2 tq + c (c = 8 j + e) is kept for a row when c <= lim:
+      // before S, and (causal) at or before the row
+      const int lim_a = last_a - i * BK - 2 * tq, lim_b = last_b - i * BK - 2 * tq;
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          s[4 * j + e] = ex2_sel(c <= lim_a, fmaf(s[4 * j + e], scale2, -lse_a));
+          s[4 * j + 2 + e] = ex2_sel(c <= lim_b, fmaf(s[4 * j + 2 + e], scale2, -lse_b));
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl_a);
+          dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl_b);
+        }
+      pack_frags<BK>(da, dp);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_xb<D, BK>(acc, da, ks);    // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();                 // stage st and the fragments are free
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    for (int i = n_wg; i < n_tiles; ++i) {   // loaded for the other warpgroup only
+      const int st = i % NS;
+      mbar_wait(&full[st], (i / NS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    const long long q_stride = (long long)H * D;
+    __nv_bfloat16* qb = dq + ((long long)b * Tq * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tq * 2;
+      if (row_a < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(qb + row_a * q_stride + col) =
+            __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (row_b < Tq)
+        *reinterpret_cast<__nv_bfloat162*>(qb + row_b * q_stride + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int Tq, int H,
+                         cudaStream_t st) {
+  constexpr int CHUNKS = D * (int)sizeof(T) / 16;
+  constexpr int RPW = CHUNKS < 32 ? 32 / CHUNKS : 1;   // rows a warp
+  const long long rows = (long long)B * Tq * H;
+  const long long per_block = (long long)WARPS * RPW;
+  const unsigned blocks = (unsigned)((rows + per_block - 1) / per_block);
+  bwd_delta_kernel<T, D><<<blocks, THREADS, 0, st>>>(static_cast<const T*>(o),
+                                                     static_cast<const T*>(dout), delta, Tq, H,
+                                                     rows);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int Tq, int H,
                          int D, cudaStream_t st) {
-  const long long rows = (long long)B * Tq * H;
-  const unsigned blocks = (unsigned)((rows + WARPS - 1) / WARPS);
-  bwd_delta_kernel<T><<<blocks, THREADS, 0, st>>>(static_cast<const T*>(o),
-                                                  static_cast<const T*>(dout), delta, Tq, H, D,
-                                                  rows);
-  return cudaGetLastError();
+  if (D == 64) return launch_delta<T, 64>(o, dout, delta, B, Tq, H, st);
+  if (D == 128) return launch_delta<T, 128>(o, dout, delta, B, Tq, H, st);
+  return launch_delta<T, 256>(o, dout, delta, B, Tq, H, st);
 }
 
 template <int D>
@@ -541,27 +730,47 @@ cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const
 }
 
 template <int D>
-cudaError_t launch_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                            const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
-                            const float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk,
-                            __nv_bfloat16* dv, int B, int T, int S, int H, int KV, int causal,
-                            float scale, cudaStream_t st) {
-  constexpr int DC = D > 128 ? 128 : D;        // dK/dV output columns a block
-  constexpr int BQ = DC > 64 ? 32 : 64;        // queries a dK/dV step
-  constexpr int BK = D > 128 ? 32 : 64;        // keys a dQ step
-  using LK = DkdvLayout<D, DC, BQ>;
-  using LQ = DqLayout<D, BK>;
-  cudaError_t err = prepare_smem(bwd_dkdv_bf16_kernel<D, DC, BQ>, LK::smem_bytes);
-  if (err == cudaSuccess) err = prepare_smem(bwd_dq_bf16_kernel<D, BK>, LQ::smem_bytes);
+cudaError_t launch_bwd_tma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, __nv_bfloat16* dq,
+                           __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int T, int S, int H,
+                           int KV, int causal, float scale, cudaStream_t st) {
+  using L = BwdTLayout<D>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  // per batch (4-D: D, heads, rows, batch): a box never runs from batch b
+  // into b + 1, and rows past T or S arrive as zeros; every box is (64, STEP)
+  const uint64_t qd[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t qs[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2, (uint64_t)T * H * D * 2};
+  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)KV, (uint64_t)S, (uint64_t)B};
+  const uint64_t kst[3] = {(uint64_t)D * 2, (uint64_t)KV * D * 2, (uint64_t)S * KV * D * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)L::STEP, 1};
+  cudaError_t err = make_tensor_map_bf16(&tm_q, q, 4, qd, qs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&tm_do, dout, 4, qd, qs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&tm_k, k, 4, kd, kst, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_tensor_map_bf16(&tm_v, v, 4, kd, kst, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess) err = allow_smem_once<bwd_dkdv_tma_kernel<D>>(L::smem_bytes);
+  if (err == cudaSuccess) err = allow_smem_once<bwd_dq_tma_kernel<D>>(L::smem_bytes);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_bf16_kernel<D, DC, BQ>
-      <<<dim3((S + BR - 1) / BR * (D / DC), KV, B), THREADS, LK::smem_bytes, st>>>(
-          q, k, v, dout, lse, delta, dk, dv, T, S, H, KV, causal, scale);
+  bwd_dkdv_tma_kernel<D><<<dim3(KV, B, (S + L::TILE - 1) / L::TILE * (D / L::DC)), L::THREADS,
+                           L::smem_bytes, st>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, T, S, H, KV,
+                                 causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dq_bf16_kernel<D, BK><<<dim3((T + BR - 1) / BR, H, B), THREADS, LQ::smem_bytes, st>>>(
-      q, k, v, dout, lse, delta, dq, T, S, H, KV, causal, scale);
+  bwd_dq_tma_kernel<D><<<dim3(H, B, (T + L::TILE - 1) / L::TILE), L::THREADS, L::smem_bytes,
+                         st>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, T, S, H, KV, causal,
+                               scale);
   return cudaGetLastError();
+}
+
+// The launches of the bf16 path at head size D (see the entry point's plan).
+template <int D>
+void bwd_tma_plan(int (&v)[13]) {
+  using L = BwdTLayout<D>;
+  const int p[13] = {2, L::THREADS, L::TILE, L::STEP, L::NS, (int)L::smem_bytes, L::DC,
+                     L::THREADS, L::TILE, L::STEP, L::NS, (int)L::smem_bytes, D};
+  for (int i = 0; i < 13; ++i) v[i] = p[i];
 }
 
 }  // namespace repro
@@ -608,15 +817,42 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                causal, sm_scale, st);
   }
   using bf = __nv_bfloat16;
-  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
-           *vb = static_cast<const bf*>(v), *db = static_cast<const bf*>(dout);
   bf *dqb = static_cast<bf*>(dq), *dkb = static_cast<bf*>(dk), *dvb = static_cast<bf*>(dv);
   if (D == 64)
-    return launch_bwd_bf16<64>(qb, kb, vb, db, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
-                               sm_scale, st);
-  if (D == 128)
-    return launch_bwd_bf16<128>(qb, kb, vb, db, lse, delta, dqb, dkb, dvb, B, T, S, H, KV,
-                                causal, sm_scale, st);
-  return launch_bwd_bf16<256>(qb, kb, vb, db, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
+    return launch_bwd_tma<64>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
                               sm_scale, st);
+  if (D == 128)
+    return launch_bwd_tma<128>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
+                               sm_scale, st);
+  return launch_bwd_tma<256>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
+                             sm_scale, st);
+}
+
+// The launches a call of head size D and this dtype gets: out = {tensor
+// cores (0: none, f32 FMA; 2: wgmma), then for the dK/dV kernel and for
+// the dQ kernel each: threads a block, rows of the block's own side (keys;
+// queries), rows of the other side a step (queries; keys), stages of the
+// ring, dynamic shared memory in bytes, output columns a block}. Returns
+// 0, or cudaErrorInvalidValue for a size or type the kernels do not take.
+extern "C" int repro_flash_attention_bwd_plan(int D, int dtype, int* out) {
+  using namespace repro;
+  int v[13];
+  if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
+  if (dtype == F32) {
+    const int smem = (int)(D == 64    ? bwd_f32_smem_bytes<64>()
+                           : D == 128 ? bwd_f32_smem_bytes<128>()
+                                      : bwd_f32_smem_bytes<256>());
+    const int f[13] = {0, THREADS, BF, BF, 1, smem, D, THREADS, BF, BF, 1, smem, D};
+    for (int i = 0; i < 13; ++i) v[i] = f[i];
+  } else if (dtype == BF16 && D == 64) {
+    bwd_tma_plan<64>(v);
+  } else if (dtype == BF16 && D == 128) {
+    bwd_tma_plan<128>(v);
+  } else if (dtype == BF16) {
+    bwd_tma_plan<256>(v);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return cudaSuccess;
 }

@@ -154,6 +154,28 @@ def launch_plan(D: int, dtype: torch.dtype) -> dict:
     return dict(zip(keys, out))
 
 
+_TENSOR_CORES = {0: "none (f32 FMA)", 2: "wgmma"}
+
+
+def bwd_launch_plan(D: int, dtype: torch.dtype) -> dict:
+    """How K3-bwd launches for head size D and this dtype: the tensor-core
+    instruction, and for its dK/dV and dQ kernels the threads a block, the
+    rows of the block's own side (keys; queries), the other side's rows a
+    step, the stages of the ring, the dynamic shared memory and the output
+    columns a block. Loads (and if need be builds) the library."""
+    fn = _bwd_lib().repro_flash_attention_bwd_plan
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 13)()
+    rc = fn(D, _DTYPES[dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"no flash_attention_bwd kernel for D={D}, {dtype}")
+    keys = ("threads", "own_rows", "step_rows", "stages", "smem_bytes", "columns")
+    return {"tensor_cores": _TENSOR_CORES[out[0]],
+            "dkdv": dict(zip(keys, out[1:7])), "dq": dict(zip(keys, out[7:13]))}
+
+
 def _check(q, k, v) -> None:
     dev = q.device
     for name, t in (("k", k), ("v", v)):

@@ -30,6 +30,15 @@ GRID = [  # B, T, S, H, KV, D, causal
     (1, 128, 128, 4, 4, 256, True), (1, 130, 130, 2, 1, 256, False),
     (1, 256, 256, 8, 1, 64, True),      # G = 8
     (1, 1024, 1024, 16, 8, 128, True),  # qwen3-1.7b's attention, one sequence
+    # across the bf16 kernels' tiles (128 own rows a block, 64 streamed a step)
+    (1, 1000, 1000, 4, 2, 128, True),   # T = S = 1000: the last tiles ragged
+    (1, 129, 65, 4, 2, 128, False),     # one row past a block; S ends mid-step
+    (1, 129, 65, 4, 2, 64, False),
+    (1, 65, 200, 4, 4, 128, True),      # causal T < S: key tiles that see no query
+    (3, 130, 130, 4, 2, 128, True),     # B = 3: a box ends at a batch boundary
+    (1, 256, 256, 4, 4, 128, True),     # G = 1
+    (1, 256, 256, 4, 2, 128, True),     # G = 2
+    (1, 256, 256, 8, 1, 128, True),     # G = 8
 ]
 PADDED = [  # B, T, H, KV, Dqk, Dv, causal: widths the op pads (D=16 of the reduced configs)
     (2, 32, 4, 2, 16, 16, True), (1, 96, 4, 4, 192, 128, True), (2, 80, 4, 4, 80, 80, False),
@@ -73,6 +82,35 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, H, KV, D
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.shape == w.shape and g.dtype == dtype, name
         _hold(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_is_deterministic(cuda_device):
+    """Two calls at qwen3-1.7b's training shape (bf16, causal) give
+    bit-identical dq, dk and dv: no atomics, sums in a fixed order."""
+    B, T, H, KV, D = 4, 1024, 16, 8, 128
+    q, k, v, do = _inputs(5, [(B, T, H, D), (B, T, KV, D), (B, T, KV, D), (B, T, H, D)],
+                          torch.bfloat16, cuda_device)
+    out, lse = k3.flash_attention_fwd(q, k, v)
+    first = k3.flash_attention_bwd(q, k, v, out, lse, do)
+    second = k3.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_bwd_plan(cuda_device, D):
+    """The launch plan: wgmma in bf16 (dK/dV in 128-column chunks at D =
+    256), FMA in f32; every kernel's shared memory within an H100's opt-in
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 bytes)."""
+    plan = k3.bwd_launch_plan(D, torch.bfloat16)
+    assert plan["tensor_cores"] == "wgmma"
+    assert plan["dkdv"]["columns"] == min(D, 128) and plan["dq"]["columns"] == D
+    assert k3.bwd_launch_plan(D, torch.float32)["tensor_cores"] == "none (f32 FMA)"
+    for part in ("dkdv", "dq"):
+        assert 0 < plan[part]["smem_bytes"] <= 232448, (part, plan)
 
 
 @pytest.mark.cuda

@@ -300,7 +300,7 @@ def test_chip_smoke_train_phase_on_cpu_at_small_size():
 
     sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
                      audio_frames=24)
-    assert len(cs.bwd_shapes(sizes)) == 7
+    assert len(cs.bwd_shapes(sizes)) == 8
     errs = cs.Errors()
     out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
     assert errs.max["flash_attention_bwd"] == 0.0 and out["grads"]["worst_rel"] == 0.0
@@ -308,6 +308,21 @@ def test_chip_smoke_train_phase_on_cpu_at_small_size():
     assert [r["step"] for r in steps] == [0, 1, 2, 3, 4]
     assert steps[-1]["loss"] < steps[0]["loss"] and out["run"]["profile_wall_ms"] > 0
     assert out["run"]["profile_busy_ms"] is None and out["timing"] is None
+
+
+def test_chip_smoke_bwd_timing_shapes():
+    """K3-bwd is timed at the training shapes of qwen3-1.7b (the main
+    path's, first), granite-moe-1b, deepseek-v2's MLA and hubert's encoder,
+    B=4, which reach every head size the kernel is built for; phase 9's
+    checks take qwen3's shape at a ragged T as well."""
+    import chip_smoke as cs
+
+    full = cs.Sizes()
+    shapes = cs.bwd_timing_shapes(full)
+    assert shapes == [(4, 1024, 16, 8, 128, 128, True), (4, 1024, 16, 8, 64, 64, True),
+                      (4, 1024, 128, 128, 192, 128, True), (4, 1000, 16, 16, 80, 80, False)]
+    assert sorted({cs.kernel_head_dim(max(s[4:6])) for s in shapes}) == [64, 128, 256]
+    assert cs.bwd_shapes(full)[-1] == (4, 1000, 16, 8, 128, 128, True)
 
 
 def test_chip_smoke_estimator_phase_on_cpu_at_small_size():
