@@ -97,11 +97,27 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              (flushed, and back to back in a CUDA graph) at qwen3's,
              granite's, MLA's and hubert's shapes (B=4) beside its plain
              version, the backward of SDPA through autograd (median and
-             min) and its bound.
+             min) and its bound;
+10. launch   the launch modules through a one-rank NCCL group (a file://
+             store in a temporary directory, no TCP port) and a (data=1,
+             model=1) mesh: (a) qwen3-1.7b at full width and depth serves
+             the live phase's requests again with the flash-decode
+             override installed (repro_torch.launch.flash_decode): the
+             same greedy tokens as without it, and a decode step's
+             last-token logits within LIVE_LOGITS_RTOL; decode ms per
+             token with and without it (at a model axis of 1 the
+             difference is the collectives' fixed cost); (b) granite-
+             moe-1b at full width and depth prefills with the expert-
+             parallel MoE (repro_torch.launch.moe_ep): the same kept
+             slots in every layer as moe_apply, logits within
+             LIVE_LOGITS_RTOL, prefill ms with and without it; (c) the
+             serving CLI (repro_torch.launch.serve --live) on the card;
+             (d) input_specs of every config x shape cell on the meta
+             device, the card's allocated memory unchanged.
 
 The line before the last lists each kernel as JSON (launches on its path:
-K1 and K2 in phases 3-4, K3 in phases 5 and 9, the lane engine in phase
-8, K3-bwd in phase 9; max error; times; bound); the last line is
+K1 and K2 in phases 3-4, K3 in phases 5, 9 and 10, the lane engine in
+phase 8, K3-bwd in phase 9; max error; times; bound); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -112,6 +128,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -120,12 +137,13 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cacheblocks import layout_for  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
 from repro_torch.core import admission, fastsim, irm  # noqa: E402
 from repro_torch.core.fastsim_cuda import BatchedCudaRunner  # noqa: E402
 from repro_torch.core.shared_lru import _lcm_1_to  # noqa: E402
@@ -158,6 +176,9 @@ from repro_torch.scenario import get_preset  # noqa: E402
 from repro_torch.scenario.runner import _rates_for, derive_seeds, ensemble_seeds  # noqa: E402
 from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch import flash_decode, moe_ep, specs  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.training import TrainConfig  # noqa: E402
 from repro_torch.training.train_step import make_grad_fn  # noqa: E402
@@ -1830,6 +1851,222 @@ def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dic
     return dict(grads=grads, run=run, timing=timing)
 
 
+# -- phase 10: launch --------------------------------------------------------
+
+# rounds of the with/without comparisons, in turns (A B, B A, ...): a
+# granite prefill each, LAUNCH_STEPS qwen3 decode steps each; medians
+LAUNCH_ROUNDS = 4
+LAUNCH_STEPS = 8
+SERVE_REQUESTS = 60         # the serving CLI's default
+
+
+@contextmanager
+def one_rank_group(device):
+    """A process group of one rank through a ``file://`` store in a
+    temporary directory (no TCP port): NCCL on the card, gloo for a CPU
+    rehearsal; a group that does not start fails the phase. Destroyed on
+    the way out."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as d:
+        if device.type == "cuda":
+            torch.cuda.set_device(device.index or 0)
+        dist.init_process_group(backend, init_method=f"file://{d}/store", world_size=1, rank=0)
+        try:
+            yield backend
+        finally:
+            dist.destroy_process_group()
+
+
+class RouteSpy:
+    """Records every routing that ``fn`` (``moe_route``) returns; this
+    script's means of comparing two prefills' routings."""
+
+    def __init__(self, fn) -> None:
+        self.fn, self.routes = fn, []
+
+    def __call__(self, *args, **kw):
+        r = self.fn(*args, **kw)
+        self.routes.append(r)
+        return r
+
+
+def _served_tokens(live: dict) -> List[np.ndarray]:
+    return [r.output for r in live["results"]]
+
+
+def launch_flash_decode(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(a) qwen3-1.7b served twice with the live phase's requests, the
+    second time with the flash-decode override installed: the same greedy
+    tokens; the first request's prefill and one decode step, with and
+    without it, last-token logits within LIVE_LOGITS_RTOL of their scale;
+    the decode ms per token of each run, and of one decode step timed in
+    turns with and without it on the same cache."""
+    arch = LIVE_ARCHS[0]
+    override = flash_decode.make_decode_attention(mesh)
+    if override is None:
+        _fail("launch: make_decode_attention gave no override on a mesh with a model axis")
+    plain = phase_live(device, sizes, seed, arch)
+    want_tokens, plain_ms = _served_tokens(plain), 1e3 * float(np.median(plain["timed"].decode_s))
+    del plain
+    with shardctx.rules({"decode_attention": override}):
+        live = phase_live(device, sizes, seed, arch)
+    got_tokens, fd_ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
+    for i, (g, w) in enumerate(zip(got_tokens, want_tokens)):
+        if not np.array_equal(g, w):
+            _fail(f"launch: {arch} request {i}: greedy tokens {g.tolist()} with flash-decode, "
+                  f"{w.tolist()} without")
+    model, params, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
+    dev = params["embed"].device
+    S = len(tokens) + sizes.new_tokens
+    with torch.inference_mode():
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(tokens[None, :], device=dev)}, S)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        pos = torch.full((1,), len(tokens), dtype=torch.int32, device=dev)
+        want, _ = model.decode_step(params, tok, _tree_map(torch.clone, caches), pos)
+        with shardctx.rules({"decode_attention": override}):
+            got, _ = model.decode_step(params, tok, caches, pos)
+        # the same step timed in turns, plain and flash-decode, on one cache
+        step_s = {"plain": [], "flash-decode": []}
+        for rnd in range(LAUNCH_ROUNDS):
+            for name in (("plain", "flash-decode") if rnd % 2 == 0 else
+                         ("flash-decode", "plain")):
+                with shardctx.rules({"decode_attention": override} if name != "plain" else {}):
+                    for _ in range(LAUNCH_STEPS):
+                        _sync(device)
+                        t0 = time.perf_counter()
+                        model.decode_step(params, tok, caches, pos)
+                        _sync(device)
+                        step_s[name].append(time.perf_counter() - t0)
+    got, want = got[0, -1].float(), want[0, -1].float()
+    scale, err = float(want.abs().max()), float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and err <= LIVE_LOGITS_RTOL * scale):
+        _fail(f"launch: {arch} decode step with flash-decode: logits differ by {err:.3e} "
+              f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
+    step_ms = {k: 1e3 * float(np.median(v)) for k, v in step_s.items()}
+    _log(f"[launch] {arch} flash-decode (model axis of 1): {len(got_tokens)} requests x "
+         f"{sizes.new_tokens} greedy tokens the same as without it; a decode step's last-token "
+         f"logits max abs err {err:.3e} (scale {scale:.3e}, limit {LIVE_LOGITS_RTOL * scale:.3e}); "
+         f"served decode {fd_ms:.2f} ms per token with the override, {plain_ms:.2f} without "
+         f"(median of {len(live['timed'].decode_s)} steps each, host clock); one step in turns "
+         f"({LAUNCH_ROUNDS} rounds of {LAUNCH_STEPS}): {step_ms['flash-decode']:.2f} ms with, "
+         f"{step_ms['plain']:.2f} ms without (medians, host clock)")
+    return dict(decode_ms=fd_ms, plain_decode_ms=plain_ms, logits_err=err,
+                step_ms=step_ms["flash-decode"], plain_step_ms=step_ms["plain"],
+                prefills=2 * len(got_tokens) + 1, cfg=cfg)
+
+
+def launch_moe_ep(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(b) granite-moe-1b prefills the live phase's first request with
+    ``make_moe_apply_ep`` installed and without it: at a model axis of 1
+    the per-rank capacity is ``moe_apply``'s and the slot order the same,
+    so every layer keeps the same slots (keep and dest equal) and the
+    last-token logits agree within LIVE_LOGITS_RTOL of their scale; the
+    prefill ms of each (medians of LAUNCH_ROUNDS prefills in turns)."""
+    arch = LIVE_ARCHS[1]
+    cfg = sizes.arch_config(arch)
+    ep = moe_ep.make_moe_apply_ep(mesh, cfg)
+    if ep is None:
+        _fail(f"launch: make_moe_apply_ep gave no override for {arch}")
+    model, params, _ = _init_model(device, cfg, seed, "launch")
+    rng = np.random.default_rng(seed + 3)
+    tokens = np.concatenate([rng.integers(0, cfg.vocab_size, sizes.prefix_tokens),
+                             rng.integers(0, cfg.vocab_size, sizes.user_tokens)])
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=device)}
+    S = len(tokens) + sizes.new_tokens
+    timed = TimedModel(model, device)
+    runs = {"moe_apply": dict(rules={}, owner=moe, s=[]),
+            "EP": dict(rules={"moe_apply": ep}, owner=moe_ep, s=[])}
+    for rnd in range(LAUNCH_ROUNDS):                  # in turns: A B, B A, ...
+        for name in (("moe_apply", "EP") if rnd % 2 == 0 else ("EP", "moe_apply")):
+            run = runs[name]
+            spy = RouteSpy(run["owner"].moe_route)
+            run["owner"].moe_route = spy
+            try:
+                with torch.inference_mode(), shardctx.rules(run["rules"]):
+                    logits, _ = timed.prefill(params, batch, S)
+            finally:
+                run["owner"].moe_route = spy.fn
+            run["s"].append(timed.prefill_s[-1])
+            if rnd == 0:
+                run.update(logits=logits[0, -1].float(), routes=spy.routes)
+    for run in runs.values():
+        run["ms"] = 1e3 * float(np.median(run["s"]))
+    a, b = runs["moe_apply"], runs["EP"]
+    if len(a["routes"]) != len(b["routes"]) or not a["routes"]:
+        _fail(f"launch: {arch}: {len(a['routes'])} routings without EP, {len(b['routes'])} with")
+    for i, (x, y) in enumerate(zip(a["routes"], b["routes"])):
+        if x["C"] != y["C"] or not (torch.equal(x["keep"], y["keep"])
+                                    and torch.equal(x["dest"], y["dest"])):
+            _fail(f"launch: {arch} layer {i}: EP kept other slots than moe_apply "
+                  f"(C {y['C']} vs {x['C']})")
+    scale = float(a["logits"].abs().max())
+    err = float((b["logits"] - a["logits"]).abs().max())
+    if not (torch.isfinite(b["logits"]).all() and err <= LIVE_LOGITS_RTOL * scale):
+        _fail(f"launch: {arch} prefill with EP: logits differ by {err:.3e} "
+              f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
+    kept = sum(int(r["keep"].sum()) for r in a["routes"])
+    choices = sum(r["keep"].numel() for r in a["routes"])
+    _log(f"[launch] {arch} expert-parallel prefill (model axis of 1) of {len(tokens)} tokens: "
+         f"the same kept slots in all {len(a['routes'])} layers ({kept} of {choices} choices "
+         f"kept, C={a['routes'][0]['C']}); last-token logits max abs err {err:.3e} (scale "
+         f"{scale:.3e}); prefill {b['ms']:.2f} ms with EP, {a['ms']:.2f} ms without (medians "
+         f"of {LAUNCH_ROUNDS} each, in turns, host clock)")
+    return dict(prefill_ms=b["ms"], plain_prefill_ms=a["ms"], logits_err=err,
+                prefills=2 * LAUNCH_ROUNDS, cfg=cfg)
+
+
+def launch_specs(device) -> int:
+    """(d) ``input_specs`` of every config x SHAPES cell (decode cells
+    through an uninitialised model's cache shapes): every tensor on
+    ``meta``, and the card's allocated memory unchanged. Returns the
+    number of tensors."""
+    before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    n = 0
+    for arch in list_archs():
+        for shape in SHAPES.values():
+            model = make_model(get_config(arch)) if shape.kind == "decode" else None
+            for t in _leaves(specs.input_specs(arch, shape, model)):
+                if t.device.type != "meta":
+                    _fail(f"launch: input_specs({arch}, {shape.name}) gave a tensor on {t.device}")
+                n += 1
+    after = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    if after != before:
+        _fail(f"launch: input_specs allocated {after - before} bytes on the card")
+    _log(f"[launch] input_specs: {n} meta tensors for {len(list_archs())} configs x "
+         f"{len(SHAPES)} shapes; device memory allocated {before} -> {after} bytes")
+    return n
+
+
+def phase_launch(device, sizes: Sizes, seed: int) -> dict:
+    """Phase 10: the launch modules through a one-rank process group and a
+    (data=1, model=1) mesh: (a) flash-decoding, (b) expert-parallel MoE,
+    (c) the serving CLI with --live, (d) the input specs. Returns the K3
+    launches its prefills must make (``k3_want``) beside their times."""
+    t0 = time.perf_counter()
+    with one_rank_group(device) as backend:
+        mesh_ = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
+        _log(f"[launch] one-rank {backend} group (file store), mesh {tuple(mesh_.shape)} "
+             f"{tuple(mesh_.mesh_dim_names)} on {device}")
+        fd = launch_flash_decode(device, sizes, seed, mesh_)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        ep = launch_moe_ep(device, sizes, seed, mesh_)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        argv = ["--live", "--arch", LIVE_ARCHS[0], "--requests", str(SERVE_REQUESTS),
+                "--seed", str(seed)] + (["--device", "cpu"] if device.type == "cpu" else [])
+        _log(f"[launch] repro_torch.launch.serve {' '.join(argv)}:")
+        if serve_launcher.main(argv) != 0:
+            _fail("launch: repro_torch.launch.serve --live did not exit 0")
+        n_specs = launch_specs(device)
+    # the serving CLI prefills each request with the reduced model
+    k3_want = (sum(attn_layers(r["cfg"]) * r["prefills"] for r in (fd, ep))
+               + attn_layers(get_config(LIVE_ARCHS[0]).reduced()) * SERVE_REQUESTS)
+    _log(f"[launch] phase 10 took {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(flash_decode=fd, moe_ep=ep, n_specs=n_specs, k3_want=k3_want)
+
+
 # -- phase 8: estimator ------------------------------------------------------
 
 # The b-combos of Tables I and II (benchmarks/common.py B_GRID)
@@ -2284,7 +2521,14 @@ def main(argv=None) -> int:
     timing["flash_attention_bwd"] = train["timing"]
     train_k3 = train["run"]["launches"]["flash_attention"]
     _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training path")
-    path_launches = dict(main_launches, flash_attention=live_k3 + train_k3,
+    reset_launches()                                  # the launch path starts here
+    launch = phase_launch(device, sizes, args.seed)
+    launch_k3 = launches()["flash_attention"]         # ... and ends here
+    if launch_k3 != launch["k3_want"]:
+        _fail(f"launch: K3 launched {launch_k3} times, not the {launch['k3_want']} its "
+              f"prefills make")
+    _log(f"[launch] K3 launches: {launch_k3} on the launch path")
+    path_launches = dict(main_launches, flash_attention=live_k3 + train_k3 + launch_k3,
                          flash_attention_bwd=train["run"]["launches"]["flash_attention_bwd"],
                          lane_engine=est_launches["lane_engine"])
 

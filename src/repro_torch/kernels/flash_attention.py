@@ -32,7 +32,7 @@ from . import _build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)       # the D the kernel is instantiated for
 NEG_INF = -1e30
-KV_CHUNK = 1024     # keys a step of the chunked plain paths (repro.launch.tuning.kv_chunk)
+KV_CHUNK = 1024     # keys a step of K3-bwd's plain version (the default of repro_torch.launch.tuning.kv_chunk)
 
 
 def kernel_head_dim(d: int) -> int:

@@ -19,10 +19,13 @@ projections, qk-norm, RoPE, and three attention paths.
   ``kv_valid_len``, an int ``q_offset``: a window's training forward and
   prefill) it runs through :class:`FlashGrouped`, whose backward
   recomputes P per chunk from the saved (q, k, v, out, lse) instead of
-  keeping the (T, S) probabilities.
-
-Not ported here: the launcher's ``shardctx`` decode override (ROADMAP.md,
-Queue 1).
+  keeping the (T, S) probabilities. Its chunk is ``kv_chunk``, or the
+  ``REPRO_KV_CHUNK`` knob (:func:`repro_torch.launch.tuning.kv_chunk`)
+  read at call time, as the reference reads it.
+* Decode (GQA, the local ring buffer and MLA's latent MQA) first asks
+  ``shardctx.get("decode_attention")``, the launcher's flash-decoding
+  override (:mod:`repro_torch.launch.flash_decode`), and falls back to
+  :func:`chunked_attention` when none is installed or it returns None.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import KV_CHUNK, flash_attention_bwd_plain
+from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+from repro_torch.launch import tuning
 
+from . import shardctx
 from .layers import Params, apply_rope, dense_init, matmul, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
@@ -60,6 +65,16 @@ def _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale, kv_valid_len)
     """The reference's ``_flash_fwd``: the chunked online-softmax scan over
     KV in f32. Returns out (B, T, KV, G, Dv) f32 and lse (B, T, KV, G); a
     short last chunk is sliced, not padded (its keys past S do not exist)."""
+    acc, m, denom = _flash_scan(q, k, v, causal, window, q_offset, kv_chunk, scale,
+                                kv_valid_len)
+    denom = torch.clamp(denom, min=1e-30)
+    return acc / denom[..., None], m + torch.log(denom)
+
+
+def _flash_scan(q, k, v, causal, window, q_offset, kv_chunk, scale, kv_valid_len):
+    """The scan of :func:`_flash_fwd`, unnormalised: the numerator acc
+    (B, T, KV, G, Dv), the running maximum m and the denominator
+    (B, T, KV, G), all f32."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -80,8 +95,7 @@ def _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale, kv_valid_len)
         denom = denom * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("btkgc,bckv->btkgv", p, v[:, lo:hi].float())
         m = m_new
-    denom = torch.clamp(denom, min=1e-30)
-    return acc / denom[..., None], m + torch.log(denom)
+    return acc, m, denom
 
 
 class FlashGrouped(torch.autograd.Function):
@@ -135,7 +149,7 @@ def chunked_attention(
     through :class:`FlashGrouped`, whose backward is the reference's
     memory-safe one."""
     if kv_chunk is None:
-        kv_chunk = KV_CHUNK
+        kv_chunk = tuning.kv_chunk()
     B, T, H, D = q.shape
     S = k.shape[1]
     if scale is None:
@@ -147,6 +161,29 @@ def chunked_attention(
         out = _flash_fwd(q, k, v, causal, window, q_offset, kv_chunk, scale,
                          kv_valid_len)[0].reshape(B, T, H, -1)
     return out.to(q.dtype)
+
+
+def decode_partials(q, k, v, valid, scale):
+    """The partials of one decode token's attention (q (B, 1, H, D)) over
+    cache slots k (B, S, KV, D), v (B, S, KV, Dv) whose first ``valid``
+    (B,) hold keys: :func:`chunked_attention`'s scan, in its chunks
+    (``REPRO_KV_CHUNK``), unnormalised. Returns the numerator (B, 1, KV,
+    G, Dv), the row maximum m and the denominator (B, 1, KV, G), f32;
+    numerator / max(denominator, 1e-30) is ``chunked_attention``'s output
+    to the last bit. A row with no valid slot has m = -1e30."""
+    kv_chunk = max(min(tuning.kv_chunk(), k.shape[1]), 1)
+    return _flash_scan(q, k, v, False, 0, 0, kv_chunk, scale, valid)
+
+
+def _decode_attention(q, k, v, valid, scale):
+    """One decode token's attention over the cache's ``valid`` slots: the
+    launcher's ``decode_attention`` override (flash-decoding) when it is
+    installed and takes the shapes, else :func:`chunked_attention`."""
+    override = shardctx.get("decode_attention")
+    out = override(q, k, v, valid, scale) if override is not None else None
+    if out is None:
+        out = chunked_attention(q, k, v, causal=False, kv_valid_len=valid, scale=scale)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +291,7 @@ def gqa_decode_step(
     # Ring buffer (window > 0): every resident slot is within the window
     # by construction; validity = min(position+1, window) slots.
     valid = torch.clamp(position + 1, max=S) if window > 0 else position + 1
-    out = chunked_attention(q, k_cache, v_cache, causal=False, kv_valid_len=valid)
+    out = _decode_attention(q, k_cache, v_cache, valid, 1.0 / math.sqrt(cfg.head_dim))
     return matmul(out.reshape(B, 1, -1), p["wo"]), {"k": k_cache, "v": v_cache}
 
 
@@ -379,8 +416,8 @@ def mla_decode_step(
     # the scores are the expanded form's dot products, whose query width
     # is nope + rope, not the latent's
     mla_scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    o_lat = chunked_attention(q_cat, k_cat, c_cache[:, :, None, :], causal=False,
-                              kv_valid_len=position + 1, scale=mla_scale)   # (B,1,H,R)
+    o_lat = _decode_attention(q_cat, k_cat, c_cache[:, :, None, :], position + 1,
+                              mla_scale)                                # (B,1,H,R)
     w_uv = p["w_uv"].reshape(R, H, cfg.v_head_dim)
     dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
     out = torch.einsum("bhr,rhv->bhv", o_lat[:, 0].to(dt), w_uv.to(dt)).reshape(B, 1, -1)

@@ -123,36 +123,46 @@ def moe_combine(xf: torch.Tensor, p: Params, cfg, r: Dict[str, torch.Tensor]) ->
     """The expert outputs of the tokens ``xf`` (N, d) under the routing
     ``r`` of :func:`moe_route`, weighted and summed, plus the shared
     experts: (N, d)."""
-    N, d = xf.shape
-    E, k = cfg.n_experts, cfg.top_k
-    dev = xf.device
-    C, keep, dest, top_w = r["C"], r["keep"], r["dest"], r["top_w"]
+    xe = moe_dispatch(xf, r, cfg.n_experts)
+    out = moe_gather(expert_ffn(xe, p), r, xf.dtype)
+    if cfg.n_shared_experts > 0:
+        out = out + mlp_apply(xf, p["shared"])
+    return out
 
-    # --- dispatch: invert the routing into slot -> token (int32), then
-    # gather. Kept slots are unique; dropped choices all land on the
-    # sentinel slot, which is cut off. Empty slots read token 0 and are
-    # never gathered back.
-    token_ids = torch.arange(N, dtype=torch.int32, device=dev)
-    slot_tok = torch.zeros((E * C + 1,), dtype=torch.int32, device=dev)
-    for j in range(k):
+
+def moe_dispatch(xf: torch.Tensor, r: Dict[str, torch.Tensor], E: int) -> torch.Tensor:
+    """The (E, C, d) expert buffers of the tokens ``xf`` (N, d): the
+    routing inverted into slot -> token (int32), then one gather. Kept
+    slots are unique; dropped choices all land on the sentinel slot,
+    which is cut off. Empty slots read token 0 and are never gathered
+    back."""
+    N = xf.shape[0]
+    C, dest = r["C"], r["dest"]
+    token_ids = torch.arange(N, dtype=torch.int32, device=xf.device)
+    slot_tok = torch.zeros((E * C + 1,), dtype=torch.int32, device=xf.device)
+    for j in range(dest.shape[1]):
         slot_tok[dest[:, j]] = token_ids
     slot_tok = shardctx.constrain("moe_ec", slot_tok[: E * C].reshape(E, C))
-    xe = shardctx.constrain("moe_ecd", xf[slot_tok.long()])         # (E, C, d)
+    return shardctx.constrain("moe_ecd", xf[slot_tok.long()])
 
-    # --- expert FFN (SwiGLU), batched over E ---------------------------
+
+def expert_ffn(xe: torch.Tensor, p: Params) -> torch.Tensor:
+    """The experts' SwiGLU batched over the leading expert axis: (E, C, d)
+    in, (E, C, d) out."""
     h = F.silu(matmul(xe, p["w_gate"])) * matmul(xe, p["w_up"])
     h = shardctx.constrain("moe_ecf", h)
-    ye = shardctx.constrain("moe_ecd", matmul(h, p["w_down"]))      # (E, C, d)
+    return shardctx.constrain("moe_ecd", matmul(h, p["w_down"]))
 
-    # --- combine: one gather per routing choice, accumulated in f32 ----
-    out = torch.zeros((N, d), dtype=torch.float32, device=dev)
-    for j in range(k):
+
+def moe_gather(ye: torch.Tensor, r: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+    """The combine: one gather from the expert outputs ``ye`` (E, C, d) per
+    routing choice, weighted and accumulated in f32, in ``dtype``: (N, d)."""
+    E, C, d = ye.shape
+    keep, dest, top_w = r["keep"], r["dest"], r["top_w"]
+    out = torch.zeros((dest.shape[0], d), dtype=torch.float32, device=ye.device)
+    for j in range(dest.shape[1]):
         w_j = (top_w[:, j] * keep[:, j]).float()                     # 0 if dropped
         slot = torch.clamp(dest[:, j], max=E * C - 1)
         g = shardctx.constrain("moe_nd", ye[slot // C, slot % C])
         out = out + g.float() * w_j[:, None]
-    out = out.to(xf.dtype)
-
-    if cfg.n_shared_experts > 0:
-        out = out + mlp_apply(xf, p["shared"])
-    return out
+    return out.to(dtype)

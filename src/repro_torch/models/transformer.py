@@ -399,7 +399,14 @@ class TransformerLM(nn.Module):
         rows; MLA's the latent ``c_kv`` and ``k_rope``), an RG-LRU block's
         f32 state ``h`` and its conv inputs, the xLSTM blocks' f32 states
         (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs."""
-        dev = resolve_device(device)
+        return self._caches(batch, cache_len, resolve_device(device))
+
+    def cache_specs(self, batch: int, cache_len: int):
+        """The tree of :meth:`init_cache` as tensors on the ``meta`` device:
+        the same keys, shapes and dtypes, nothing allocated."""
+        return self._caches(batch, cache_len, torch.device("meta"))
+
+    def _caches(self, batch: int, cache_len: int, dev: torch.device):
         caches = {}
         if self.n_tiles > 0:
             caches["blocks"] = {f"g{g}": self._cache_one(kind, batch, cache_len, dev,

@@ -310,6 +310,56 @@ def test_chip_smoke_train_phase_on_cpu_at_small_size():
     assert out["run"]["profile_busy_ms"] is None and out["timing"] is None
 
 
+_LAUNCH_PHASE = """
+import json, os, sys
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+torch.set_num_threads(1)
+sizes = cs.Sizes(reduced=True, pool_blocks=256, block_tokens=4, prefix_tokens=16,
+                 user_tokens=8, new_tokens=4, live_requests=4)
+out = cs.phase_launch(torch.device("cpu"), sizes, seed=0)
+keep = ("decode_ms", "plain_decode_ms", "step_ms", "plain_step_ms", "prefill_ms",
+        "plain_prefill_ms", "logits_err", "prefills")
+print(json.dumps(dict(
+    initialized=dist.is_initialized(), k3_want=out["k3_want"], n_specs=out["n_specs"],
+    rounds=cs.LAUNCH_ROUNDS, serve_requests=cs.SERVE_REQUESTS,
+    **{part: {k: v for k, v in out[part].items() if k in keep}
+       for part in ("flash_decode", "moe_ep")})), flush=True)
+os._exit(0)     # no interpreter teardown after the gloo group (see test_torch_launch.py)
+"""
+
+
+def test_chip_smoke_launch_phase_on_cpu_at_small_size():
+    """Phase 10 at a small size through a one-rank gloo group (the card's
+    run takes NCCL), in a process of its own: the reduced qwen3 served
+    with and without the flash-decode override (the same tokens), the
+    reduced granite-moe-1b's prefills with and without EP (the same kept
+    slots), the serving CLI with --live, and the meta-device input specs;
+    the group is gone after the phase."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _LAUNCH_PHASE], cwd=root, capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": f"{root / 'src'}:{root}"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert not out["initialized"]
+    fd, ep = out["flash_decode"], out["moe_ep"]
+    assert fd["decode_ms"] > 0 and fd["plain_decode_ms"] > 0 and fd["prefills"] == 2 * 4 + 1
+    assert fd["step_ms"] > 0 and fd["plain_step_ms"] > 0 and fd["logits_err"] == 0.0
+    assert ep["prefill_ms"] > 0 and ep["plain_prefill_ms"] > 0 and ep["logits_err"] == 0.0
+    assert ep["prefills"] == 2 * out["rounds"]
+    # 2 global-attention layers a prefill of the reduced models, 60 CLI requests
+    assert out["k3_want"] == 2 * (9 + 2 * out["rounds"]) + 2 * out["serve_requests"]
+    assert out["n_specs"] > 0
+
+
 def test_chip_smoke_bwd_timing_shapes():
     """K3-bwd is timed at the training shapes of qwen3-1.7b (the main
     path's, first), granite-moe-1b, deepseek-v2's MLA and hubert's encoder,
