@@ -98,6 +98,22 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              granite's, MLA's and hubert's shapes (B=4) beside its plain
              version, the backward of SDPA through autograd (median and
              min) and its bound;
+             (e) a one-rank group (NCCL, a file:// store) and a (data=1)
+             mesh: qwen3-1.7b at 4 layers, its state placed replicated by
+             reshard_state(state, Sharding(mesh)), takes 3 data-parallel
+             steps and a copy 3 plain steps on the same batches: equal
+             losses, every leaf bit-identical; the placed state saved and
+             restored onto the mesh bit for bit; at full width and depth a
+             step timed with and without the mesh, in turns, with the
+             collectives a step; granite-moe-1b at 4 layers 2 steps each
+             way, bit-identical (its aux sums and moe_chunks on the card);
+             (f) granite-moe-1b (B=4 x T=1024) and recurrentgemma-2b (B=1 x
+             T=4096, past its 2048-token window) at full width and depth, 6
+             launcher steps each as (c), and a 4-layer gradient hold each as
+             (b) (granite's routing replayed, RouteTape); (g)
+             deepseek-v2 at 1 of 60 layers: one loss and gradient (B=1 x
+             T=1024) through K3 and K3-bwd padded to 256 held to the plain
+             route, the first gradients waiting in host memory;
 10. launch   the launch modules through a one-rank NCCL group (a file://
              store in a temporary directory, no TCP port) and a (data=1,
              model=1) mesh: (a) qwen3-1.7b at full width and depth serves
@@ -117,7 +133,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phases 5, 9 and 10, the lane engine in
-phase 8, K3-bwd in phase 9; max error; times; bound); the last line is
+phase 8, K3-bwd in phase 9: its runs, (e)'s steps and (g)'s kernel route;
+max error; times; bound); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -125,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -180,8 +198,10 @@ from repro_torch.launch import flash_decode, moe_ep, specs  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.training import TrainConfig  # noqa: E402
-from repro_torch.training.train_step import make_grad_fn  # noqa: E402
+from repro_torch.launch.mesh import Sharding  # noqa: E402
+from repro_torch.training import AdamWConfig, TrainConfig, make_train_step  # noqa: E402
+from repro_torch.training.elastic import reshard_state  # noqa: E402
+from repro_torch.training.train_step import init_train_state, make_grad_fn  # noqa: E402
 from repro_torch.training.tree import flatten_with_paths  # noqa: E402
 
 # Tolerances of tests/test_kernels.py: out f32 / bf16, lse f32 / bf16.
@@ -311,6 +331,10 @@ class Sizes:
     train_seq: int = 1024
     train_steps: int = 6
     grad_layers: int = 4
+    # phase 9 (e)-(g): data-parallel steps held to plain ones at
+    # grad_layers layers; recurrentgemma-2b's sequence, past its window
+    mesh_steps: int = 3
+    window_seq: int = 4096
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
@@ -998,11 +1022,15 @@ def encode_model(device, sizes: Sizes, seed: int, cfg, n: int, card: str) -> dic
 
 
 class RouteTape:
-    """A launcher-style ``moe_apply`` override (``models.shardctx``) that
-    records the routing of each MoE layer of a prefill (``routes=None``)
-    or replays a recorded one, so that two prefills of an MoE model can
-    differ only where their attention does. The layer's output is the
-    port's own ``moe_combine`` under that routing."""
+    """A launcher-style ``moe_apply`` override (``models.shardctx``) for
+    two passes of an MoE model, prefills or losses and gradients: the
+    first (``routes=None``) records each layer's discrete routing
+    (experts, kept slots, capacity) and computes ``moe_apply``'s own
+    function; the second replays those choices with the top-k weights
+    and the aux loss taken from its own router pass, so that the two
+    passes differ only where their attention does (top-k and capacity
+    drops are discontinuous) and the router's gradient flows. One call a
+    layer a pass (no remat)."""
 
     def __init__(self, routes=None) -> None:
         self.replay = routes is not None
@@ -1014,9 +1042,16 @@ class RouteTape:
         if self.replay:
             r = self.routes[self.i]
             self.i += 1
+            probs = torch.softmax(moe.matmul(xf.float(), p["router"]), dim=-1)
+            top_w = probs.gather(1, r["top_i"])
+            if cfg.moe_renormalize:
+                top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+            E = cfg.n_experts
+            f_e = F.one_hot(r["top_i"][:, 0], E).float().mean(dim=0)
+            r = dict(r, top_w=top_w, aux=E * torch.sum(f_e * probs.mean(dim=0)))
         else:
             r = moe.moe_route(xf, p, cfg, capacity_factor=capacity_factor)
-            self.routes.append(r)
+            self.routes.append({k: r[k] for k in ("top_i", "keep", "dest", "C")})
         return moe.moe_combine(xf, p, cfg, r).reshape(h.shape), r["aux"]
 
 
@@ -1629,67 +1664,101 @@ def plain_training_attention():
         k3_module.flash_attention_fwd, k3_module.flash_attention_bwd = fwd, bwd
 
 
-def _train_batch(cfg, sizes: Sizes, seed: int, device) -> dict:
-    data = SyntheticLMData(cfg.vocab_size, sizes.train_seq, sizes.train_batch, seed=seed)
+def _train_batch(cfg, sizes: Sizes, seed: int, device, batch: int = 0, seq: int = 0) -> dict:
+    data = SyntheticLMData(cfg.vocab_size, seq or sizes.train_seq, batch or sizes.train_batch,
+                           seed=seed)
     return {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
 
 
-def phase_train_grads(device, sizes: Sizes, seed: int) -> dict:
-    """(b) sizes.arch at full width and sizes.grad_layers layers, f32
-    masters and bf16 compute (the launcher's TrainConfig): one step's loss
-    and gradients through K3 + K3-bwd, then through both plain versions on
-    the same device; each leaf's relative L2 error, the loss difference,
-    and the attention parameters' gradients nonzero on the kernel route."""
-    cfg = dataclasses.replace(sizes.arch_config(), n_layers=sizes.grad_layers)
+def _allocated_gb(device) -> float:
+    return torch.cuda.memory_allocated() / 1e9 if device.type == "cuda" else 0.0
+
+
+def _rel_l2(g: torch.Tensor, w: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp(min=1e-30))
+
+
+def phase_train_grads(device, sizes: Sizes, seed: int, arch: str = "", layers: int = 0,
+                      batch: int = 0, seq: int = 0) -> dict:
+    """(b), and (f)'s and (g)'s holds: ``arch`` (sizes.arch) at full width
+    and ``layers`` (sizes.grad_layers) layers, f32 masters and bf16 compute
+    (the launcher's TrainConfig), ``batch`` x ``seq`` tokens (the training
+    batch): one step's loss and gradients through K3 + K3-bwd, then through
+    both plain versions on the same device (an MoE model's second pass
+    replays the first's routing, RouteTape; the first pass's gradients
+    wait in host memory); each leaf's relative L2 error, the loss
+    difference, the attention parameters' gradients nonzero on the kernel
+    route, and K3 / K3-bwd launched once a global-attention layer."""
+    cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=layers or sizes.grad_layers)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     model = make_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
-    batch = _train_batch(cfg, sizes, seed, device)
+    data = _train_batch(cfg, sizes, seed, device, batch, seq)
     grad_fn = make_grad_fn(model, TrainConfig())
+    tape = RouteTape()
     n3, nb = flash_attention.launches, flash_attention_bwd.launches
-    loss, _, grads = grad_fn(params, batch)
+    with shardctx.rules({"moe_apply": tape} if cfg.moe else {}):
+        loss, _, grads = grad_fn(params, data)
     got = (flash_attention.launches - n3, flash_attention_bwd.launches - nb)
-    if device.type == "cuda" and got != (cfg.n_layers, cfg.n_layers):
-        _fail(f"train grads: K3 / K3-bwd launched {got}, not {cfg.n_layers} each")
-    with plain_training_attention():
-        want_loss, _, want = grad_fn(params, batch)
-    worst, worst_path, zero = 0.0, "", []
-    for (path, g), (_, w) in zip(flatten_with_paths(grads), flatten_with_paths(want)):
-        rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp(min=1e-30))
+    want_n = (attn_layers(cfg), attn_layers(cfg))
+    if device.type == "cuda" and got != want_n:
+        _fail(f"train grads {cfg.name}: K3 / K3-bwd launched {got}, not {want_n}")
+    zero = [path for path, g in flatten_with_paths(grads)
+            if "['attn']" in path and not float(g.abs().max()) > 0.0]
+    mem = [_allocated_gb(device)]
+    grads = [(path, g.to("cpu")) for path, g in flatten_with_paths(grads)]
+    gc.collect()
+    mem.append(_allocated_gb(device))
+    with plain_training_attention(), shardctx.rules(
+            {"moe_apply": RouteTape(tape.routes)} if cfg.moe else {}):
+        want_loss, _, want = grad_fn(params, data)
+    worst, worst_path = 0.0, ""
+    for (path, g), (_, w) in zip(grads, flatten_with_paths(want)):
+        rel = _rel_l2(g.to(w.device), w)
         if rel > worst:
             worst, worst_path = rel, path
-        if any(f"['{n}']" in path for n in ("wq", "wk", "wv", "q_norm", "k_norm")):
-            if not float(g.abs().max()) > 0.0:
-                zero.append(path)
     dloss = abs(float(loss) - float(want_loss))
     n_params = sum(p.numel() for _, p in flatten_with_paths(params))
+    B, T = data["tokens"].shape
     _log(f"[train] gradient hold {cfg.name} at full width, {cfg.n_layers} of "
          f"{get_config(cfg.name).n_layers} layers ({n_params / 1e9:.3f} B f32 masters, bf16 "
-         f"compute), B={sizes.train_batch} x T={sizes.train_seq}: loss {float(loss):.5f} "
+         f"compute), B={B} x T={T}: loss {float(loss):.5f} "
          f"(plain route {float(want_loss):.5f}, |diff| {dloss:.2e}, bound {GRAD_LOSS_ATOL}); "
          f"worst leaf relative L2 error {worst:.3e} ({worst_path}, bound {GRAD_REL_L2}); "
-         f"K3 / K3-bwd launches {got}")
+         f"K3 / K3-bwd launches {got}" + (f"; {len(tape.routes)} MoE routings replayed"
+                                          if cfg.moe else "") + "; peak device memory "
+         + (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (allocated after the kernel "
+            f"route {mem[0]:.2f} GB, its gradients in host memory {mem[1]:.2f} GB)"
+            if device.type == "cuda" else "not measured"))
     if zero:
-        _fail(f"train grads: zero gradients on the card for {zero}")
+        _fail(f"train grads {cfg.name}: zero gradients for {zero}")
     if not (dloss <= GRAD_LOSS_ATOL and worst <= GRAD_REL_L2):
-        _fail(f"train grads: loss diff {dloss:.3e} or leaf rel L2 {worst:.3e} ({worst_path}) "
-              f"out of bounds")
-    return dict(loss_diff=dloss, worst_rel=worst, worst_path=worst_path)
+        _fail(f"train grads {cfg.name}: loss diff {dloss:.3e} or leaf rel L2 {worst:.3e} "
+              f"({worst_path}) out of bounds")
+    return dict(loss_diff=dloss, worst_rel=worst, worst_path=worst_path, launches=got,
+                n_params=n_params)
 
 
-def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
-    """(c) the launcher's training run at sizes.arch's full width and depth
-    (--remat): the loss, host-clock ms, tokens/s and K3 / K3-bwd launches
-    of each step, the peak device memory, and step PROFILED_STEP under
-    torch.profiler (started and stopped around it by the step callback).
-    Returns the per-step records and the run's launch counts."""
+def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
+                    profiled: bool = True) -> dict:
+    """(c), and (f): the launcher's training run of ``arch`` (sizes.arch)
+    at full width and depth (--remat) on its training batch
+    (``train_shape``): the loss, host-clock ms, tokens/s and K3 / K3-bwd
+    launches of each step, the peak device memory, and (``profiled``) step
+    PROFILED_STEP under torch.profiler (started and stopped around it by
+    the step callback). Returns the per-step records and the run's launch
+    counts."""
     from torch.profiler import ProfilerActivity, profile
 
-    argv = ["--arch", sizes.arch, "--steps", str(sizes.train_steps), "--batch",
-            str(sizes.train_batch), "--seq", str(sizes.train_seq), "--lr", "3e-3", "--remat",
+    arch = arch or sizes.arch
+    B, T = train_shape(sizes, arch)
+    argv = ["--arch", arch, "--steps", str(sizes.train_steps), "--batch",
+            str(B), "--seq", str(T), "--lr", "3e-3", "--remat",
             "--seed", str(seed), "--data-seed", str(seed), "--log-every", "1"]
     argv += ["--reduced"] * sizes.reduced + ["--device", device.type]
-    cfg = sizes.arch_config()
-    tokens = sizes.train_batch * sizes.train_seq
+    cfg = sizes.arch_config(arch)
+    tokens = B * T
     steps, prof = [], {}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     last = [0, 0]
@@ -1699,9 +1768,11 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
         steps.append(dict(step=step, loss=loss, ms=1e3 * dt, tokens_per_s=tokens / dt,
                           k3=k3_n - last[0], k3_bwd=bwd_n - last[1]))
         last[:] = [k3_n, bwd_n]
-        _log(f"[train] step {step}: loss {loss:.5f}, {1e3 * dt:.2f} ms (host clock), "
-             f"{tokens / dt:.1f} tokens/s, launches K3 {steps[-1]['k3']} K3-bwd "
+        _log(f"[train] {cfg.name} step {step}: loss {loss:.5f}, {1e3 * dt:.2f} ms (host "
+             f"clock), {tokens / dt:.1f} tokens/s, launches K3 {steps[-1]['k3']} K3-bwd "
              f"{steps[-1]['k3_bwd']}")
+        if not profiled:
+            return
         if step == PROFILED_STEP - 1:
             prof["p"] = profile(activities=acts)
             prof["p"].start()
@@ -1733,20 +1804,20 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
                   f"not {per_step}")
     busy, top, groups, ranges = _busy(prof["p"]) if "p" in prof else (None, [], {}, {})
     med = float(np.median([r["ms"] for r in steps[1:]]))
-    _log(f"[train] {cfg.name} on {card}: {sizes.train_steps} steps of {sizes.train_batch} x "
-         f"{sizes.train_seq} tokens in {wall:.2f} s (host clock, set-up included); loss "
+    _log(f"[train] {cfg.name} on {card}: {sizes.train_steps} steps of {B} x "
+         f"{T} tokens in {wall:.2f} s (host clock, set-up included); loss "
          f"{losses[0]:.5f} -> {losses[-1]:.5f}; median step {med:.2f} ms ({tokens / med * 1e3:.1f}"
          f" tokens/s; the first {steps[0]['ms']:.2f} ms); peak device memory "
          + (f"{peak:.2f} GB" if peak is not None else "not measured") + f"; launches {run_launches}")
-    if busy is None:
-        _log(f"[train] profiled step {PROFILED_STEP}: {prof.get('wall_ms', 0):.2f} ms (host "
-             f"clock); device time not measured (the profiler saw no device activity)")
-    else:
+    what = f"[train] {cfg.name} profiled step {PROFILED_STEP}"
+    if profiled and busy is None:
+        _log(f"{what}: {prof.get('wall_ms', 0):.2f} ms (host clock); device time not measured "
+             f"(the profiler saw no device activity)")
+    elif profiled:
         shown = "; ".join(f"{k[:60]} x{n} {ms:.3f} ms" for k, ms, n in top)
-        _log(f"[train] profiled step {PROFILED_STEP}: {prof['wall_ms']:.2f} ms (host clock, "
-             f"profiler on), card busy {busy:.2f} ms, idle share "
-             f"{1 - busy / prof['wall_ms']:.3f}; largest: {shown}")
-        _log(f"[train] profiled step {PROFILED_STEP}, busy ms by kernel: "
+        _log(f"{what}: {prof['wall_ms']:.2f} ms (host clock, profiler on), card busy "
+             f"{busy:.2f} ms, idle share {1 - busy / prof['wall_ms']:.3f}; largest: {shown}")
+        _log(f"{what}, busy ms by kernel: "
              + ", ".join(f"{k} {ms:.2f}" for k, ms in groups.items())
              + "; by range (device ms of the kernels each launched): "
              + ", ".join(f"{k} {ms:.2f}" for k, ms in sorted(ranges.items()))
@@ -1754,7 +1825,221 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str) -> dict:
              f"{busy - sum(ranges.values()):.2f}")
     return dict(steps=steps, launches=run_launches, peak_gb=peak, median_ms=med,
                 profile_busy_ms=busy, profile_wall_ms=prof.get("wall_ms"),
-                profile_groups=groups, profile_ranges=ranges)
+                profile_groups=groups, profile_ranges=ranges, cfg=cfg)
+
+
+def sizes_window(sizes: Sizes) -> tuple:
+    """recurrentgemma-2b's local-attention window and the tokens of its
+    training sequence, which must pass it."""
+    return sizes.arch_config("recurrentgemma-2b").window, sizes.window_seq
+
+
+def train_shape(sizes: Sizes, arch: str) -> tuple:
+    """(B, T) of ``arch``'s training batch: sizes.train_batch x
+    sizes.train_seq, but recurrentgemma-2b's one sequence of
+    sizes.window_seq tokens, past its 2048-token window (its 256,000-wide
+    f32 logits and their gradient take 8.4 GB at 4096 tokens), and
+    GRAD_ONLY_ARCH's one sequence (at B=4 its plain route's dense scores,
+    128 heads of 1024 x 1024 in f32, do not fit beside its 30 GB of
+    masters and gradients)."""
+    name = get_config(arch).name
+    if name == "recurrentgemma-2b":
+        return 1, sizes.window_seq
+    if name == GRAD_ONLY_ARCH:
+        return 1, sizes.train_seq
+    return sizes.train_batch, sizes.train_seq
+
+
+# -- phase 9 (e)-(g): training state on a mesh, the other families ------------
+
+# the families that train on the card besides sizes.arch (f), and the one
+# whose loss and gradient are held at one layer (g): deepseek-v2's 5.02 B
+# parameters of one layer with the embedding and head take 16 bytes each
+# with AdamW (80.3 GB), more than the card holds at any depth
+TRAIN_ARCHS = ("granite-moe-1b-a400m", "recurrentgemma-2b")
+GRAD_ONLY_ARCH, GRAD_ONLY_LAYERS = "deepseek-v2-236b", 1
+MESH_ROUNDS = 4             # (e): full-size steps with and without the mesh, in turns
+
+
+def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int) -> dict:
+    """``arch`` at full width and sizes.grad_layers layers (--remat): one
+    state drawn from the seed, copied; the copy placed replicated on
+    ``mesh`` (reshard_state) takes ``n_steps`` data-parallel steps and the
+    other as many plain steps on the same batches. The losses must be
+    equal and every leaf bit-identical (a sum over one rank changes no
+    bit); the collectives a step are counted."""
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=sizes.grad_layers)
+    model = make_model(cfg, remat=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=n_steps))
+    plain = init_train_state(model, torch.Generator(device=device).manual_seed(seed), tcfg)
+    placed = reshard_state(tree_map(torch.clone, plain), Sharding(mesh))
+    step = make_train_step(model, tcfg)
+    B, T = train_shape(sizes, arch)
+    data = SyntheticLMData(cfg.vocab_size, T, B, seed=seed)
+    losses, calls = {"mesh": [], "plain": []}, []
+    for _ in range(n_steps):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+        placed, m = step(placed, batch)
+        losses["mesh"].append(float(m["loss"]))
+        calls.append(int(m["collectives"]))
+        plain, m = step(plain, batch)
+        losses["plain"].append(float(m["loss"]))
+    same = all(a.dtype == b.dtype and torch.equal(a.to_local(), b)
+               for a, b in zip(leaves(placed), leaves(plain)))
+    n_params = sum(p.numel() for _, p in flatten_with_paths(plain["params"]))
+    _log(f"[train] mesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)}: {cfg.name} at full "
+         f"width, {cfg.n_layers} layers ({n_params / 1e9:.3f} B), B={B} x T={T}: {n_steps} "
+         f"data-parallel steps, losses {losses['mesh']}; plain steps {losses['plain']}; every "
+         f"leaf bit-identical: {same}; collectives a step {calls}")
+    if losses["mesh"] != losses["plain"] or not same:
+        _fail(f"train mesh {cfg.name}: the data-parallel step is not the plain step at world 1")
+    return dict(plain=plain, placed=placed, losses=losses["mesh"], calls=calls[0], cfg=cfg,
+                n_params=n_params)
+
+
+def mesh_checkpoint(placed, mesh) -> dict:
+    """(e) the placed state saved through the Checkpointer (rank 0 writes,
+    then a barrier) and restored onto the mesh (a single spec), bit for
+    bit; host-clock seconds and bytes of each."""
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.tree import leaves
+
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(placed))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        t0 = time.perf_counter()
+        ck.save(1, placed, {"step": 1})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, extras = ck.restore(None, placed, shardings=Sharding(mesh))
+        t_restore = time.perf_counter() - t0
+        same = extras["step"] == 1 and all(
+            a.placements == b.placements and torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(leaves(back), leaves(placed)))
+    _log(f"[train] checkpoint of the placed state ({n_bytes / 1e9:.2f} GB): saved in "
+         f"{t_save:.2f} s, restored onto the mesh in {t_restore:.2f} s (host clock); "
+         f"bit-identical: {same}")
+    if not same:
+        _fail("train mesh: the restored state differs from the saved one")
+    return dict(bytes=n_bytes, save_s=t_save, restore_s=t_restore)
+
+
+def time_mesh_step(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(e) sizes.arch at full width and depth (--remat): one state placed
+    replicated on ``mesh``; a step with the mesh (the data-parallel step
+    on the DTensor state) and without it (the plain step on its local
+    tensors, the same storage), MESH_ROUNDS each in turns after one of
+    each to warm up; medians on the host clock, and the collectives a
+    step."""
+    from repro_torch.training.tree import tree_map
+
+    cfg = sizes.arch_config()
+    model = make_model(cfg, remat=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=100))
+    placed = reshard_state(
+        init_train_state(model, torch.Generator(device=device).manual_seed(seed), tcfg),
+        Sharding(mesh))
+    with torch.no_grad():
+        local = tree_map(lambda t: t.to_local(), placed)
+    step = make_train_step(model, tcfg)
+    data = SyntheticLMData(cfg.vocab_size, sizes.train_seq, sizes.train_batch, seed=seed)
+    ms = {"mesh": [], "plain": []}
+    calls = []
+    for rnd in range(MESH_ROUNDS + 1):
+        for name in (("mesh", "plain") if rnd % 2 == 0 else ("plain", "mesh")):
+            batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            _, m = step(placed if name == "mesh" else local, batch)
+            float(m["loss"])
+            if rnd:
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+            if name == "mesh":
+                calls.append(int(m["collectives"]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    n_leaves = len(flatten_with_paths(placed["params"]))
+    _log(f"[train] {cfg.name} full width and depth on mesh {tuple(mesh.shape)}: a step "
+         f"{med['mesh']:.2f} ms with the mesh, {med['plain']:.2f} ms without (medians of "
+         f"{MESH_ROUNDS} each, in turns, host clock; {ms}); {calls[0]} collectives a step "
+         f"({n_leaves} gradient all-reduces, one a parameter leaf, and the loss's sums); "
+         f"difference {med['mesh'] - med['plain']:.2f} ms, "
+         f"{(med['mesh'] - med['plain']) / calls[0]:.3f} ms a collective")
+    return dict(mesh_ms=med["mesh"], plain_ms=med["plain"], calls=calls[0], all_ms=ms)
+
+
+def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
+    """(e)-(g): (e) a one-rank group and a (data=1) mesh: the 4-layer
+    data-parallel steps against the plain ones, the placed checkpoint,
+    the full-size step timed with and without the mesh; (f) each of
+    TRAIN_ARCHS through the launcher, its 4-layer gradient hold, and
+    granite's data-parallel steps on the mesh (its aux all-reduce and
+    ``moe_chunks``); (g) GRAD_ONLY_ARCH's one-layer gradient hold. Returns
+    the records and the launches of the training paths ((e)'s steps, (f)'s
+    runs, (g)'s kernel route); the holds' plain routes and (f)'s holds
+    are checks, not counted."""
+    out, path = {}, {k: 0 for k in KERNELS}
+
+    def count(fn, counted: bool = True):
+        before = launches()
+        r = fn()
+        # a launcher run counts from its own start (phase_train_run resets)
+        got = r["launches"] if "steps" in r else {k: v - before[k] for k, v in launches().items()}
+        if counted:
+            for k, v in got.items():
+                path[k] += v
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        held_gb.append(_allocated_gb(device))
+        return r
+
+    held_gb = []        # device memory still allocated after each part
+
+    with one_rank_group(device) as backend:
+        mesh = launch_mesh.make_mesh((1,), ("data",), device=device)
+        _log(f"[train] one-rank {backend} group (file store), mesh {tuple(mesh.shape)} "
+             f"{tuple(mesh.mesh_dim_names)} on {device}")
+        held = count(lambda: mesh_vs_plain(device, sizes, seed, mesh, sizes.arch,
+                                           sizes.mesh_steps))
+        out["mesh_ckpt"] = mesh_checkpoint(held.pop("placed"), mesh)
+        del held["plain"]
+        out["mesh_steps"] = held
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["mesh_timing"] = count(lambda: time_mesh_step(device, sizes, seed, mesh))
+        moe_mesh = count(lambda: mesh_vs_plain(device, sizes, seed, mesh, TRAIN_ARCHS[0], 2))
+        del moe_mesh["plain"], moe_mesh["placed"]
+        out["moe_mesh_steps"] = moe_mesh
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    held_gb.append(_allocated_gb(device))
+    _log(f"[train] device memory allocated after each part of (e) and after the group: "
+         f"{held_gb} GB")
+    window, T = sizes_window(sizes)
+    if not T > window:
+        _fail(f"train: recurrentgemma-2b's {T} tokens do not pass its window of {window}")
+    for arch in TRAIN_ARCHS:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out[arch] = count(lambda: phase_train_run(device, sizes, seed, card, arch))
+        out[arch]["grads"] = count(lambda: phase_train_grads(
+            device, sizes, seed, arch, batch=train_shape(sizes, arch)[0],
+            seq=train_shape(sizes, arch)[1]), counted=False)
+    _log(f"[train] device memory allocated after each part of (e) and (f): {held_gb} GB")
+    B, T = train_shape(sizes, GRAD_ONLY_ARCH)
+    out[GRAD_ONLY_ARCH] = phase_train_grads(device, sizes, seed, GRAD_ONLY_ARCH,
+                                            layers=GRAD_ONLY_LAYERS, batch=B, seq=T)
+    # the kernel route's launches (K3 once, K3-bwd once) are the path's
+    for k, v in zip(("flash_attention", "flash_attention_bwd"),
+                    out[GRAD_ONLY_ARCH]["launches"]):
+        path[k] += v
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = path
+    return out
 
 
 def bwd_timing_shapes(sizes: Sizes) -> List[tuple]:
@@ -1834,7 +2119,9 @@ def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
 
 def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
     """Phase 9: (a) the kernels, (b) the gradient hold, (c) the training
-    run (its launches: the training path's), (d) K3-bwd's timing."""
+    run (its launches: the training path's), (e)-(g) training state on a
+    mesh and the other families (phase_train_mesh; its paths' launches
+    too), (d) K3-bwd's timing."""
     t0 = time.perf_counter()
     phase_train_kernels(device, sizes, errs, seed)
     grads = phase_train_grads(device, sizes, seed)
@@ -1843,12 +2130,13 @@ def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dic
     run = phase_train_run(device, sizes, seed, card)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    mesh = phase_train_mesh(device, sizes, seed, card)
     timing = None
     if device.type == "cuda":
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
         timing = time_k3_bwd(device, sizes, seed, flush)
     _log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
-    return dict(grads=grads, run=run, timing=timing)
+    return dict(grads=grads, run=run, mesh=mesh, timing=timing)
 
 
 # -- phase 10: launch --------------------------------------------------------
@@ -2519,8 +2807,13 @@ def main(argv=None) -> int:
          f"checks, profile and timing included)")
     train = phase_train(device, sizes, errs, args.seed, card)     # the training path
     timing["flash_attention_bwd"] = train["timing"]
-    train_k3 = train["run"]["launches"]["flash_attention"]
-    _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training path")
+    train_launches = {k: train["run"]["launches"][k] + train["mesh"]["launches"][k]
+                      for k in ("flash_attention", "flash_attention_bwd")}
+    train_k3 = train_launches["flash_attention"]
+    _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training paths "
+         f"({train['run']['launches']['flash_attention']} in the run, "
+         f"{train['mesh']['launches']['flash_attention']} in (e)-(g)); K3-bwd "
+         f"{train_launches['flash_attention_bwd']}")
     reset_launches()                                  # the launch path starts here
     launch = phase_launch(device, sizes, args.seed)
     launch_k3 = launches()["flash_attention"]         # ... and ends here
@@ -2529,7 +2822,7 @@ def main(argv=None) -> int:
               f"prefills make")
     _log(f"[launch] K3 launches: {launch_k3} on the launch path")
     path_launches = dict(main_launches, flash_attention=live_k3 + train_k3 + launch_k3,
-                         flash_attention_bwd=train["run"]["launches"]["flash_attention_bwd"],
+                         flash_attention_bwd=train_launches["flash_attention_bwd"],
                          lane_engine=est_launches["lane_engine"])
 
     rows = []

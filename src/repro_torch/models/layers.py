@@ -1,6 +1,6 @@
 """Foundational layers of the model zoo: RMSNorm, RoPE, linear and
-embedding initializers, the SwiGLU MLP, the causal depthwise conv1d of
-the RG-LRU blocks. Functional, as in the reference
+embedding initializers, the SwiGLU and GELU MLPs, the causal depthwise
+conv1d of the RG-LRU blocks, the cross-entropy. Functional, as in the reference
 (``repro.models.layers``): parameters are plain dicts of tensors and the
 apply functions take them explicitly.
 
@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import shardctx
 
 Params = Dict[str, torch.Tensor]
 
@@ -108,6 +110,19 @@ def mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
     return matmul(gate * matmul(x, p["w_up"]), p["w_down"])
 
 
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
+                  device=None, lead: tuple = ()) -> Params:
+    return {
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device, lead),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device, lead),
+    }
+
+
+def gelu_mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """The tanh-approximated GELU MLP (``jax.nn.gelu(approximate=True)``)."""
+    return matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"), p["w_down"])
+
+
 # ---------------------------------------------------------------------------
 # Causal temporal conv1d (RG-LRU blocks)
 # ---------------------------------------------------------------------------
@@ -147,14 +162,22 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           z_loss: float = 0.0) -> torch.Tensor:
     """Mean cross-entropy over the masked positions; logits (..., V) are
-    taken to f32 first, labels (...) are integer ids."""
+    taken to f32 first, labels (...) are integer ids. Under a data-parallel
+    train step (``shardctx`` ``"data_parallel"``) the mean is the global
+    batch's: the numerator and the count are summed over the ranks."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll
     if z_loss > 0.0:
         loss = loss + z_loss * lse.square()
+    dp = shardctx.get("data_parallel")
     if mask is None:
-        return loss.mean()
+        if dp is None:
+            return loss.mean()
+        mask = torch.ones_like(loss)
     mask = mask.float()
-    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    num, count = (loss * mask).sum(), mask.sum()
+    if dp is not None:
+        num, count = dp.all_sum(num), dp.sum_(count)
+    return num / torch.clamp(count, min=1.0)

@@ -63,23 +63,34 @@ def moe_route(xf: torch.Tensor, p: Params, cfg, *, capacity_factor: float = 1.25
     if cfg.moe_renormalize:
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
+    # Under a data-parallel train step these N tokens are this rank's rows
+    # of ranks x N: the means and the capacity are the global batch's
+    dp = shardctx.get("data_parallel")
+    ranks = 1 if dp is None else dp.size
+
     # Load-balance aux loss (Switch-style): E * sum_e f_e * m_e
     f_e = F.one_hot(top_i[:, 0], E).float().mean(dim=0)              # top-1 fraction
     m_e = probs.mean(dim=0)
+    if dp is not None:
+        f_e, m_e = dp.sum_(f_e * (1.0 / ranks)), dp.all_sum(m_e * (1.0 / ranks))
     aux = E * torch.sum(f_e * m_e)
 
     # --- capacity + positions, per chunk of tokens (the reference's
     # per-shard capacity; one chunk unless the launcher installs more) --
-    chunks = int(shardctx.param("moe_chunks", 1))
-    if N % chunks != 0 or chunks < 1:
+    chunks, Ng = int(shardctx.param("moe_chunks", 1)), N * ranks
+    if Ng % chunks != 0 or chunks < 1:
         chunks = 1
-    Nc = N // chunks
+    if chunks % ranks:
+        raise ValueError(f"moe_chunks {chunks} over {Ng} tokens does not give each of the "
+                         f"{ranks} data-parallel ranks its own chunks")
     if no_drop:
-        C = N
+        C = Ng
     else:
-        C = int(max(1, round(capacity_factor * k * N / E)))
+        C = int(max(1, round(capacity_factor * k * Ng / E)))
     C = max(chunks * max(C // chunks, 1), chunks)                    # divisible per chunk
     Cc = C // chunks
+    chunks //= ranks                                                 # this rank's chunks
+    C, Nc = Cc * chunks, N // chunks
 
     ti = top_i.reshape(chunks, Nc, k)
     pos = torch.zeros((chunks, Nc, k), dtype=torch.int64, device=dev)

@@ -31,6 +31,13 @@ def rules(r: Optional[Dict[str, Callable]]):
         _RULES = old
 
 
+@contextmanager
+def added(r: Dict[str, object]):
+    """Within the block, the rules in force with ``r`` added."""
+    with rules({**_RULES, **r}):
+        yield
+
+
 def constrain(name: str, x):
     fn = _RULES.get(name)
     return fn(x) if fn is not None else x

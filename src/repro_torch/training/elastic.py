@@ -7,8 +7,10 @@ the monitor and the injector are host copies).
 * :class:`FailureInjector` — deterministic fault schedule (seeded) that
   raises at chosen steps; the train loop recovers by restoring the last
   committed checkpoint.
-* :func:`reshard_state` — the state's tensors on another device. Sharding
-  over a mesh waits for the port's ``launch`` slice.
+* :func:`reshard_state` — the elastic-scaling primitive: the state placed
+  anew, one device or mesh placement per leaf (``place_tree``); a state
+  on a mesh is gathered first, so it moves to a mesh of more or fewer
+  devices, or back to one device.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Sharding
 
-from .tree import tree_map
+from .tree import _children, _is_node, flatten_with_paths, unflatten
 
 
 @dataclass
@@ -71,7 +74,79 @@ class SimulatedNodeFailure(RuntimeError):
     pass
 
 
-def reshard_state(state: Any, device: DeviceLike = None) -> Any:
-    """The state's tensors on ``device`` (None: the card)."""
-    dev = resolve_device(device)
-    return tree_map(lambda t: t.to(dev), state)
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def specs_for(state: Any, shardings: Any) -> List[Any]:
+    """One placement per leaf of ``state``, in leaf order: ``shardings`` is
+    a single spec (a :class:`~repro_torch.launch.mesh.Sharding`, a device,
+    a device name or None for the card) for every leaf, or a tree that
+    matches ``state`` down to its specs (``treedef.flatten_up_to`` in the
+    reference: a spec where ``state`` has a subtree places all of it).
+    A tree that does not match raises, naming the path."""
+    out: List[Any] = []
+
+    def walk(spec, sub, path):
+        if not _is_node(spec):
+            out.extend([spec] * len(flatten_with_paths(sub)))
+            return
+        if not _is_node(sub) or type(spec) is not type(sub) or (
+                sorted(spec) != sorted(sub) if isinstance(spec, dict) else len(spec) != len(sub)):
+            raise ValueError(f"shardings at {path or 'the root'} do not match the state's "
+                             f"structure")
+        for (key, s), (_, t) in zip(_children(spec), _children(sub)):
+            walk(s, t, path + key)
+
+    walk(shardings, state, "")
+    return out
+
+
+def sharding_of(t) -> Sharding:
+    """A DTensor's mesh and placements as a :class:`Sharding`; raises for
+    a placement a spec cannot give (a pending reduction)."""
+    names = t.device_mesh.mesh_dim_names
+    dims: List[list] = [[] for _ in range(t.ndim)]
+    for name, pl in zip(names, t.placements):
+        if pl.is_shard():
+            dims[pl.dim].append(name)
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} on mesh axis {name!r} has no spec")
+    if not any(dims):
+        return Sharding(t.device_mesh)
+    return Sharding(t.device_mesh, tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                                         for a in dims))
+
+
+def place_leaf(t, spec, path: str = ""):
+    """``t`` (a tensor, or a DTensor, which is gathered first: collective)
+    placed by ``spec``: distributed over a mesh by a ``Sharding``, else
+    moved to the device."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    if isinstance(spec, Sharding):
+        return spec.distribute(t.detach(), path)
+    return t.to(resolve_device(spec))
+
+
+def reshard_state(state: Any, shardings: Any = None) -> Any:
+    """The state placed by ``shardings`` (:func:`specs_for`: one spec for
+    every leaf, or a tree of them). Every rank of a mesh calls it, in the
+    same leaf order: gathering a DTensor and distributing a tensor are
+    collective. The reference goes through the host; here a leaf that is
+    already gathered on the mesh's device may share its storage with the
+    result."""
+    pairs = flatten_with_paths(state)
+    specs = specs_for(state, shardings)
+    check_specs(pairs, specs)
+    return unflatten(state, [place_leaf(t, s, path) for (path, t), s in zip(pairs, specs)])
+
+
+def check_specs(pairs, specs) -> None:
+    """Raises, naming the leaf, where a ``Sharding`` does not fit its
+    (path, tensor): checked for every leaf before any collective runs."""
+    for (path, t), spec in zip(pairs, specs):
+        if isinstance(spec, Sharding):
+            spec.placements(tuple(t.shape), path)

@@ -10,7 +10,9 @@ error-feedback gradient compression (``compression.py``) slot in here.
 State is a dict ``{"params", "opt", "compress"?}`` of tensors, as in the
 reference. The step updates it in place and returns it (the reference's
 launcher donates its state to the jitted step): a caller that wants the
-old state keeps a copy.
+old state keeps a copy. A state whose leaves are DTensors replicated over
+a mesh (``elastic.reshard_state``) steps data-parallel: each rank passes
+its own rows of the global batch (``data_parallel.py``).
 
 Two profiler ranges name the step's parts for ``torch.profiler``:
 ``train_step.forward`` (the loss) and ``train_step.optimizer`` (the
@@ -25,7 +27,10 @@ from typing import Any, Callable, Optional
 import torch
 from torch.profiler import record_function
 
+from repro_torch.models import shardctx
+
 from .compression import CompressionConfig, compress_grads, compression_init
+from .data_parallel import DataParallel, state_mesh
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 from .tree import leaves, tree_map, unflatten
 
@@ -85,13 +90,36 @@ def make_grad_fn(model, train_cfg: TrainConfig) -> Callable:
 
 def make_train_step(model, train_cfg: TrainConfig) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: ``batch`` a
-    dict of tensors with the global batch leading on every leaf; metrics
-    are 0-d tensors (``float()`` synchronises)."""
+    dict of tensors with the global batch leading on every leaf, or, for a
+    state on a mesh, this rank's rows of it; metrics are 0-d tensors
+    (``float()`` synchronises), on a mesh with ``"collectives"``, the
+    step's all-reduces and all-gathers."""
     compute_grads = make_grad_fn(model, train_cfg)
+    groups = {}                     # a mesh's DataParallel (its groups are made once)
 
     def train_step(state, batch):
+        mesh = state_mesh(state)
+        if mesh is None:
+            return step(state, batch, None)
+        dp = groups.get(id(mesh))
+        if dp is None:
+            dp = groups[id(mesh)] = DataParallel(mesh)
+        dp.calls = 0
+        with torch.no_grad():
+            local = tree_map(lambda t: t.to_local(), state)
+        with shardctx.added({"data_parallel": dp, "moe_chunks": dp.size}):
+            new, metrics = step(local, dp.microbatch_rows(batch, train_cfg.microbatches), dp)
+        with torch.no_grad():       # leaves the step made anew: the opt step, residuals
+            for old, t in zip(leaves(local), leaves(new)):
+                if t is not old:
+                    old.copy_(t)
+        return state, {**metrics, "collectives": torch.tensor(dp.calls)}
+
+    def step(state, batch, dp: Optional[DataParallel]):
         params = state["params"]
         loss, metrics, grads = compute_grads(params, batch)
+        if dp is not None:
+            dp.mean_grads_(grads)
         if train_cfg.compression is not None:
             grads, comp_state, comp_metrics = compress_grads(grads, state["compress"],
                                                              train_cfg.compression)

@@ -4,7 +4,9 @@ the CPU on its own. The probe walks every module of the package, the
 RRE and MCD-OS copies, the MoE, RG-LRU, xLSTM and shardctx models, and
 the training slice (``data``, ``training``, ``launch.train``) and the
 rest of ``launch`` (tuning, serve, mesh, specs, flash_decode, moe_ep)
-included: importing ``launch.serve`` runs nothing."""
+included, with training on a mesh (``training.elastic``,
+``training.data_parallel``) and every name of ``serving``: importing
+``launch.serve`` runs nothing."""
 
 import subprocess
 import sys
@@ -25,10 +27,16 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 for name in ("repro_torch.data", "repro_torch.training", "repro_torch.training.checkpoint",
+             "repro_torch.training.elastic", "repro_torch.training.data_parallel",
+             "repro_torch.training.train_step", "repro_torch.models.layers",
+             "repro_torch.models.moe", "repro_torch.models.shardctx", "repro_torch.serving",
              "repro_torch.launch.train", "repro_torch.launch.tuning", "repro_torch.launch.serve",
              "repro_torch.launch.mesh", "repro_torch.launch.specs",
              "repro_torch.launch.flash_decode", "repro_torch.launch.moe_ep"):
     assert name in names, name
+import repro_torch.serving as serving
+for name in serving.__all__:                      # the lazily loaded names too
+    getattr(serving, name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -43,7 +51,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 77          # every subpackage and module was imported
+    assert int(n) >= 78          # every subpackage and module was imported
     assert bad == "[]"
 
 

@@ -291,23 +291,129 @@ def test_chip_smoke_route_tape_replays_an_moe_prefill():
     assert ch["tokens"] > 0 and cs.route_changes(tape.routes, tape.routes)["tokens"] == 0
 
 
-def test_chip_smoke_train_phase_on_cpu_at_small_size():
+def test_chip_smoke_route_tape_replays_a_loss_and_its_gradients():
+    """chip_smoke.RouteTape over a loss and gradient pass (bf16 compute,
+    as phase 9's holds run): recording computes moe_apply's own function,
+    and replaying the recorded routing from the weights' own router pass
+    gives the same loss and the same gradients, the router's included."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from repro_torch.models import make_model, shardctx
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.train_step import make_grad_fn
+    from repro_torch.training.tree import leaves
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(), n_layers=2)
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = cs._train_batch(cfg, cs.Sizes(reduced=True, train_batch=2, train_seq=32), 0,
+                            torch.device("cpu"))
+    grad_fn = make_grad_fn(model, TrainConfig())
+    want_loss, _, want = grad_fn(params, batch)
+    tape = cs.RouteTape()
+    with shardctx.rules({"moe_apply": tape}):
+        loss, _, got = grad_fn(params, batch)
+    with shardctx.rules({"moe_apply": cs.RouteTape(tape.routes)}):
+        again_loss, _, again = grad_fn(params, batch)
+    assert len(tape.routes) == cfg.n_layers
+    assert float(loss) == float(want_loss) == float(again_loss)
+    for w, g, a in zip(leaves(want), leaves(got), leaves(again)):
+        assert torch.equal(g, w) and torch.equal(a, w)
+
+
+_TRAIN_PHASE = """
+import json, os
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+torch.set_num_threads(1)
+sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
+                 audio_frames=24, window_seq=48)
+errs = cs.Errors()
+out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
+mesh = out["mesh"]
+runs = {a: dict(losses=[r["loss"] for r in mesh[a]["steps"]],
+                grads=mesh[a]["grads"]["worst_rel"], grad_launches=mesh[a]["grads"]["launches"],
+                tokens=mesh[a]["steps"][0]["tokens_per_s"])
+        for a in cs.TRAIN_ARCHS}
+print(json.dumps(dict(
+    n_bwd_shapes=len(cs.bwd_shapes(sizes)), bwd_err=errs.max["flash_attention_bwd"],
+    worst_rel=out["grads"]["worst_rel"], steps=out["run"]["steps"],
+    profile_wall_ms=out["run"]["profile_wall_ms"], profile_busy_ms=out["run"]["profile_busy_ms"],
+    timing=out["timing"], initialized=dist.is_initialized(), window=cs.sizes_window(sizes),
+    mesh_steps={k: v for k, v in mesh["mesh_steps"].items() if k in ("losses", "calls")},
+    moe_mesh_steps={k: v for k, v in mesh["moe_mesh_steps"].items() if k in ("losses", "calls")},
+    mesh_ckpt=mesh["mesh_ckpt"], mesh_timing=mesh["mesh_timing"], runs=runs,
+    grad_only={k: mesh[cs.GRAD_ONLY_ARCH][k] for k in ("worst_rel", "loss_diff", "launches")},
+    launches=mesh["launches"])), flush=True)
+os._exit(0)     # no interpreter teardown after the gloo group (see test_torch_launch.py)
+"""
+
+
+@pytest.fixture(scope="module")
+def train_phase():
+    """Phase 9 at a small size, in a process of its own (its (e) part opens
+    a one-rank gloo group): the JSON of what the tests below hold."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _TRAIN_PHASE], cwd=root, capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": f"{root / 'src'}:{root}"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_chip_smoke_train_phase_on_cpu_at_small_size(train_phase):
     """Phase 9 at a small size: the K3-bwd checks over its shape grid
     (the plain versions against themselves on the CPU), the gradient hold
     (2 layers of the reduced qwen3), the launcher's run with its per-step
     records and the profiled step."""
-    import chip_smoke as cs
-
-    sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
-                     audio_frames=24)
-    assert len(cs.bwd_shapes(sizes)) == 8
-    errs = cs.Errors()
-    out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
-    assert errs.max["flash_attention_bwd"] == 0.0 and out["grads"]["worst_rel"] == 0.0
-    steps = out["run"]["steps"]
+    out = train_phase
+    assert out["n_bwd_shapes"] == 8
+    assert out["bwd_err"] == 0.0 and out["worst_rel"] == 0.0
+    steps = out["steps"]
     assert [r["step"] for r in steps] == [0, 1, 2, 3, 4]
-    assert steps[-1]["loss"] < steps[0]["loss"] and out["run"]["profile_wall_ms"] > 0
-    assert out["run"]["profile_busy_ms"] is None and out["timing"] is None
+    assert steps[-1]["loss"] < steps[0]["loss"] and out["profile_wall_ms"] > 0
+    assert out["profile_busy_ms"] is None and out["timing"] is None
+
+
+def test_chip_smoke_train_phase_steps_on_a_mesh_as_without_one(train_phase):
+    """Phase 9 (e) at a small size: a one-rank gloo group (gone after the
+    phase) and a (data=1) mesh; the data-parallel steps equal the plain
+    ones (checked in the phase, which fails otherwise), with the loss's
+    sums and one all-reduce a gradient leaf counted; the placed state's
+    checkpoint round trip; the step timed with and without the mesh."""
+    out = train_phase
+    assert not out["initialized"]
+    assert len(out["mesh_steps"]["losses"]) == 3 and out["mesh_steps"]["calls"] == 13 + 3
+    assert out["mesh_ckpt"]["bytes"] > 0
+    t = out["mesh_timing"]
+    assert t["calls"] == 16 and t["mesh_ms"] > 0 and t["plain_ms"] > 0
+    assert [len(v) for v in t["all_ms"].values()] == [4, 4]
+    # granite-moe's steps: its MoE layers' aux sums (and their transposes)
+    assert out["moe_mesh_steps"]["calls"] > out["mesh_steps"]["calls"]
+
+
+def test_chip_smoke_train_phase_trains_the_other_families(train_phase):
+    """Phase 9 (f) and (g) at a small size: granite-moe-1b and
+    recurrentgemma-2b (its sequence past its window) take 5 steps through
+    the launcher with falling losses, each with its gradient hold (the
+    plain route against itself on the CPU: granite's replayed routing
+    gives the same gradients); deepseek-v2's one-layer hold."""
+    out = train_phase
+    assert out["window"][0] < out["window"][1]
+    for arch, r in out["runs"].items():
+        assert len(r["losses"]) == 5 and r["losses"][-1] < r["losses"][0], arch
+        assert r["grads"] == 0.0 and r["grad_launches"] == [0, 0], arch
+        assert r["tokens"] > 0
+    assert out["grad_only"]["worst_rel"] == 0.0 and out["grad_only"]["loss_diff"] == 0.0
+    assert out["launches"]["flash_attention"] == 0        # no kernel on the CPU
 
 
 _LAUNCH_PHASE = """
