@@ -114,6 +114,24 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              deepseek-v2 at 1 of 60 layers: one loss and gradient (B=1 x
              T=1024) through K3 and K3-bwd padded to 256 held to the plain
              route, the first gradients waiting in host memory;
+             (h) the state placed leaf by leaf on a (data=1, model=1)
+             mesh of the same group: (h1) ZeRO-1, the moments and the
+             compression residuals split over "data", qwen3-1.7b (with
+             int8 compression) 3 steps and granite-moe-1b 2 at 4 layers,
+             each against as many plain steps (equal losses, every leaf
+             bit-identical), the reduce-scatters and all-gathers counted;
+             (h2) the parameters and moments split over "model", held the
+             same way; (h3) full qwen3-1.7b's step with ZeRO-1 against
+             the replicated placement, in turns, with its collectives by
+             kind; (h4) qwen3-1.7b serves the live requests with the
+             flash-decode override on caches its prefill writes split
+             over "model" (DTensors, each rank its slots) and on caches
+             held whole: the same greedy tokens, a decode step's logits
+             within LIVE_LOGITS_RTOL; (h5) the bytes a rank would hold at
+             1, 2, 4 and 8 ranks for each placement (qwen3-1.7b's and one
+             deepseek-v2 layer's training state, qwen3's KV cache of a
+             32768-token sequence): arithmetic from the shapes, printed as
+             such, not a measurement;
 10. launch   the launch modules through a one-rank NCCL group (a file://
              store in a temporary directory, no TCP port) and a (data=1,
              model=1) mesh: (a) qwen3-1.7b at full width and depth serves
@@ -133,7 +151,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phases 5, 9 and 10, the lane engine in
-phase 8, K3-bwd in phase 9: its runs, (e)'s steps and (g)'s kernel route;
+phase 8, K3-bwd in phase 9: its runs, (e)'s and (h)'s steps and (g)'s kernel route;
 max error; times; bound); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -200,6 +218,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import Sharding  # noqa: E402
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step  # noqa: E402
+from repro_torch.training.compression import CompressionConfig  # noqa: E402
 from repro_torch.training.elastic import reshard_state  # noqa: E402
 from repro_torch.training.train_step import init_train_state, make_grad_fn  # noqa: E402
 from repro_torch.training.tree import flatten_with_paths  # noqa: E402
@@ -1737,7 +1756,8 @@ def phase_train_grads(device, sizes: Sizes, seed: int, arch: str = "", layers: i
         _fail(f"train grads {cfg.name}: loss diff {dloss:.3e} or leaf rel L2 {worst:.3e} "
               f"({worst_path}) out of bounds")
     return dict(loss_diff=dloss, worst_rel=worst, worst_path=worst_path, launches=got,
-                n_params=n_params)
+                n_params=n_params, shapes=[(path, tuple(p.shape))
+                                           for path, p in flatten_with_paths(params)])
 
 
 def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
@@ -1850,7 +1870,7 @@ def train_shape(sizes: Sizes, arch: str) -> tuple:
     return sizes.train_batch, sizes.train_seq
 
 
-# -- phase 9 (e)-(g): training state on a mesh, the other families ------------
+# -- phase 9 (e)-(h): training state on a mesh, the other families ------------
 
 # the families that train on the card besides sizes.arch (f), and the one
 # whose loss and gradient are held at one layer (g): deepseek-v2's 5.02 B
@@ -1861,42 +1881,96 @@ GRAD_ONLY_ARCH, GRAD_ONLY_LAYERS = "deepseek-v2-236b", 1
 MESH_ROUNDS = 4             # (e): full-size steps with and without the mesh, in turns
 
 
-def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int) -> dict:
+COLLECTIVE_KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+
+
+def _kinds(m: dict) -> Dict[str, int]:
+    return {k: int(m[f"collectives.{k}"]) for k in COLLECTIVE_KINDS}
+
+
+def place_specs(state, mesh, placement=None):
+    """The tree of ``Sharding``s placing ``state`` on ``mesh``: each leaf by
+    ``placement(path, shape)`` (a spec's entries, () to replicate), or every
+    leaf replicated."""
+    from repro_torch.training.tree import unflatten
+
+    return unflatten(state, [Sharding(mesh, placement(path, tuple(t.shape)) if placement else ())
+                             for path, t in flatten_with_paths(state)])
+
+
+def _axis_at(axis: str, size: int, shape: tuple, last: bool) -> tuple:
+    """A spec splitting ``shape`` over ``axis`` (of ``size`` ranks) at its
+    first (or last) dim that divides; () where none does."""
+    dims = [d for d in range(len(shape)) if shape[d] % size == 0]
+    if not dims:
+        return ()
+    at = dims[-1] if last else dims[0]
+    return tuple(axis if d == at else None for d in range(len(shape)))
+
+
+MOMENTS = ("['opt']['mu']", "['opt']['nu']", "['compress']")
+
+
+def zero1_placement(mesh):
+    """(h1) ZeRO-1: the moments and residuals over "data" at each leaf's
+    first dim that divides, the parameters replicated."""
+    n = launch_mesh.axis_size(mesh, "data")
+    return lambda path, shape: (_axis_at("data", n, shape, False)
+                                if path.startswith(MOMENTS) else ())
+
+
+def model_placement(mesh):
+    """(h2) the parameters, moments and residuals over "model" at each
+    leaf's last dim that divides."""
+    n = launch_mesh.axis_size(mesh, "model")
+    return lambda path, shape: (_axis_at("model", n, shape, True)
+                                if not path.startswith("['opt']['step']") else ())
+
+
+def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int,
+                  placement=None, compress: bool = False, what: str = "data-parallel") -> dict:
     """``arch`` at full width and sizes.grad_layers layers (--remat): one
-    state drawn from the seed, copied; the copy placed replicated on
-    ``mesh`` (reshard_state) takes ``n_steps`` data-parallel steps and the
-    other as many plain steps on the same batches. The losses must be
+    state drawn from the seed, copied; the copy placed on ``mesh``
+    (reshard_state; replicated, or leaf by leaf by ``placement``) takes
+    ``n_steps`` steps and the other as many plain steps on the same
+    batches (with int8 compression where ``compress``). The losses must be
     equal and every leaf bit-identical (a sum over one rank changes no
-    bit); the collectives a step are counted."""
+    bit, nor does a gather or a scatter); the collectives a step are
+    counted, by kind."""
     from repro_torch.training.tree import leaves, tree_map
 
     cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=sizes.grad_layers)
     model = make_model(cfg, remat=True)
-    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=n_steps))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=n_steps),
+                       compression=CompressionConfig() if compress else None)
     plain = init_train_state(model, torch.Generator(device=device).manual_seed(seed), tcfg)
-    placed = reshard_state(tree_map(torch.clone, plain), Sharding(mesh))
+    placed = reshard_state(tree_map(torch.clone, plain), place_specs(plain, mesh, placement))
+    split = sum(1 for t in leaves(placed) if any(p.is_shard() for p in t.placements))
     step = make_train_step(model, tcfg)
     B, T = train_shape(sizes, arch)
     data = SyntheticLMData(cfg.vocab_size, T, B, seed=seed)
-    losses, calls = {"mesh": [], "plain": []}, []
+    losses, calls, kinds = {"mesh": [], "plain": []}, [], []
     for _ in range(n_steps):
         batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
         placed, m = step(placed, batch)
         losses["mesh"].append(float(m["loss"]))
         calls.append(int(m["collectives"]))
+        kinds.append(_kinds(m))
         plain, m = step(plain, batch)
         losses["plain"].append(float(m["loss"]))
     same = all(a.dtype == b.dtype and torch.equal(a.to_local(), b)
                for a, b in zip(leaves(placed), leaves(plain)))
     n_params = sum(p.numel() for _, p in flatten_with_paths(plain["params"]))
     _log(f"[train] mesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)}: {cfg.name} at full "
-         f"width, {cfg.n_layers} layers ({n_params / 1e9:.3f} B), B={B} x T={T}: {n_steps} "
-         f"data-parallel steps, losses {losses['mesh']}; plain steps {losses['plain']}; every "
-         f"leaf bit-identical: {same}; collectives a step {calls}")
+         f"width, {cfg.n_layers} layers ({n_params / 1e9:.3f} B), B={B} x T={T}"
+         f"{', int8 compression' if compress else ''}: {n_steps} {what} steps ({split} of "
+         f"{len(leaves(placed))} leaves split), losses {losses['mesh']}; plain steps "
+         f"{losses['plain']}; every leaf bit-identical: {same}; collectives a step {calls} "
+         f"({kinds[0]})")
     if losses["mesh"] != losses["plain"] or not same:
-        _fail(f"train mesh {cfg.name}: the data-parallel step is not the plain step at world 1")
-    return dict(plain=plain, placed=placed, losses=losses["mesh"], calls=calls[0], cfg=cfg,
-                n_params=n_params)
+        _fail(f"train mesh {cfg.name}: the {what} step is not the plain step at world 1")
+    return dict(plain=plain, placed=placed, losses=losses["mesh"], calls=calls[0],
+                kinds=kinds[0], split=split, cfg=cfg, n_params=n_params)
 
 
 def mesh_checkpoint(placed, mesh) -> dict:
@@ -1969,16 +2043,199 @@ def time_mesh_step(device, sizes: Sizes, seed: int, mesh) -> dict:
     return dict(mesh_ms=med["mesh"], plain_ms=med["plain"], calls=calls[0], all_ms=ms)
 
 
+def world1_view(state, specs):
+    """At world 1 every block is the whole tensor: the state's local
+    tensors as DTensors placed by ``specs``, sharing their storage."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.training.tree import leaves, unflatten
+
+    out = []
+    for t, sh in zip(leaves(state), leaves(specs)):
+        if sh.mesh.size() != 1:
+            _fail("world1_view: a mesh of more than one rank")
+        out.append(DTensor.from_local(t.to_local(), sh.mesh, sh.placements(tuple(t.shape)),
+                                      run_check=False))
+    return unflatten(state, out)
+
+
+def time_placed_step(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(h3) sizes.arch at full width and depth (--remat): one state placed
+    replicated on ``mesh`` and a ZeRO-1 view of the same storage
+    (world1_view); a step of each, MESH_ROUNDS each in turns after one of
+    each to warm up; medians on the host clock, and each one's collectives
+    a step by kind. Also the parameter shapes, for (h5)."""
+    cfg = sizes.arch_config()
+    model = make_model(cfg, remat=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=100))
+    state = init_train_state(model, torch.Generator(device=device).manual_seed(seed), tcfg)
+    shapes = [(path, tuple(t.shape)) for path, t in flatten_with_paths(state["params"])]
+    runs = {"replicated": reshard_state(state, Sharding(mesh))}
+    del state
+    runs["zero1"] = world1_view(runs["replicated"], place_specs(runs["replicated"], mesh,
+                                                                zero1_placement(mesh)))
+    step = make_train_step(model, tcfg)
+    data = SyntheticLMData(cfg.vocab_size, sizes.train_seq, sizes.train_batch, seed=seed)
+    ms = {k: [] for k in runs}
+    kinds = {}
+    for rnd in range(MESH_ROUNDS + 1):
+        for name in (("zero1", "replicated") if rnd % 2 == 0 else ("replicated", "zero1")):
+            batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            _, m = step(runs[name], batch)
+            float(m["loss"])
+            if rnd:
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+            kinds[name] = dict(_kinds(m), total=int(m["collectives"]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    _log(f"[train] (h3) {cfg.name} full width and depth on mesh {tuple(mesh.shape)} "
+         f"{tuple(mesh.mesh_dim_names)}: a step {med['zero1']:.2f} ms with ZeRO-1 (moments split "
+         f"over 'data'), {med['replicated']:.2f} ms replicated (medians of {MESH_ROUNDS} each, "
+         f"in turns, host clock; {ms}); collectives a step {kinds}; difference "
+         f"{med['zero1'] - med['replicated']:.2f} ms")
+    if kinds["zero1"]["reduce_scatter"] != len(shapes) or kinds["replicated"]["reduce_scatter"]:
+        _fail(f"train (h3): reduce-scatters a step {kinds}, not one a parameter leaf with ZeRO-1 "
+              f"and none replicated")
+    return dict(zero1_ms=med["zero1"], replicated_ms=med["replicated"], all_ms=ms, kinds=kinds,
+                shapes=shapes, cfg=cfg)
+
+
+def split_cache_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(h4) sizes.arch served with the live phase's requests twice with the
+    flash-decode override on ``mesh``: on caches held whole, then on caches
+    its prefill writes split over "model" (the ``"cache_split"`` rule,
+    ``flash_decode.SplitCaches``: DTensors, each rank its slots). The same greedy tokens; the first
+    request's prefill and one decode step on each kind of cache, the
+    last-token logits within LIVE_LOGITS_RTOL of their scale; each rank's
+    attention caches hold S / (model ranks) slots; then one decode step
+    timed on each cache in turns. Returns the prefills made (each
+    launches K3 once a global-attention layer)."""
+    from repro_torch.training.tree import leaves
+
+    override = flash_decode.make_decode_attention(mesh)
+    whole_rules = {"decode_attention": override}
+    split_rules = {"decode_attention": override, "cache_split": flash_decode.SplitCaches(mesh)}
+    with shardctx.rules(whole_rules):
+        whole = phase_live(device, sizes, seed)
+    want_tokens = _served_tokens(whole)
+    whole_ms = 1e3 * float(np.median(whole["timed"].decode_s))
+    del whole
+    with shardctx.rules(split_rules):
+        live = phase_live(device, sizes, seed)
+    got_tokens, split_ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
+    for i, (g, w) in enumerate(zip(got_tokens, want_tokens)):
+        if not np.array_equal(g, w):
+            _fail(f"train (h4): request {i}: greedy tokens {g.tolist()} on split caches, "
+                  f"{w.tolist()} on whole ones")
+    model, params, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
+    dev = params["embed"].device
+    S = len(tokens) + sizes.new_tokens
+    msz = launch_mesh.axis_size(mesh, "model")
+    rules = {"whole": whole_rules, "split": split_rules}
+    with torch.inference_mode():
+        prompt = {"tokens": torch.as_tensor(tokens[None, :], device=dev)}
+        pos = torch.full((1,), len(tokens), dtype=torch.int32, device=dev)
+        out, caches = {}, {}
+        for name in rules:
+            with shardctx.rules(rules[name]):
+                logits, caches[name] = model.prefill(params, prompt, S)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                out[name] = model.decode_step(params, tok, caches[name], pos)[0][0, -1].float()
+        held = [(t.to_local().shape[2], t.shape[2]) for t in leaves(caches["split"])]
+        if not held or any(h * msz != n for h, n in held):
+            _fail(f"train (h4): split caches hold {held} of their slots on {msz} model ranks")
+        # one decode step timed in turns on each cache, as phase 10 times it
+        step_s = {name: [] for name in rules}
+        for rnd in range(LAUNCH_ROUNDS):
+            for name in (("whole", "split") if rnd % 2 == 0 else ("split", "whole")):
+                with shardctx.rules(rules[name]):
+                    for _ in range(LAUNCH_STEPS):
+                        _sync(device)
+                        t0 = time.perf_counter()
+                        model.decode_step(params, tok, caches[name], pos)
+                        _sync(device)
+                        step_s[name].append(time.perf_counter() - t0)
+        del caches
+    step_ms = {k: 1e3 * float(np.median(v)) for k, v in step_s.items()}
+    scale = float(out["whole"].abs().max())
+    err = float((out["split"] - out["whole"]).abs().max())
+    if not (torch.isfinite(out["split"]).all() and err <= LIVE_LOGITS_RTOL * scale):
+        _fail(f"train (h4): a decode step's logits on split caches differ by {err:.3e} "
+              f"(> {LIVE_LOGITS_RTOL} x scale {scale:.3e})")
+    _log(f"[train] (h4) {cfg.name} on caches split over 'model' ({msz} rank(s), each "
+         f"{S // msz} of {S} slots of the first request's cache): {len(got_tokens)} requests x "
+         f"{sizes.new_tokens} greedy tokens the same as on whole caches; a decode step's "
+         f"last-token logits max abs err {err:.3e} (scale {scale:.3e}); served decode "
+         f"{split_ms:.2f} ms per token split, {whole_ms:.2f} whole (medians, host clock); one "
+         f"step in turns ({LAUNCH_ROUNDS} rounds of {LAUNCH_STEPS}): {step_ms['split']:.2f} ms "
+         f"split, {step_ms['whole']:.2f} ms whole (medians, host clock)")
+    return dict(logits_err=err, split_decode_ms=split_ms, whole_decode_ms=whole_ms,
+                split_step_ms=step_ms["split"], whole_step_ms=step_ms["whole"],
+                prefills=2 * len(got_tokens) + 2, cfg=cfg)
+
+
+def rank_bytes(shapes, n: int) -> Dict[str, tuple]:
+    """(h5) arithmetic: the bytes one of ``n`` ranks holds of a training
+    state of f32 parameters of these shapes, for each placement: (the
+    state held between steps: parameters, mu and nu; what a step adds: the
+    whole f32 gradient, the bf16 compute copy and, for split parameters,
+    each gathered whole). A leaf no dim of which divides stays whole."""
+    out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0]}
+    for _, shape in shapes:
+        e = int(np.prod(shape))
+        first = _axis_at("x", n, shape, False)
+        last = _axis_at("x", n, shape, True)
+        out["replicated"][0] += 12 * e
+        out["zero1"][0] += 4 * e + (8 * e // n if first else 8 * e)
+        out["model"][0] += 12 * e // n if last else 12 * e
+        for k in out:
+            out[k][1] += 6 * e
+        out["model"][1] += 4 * e if (last and n > 1) else 0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def per_rank_bytes(sizes: Sizes, shapes: dict) -> dict:
+    """(h5) for 1, 2, 4 and 8 ranks: each training state's per-rank bytes
+    (rank_bytes) and qwen3's KV cache of a 32768-token sequence split over
+    "model" (its shapes on the meta device). Printed as arithmetic."""
+    out = {}
+    for name, sh in shapes.items():
+        out[name] = {n: rank_bytes(sh, n) for n in (1, 2, 4, 8)}
+        _log(f"[train] (h5) arithmetic, not a measurement: {name} training state "
+             f"({sum(int(np.prod(s)) for _, s in sh) / 1e9:.3f} B f32 parameters), GB a rank "
+             f"holds (state between steps + what a step adds) at N ranks: " + "; ".join(
+                 f"N={n}: " + ", ".join(f"{k} {a / 1e9:.2f} + {b / 1e9:.2f}"
+                                        for k, (a, b) in r.items())
+                 for n, r in out[name].items()))
+    cfg = sizes.arch_config()
+    model = make_model(cfg)
+    tokens = 32768
+    held = [(path.endswith(("['k']", "['v']", "['c_kv']", "['k_rope']")),
+             t.numel() * t.element_size())
+            for path, t in flatten_with_paths(model.cache_specs(1, tokens))]
+    total = sum(b for _, b in held)
+    # the attention caches split on their slots over "model", the rest whole
+    out["kv_cache"] = {n: sum(b // n if slots else b for slots, b in held) for n in (1, 2, 4, 8)}
+    _log(f"[train] (h5) arithmetic, not a measurement: {cfg.name} KV cache of one "
+         f"{tokens}-token sequence in {model.compute_dtype}: {total / tokens / 1024:.1f} KiB a "
+         f"token, " + ", ".join(f"N={n}: {b / 1e9:.3f} GB a model rank"
+                                for n, b in out["kv_cache"].items()))
+    return out
+
+
 def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
-    """(e)-(g): (e) a one-rank group and a (data=1) mesh: the 4-layer
+    """(e)-(h): (e) a one-rank group and a (data=1) mesh: the 4-layer
     data-parallel steps against the plain ones, the placed checkpoint,
-    the full-size step timed with and without the mesh; (f) each of
-    TRAIN_ARCHS through the launcher, its 4-layer gradient hold, and
-    granite's data-parallel steps on the mesh (its aux all-reduce and
-    ``moe_chunks``); (g) GRAD_ONLY_ARCH's one-layer gradient hold. Returns
-    the records and the launches of the training paths ((e)'s steps, (f)'s
-    runs, (g)'s kernel route); the holds' plain routes and (f)'s holds
-    are checks, not counted."""
+    the full-size step timed with and without the mesh; (h) in the same
+    group, the state placed leaf by leaf and the split KV cache
+    (phase_train_placed); (f) each of TRAIN_ARCHS through the launcher,
+    its 4-layer gradient hold, and granite's data-parallel steps on the
+    mesh (its aux all-reduce and ``moe_chunks``); (g) GRAD_ONLY_ARCH's
+    one-layer gradient hold; (h5) the per-rank bytes arithmetic. Returns
+    the records and the launches of the training paths ((e)'s and (h)'s
+    steps and serving, (f)'s runs, (g)'s kernel route); the holds' plain
+    routes and (f)'s holds are checks, not counted."""
     out, path = {}, {k: 0 for k in KERNELS}
 
     def count(fn, counted: bool = True):
@@ -2012,6 +2269,7 @@ def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
         moe_mesh = count(lambda: mesh_vs_plain(device, sizes, seed, mesh, TRAIN_ARCHS[0], 2))
         del moe_mesh["plain"], moe_mesh["placed"]
         out["moe_mesh_steps"] = moe_mesh
+        out.update(phase_train_placed(device, sizes, seed, count))
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2038,7 +2296,38 @@ def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
         path[k] += v
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    out["rank_bytes"] = per_rank_bytes(sizes, {
+        sizes.arch_config().name: out["placed_timing"].pop("shapes"),
+        f"{GRAD_ONLY_ARCH} at {GRAD_ONLY_LAYERS} layer": out[GRAD_ONLY_ARCH].pop("shapes")})
     out["launches"] = path
+    return out
+
+
+def phase_train_placed(device, sizes: Sizes, seed: int, count) -> dict:
+    """(h): a (data=1, model=1) mesh of the one-rank group: (h1) ZeRO-1
+    and (h2) the parameters on "model", each for sizes.arch (3 steps; with
+    compression in h1, so that residuals are placed too) and
+    TRAIN_ARCHS[0] (2 steps) against the plain steps; (h3) the full-size
+    step with ZeRO-1 and replicated; (h4) the live requests on caches held
+    split. ``count`` is phase_train_mesh's: the parts' launches count on
+    the path."""
+    mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
+    _log(f"[train] (h) mesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} of the same group")
+    out = {}
+    for part, placement, what in (("h1", zero1_placement(mesh), "ZeRO-1"),
+                                  ("h2", model_placement(mesh), "model-split")):
+        for arch, n, comp in ((sizes.arch, sizes.mesh_steps, part == "h1"),
+                              (TRAIN_ARCHS[0], 2, False)):
+            r = count(lambda: mesh_vs_plain(device, sizes, seed, mesh, arch, n, placement,
+                                            comp, what))
+            del r["plain"], r["placed"]
+            out[f"{part}_{get_config(arch).name}"] = r
+    out["placed_timing"] = count(lambda: time_placed_step(device, sizes, seed, mesh))
+    before = flash_attention.launches
+    out["split_cache"] = count(lambda: split_cache_serve(device, sizes, seed, mesh))
+    want = attn_layers(out["split_cache"]["cfg"]) * out["split_cache"]["prefills"]
+    if device.type == "cuda" and flash_attention.launches - before != want:
+        _fail(f"train (h4): K3 launched {flash_attention.launches - before} times, not {want}")
     return out
 
 
@@ -2119,9 +2408,9 @@ def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
 
 def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
     """Phase 9: (a) the kernels, (b) the gradient hold, (c) the training
-    run (its launches: the training path's), (e)-(g) training state on a
-    mesh and the other families (phase_train_mesh; its paths' launches
-    too), (d) K3-bwd's timing."""
+    run (its launches: the training path's), (e)-(h) training state on a
+    mesh, placed leaf by leaf, the split KV cache and the other families
+    (phase_train_mesh; its paths' launches too), (d) K3-bwd's timing."""
     t0 = time.perf_counter()
     phase_train_kernels(device, sizes, errs, seed)
     grads = phase_train_grads(device, sizes, seed)
@@ -2812,7 +3101,7 @@ def main(argv=None) -> int:
     train_k3 = train_launches["flash_attention"]
     _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training paths "
          f"({train['run']['launches']['flash_attention']} in the run, "
-         f"{train['mesh']['launches']['flash_attention']} in (e)-(g)); K3-bwd "
+         f"{train['mesh']['launches']['flash_attention']} in (e)-(h)); K3-bwd "
          f"{train_launches['flash_attention_bwd']}")
     reset_launches()                                  # the launch path starts here
     launch = phase_launch(device, sizes, args.seed)

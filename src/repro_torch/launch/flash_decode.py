@@ -14,11 +14,19 @@ place of the reference's ``pmax`` and two ``psum``s. Per layer that moves
 of it. One code path serves GQA's full attention, the local ring buffer
 and MLA's latent MQA (KV = 1, Dv = the latent width).
 
-The override takes the global tensors on every rank, as the reference's
-mapped function does, and returns the global output on every rank, as
-its ``out_specs`` do: a rank reads its own slots and batch rows only. A
-cache held split across the ranks (the memory reason for flash-decoding)
-belongs with training's sharding and is not built here.
+The override returns the global output on every rank, as the reference's
+``out_specs`` do, and takes the cache in either of two forms:
+
+* held split, as the reference places it (``P(data, "model", None,
+  None)``; :class:`SplitCaches`): k and v are this rank's block as it is,
+  its S/msz slots at offset mi S/msz (and its batch rows), and ``block``
+  (a ``models.attention.CacheBlock``) says where it sits. Each rank
+  allocates and holds only its slots: the memory reason for
+  flash-decoding;
+* whole on every rank (``block`` None), as the reference's mapped function
+  takes global tensors: a rank reads its own slots and batch rows only.
+
+q and the valid lengths are the whole batch's on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +34,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.attention import decode_partials
+from repro_torch.models.attention import CacheBlock, decode_partials
+from repro_torch.training.tree import flatten_with_paths, tree_map, unflatten
 
-from .mesh import gather_cat, place
+from .mesh import Sharding, axis_size, data_axes, gather_cat, local_block, place
+
+SLOT_LEAVES = ("k", "v", "c_kv", "k_rope")      # the caches indexed by slot
 
 
 def make_decode_attention(mesh):
@@ -40,24 +51,37 @@ def make_decode_attention(mesh):
         return None
     msz, dsz = pl.msz, pl.dsz
 
-    def override(q, k, v, valid_len, scale):
-        """q: (B, 1, H, D); k: (B, S, KV, D); v: (B, S, KV, Dv); valid
-        (B,). Returns (B, 1, H, Dv) in q's dtype, or None if this mesh and
-        these shapes cannot take the path."""
+    def override(q, k, v, valid_len, scale, block=None):
+        """q: (B, 1, H, D); k: (B, S, KV, D); v: (B, S, KV, Dv), or this
+        rank's block of them (``block``); valid (B,). Returns (B, 1, H, Dv)
+        in q's dtype, or None if this mesh and these shapes cannot take the
+        path."""
         B, T, H, _ = q.shape
-        S = k.shape[1]
+        S = k.shape[1] if block is None else block.total
         if T != 1 or S % msz != 0 or (pl.has_data and B % dsz != 0):
             return None
         B_l, S_l = B // dsz, S // msz
         rows = slice(pl.di * B_l, (pl.di + 1) * B_l)
-        cols = slice(pl.mi * S_l, (pl.mi + 1) * S_l)
+        if block is None:
+            cols = slice(pl.mi * S_l, (pl.mi + 1) * S_l)
+            k, v = k[rows, cols], v[rows, cols]
+        else:
+            if (block.slot, block.slots) != (pl.mi * S_l, S_l):
+                raise ValueError(f"a cache block of slots [{block.slot}, "
+                                 f"{block.slot + block.slots}) on model rank {pl.mi} of {msz}: "
+                                 f"the cache is not split over this mesh's model axis")
+            if not block.row <= rows.start < rows.stop <= block.row + block.rows:
+                raise ValueError(f"a cache block of rows [{block.row}, {block.row + block.rows}) "
+                                 f"does not hold data rank {pl.di}'s rows [{rows.start}, "
+                                 f"{rows.stop})")
+            own = slice(rows.start - block.row, rows.stop - block.row)
+            k, v = k[own], v[own]
         valid_loc = torch.clamp(valid_len[rows].to(q.device) - pl.mi * S_l, 0, S_l)
         # the local partials: chunked_attention's own scan over this
         # rank's slots, so that a model axis of 1 gives its result to the
         # last bit; masked scores are -1e30, so a rank whose slots are all
         # past valid has m = -1e30 and weight 0 below
-        num, m_loc, den = decode_partials(q[rows], k[rows, cols], v[rows, cols], valid_loc,
-                                          scale)
+        num, m_loc, den = decode_partials(q[rows], k, v, valid_loc, scale)
         # merge across the model axis (the flash-decoding combine)
         m_g = m_loc.clone()
         dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=pl.model_group)
@@ -72,3 +96,108 @@ def make_decode_attention(mesh):
         return out
 
     return override
+
+
+def _leaf(path: str) -> str:
+    return path[path.rindex("[") + 2:-2]
+
+
+def _lead(path: str) -> int:
+    """The dims before the batch: 1 for the blocks stacked over tiles."""
+    return 1 if path.startswith("['blocks']") else 0
+
+
+class SplitCaches:
+    """The caches of a ``TransformerLM`` held split over ``mesh`` as the
+    reference's flash-decoding places them (``P(data, "model", None,
+    None)``): each attention cache (K, V; MLA's c_kv and k_rope) split on
+    its slots over ``"model"``, rank mi holding the contiguous slots
+    [mi S/msz, (mi+1) S/msz), and on its batch rows over the data axes
+    where they divide the batch (else whole there); every recurrent state
+    whole on every rank. Cached as DTensors.
+
+    Installed as the ``models.shardctx`` rule ``"cache_split"``, it makes
+    the model's ``init_cache`` and ``prefill`` allocate and keep only this
+    rank's block of each attention cache (:meth:`block`), and its
+    ``decode_step`` read caches held so (:meth:`local`), whether written
+    under the rule or placed by ``reshard_state(caches,
+    split.shardings(model, batch, cache_len))``."""
+
+    def __init__(self, mesh) -> None:
+        names = tuple(mesh.mesh_dim_names)
+        if "model" not in names:
+            raise ValueError(f"mesh axes {names} hold no 'model' axis to split the caches over")
+        self.mesh = mesh
+
+    def _sharding(self, batch: int, ndim: int, lead: int) -> Sharding:
+        dp = data_axes(self.mesh)
+        rows = None
+        if dp and batch % axis_size(self.mesh, dp) == 0:
+            rows = dp[0] if len(dp) == 1 else dp
+        return Sharding(self.mesh, (None,) * lead + (rows, "model") + (None,) * (ndim - lead - 2))
+
+    def block(self, batch: int, slots: int, what: str = "") -> CacheBlock:
+        """This rank's block of an attention cache of ``batch`` rows and
+        ``slots`` slots; a slot count that does not divide over
+        ``"model"`` raises, naming ``what``."""
+        shape = (batch, slots)
+        off, loc = local_block(shape, self.mesh,
+                               self._sharding(batch, 2, 0).placements(shape, what))
+        return CacheBlock(row=off[0], rows=loc[0], slot=off[1], slots=loc[1], total=slots)
+
+    def shardings(self, model, batch: int, cache_len: int):
+        """The placements of ``model.init_cache(batch, cache_len)``'s
+        leaves: a tree of :class:`~repro_torch.launch.mesh.Sharding` for
+        ``reshard_state``."""
+        shapes = model.cache_specs(batch, cache_len)
+        specs = []
+        for path, t in flatten_with_paths(shapes):
+            sh = Sharding(self.mesh)
+            if _leaf(path) in SLOT_LEAVES:
+                sh = self._sharding(batch, t.ndim, _lead(path))
+                sh.placements(tuple(t.shape), "caches" + path)
+            specs.append(sh)
+        return unflatten(shapes, specs)
+
+    def hold(self, model, caches, batch: int, cache_len: int):
+        """``caches`` as this rank holds them (each attention cache its
+        block) as DTensors placed by :meth:`shardings` (no collective)."""
+        from torch.distributed.tensor import DTensor
+
+        def held(local, sh, t):
+            return DTensor.from_local(local, sh.mesh, sh.placements(tuple(t.shape)),
+                                      run_check=False, shape=t.shape, stride=t.stride())
+
+        return tree_map(held, caches, self.shardings(model, batch, cache_len),
+                        model.cache_specs(batch, cache_len))
+
+    def local(self, model, caches):
+        """The caches as this rank holds them (each DTensor's block) and,
+        per layer in the order the layers run, its attention cache's
+        :class:`CacheBlock` (None for a recurrent state). Plain tensors
+        are caches held whole: every block None. A leaf placed otherwise
+        than :meth:`shardings` places it raises, naming it."""
+        from torch.distributed.tensor import DTensor
+
+        flat = flatten_with_paths(caches)
+        if not any(isinstance(t, DTensor) for _, t in flat):
+            return caches, [None] * model.cfg.n_layers
+        out, blocks = [], {}
+        for path, t in flat:
+            where = "caches" + path
+            if not isinstance(t, DTensor):
+                raise ValueError(f"{where} is a plain tensor among caches on a mesh")
+            lead, shape = _lead(path), tuple(t.shape)
+            want = Sharding(self.mesh).placements(shape)
+            if _leaf(path) in SLOT_LEAVES:
+                want = self._sharding(shape[lead], t.ndim, lead).placements(shape, where)
+                blocks[path[:path.rindex("[")]] = self.block(shape[lead], shape[lead + 1], where)
+            if t.device_mesh != self.mesh or tuple(t.placements) != want:
+                raise ValueError(f"{where} is placed {tuple(t.placements)}, not {want}: an "
+                                 f"attention cache is split on its slots over 'model' (and its "
+                                 f"rows over the data axes), a recurrent state held whole on "
+                                 f"every rank")
+            out.append(t.to_local())
+        tile = [blocks.get(f"['blocks']['g{g}']") for g in range(len(model.cfg.block_pattern))]
+        tail = [blocks.get(f"['tail'][{i}]") for i in range(model.n_tail)]
+        return unflatten(caches, out), tile * model.n_tiles + tail

@@ -120,16 +120,17 @@ def data_place(mesh) -> Tuple[Optional[object], int, int, Tuple[int, ...]]:
     """For a data-parallel program on ``mesh``: the process group over its
     data axes taken together, its size ``dsz``, this rank's index ``di``
     on it (the first axis major) and the global ranks in that order. A
-    ``model`` axis is allowed at size 1 only; any other axis raises. Every
-    rank of the mesh calls it (it may create a group: collective)."""
+    ``model`` axis may have any size: the data group is this rank's
+    column of the mesh, and the ranks of one ``model`` row hold the same
+    batch rows (the reference's batch on ``P("data")``). Any other axis
+    raises. Every rank of the mesh calls it (it may create a group:
+    collective)."""
     names = tuple(mesh.mesh_dim_names)
     if not data_axes(mesh):
         raise ValueError(f"mesh axes {names} hold no data axis {DATA_AXES}")
     if model_axis(mesh) is not None:
         pl = place(mesh)
-        if pl.msz != 1:
-            raise ValueError(f"a data-parallel program needs a model axis of 1, not {pl.msz}")
-        return pl.data_group, pl.dsz, pl.di, tuple(row[0] for row in pl.ranks)
+        return pl.data_group, pl.dsz, pl.di, tuple(row[pl.mi] for row in pl.ranks)
     other = [a for a in names if a not in DATA_AXES]
     if other:
         raise ValueError(f"mesh axes {other} are not data axes {DATA_AXES}")
@@ -140,6 +141,22 @@ def data_place(mesh) -> Tuple[Optional[object], int, int, Tuple[int, ...]]:
         di = di * axis_size(mesh, a) + coord[a]
     group = mesh.get_group(names[0]) if len(names) == 1 else dist.new_group(list(ranks))
     return group, len(ranks), di, ranks
+
+
+def local_block(shape: Tuple[int, ...], mesh, placements) -> Tuple[Tuple[int, ...],
+                                                                   Tuple[int, ...]]:
+    """Where this rank's local block of a tensor of global ``shape``, placed
+    by the DTensor ``placements`` on ``mesh``, starts in each dim, and its
+    shape. A dim split over several mesh dims is split by the first one
+    first (the major one), as DTensor and a ``PartitionSpec`` of a tuple
+    split it."""
+    coord = mesh.get_coordinate()
+    local, off = list(shape), [0] * len(shape)
+    for k, pl in enumerate(placements):
+        if pl.is_shard():
+            local[pl.dim] //= mesh.shape[k]
+            off[pl.dim] += coord[k] * local[pl.dim]
+    return tuple(off), tuple(local)
 
 
 def gather_cat(x: torch.Tensor, group, ranks, dim: int = 0) -> torch.Tensor:

@@ -26,11 +26,19 @@ projections, qk-norm, RoPE, and three attention paths.
   ``shardctx.get("decode_attention")``, the launcher's flash-decoding
   override (:mod:`repro_torch.launch.flash_decode`), and falls back to
   :func:`chunked_attention` when none is installed or it returns None.
+
+A cache may be held split across ranks (a :class:`CacheBlock`, made by
+``launch.flash_decode.SplitCaches``, says which rows and slots this rank
+holds: the reference's cache placed ``P(data, "model", None, None)``): a
+decode step writes the new row only on the rank that owns its slot, and
+only the flash-decode override reads such a cache (no override, or one
+that declines, raises: nothing falls back to a part of the cache).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -43,6 +51,47 @@ from . import shardctx
 from .layers import Params, apply_rope, dense_init, matmul, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class CacheBlock:
+    """This rank's block of a cache held split: its first batch row and its
+    rows, its first slot and its slots, and the slots of the whole cache
+    (all ranks together)."""
+
+    row: int
+    rows: int
+    slot: int
+    slots: int
+    total: int
+
+
+class SlotWrites:
+    """Where a decode step's new rows go in a cache block: for each of the
+    block's batch rows, its slot in the block (clamped into it) and whether
+    the block holds that slot at all. The same for every layer of one
+    block and slot rule, so a decode step makes it once."""
+
+    def __init__(self, block: CacheBlock, slot: torch.Tensor) -> None:
+        local = slot[block.row:block.row + block.rows] - block.slot
+        self.idx = torch.clamp(local, 0, block.slots - 1)
+        self.mine = self.idx == local
+        self.rows = torch.arange(block.rows, device=slot.device)
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                block: Optional[CacheBlock], writes: Optional[SlotWrites] = None) -> None:
+    """Writes row b of ``new`` (the whole batch's) at ``slot[b]`` of
+    ``cache`` (B, S, ...), in place, in the cache's dtype; for a block, only
+    its rows, and only where it holds the slot (no host synchronisation:
+    a row whose slot is elsewhere rewrites what it read)."""
+    if block is None:
+        cache[torch.arange(new.shape[0], device=new.device), slot] = new.to(cache.dtype)
+        return
+    w = writes if writes is not None else SlotWrites(block, slot)
+    new = new[block.row:block.row + block.rows].to(cache.dtype)
+    keep = cache[w.rows, w.idx]
+    cache[w.rows, w.idx] = torch.where(w.mine.reshape((-1,) + (1,) * (new.ndim - 1)), new, keep)
 
 
 def _chunk_bias(q_pos, kv_pos, causal, window, kv_valid_len):
@@ -175,13 +224,22 @@ def decode_partials(q, k, v, valid, scale):
     return _flash_scan(q, k, v, False, 0, 0, kv_chunk, scale, valid)
 
 
-def _decode_attention(q, k, v, valid, scale):
+def _decode_attention(q, k, v, valid, scale, block: Optional[CacheBlock] = None):
     """One decode token's attention over the cache's ``valid`` slots: the
     launcher's ``decode_attention`` override (flash-decoding) when it is
-    installed and takes the shapes, else :func:`chunked_attention`."""
+    installed and takes the shapes, else :func:`chunked_attention`. A
+    cache held split (``block``: k and v are this rank's block) is read by
+    the override only."""
     override = shardctx.get("decode_attention")
-    out = override(q, k, v, valid, scale) if override is not None else None
+    out = None
+    if override is not None:
+        out = (override(q, k, v, valid, scale) if block is None
+               else override(q, k, v, valid, scale, block=block))
     if out is None:
+        if block is not None:
+            raise ValueError(f"a decode step over a cache held split ({block}) needs the "
+                             f"flash-decode override (launch.flash_decode), and "
+                             f"{'none is installed' if override is None else 'it declined'}")
         out = chunked_attention(q, k, v, causal=False, kv_valid_len=valid, scale=scale)
     return out
 
@@ -270,6 +328,8 @@ def gqa_decode_step(
     position: torch.Tensor,     # (B,) current absolute position
     *,
     window: int = 0,
+    block: Optional[CacheBlock] = None,
+    writes: Optional[SlotWrites] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over a dense KV cache. Unlike the reference's
     functional ``.at[].set``, the new K/V row is written into ``cache`` in
@@ -277,21 +337,22 @@ def gqa_decode_step(
     a step does not copy the whole cache.
 
     Full attention: cache slot = position. Local attention: ring buffer of
-    size ``window`` (slot = position % window).
+    size ``window`` (slot = position % window). A cache held split
+    (``block``) takes the new row only on the rank that holds its slot
+    (``writes``: where, if the caller made it for this step).
     """
     B = x.shape[0]
     position = position.to(x.device)
     q, k, v = _project_qkv(x, p, cfg, position[:, None])
-    S = cache["k"].shape[1]
+    S = cache["k"].shape[1] if block is None else block.total
     slot = position % max(window, 1) if window > 0 else position
-    batch_idx = torch.arange(B, device=x.device)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[batch_idx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[batch_idx, slot] = v[:, 0].to(v_cache.dtype)
+    _write_rows(k_cache, k[:, 0], slot, block, writes)
+    _write_rows(v_cache, v[:, 0], slot, block, writes)
     # Ring buffer (window > 0): every resident slot is within the window
     # by construction; validity = min(position+1, window) slots.
     valid = torch.clamp(position + 1, max=S) if window > 0 else position + 1
-    out = _decode_attention(q, k_cache, v_cache, valid, 1.0 / math.sqrt(cfg.head_dim))
+    out = _decode_attention(q, k_cache, v_cache, valid, 1.0 / math.sqrt(cfg.head_dim), block)
     return matmul(out.reshape(B, 1, -1), p["wo"]), {"k": k_cache, "v": v_cache}
 
 
@@ -387,6 +448,9 @@ def mla_decode_step(
     cfg,
     cache: Dict[str, torch.Tensor],   # c_kv (B,S,R), k_rope (B,S,Dr)
     position: torch.Tensor,     # (B,)
+    *,
+    block: Optional[CacheBlock] = None,
+    writes: Optional[SlotWrites] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Absorbed-form decode: attention runs in the latent space.
 
@@ -395,17 +459,17 @@ def mla_decode_step(
     out_h = (sum_s p_s c_s) @ W_uv_h
 
     The new latent row is written into ``cache`` in place (cast to the
-    cache's dtype) and the same tensors are returned.
+    cache's dtype) and the same tensors are returned; into a cache held
+    split (``block``), on the rank that holds its slot only.
     """
     B = x.shape[0]
     H, R = cfg.n_heads, cfg.kv_lora_rank
     position = position.to(x.device)
     q_nope, q_rope = _mla_q(x, p, cfg, position[:, None])           # (B,1,H,*)
     c_new, k_rope_new = _mla_latent(x, p, cfg, position[:, None])
-    batch_idx = torch.arange(B, device=x.device)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    c_cache[batch_idx, position] = c_new[:, 0].to(c_cache.dtype)
-    r_cache[batch_idx, position] = k_rope_new[:, 0, 0].to(r_cache.dtype)
+    _write_rows(c_cache, c_new[:, 0], position, block, writes)
+    _write_rows(r_cache, k_rope_new[:, 0, 0], position, block, writes)
 
     w_uk = p["w_uk"].reshape(R, H, cfg.qk_nope_head_dim)
     dt = torch.promote_types(q_nope.dtype, w_uk.dtype)
@@ -417,7 +481,7 @@ def mla_decode_step(
     # is nope + rope, not the latent's
     mla_scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     o_lat = _decode_attention(q_cat, k_cat, c_cache[:, :, None, :], position + 1,
-                              mla_scale)                                # (B,1,H,R)
+                              mla_scale, block)                         # (B,1,H,R)
     w_uv = p["w_uv"].reshape(R, H, cfg.v_head_dim)
     dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
     out = torch.einsum("bhr,rhv->bhv", o_lat[:, 0].to(dt), w_uv.to(dt)).reshape(B, 1, -1)

@@ -31,6 +31,15 @@ API:
   prefill(params, batch, cache_len) -> (last_logits, caches)
   decode_step(params, tokens, caches, position) -> (logits, caches)
 
+The attention caches (K/V, MLA's latent) may be held split over a mesh,
+as the reference places them for flash-decoding: under the ``shardctx``
+rule ``"cache_split"`` (a ``launch.flash_decode.SplitCaches``, which
+knows the placement and gives each layer its
+:class:`~repro_torch.models.attention.CacheBlock`), ``init_cache`` and
+``prefill`` allocate and write only this rank's block, and
+``decode_step`` reads caches held split (DTensors) through the
+flash-decode override only.
+
 An encoder (hubert-xlarge) has no decode step: it raises there, as the
 reference does.
 
@@ -248,7 +257,7 @@ class TransformerLM(nn.Module):
             x = x + attn.gqa_forward(h, p["attn"], cfg, causal=causal, window=self._window(kind))
         return self._ffn(x, p, kind)
 
-    def _block_prefill(self, x, p, kind: str, cache_len: int):
+    def _block_prefill(self, x, p, kind: str, cache_len: int, block=None):
         h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
         if kind in XLSTM:
             prefill = (xlstm_mod.mlstm_block_prefill if kind == "mlstm"
@@ -268,9 +277,12 @@ class TransformerLM(nn.Module):
                 # slot q % window (see gqa_decode_step)
                 shift = (T - W) % W
                 cache = {n: torch.roll(c, shift, dims=1) for n, c in cache.items()}
+        if block is not None:   # this rank's block of the cache held split
+            cache = {n: c[block.row:block.row + block.rows,
+                          block.slot:block.slot + block.slots].clone() for n, c in cache.items()}
         return self._ffn(x + a, p, kind)[0], cache
 
-    def _block_decode(self, x, p, kind: str, cache, position):
+    def _block_decode(self, x, p, kind: str, cache, position, block=None, writes=None):
         h = rmsnorm(x, p["ln1"], self.cfg.norm_eps)
         if kind in XLSTM:
             step = xlstm_mod.mlstm_block_step if kind == "mlstm" else xlstm_mod.slstm_block_step
@@ -281,10 +293,11 @@ class TransformerLM(nn.Module):
             a, new = rglru_mod.rglru_block_step(h, p["core"], self.cfg, cache)
             _write(cache, new)
         elif self._mla(kind):   # the new latent row is written into the cache in place
-            a, _ = attn.mla_decode_step(h, p["attn"], self.cfg, cache, position)
+            a, _ = attn.mla_decode_step(h, p["attn"], self.cfg, cache, position, block=block,
+                                        writes=writes)
         else:       # the new K/V row is written into the cache in place
             a, _ = attn.gqa_decode_step(h, p["attn"], self.cfg, cache, position,
-                                        window=self._window(kind))
+                                        window=self._window(kind), block=block, writes=writes)
         return self._ffn(x + a, p, kind, decode=True)[0]
 
     # ------------------------------------------------------------------
@@ -373,24 +386,39 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # serving: cache init / prefill / decode
     # ------------------------------------------------------------------
-    def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = ()):
+    def _slots(self, kind: str, cache_len: int) -> int:
+        """The slots of a ``kind`` layer's attention cache: a local block's
+        ring buffer holds ``min(cache_len, window)``."""
+        return min(cache_len, self.cfg.window) if kind == "local" else cache_len
+
+    def _split_block(self, kind: str, batch: int, cache_len: int, split):
+        """This rank's block of a ``kind`` layer's attention cache held
+        split by ``split`` (the ``"cache_split"`` rule); None without one
+        and for a recurrent state."""
+        if split is None or kind not in ("attn", "local"):
+            return None
+        return split.block(batch, self._slots(kind, cache_len), f"a {kind!r} layer's cache")
+
+    def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = (),
+                   block=None):
         cfg, cdt = self.cfg, self.compute_dtype
         if kind == "mlstm":
             return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead)
         if kind == "slstm":
             return xlstm_mod.slstm_state_init(batch, cfg, dev, lead)
-        if self._mla(kind):
-            return {"c_kv": torch.zeros(lead + (batch, cache_len, cfg.kv_lora_rank), dtype=cdt,
-                                        device=dev),
-                    "k_rope": torch.zeros(lead + (batch, cache_len, cfg.qk_rope_head_dim),
-                                          dtype=cdt, device=dev)}
         if kind == "rglru":
             return {"h": torch.zeros(lead + (batch, cfg.lru_width), dtype=torch.float32,
                                      device=dev),
                     "conv": torch.zeros(lead + (batch, cfg.conv1d_size - 1, cfg.lru_width),
                                         dtype=cdt, device=dev)}
-        S = min(cache_len, cfg.window) if kind == "local" else cache_len
-        shape = lead + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+        rows, S = ((batch, self._slots(kind, cache_len)) if block is None
+                   else (block.rows, block.slots))
+        if self._mla(kind):
+            return {"c_kv": torch.zeros(lead + (rows, S, cfg.kv_lora_rank), dtype=cdt,
+                                        device=dev),
+                    "k_rope": torch.zeros(lead + (rows, S, cfg.qk_rope_head_dim), dtype=cdt,
+                                          device=dev)}
+        shape = lead + (rows, S, cfg.n_kv_heads, cfg.head_dim)
         return {n: torch.zeros(shape, dtype=cdt, device=dev) for n in ("k", "v")}
 
     def init_cache(self, batch: int, cache_len: int, *, device: DeviceLike = None):
@@ -398,23 +426,30 @@ class TransformerLM(nn.Module):
         ``compute_dtype`` (a local block's holds ``min(cache_len, window)``
         rows; MLA's the latent ``c_kv`` and ``k_rope``), an RG-LRU block's
         f32 state ``h`` and its conv inputs, the xLSTM blocks' f32 states
-        (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs."""
-        return self._caches(batch, cache_len, resolve_device(device))
+        (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs.
+        Under the ``"cache_split"`` rule, DTensors of which each rank
+        allocates its attention caches' block only."""
+        dev = resolve_device(device)
+        split = shardctx.get("cache_split")
+        caches = self._caches(batch, cache_len, dev, split)
+        return caches if split is None else split.hold(self, caches, batch, cache_len)
 
     def cache_specs(self, batch: int, cache_len: int):
         """The tree of :meth:`init_cache` as tensors on the ``meta`` device:
         the same keys, shapes and dtypes, nothing allocated."""
         return self._caches(batch, cache_len, torch.device("meta"))
 
-    def _caches(self, batch: int, cache_len: int, dev: torch.device):
+    def _caches(self, batch: int, cache_len: int, dev: torch.device, split=None):
+        def one(kind, lead):
+            return self._cache_one(kind, batch, cache_len, dev, lead,
+                                   self._split_block(kind, batch, cache_len, split))
+
         caches = {}
         if self.n_tiles > 0:
-            caches["blocks"] = {f"g{g}": self._cache_one(kind, batch, cache_len, dev,
-                                                         (self.n_tiles,))
+            caches["blocks"] = {f"g{g}": one(kind, (self.n_tiles,))
                                 for g, kind in enumerate(self.cfg.block_pattern)}
         if self.n_tail:
-            caches["tail"] = [self._cache_one(kind, batch, cache_len, dev)
-                              for kind in self.tail_kinds]
+            caches["tail"] = [one(kind, ()) for kind in self.tail_kinds]
         return caches
 
     def prefill(self, params, batch, cache_len: int):
@@ -422,23 +457,59 @@ class TransformerLM(nn.Module):
         in k's dtype padded to ``cache_len`` (a local block's ring buffer
         aligned for decode; MLA's latent), recurrent states. A vision
         model's image tokens come first, so its decode positions start
-        at ``n_image_tokens + len(tokens)``."""
+        at ``n_image_tokens + len(tokens)``. Under the ``"cache_split"``
+        rule each layer keeps only this rank's block of its attention
+        cache, and the caches come as DTensors."""
+        split = shardctx.get("cache_split")
         x = self._embed(params, batch)
+        B = x.shape[0]
         per_layer = []
         for kind, p in self._layers(params):
-            x, c = self._block_prefill(x, p, kind, cache_len)
+            x, c = self._block_prefill(x, p, kind, cache_len,
+                                       self._split_block(kind, B, cache_len, split))
             per_layer.append(c)
-        return self._head(params, x[:, -1:, :]), self._collect(per_layer)
+        caches = self._collect(per_layer)
+        if split is not None:
+            caches = split.hold(self, caches, B, cache_len)
+        return self._head(params, x[:, -1:, :]), caches
 
     def decode_step(self, params, tokens, caches, position):
         """tokens: (B, 1) int; position: (B,). The caches are updated in
-        place and returned."""
+        place and returned; caches held split (DTensors, under the
+        ``"cache_split"`` rule) each rank updates in its own block."""
         if self.cfg.modality == "audio":
             raise ValueError("encoder-only arch has no decode step")
+        split = shardctx.get("cache_split")
+        if split is not None:
+            local, blocks = split.local(self, caches)
+        elif _any_dtensor(caches):
+            raise ValueError("caches held on a mesh (DTensors) decode under the shardctx rule "
+                             "'cache_split' (launch.flash_decode.SplitCaches)")
+        else:
+            local, blocks = caches, [None] * self.cfg.n_layers
         x = params["embed"][tokens].to(self.compute_dtype)
-        for (kind, p), (_, c) in zip(self._layers(params), self._layers(caches)):
-            x = self._block_decode(x, p, kind, c, position)
+        plans = {}              # a split cache's SlotWrites, one a block and slot rule
+        for (kind, p), (_, c), block in zip(self._layers(params), self._layers(local), blocks):
+            writes = None
+            if block is not None:
+                window = self._window(kind)
+                writes = plans.get((block, window))
+                if writes is None:
+                    pos = position.to(x.device)
+                    slot = pos % window if window > 0 else pos
+                    writes = plans[block, window] = attn.SlotWrites(block, slot)
+            x = self._block_decode(x, p, kind, c, position, block, writes)
         return self._head(params, x), caches
+
+
+def _any_dtensor(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return any(_any_dtensor(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_any_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
 
 
 def make_model(cfg, **kw) -> TransformerLM:

@@ -1,11 +1,20 @@
-"""The train step's data parallelism over a mesh (the reference gets it
-from ``jax.jit`` of its pure step on a state placed by ``reshard_state``).
+"""The train step over a mesh (the reference gets it from ``jax.jit`` of its
+pure step on a state placed by ``reshard_state``: GSPMD compiles whatever
+placement it is given).
 
-Every parameter and moment is a DTensor replicated over the mesh; each
-rank holds its own contiguous rows of the global batch (rank ``di`` of
-``dsz``: rows [di B/dsz, (di+1) B/dsz)). The step computes what the
-reference's one program computes on the global batch:
+Every leaf of the state is a DTensor on one mesh, placed leaf by leaf:
+replicated, or split over any mesh axes (``launch.mesh.Sharding``). The
+moments mirror the parameters (``optimizer.py``), so ZeRO-1 (the moments
+split over the data axes) and parameters split over ``model`` are two
+choices of the same per-leaf placements. Each rank holds its own
+contiguous rows of the global batch (rank ``di`` of ``dsz`` on the data
+axes: rows [di B/dsz, (di+1) B/dsz)); the ranks of one ``model`` row hold
+the same rows. The step computes what the reference's one program
+computes on the global batch:
 
+* each parameter is gathered whole for the forward and backward (an
+  all-gather over each mesh axis it is split on); compute stays at full
+  width on every rank;
 * the loss is the global batch's: the masked cross-entropy sums its
   numerator and its token count over the data group, and the MoE aux loss
   takes f_e and m_e over the global batch (``models`` read the
@@ -19,22 +28,41 @@ reference's one program computes on the global batch:
   capacity is the global C // dsz;
 * microbatch i is the global rows [i B/n, (i+1) B/n), each split over the
   ranks (:meth:`DataParallel.microbatch_rows`);
-* the gradients are averaged over the data group (one all-reduce a leaf)
-  before compression and the global-norm clip, and every rank applies
-  the same update to its local tensors in place.
+* each gradient is averaged over the data group straight into its
+  moments' placement (:meth:`DataParallel.reduce_grad`): a reduce-scatter
+  over each data axis the moments are split on, an all-reduce over the
+  others, a local slice over a ``model`` axis they are split on; then
+  compression, the global-norm clip and AdamW run on the moments' local
+  shards, with the whole tensor's scale and norm (:class:`Splits`), and
+  each parameter's updated shard goes back to the parameter's own
+  placement (:meth:`DataParallel.redistribute`: all-gathers).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from collections import Counter
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import data_place, gather_cat
+from repro_torch.launch.mesh import DATA_AXES, data_place, gather_cat
 
 from .elastic import is_dtensor
-from .tree import flatten_with_paths, leaves
+from .tree import flatten_with_paths
+
+# torch 2.13 renames the tensor forms of the two collectives (same arguments)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+# A leaf's placement on the mesh: per mesh dim, the tensor dim split over
+# it, or None where the leaf is replicated over it.
+Layout = Tuple[Optional[int], ...]
+
+
+def layout_of(t) -> Layout:
+    """A DTensor's placements as a :data:`Layout`."""
+    return tuple(p.dim if p.is_shard() else None for p in t.placements)
 
 
 class _AllSum(torch.autograd.Function):
@@ -52,30 +80,44 @@ class _AllSum(torch.autograd.Function):
 
 
 class DataParallel:
-    """The data group of a mesh for the train step: its size, this rank's
-    index, and the collectives the step and the models call, counted in
-    ``calls``."""
+    """The groups of a mesh for the train step: the data group (its size,
+    this rank's index), one group a mesh dim, and the collectives the step
+    and the models call, counted in ``calls`` (and by kind in ``kinds``)."""
 
     def __init__(self, mesh) -> None:
         self.mesh = mesh
         self.group, self.size, self.index, self.ranks = data_place(mesh)
-        self.calls = 0
+        names = tuple(mesh.mesh_dim_names)
+        self.data_dims = tuple(k for k, n in enumerate(names) if n in DATA_AXES)
+        self.dim_groups = [mesh.get_group(n) for n in names]
+        self.dim_sizes = tuple(int(n) for n in mesh.shape)
+        self.coord = tuple(mesh.get_coordinate())
+        me = dist.get_rank()
+        for k, g in enumerate(self.dim_groups):
+            # a gathered or scattered chunk i belongs to the group's rank i:
+            # that must be coordinate i on the mesh dim
+            if dist.get_group_rank(g, me) != self.coord[k]:
+                raise ValueError(f"the group of mesh dim {names[k]!r} is not in the mesh's order")
+        self.reset()
 
+    def reset(self) -> None:
+        self.calls = 0
+        self.kinds: Counter = Counter()
+
+    def _count(self, kind: str) -> None:
+        self.calls += 1
+        self.kinds[kind] += 1
+
+    # -- the data group ---------------------------------------------------
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data group, in place (no gradient)."""
-        self.calls += 1
+        self._count("all_reduce")
         dist.all_reduce(x, group=self.group)
         return x
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data group, differentiable."""
         return _AllSum.apply(x, self)
-
-    def mean_grads_(self, grads) -> None:
-        """Every gradient leaf averaged over the data group, in place."""
-        with torch.no_grad():
-            for g in leaves(grads):
-                self.sum_(g).div_(self.size)
 
     def microbatch_rows(self, batch: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
         """This rank's rows of each of ``n`` global microbatches, in order:
@@ -91,19 +133,130 @@ class DataParallel:
             bl = v.shape[0]
             if bl % n:
                 raise ValueError(f"{bl} rows a rank do not split into {n} microbatches")
-            self.calls += 1
+            self._count("all_gather")
             full = gather_cat(v, self.group, self.ranks)
             m, s = full.shape[0] // n, bl // n
             out[key] = torch.cat([full[i * m + self.index * s:i * m + (self.index + 1) * s]
                                   for i in range(n)])
         return {k: out[k] for k in batch}
 
+    # -- one mesh dim at a time ---------------------------------------------
+    def _gather_dim(self, x: torch.Tensor, k: int, d: int) -> torch.Tensor:
+        """The blocks of mesh dim ``k``'s ranks concatenated along ``d``."""
+        self._count("all_gather")
+        src = x.movedim(d, 0).contiguous()
+        out = src.new_empty((self.dim_sizes[k] * src.shape[0],) + tuple(src.shape[1:]))
+        _all_gather(out, src, group=self.dim_groups[k])
+        return out.movedim(0, d).contiguous()
+
+    def _scatter_dim(self, x: torch.Tensor, k: int, d: int) -> torch.Tensor:
+        """``x`` summed over mesh dim ``k``, this rank's block along ``d``."""
+        self._count("reduce_scatter")
+        src = x.movedim(d, 0).contiguous()
+        out = src.new_empty((src.shape[0] // self.dim_sizes[k],) + tuple(src.shape[1:]))
+        _reduce_scatter(out, src, group=self.dim_groups[k])
+        return out.movedim(0, d).contiguous()
+
+    def _slice_dim(self, x: torch.Tensor, k: int, d: int) -> torch.Tensor:
+        """This rank's block of ``x`` along ``d`` over mesh dim ``k`` (a view)."""
+        return x.chunk(self.dim_sizes[k], dim=d)[self.coord[k]]
+
+    # -- placements -------------------------------------------------------
+    def full(self, x: torch.Tensor, layout: Layout) -> torch.Tensor:
+        """The whole tensor from this rank's block ``x`` (the inner mesh dims
+        first, so that a dim split over several comes back in order)."""
+        for k in reversed(range(len(layout))):
+            if layout[k] is not None:
+                x = self._gather_dim(x, k, layout[k])
+        return x
+
+    def local(self, x: torch.Tensor, layout: Layout) -> torch.Tensor:
+        """This rank's block of the whole tensor ``x`` (the same on every
+        rank): views, the outer mesh dims first."""
+        for k, d in enumerate(layout):
+            if d is not None:
+                x = self._slice_dim(x, k, d)
+        return x
+
+    def reduce_grad(self, g: torch.Tensor, layout: Layout) -> torch.Tensor:
+        """The mean over the data group of every rank's whole gradient ``g``,
+        as this rank's block of ``layout`` (the moments' placement): a
+        reduce-scatter over each data dim that splits it, a slice over each
+        other dim that does (every rank of a ``model`` row holds the same
+        gradient), then an all-reduce over the data dims that do not. A
+        leaf split over no data dim is all-reduced in place over the data
+        group, in one call."""
+        if not any(layout[k] is not None for k in self.data_dims):
+            x = self.local(g, layout)
+            if x is not g:          # a block of its own: the whole gradient can go
+                x = x.clone(memory_format=torch.contiguous_format)
+            return self.sum_(x).div_(self.size)
+        x = g
+        for k, d in enumerate(layout):
+            if d is None:
+                continue
+            if k in self.data_dims:
+                x = self._scatter_dim(x, k, d)
+            else:
+                x = self._slice_dim(x, k, d).contiguous()
+        for k in self.data_dims:
+            if layout[k] is None:
+                self._count("all_reduce")
+                dist.all_reduce(x, group=self.dim_groups[k])
+        return x.div_(self.size)
+
+    def redistribute(self, x: torch.Tensor, src: Layout, dst: Layout) -> torch.Tensor:
+        """This rank's block ``x`` of ``src`` as its block of ``dst``: the
+        whole tensor (an all-gather over each mesh dim ``src`` splits),
+        then ``dst``'s block of it."""
+        return x if src == dst else self.local(self.full(x, src), dst).contiguous()
+
+
+class Splits:
+    """For the optimizer and the compression on the moments' local shards:
+    each leaf's mesh dims (those its moments are split on) and its whole
+    size, so that a norm, an error sum or a scale is the whole tensor's.
+    A per-leaf value is reduced over the dims its leaf is split on; a
+    replicated leaf is counted once. One all-reduce a mesh dim a call."""
+
+    def __init__(self, dp: DataParallel, layouts: Sequence[Layout],
+                 numels: Sequence[int]) -> None:
+        self.dp = dp
+        self.dims = [tuple(k for k, d in enumerate(lay) if d is not None) for lay in layouts]
+        self.numels = list(numels)
+
+    def _reduce(self, values: List[torch.Tensor], op, which: Optional[List[int]]
+                ) -> List[torch.Tensor]:
+        dims = self.dims if which is None else [self.dims[i] for i in which]
+        out = list(values)
+        for k in range(len(self.dp.dim_sizes)):
+            idx = [i for i, ds in enumerate(dims) if k in ds]
+            if not idx:
+                continue
+            stacked = torch.stack([out[i] for i in idx])
+            self.dp._count("all_reduce")
+            dist.all_reduce(stacked, op=op, group=self.dp.dim_groups[k])
+            for j, i in enumerate(idx):
+                out[i] = stacked[j]
+        return out
+
+    def sum(self, values: List[torch.Tensor], which: Optional[List[int]] = None
+            ) -> List[torch.Tensor]:
+        """Each leaf's local sum (a 0-d tensor) summed over its split dims;
+        ``which`` names the leaf of each value (default: one a leaf)."""
+        return self._reduce(values, dist.ReduceOp.SUM, which)
+
+    def max(self, values: List[torch.Tensor], which: Optional[List[int]] = None
+            ) -> List[torch.Tensor]:
+        """Each leaf's local maximum, the maximum over its split dims."""
+        return self._reduce(values, dist.ReduceOp.MAX, which)
+
 
 def state_mesh(state: Any) -> Optional[Any]:
-    """The mesh of a state whose every leaf is a DTensor replicated over
-    it; None for a state of plain tensors. Any other placement, a mixed
-    state or two meshes raise, naming the leaf: nothing is gathered
-    quietly."""
+    """The mesh of a state whose every leaf is a DTensor on it (replicated or
+    split, leaf by leaf); None for a state of plain tensors. A plain
+    tensor in a meshed state, a pending reduction or two meshes raise,
+    naming the leaf: nothing is gathered quietly."""
     pairs = flatten_with_paths(state)
     if not any(is_dtensor(t) for _, t in pairs):
         return None
@@ -111,11 +264,68 @@ def state_mesh(state: Any) -> Optional[Any]:
     for path, t in pairs:
         if not is_dtensor(t):
             raise ValueError(f"{path} is a plain tensor in a state on a mesh")
-        if not all(p.is_replicate() for p in t.placements):
-            raise ValueError(f"{path} is placed {tuple(t.placements)}: the data-parallel step "
-                             f"takes parameters and moments replicated over the mesh")
+        if not all(p.is_replicate() or p.is_shard() for p in t.placements):
+            raise ValueError(f"{path} is placed {tuple(t.placements)}: a state leaf is "
+                             f"replicated or split, not a pending reduction")
         if mesh is None:
             mesh = t.device_mesh
         elif t.device_mesh != mesh:
             raise ValueError(f"{path} is on another mesh than the state's first leaf")
     return mesh
+
+
+class Placed:
+    """The placements of a state on a mesh, leaf by leaf, checked once a
+    step: each parameter's own (``params``), its moments' (``moments``: μ
+    and ν must be placed alike) and its compression residual's. Raises,
+    naming the leaf, for what the step cannot run."""
+
+    def __init__(self, state: Any, dp: DataParallel) -> None:
+        self.dp = dp
+        params = flatten_with_paths(state["params"])
+        mu = flatten_with_paths(state["opt"]["mu"])
+        nu = flatten_with_paths(state["opt"]["nu"])
+        res = flatten_with_paths(state["compress"]) if "compress" in state else None
+        self.params = [layout_of(t) for _, t in params]
+        self.moments = []
+        for (pp, p), (mp, m), (np_, n) in zip(params, mu, nu):
+            if layout_of(m) != layout_of(n):
+                raise ValueError(f"['opt']['mu']{pp} is placed {tuple(m.placements)} and "
+                                 f"['opt']['nu']{pp} {tuple(n.placements)}: the moments of one "
+                                 f"leaf must be placed alike")
+            self.moments.append(layout_of(m))
+        self.residuals = [layout_of(t) for _, t in res] if res is not None else None
+        self.numels = [p.numel() for _, p in params]
+        self.splits = Splits(dp, self.moments, self.numels)
+
+    def gather_params(self, params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each parameter whole, from its local block."""
+        return [self.dp.full(p, lay) for p, lay in zip(params, self.params)]
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each whole gradient averaged over the data group, on its moments'
+        placement. Takes the list's whole gradients out of it as it goes,
+        so that each can be freed once its block is made."""
+        out = []
+        for i, lay in enumerate(self.moments):
+            out.append(self.dp.reduce_grad(grads[i], lay))
+            grads[i] = None
+        return out
+
+    def regions(self, full: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each whole parameter's block on its moments' placement (views)."""
+        return [self.dp.local(p, lay) for p, lay in zip(full, self.moments)]
+
+    def to_params(self, regions: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The updated blocks back on each parameter's own placement."""
+        return [self.dp.redistribute(r, lay, own)
+                for r, lay, own in zip(regions, self.moments, self.params)]
+
+    def residuals_to_moments(self, res: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [self.dp.redistribute(r, own, lay)
+                for r, own, lay in zip(res, self.residuals, self.moments)]
+
+    def residuals_back(self, res: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [self.dp.redistribute(r, lay, own)
+                for r, lay, own in zip(res, self.moments, self.residuals)]
+

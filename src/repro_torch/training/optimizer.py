@@ -9,13 +9,18 @@ tensors (as the reference's launcher donates the state): a full-size
 qwen3-1.7b state is 27.6 GB in f32 with its gradients, and a second copy
 buys nothing. Not ``torch.optim.AdamW``: its update is rounded
 differently, and the tests hold this one to the reference.
+
+On a mesh (``data_parallel.py``) the update runs on the moments' local
+shards unchanged; ``splits`` (a ``data_parallel.Splits``) makes the
+global norm the whole gradient's, so the clip scale is the reference's
+and the same on every rank.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -52,17 +57,25 @@ def adamw_init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
+def global_norm(tree, splits: Optional[Any] = None) -> torch.Tensor:
+    """The L2 norm of every leaf together. With ``splits``, the leaves are
+    local shards: each leaf's sum of squares is summed over the mesh dims
+    it is split on (a replicated leaf counted once) before the total."""
+    sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if splits is not None:
+        sums = splits.sum(sums)
+    return torch.sqrt(sum(sums))
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig
+def adamw_update(params, grads, state, cfg: AdamWConfig, splits: Optional[Any] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params`` (f32 masters) and the moments
     of ``state``; grads of any float dtype. Returns (params, new state,
-    {"grad_norm", "lr"}) without a host synchronisation."""
+    {"grad_norm", "lr"}) without a host synchronisation. On a mesh, every
+    tree holds the moments' local shards and ``splits`` says where each
+    leaf is split (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, splits)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = cosine_lr(cfg, step)
     stepf = step.float()

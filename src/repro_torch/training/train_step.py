@@ -10,9 +10,10 @@ error-feedback gradient compression (``compression.py``) slot in here.
 State is a dict ``{"params", "opt", "compress"?}`` of tensors, as in the
 reference. The step updates it in place and returns it (the reference's
 launcher donates its state to the jitted step): a caller that wants the
-old state keeps a copy. A state whose leaves are DTensors replicated over
-a mesh (``elastic.reshard_state``) steps data-parallel: each rank passes
-its own rows of the global batch (``data_parallel.py``).
+old state keeps a copy. A state whose leaves are DTensors on a mesh
+(``elastic.reshard_state``), each replicated or split (ZeRO-1 moments over
+the data axes, parameters over ``model``), steps data-parallel: each rank
+passes its own rows of the global batch (``data_parallel.py``).
 
 Two profiler ranges name the step's parts for ``torch.profiler``:
 ``train_step.forward`` (the loss) and ``train_step.optimizer`` (the
@@ -30,7 +31,7 @@ from torch.profiler import record_function
 from repro_torch.models import shardctx
 
 from .compression import CompressionConfig, compress_grads, compression_init
-from .data_parallel import DataParallel, state_mesh
+from .data_parallel import DataParallel, Placed, state_mesh
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 from .tree import leaves, tree_map, unflatten
 
@@ -93,7 +94,8 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
     dict of tensors with the global batch leading on every leaf, or, for a
     state on a mesh, this rank's rows of it; metrics are 0-d tensors
     (``float()`` synchronises), on a mesh with ``"collectives"``, the
-    step's all-reduces and all-gathers."""
+    step's collectives, and ``"collectives.<kind>"`` for each kind
+    (all_reduce, reduce_scatter, all_gather)."""
     compute_grads = make_grad_fn(model, train_cfg)
     groups = {}                     # a mesh's DataParallel (its groups are made once)
 
@@ -104,29 +106,52 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
         dp = groups.get(id(mesh))
         if dp is None:
             dp = groups[id(mesh)] = DataParallel(mesh)
-        dp.calls = 0
+        dp.reset()
+        placed = Placed(state, dp)
         with torch.no_grad():
             local = tree_map(lambda t: t.to_local(), state)
         with shardctx.added({"data_parallel": dp, "moe_chunks": dp.size}):
-            new, metrics = step(local, dp.microbatch_rows(batch, train_cfg.microbatches), dp)
-        with torch.no_grad():       # leaves the step made anew: the opt step, residuals
+            new, metrics = step(local, dp.microbatch_rows(batch, train_cfg.microbatches), placed)
+        with torch.no_grad():       # leaves the step made anew: params, the opt step, residuals
             for old, t in zip(leaves(local), leaves(new)):
                 if t is not old:
                     old.copy_(t)
-        return state, {**metrics, "collectives": torch.tensor(dp.calls)}
+        counts = {f"collectives.{k}": torch.tensor(dp.kinds[k])
+                  for k in ("all_reduce", "reduce_scatter", "all_gather")}
+        return state, {**metrics, "collectives": torch.tensor(dp.calls), **counts}
 
-    def step(state, batch, dp: Optional[DataParallel]):
+    def step(state, batch, placed: Optional[Placed]):
         params = state["params"]
-        loss, metrics, grads = compute_grads(params, batch)
-        if dp is not None:
-            dp.mean_grads_(grads)
+        residuals = state["compress"] if train_cfg.compression is not None else None
+        splits = None
+        if placed is not None:      # each parameter whole for the forward and backward
+            full = placed.gather_params(leaves(params))
+            loss, metrics, grads = compute_grads(unflatten(params, full), batch)
+            with torch.no_grad():
+                flat, grads = leaves(grads), None
+                grads = unflatten(params, placed.reduce_grads(flat))
+                update = unflatten(params, placed.regions(full))
+                if residuals is not None:   # placed like the moments for the compression
+                    residuals = unflatten(residuals,
+                                          placed.residuals_to_moments(leaves(residuals)))
+            splits = placed.splits
+        else:
+            loss, metrics, grads = compute_grads(params, batch)
+            update = params
         if train_cfg.compression is not None:
-            grads, comp_state, comp_metrics = compress_grads(grads, state["compress"],
-                                                             train_cfg.compression)
+            grads, comp_state, comp_metrics = compress_grads(grads, residuals,
+                                                             train_cfg.compression, splits)
             metrics = {**metrics, **comp_metrics}
         with record_function("train_step.optimizer"):
-            params, opt, opt_metrics = adamw_update(params, grads, state["opt"],
-                                                    train_cfg.optimizer)
+            update, opt, opt_metrics = adamw_update(update, grads, state["opt"],
+                                                    train_cfg.optimizer, splits)
+        if placed is not None:      # the updated blocks back on the parameters' placements
+            with torch.no_grad():
+                params = unflatten(params, placed.to_params(leaves(update)))
+                if train_cfg.compression is not None:
+                    comp_state = unflatten(comp_state, placed.residuals_back(leaves(comp_state)))
+        else:
+            params = update
         new_state = {"params": params, "opt": opt}
         if train_cfg.compression is not None:
             new_state["compress"] = comp_state

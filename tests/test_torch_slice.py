@@ -329,7 +329,8 @@ import torch.distributed as dist
 import chip_smoke as cs
 torch.set_num_threads(1)
 sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
-                 audio_frames=24, window_seq=48)
+                 audio_frames=24, window_seq=48, pool_blocks=256, block_tokens=4,
+                 prefix_tokens=16, user_tokens=8, new_tokens=4, live_requests=4)
 errs = cs.Errors()
 out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
 mesh = out["mesh"]
@@ -346,7 +347,13 @@ print(json.dumps(dict(
     moe_mesh_steps={k: v for k, v in mesh["moe_mesh_steps"].items() if k in ("losses", "calls")},
     mesh_ckpt=mesh["mesh_ckpt"], mesh_timing=mesh["mesh_timing"], runs=runs,
     grad_only={k: mesh[cs.GRAD_ONLY_ARCH][k] for k in ("worst_rel", "loss_diff", "launches")},
-    launches=mesh["launches"])), flush=True)
+    launches=mesh["launches"],
+    placed={k: {f: v[f] for f in ("losses", "calls", "kinds", "split")}
+            for k, v in mesh.items() if k.startswith(("h1_", "h2_"))},
+    placed_timing={k: v for k, v in mesh["placed_timing"].items() if k != "cfg"},
+    split_cache={k: v for k, v in mesh["split_cache"].items() if k != "cfg"},
+    rank_bytes={name: {str(n): r for n, r in v.items()}
+                for name, v in mesh["rank_bytes"].items()})), flush=True)
 os._exit(0)     # no interpreter teardown after the gloo group (see test_torch_launch.py)
 """
 
@@ -414,6 +421,45 @@ def test_chip_smoke_train_phase_trains_the_other_families(train_phase):
         assert r["tokens"] > 0
     assert out["grad_only"]["worst_rel"] == 0.0 and out["grad_only"]["loss_diff"] == 0.0
     assert out["launches"]["flash_attention"] == 0        # no kernel on the CPU
+
+
+def test_chip_smoke_train_phase_places_the_state_leaf_by_leaf(train_phase):
+    """Phase 9 (h) at a small size, on a (data=1, model=1) mesh of the
+    one-rank gloo group: ZeRO-1 (h1; qwen3 with compression, so residuals
+    are placed too) and the parameters on "model" (h2), each for qwen3 and
+    granite-moe-1b, equal to the plain steps (checked in the phase), with
+    a reduce-scatter and an all-gather a parameter leaf under ZeRO-1 and
+    an all-gather a parameter and no reduce-scatter on "model"; (h3) the
+    step timed with ZeRO-1 and replicated; (h4) the live requests on split
+    caches; (h5) the per-rank bytes arithmetic."""
+    out = train_phase
+    n_leaves = {"qwen3-1.7b": 13, "granite-moe-1b-a400m": 12}
+    assert sorted(out["placed"]) == sorted(f"{h}_{a}" for h in ("h1", "h2") for a in n_leaves)
+    for key, r in out["placed"].items():
+        part, arch = key.split("_", 1)
+        n = n_leaves[arch]
+        assert len(r["losses"]) == (3 if arch == "qwen3-1.7b" else 2)
+        if part == "h1":
+            assert r["kinds"]["reduce_scatter"] == n and r["kinds"]["all_gather"] == n
+            assert r["split"] == (3 if arch == "qwen3-1.7b" else 2) * n     # mu, nu (, residual)
+        else:
+            assert r["kinds"]["reduce_scatter"] == 0 and r["kinds"]["all_gather"] == n
+            assert r["split"] == 3 * n                                     # params, mu, nu
+        assert r["calls"] == sum(r["kinds"].values())
+    t = out["placed_timing"]
+    assert t["zero1_ms"] > 0 and t["replicated_ms"] > 0
+    assert [len(v) for v in t["all_ms"].values()] == [4, 4]
+    assert t["kinds"]["zero1"]["reduce_scatter"] == 13 and t["kinds"]["replicated"] == dict(
+        all_reduce=13 + 3, reduce_scatter=0, all_gather=0, total=16)
+    sc = out["split_cache"]
+    assert sc["logits_err"] == 0.0 and sc["prefills"] == 2 * 4 + 2
+    assert sc["split_decode_ms"] > 0 and sc["whole_decode_ms"] > 0
+    assert sc["split_step_ms"] > 0 and sc["whole_step_ms"] > 0
+    rb = out["rank_bytes"]
+    assert len(rb) == 3 and all(set(v) == {"1", "2", "4", "8"} for v in rb.values())
+    q = rb["qwen3-1.7b"]
+    assert q["1"]["zero1"] == q["1"]["replicated"] and q["2"]["zero1"][0] < q["1"]["zero1"][0]
+    assert rb["kv_cache"]["2"] * 2 == rb["kv_cache"]["1"]
 
 
 _LAUNCH_PHASE = """

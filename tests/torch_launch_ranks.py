@@ -11,6 +11,17 @@ script in a process of its own.
         Reads DIR/reference.pkl and runs the same cases through the port
         on 2 gloo ranks (a ``file://`` store in DIR, one torch thread
         each); each rank writes DIR/port_<rank>.pkl.
+    python tests/torch_launch_ranks.py reference DIR split
+    python tests/torch_launch_ranks.py port DIR split
+        The KV cache held split over the model ranks, mesh (data=1,
+        model=2): the reference prefills ``PROMPT`` tokens into ``CACHE``
+        slots, places its attention caches ``P(None, "model", None,
+        None)`` and takes ``SPLIT_STEPS`` decode steps with its
+        flash-decode override (DIR/reference_split.pkl: parameters,
+        tokens, logits); the port takes the same steps on caches that its
+        prefill writes split (and on caches placed by ``reshard_state``,
+        whole caches with and without the override, and a split cache
+        without it); each rank writes DIR/port_split_<rank>.pkl.
 
 The pickles are written and read by these two functions only.
 """
@@ -38,6 +49,10 @@ VALID = np.array([3, 8, 16, 11], np.int32)
 DECLINE = {"two_tokens": (4, 2, 16), "odd_slots": (4, 1, 15), "odd_batch": (3, 1, 16)}
 MODELS = {"qwen3-1.7b": {"n_kv_heads": 2}, "deepseek-v2-236b": {}, "recurrentgemma-2b": {}}
 PROMPT, CACHE = 5, 16          # prefill 5 tokens into 16 slots, then one decode step
+# the split cache: decode steps from PROMPT until the position passes
+# the rank boundary at CACHE / 2
+SPLIT_STEPS = 5
+SLOT_LEAVES = ("k", "v", "c_kv", "k_rope")
 MOE_MODELS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 MOE_B, MOE_T = 2, 8
 NO_DROP_CF = 8.0               # capacity k N_loc cf / E >= N_loc: nothing drops
@@ -132,10 +147,62 @@ def reference(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
+def _split_tokens(vocab):
+    rng = np.random.default_rng(5)
+    return rng.integers(0, vocab, (2, PROMPT + SPLIT_STEPS)).astype(np.int32)
+
+
+def reference_split(out_dir: Path) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.launch.flash_decode import make_decode_attention
+    from repro.launch.mesh import make_mesh
+    from repro.models import make_model, shardctx
+
+    mesh = make_mesh((1, 2), AXES)
+    ov = make_decode_attention(mesh)
+
+    def place(path, c):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] not in SLOT_LEAVES:
+            return c
+        lead = 1 if keys[0] == "blocks" else 0
+        spec = (None,) * lead + (None, "model") + (None,) * (c.ndim - lead - 2)
+        return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
+
+    res = {}
+    for name, kw in MODELS.items():
+        cfg = dataclasses.replace(get_config(name).reduced(), **kw)
+        model = make_model(cfg, compute_dtype=jnp.float32)
+        params = jax.jit(model.init)(jax.random.PRNGKey(0))
+        toks = _split_tokens(cfg.vocab_size)
+
+        def steps(params, toks, model=model):
+            _, caches = model.prefill(params, {"tokens": toks[:, :PROMPT]}, CACHE)
+            caches = jax.tree_util.tree_map_with_path(place, caches)
+            out = []
+            with shardctx.rules({"decode_attention": ov}):
+                for i in range(SPLIT_STEPS):
+                    pos = jnp.full((toks.shape[0],), PROMPT + i, jnp.int32)
+                    logits, caches = model.decode_step(
+                        params, toks[:, PROMPT + i:PROMPT + i + 1], caches, pos)
+                    out.append(logits)
+            return jnp.stack(out)
+
+        res[name] = dict(params=jax.tree.map(np.asarray, params), tokens=toks,
+                         logits=np.asarray(jax.jit(steps)(params, toks)))
+    with open(out_dir / "reference_split.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
 # ---------------------------------------------------------------------------
 # the port (torch.distributed, gloo)
 # ---------------------------------------------------------------------------
-def _port_rank(rank: int, world: int, out_dir: str) -> None:
+def _port_rank(rank: int, world: int, out_dir: str, split: bool = False) -> None:
     import torch
     import torch.distributed as dist
 
@@ -143,10 +210,11 @@ def _port_rank(rank: int, world: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
                             world_size=world, rank=rank)
     try:
-        with open(Path(out_dir) / "reference.pkl", "rb") as f:
+        tag = "_split" if split else ""
+        with open(Path(out_dir) / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
-        res = _port_cases(ref)
-        with open(Path(out_dir) / f"port_{rank}.pkl", "wb") as f:
+        res = (_port_split if split else _port_cases)(ref)
+        with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
         dist.destroy_process_group()
@@ -227,11 +295,81 @@ def _port_cases(ref) -> dict:
     return res
 
 
-def port(out_dir: Path, world: int = 2, timeout: float = 150.0) -> None:
+def _port_split(ref) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.flash_decode import SplitCaches, make_decode_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+
+    mesh = make_mesh((1, 2), AXES, device="cpu")
+    ov, sc = make_decode_attention(mesh), SplitCaches(mesh)
+    split_rules = {"decode_attention": ov, "cache_split": sc}
+    local = lambda caches: {p: (x.to_local() if hasattr(x, "to_local") else x)  # noqa: E731
+                            .numpy().copy() for p, x in flatten_with_paths(caches)}
+    res = {}
+    for name, kw in MODELS.items():
+        cfg = dataclasses.replace(get_config(name).reduced(), **kw)
+        model = make_model(cfg, compute_dtype=torch.float32)
+        params = from_jax_params(ref[name]["params"], cfg, device="cpu")
+        toks = torch.from_numpy(ref[name]["tokens"]).long()
+        B = toks.shape[0]
+
+        def decode(caches, rules):
+            out = []
+            with shardctx.rules(rules):
+                for i in range(SPLIT_STEPS):
+                    pos = torch.full((B,), PROMPT + i, dtype=torch.int32)
+                    logits, caches = model.decode_step(params, toks[:, PROMPT + i:PROMPT + i + 1],
+                                                       caches, pos)
+                    out.append(logits)
+            return torch.stack(out).numpy(), caches
+
+        r = {}
+        with torch.no_grad():
+            prompt = {"tokens": toks[:, :PROMPT]}
+            # the caches written split by prefill (the "cache_split" rule)
+            with shardctx.rules({"cache_split": sc}):
+                _, split = model.prefill(params, prompt, CACHE)
+                # zeroed caches allocated split
+                zeros = model.init_cache(B, CACHE, device="cpu")
+            r["prefill_local"] = local(split)
+            r["placements"] = {p: str(tuple(x.placements)) for p, x in flatten_with_paths(split)}
+            r["logits"], split = decode(split, split_rules)
+            r["local"] = local(split)
+            r["init_shapes"] = {p: tuple(x.to_local().shape) for p, x in
+                                flatten_with_paths(zeros)}
+            # whole caches placed by reshard_state, the reference's way
+            _, whole = model.prefill(params, prompt, CACHE)
+            placed = reshard_state(tree_map(torch.clone, whole), sc.shardings(model, B, CACHE))
+            r["reshard_logits"], _ = decode(placed, split_rules)
+            # whole caches on every rank, with the override (each rank reads
+            # its slots) and without it (one device's decode)
+            r["whole_logits"], w = decode(tree_map(torch.clone, whole), {"decode_attention": ov})
+            r["whole"] = local(w)
+            r["plain_logits"], w = decode(whole, {})
+            r["plain"] = local(w)
+            # a split cache without the override
+            with shardctx.rules({"cache_split": sc}):
+                _, split = model.prefill(params, prompt, CACHE)
+            try:
+                decode(split, {"cache_split": sc})
+                r["no_override"] = None
+            except ValueError as e:
+                r["no_override"] = str(e)
+        res[name] = r
+    return res
+
+
+def port(out_dir: Path, world: int = 2, timeout: float = 150.0, split: bool = False) -> None:
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir))) for r in range(world)]
+    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir), split))
+             for r in range(world)]
     for p in procs:
         p.start()
     for p in procs:
@@ -247,9 +385,10 @@ def port(out_dir: Path, world: int = 2, timeout: float = 150.0) -> None:
 
 if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
+    split = sys.argv[3:] == ["split"]
     if mode == "reference":
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-        reference(out)
+        (reference_split if split else reference)(out)
     else:
-        port(out)
+        port(out, split=split)

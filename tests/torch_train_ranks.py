@@ -15,6 +15,20 @@ script in a process of its own.
         placements and steps on a (data=2, model=1) mesh, the world-1
         checkpoint restored onto the mesh, and the two-step state saved
         from the mesh (DIR/ckpt2); each rank writes DIR/port_<rank>.pkl.
+    python tests/torch_train_ranks.py reference DIR placed
+    python tests/torch_train_ranks.py port DIR placed
+        The same cases on a state placed leaf by leaf (``PLACEMENTS``):
+        ZeRO-1 on (data=2, model=1), the moments and residuals split over
+        "data", and the parameters with their moments and residuals split
+        over "model" on (data=1, model=2). The reference writes
+        DIR/reference_placed.pkl (each device's shards before the steps,
+        the losses and final states of ``jax.jit(make_train_step)``, and
+        the final states of the same steps on one device); the
+        port writes DIR/ckpt1 as above, then each rank
+        DIR/port_placed_<rank>.pkl (its shards, losses, collectives by
+        kind, the bytes it holds, the final states), the world-1
+        checkpoint restored onto the ZeRO-1 placements, and the ZeRO-1
+        state after two steps saved from the mesh (DIR/ckpt_zero1).
 
 The pickles are written and read by these two functions only.
 """
@@ -48,6 +62,34 @@ def batches(vocab: int):
         mask = rng.random((B, T)) < np.linspace(0.3, 1.0, B)[:, None]
         out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask})
     return out
+
+
+# the placed cases: the mesh of each placement
+PLACEMENTS = {"zero1": (2, 1), "model": (1, 2)}
+EXPERTS = ("['w_gate']", "['w_up']", "['w_down']")
+
+
+def placed_names(kind: str, path: str, shape, experts: bool) -> tuple:
+    """The mesh axis of each dim of the state leaf at ``path`` (a
+    ``PartitionSpec``'s entries; () replicates) under placement ``kind``:
+    "zero1" splits the moments and residuals over "data" at their first
+    dim that divides; "model" splits the parameters, moments and
+    residuals over "model", the experts of an MoE layer on their expert
+    dim (as the reference's expert parallelism places them), every other
+    leaf at its last dim that divides."""
+    nd = len(shape)
+    moment = path.startswith(("['opt']['mu']", "['opt']['nu']", "['compress']"))
+    if nd == 0 or (kind == "zero1" and not moment):
+        return ()
+    axis = "data" if kind == "zero1" else "model"
+    if kind == "model" and experts and path.endswith(EXPERTS):
+        dim = nd - 3                      # (E, d, f) after the tile axis
+    else:
+        dims = [d for d in range(nd) if shape[d] % 2 == 0]
+        if not dims:
+            return ()
+        dim = dims[0] if kind == "zero1" else dims[-1]
+    return tuple(axis if d == dim else None for d in range(nd))
 
 
 def spec_tree_names(params):
@@ -114,6 +156,68 @@ def reference(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
+def reference_placed(out_dir: Path) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.launch.mesh import make_mesh
+    from repro.models import make_model, shardctx
+    from repro.training import AdamWConfig, TrainConfig, make_train_step
+    from repro.training.compression import CompressionConfig
+    from repro.training.elastic import reshard_state
+    from repro.training.train_step import init_train_state
+
+    flat = lambda tree: [(jax.tree_util.keystr(k), v)                  # noqa: E731
+                         for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    shards = lambda x: [np.asarray(s.data) for s in                    # noqa: E731
+                        sorted(x.addressable_shards, key=lambda s: s.device.id)]
+    res = {}
+    for kind, shape in PLACEMENTS.items():
+        mesh = make_mesh(shape, AXES)
+        for name, arch, mb, comp, chunks in CASES:
+            cfg = get_config(arch).reduced()
+            model = make_model(cfg, compute_dtype=jnp.float32)
+            tcfg = TrainConfig(optimizer=AdamWConfig(**LR), microbatches=mb,
+                               compute_dtype=jnp.float32,
+                               compression=CompressionConfig(min_size=COMPRESS_MIN) if comp
+                               else None)
+            state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+            specs = jax.tree_util.tree_map_with_path(
+                lambda k, a: NamedSharding(mesh, P(*placed_names(
+                    kind, jax.tree_util.keystr(k), np.shape(a), bool(cfg.moe)))), state)
+            state = reshard_state(state, specs)
+            case = {"params": jax.tree.map(np.asarray, state["params"]),
+                    "before": {p: shards(x) for p, x in flat(state)}}
+            # chunks of the MoE position assignment: one a data rank, as the port
+            with shardctx.rules({"moe_chunks": shape[0]} if chunks else {}):
+                step = jax.jit(make_train_step(model, tcfg))
+                losses = []
+                for b in batches(cfg.vocab_size):
+                    b = {k: jax.device_put(v, NamedSharding(mesh, P("data")))
+                         for k, v in b.items()}
+                    state, m = step(state, b)
+                    losses.append(float(m["loss"]))
+            case.update(losses=losses, state=dict(flat(jax.tree.map(np.asarray, state))))
+            res[kind, name] = case
+            # the same step on one device: where the placed program's own
+            # rounding moves an element, the test looks here
+            rules = {"moe_chunks": shape[0]} if chunks else {}
+            key = ("single", name, tuple(rules.items()))
+            if key not in res:
+                state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+                with shardctx.rules(rules):
+                    step = jax.jit(make_train_step(model, tcfg))
+                    for b in batches(cfg.vocab_size):
+                        state, _ = step(state, b)
+                res[key] = dict(flat(jax.tree.map(np.asarray, state)))
+            case["single"] = key
+    with open(out_dir / "reference_placed.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
 # ---------------------------------------------------------------------------
 # the port (torch.distributed, gloo)
 # ---------------------------------------------------------------------------
@@ -137,7 +241,7 @@ def _setup(ref_case, arch, mb, comp):
     return cfg, model, tcfg, state
 
 
-def _port_rank(rank: int, world: int, out_dir: str) -> None:
+def _port_rank(rank: int, world: int, out_dir: str, placed: bool = False) -> None:
     import torch
     import torch.distributed as dist
 
@@ -145,10 +249,11 @@ def _port_rank(rank: int, world: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
                             world_size=world, rank=rank)
     try:
-        with open(Path(out_dir) / "reference.pkl", "rb") as f:
+        tag = "_placed" if placed else ""
+        with open(Path(out_dir) / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
-        res = _port_cases(ref, Path(out_dir))
-        with open(Path(out_dir) / f"port_{rank}.pkl", "wb") as f:
+        res = (_port_placed if placed else _port_cases)(ref, Path(out_dir))
+        with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
         dist.destroy_process_group()
@@ -205,6 +310,55 @@ def _port_cases(ref, out_dir: Path) -> dict:
     return res
 
 
+def _port_placed(ref, out_dir: Path) -> dict:
+    import torch
+
+    from repro_torch.launch.mesh import Sharding, make_mesh
+    from repro_torch.training import make_train_step
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    res = {}
+    for kind, shape in PLACEMENTS.items():
+        mesh = make_mesh(shape, AXES, device="cpu")
+        di = mesh.get_coordinate()[0]
+        rows = slice(di * B // shape[0], (di + 1) * B // shape[0])
+
+        def specs(tree, cfg):
+            return unflatten(tree, [Sharding(mesh, placed_names(kind, p, tuple(x.shape),
+                                                                bool(cfg.moe)))
+                                    for p, x in flatten_with_paths(tree)])
+
+        for name, arch, mb, comp, chunks in CASES:
+            r = ref[kind, name]
+            cfg, model, tcfg, state = _setup(r, arch, mb, comp)
+            if kind == "zero1" and name == CASES[0][0]:
+                # the world-1 checkpoint restored onto the ZeRO-1 placements
+                w1 = world1_state({"cases": {name: r}})
+                back, _ = Checkpointer(out_dir / "ckpt1").restore(None, w1, specs(w1, cfg))
+                res["restored"] = {p: x.to_local().numpy() for p, x in flatten_with_paths(back)}
+            placed = reshard_state(state, specs(state, cfg))
+            case = {"before": {p: x.to_local().numpy().copy()
+                               for p, x in flatten_with_paths(placed)},
+                    "bytes": {p: x.to_local().numel() * x.element_size()
+                              for p, x in flatten_with_paths(placed)}}
+            step = make_train_step(model, tcfg)
+            losses, calls = [], []
+            for b in batches(cfg.vocab_size):
+                placed, m = step(placed, {k: torch.from_numpy(v[rows]) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+                calls.append({k: int(v) for k, v in m.items() if k.startswith("collectives")})
+            case.update(losses=losses, calls=calls,
+                        placements={p: str(tuple(x.placements))
+                                    for p, x in flatten_with_paths(placed)},
+                        state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
+            res[kind, name] = case
+            if kind == "zero1" and name == CASES[0][0]:
+                Checkpointer(out_dir / "ckpt_zero1").save(STEPS, placed, {"step": STEPS})
+    return res
+
+
 def world1_state(ref):
     """The first case's state with moments that are not zero, on the host."""
     import torch
@@ -224,14 +378,17 @@ def save_world1(ref, out_dir: Path) -> None:
     Checkpointer(out_dir / "ckpt1").save(7, world1_state(ref), {"step": 7})
 
 
-def port(out_dir: Path, world: int = 2, timeout: float = 150.0) -> None:
+def port(out_dir: Path, world: int = 2, timeout: float = 150.0, placed: bool = False) -> None:
     import multiprocessing as mp
 
-    with open(out_dir / "reference.pkl", "rb") as f:
+    with open(out_dir / ("reference_placed.pkl" if placed else "reference.pkl"), "rb") as f:
         ref = pickle.load(f)
+    if placed:
+        ref = {"cases": {CASES[0][0]: ref["zero1", CASES[0][0]]}}
     save_world1(ref, out_dir)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir))) for r in range(world)]
+    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir), placed))
+             for r in range(world)]
     for p in procs:
         p.start()
     for p in procs:
@@ -247,9 +404,10 @@ def port(out_dir: Path, world: int = 2, timeout: float = 150.0) -> None:
 
 if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
+    placed = sys.argv[3:] == ["placed"]
     if mode == "reference":
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-        reference(out)
+        (reference_placed if placed else reference)(out)
     else:
-        port(out)
+        port(out, placed=placed)
