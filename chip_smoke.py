@@ -131,7 +131,23 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              1, 2, 4 and 8 ranks for each placement (qwen3-1.7b's and one
              deepseek-v2 layer's training state, qwen3's KV cache of a
              32768-token sequence): arithmetic from the shapes, printed as
-             such, not a measurement;
+             such, not a measurement; (i) partitioned compute over
+             "model" (Megatron's placement: wq, wk, wv, w_gate, w_up split
+             on their output dim, wo, w_down on their input dim) in the
+             same group: (i1) qwen3-1.7b at 4 layers, 3 steps on a
+             (data=1, model=1) mesh (with int8 compression) and 3 on a mesh
+             of "model" alone, each against as many plain steps (equal
+             losses, every leaf bit-identical), no gather, the all-reduces
+             as predicted; (i2) full qwen3's step partitioned, gathered
+             ((h2)'s placement) and plain, in turns, with its collectives
+             by kind and peak memory; (i3) the live requests with the
+             parameters placed so and K/V caches split on their heads: the
+             same greedy tokens, logits error 0; (i4) the bytes a rank
+             would hold and add a step at 2, 4 and 8 model ranks,
+             partitioned against gathered (arithmetic); and K3 (B=1,
+             T=1280) and K3-bwd (B=4, T=1024) at each rank's heads of 2 and
+             4 model ranks (H=8 KV=4, H=4 KV=2) against their plain
+             versions, timed beside their bounds and SDPA;
 10. launch   the launch modules through a one-rank NCCL group (a file://
              store in a temporary directory, no TCP port) and a (data=1,
              model=1) mesh: (a) qwen3-1.7b at full width and depth serves
@@ -151,8 +167,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 The line before the last lists each kernel as JSON (launches on its path:
 K1 and K2 in phases 3-4, K3 in phases 5, 9 and 10, the lane engine in
-phase 8, K3-bwd in phase 9: its runs, (e)'s and (h)'s steps and (g)'s kernel route;
-max error; times; bound); the last line is
+phase 8, K3-bwd in phase 9: its runs, (e)'s, (h)'s and (i)'s steps and (g)'s
+kernel route; max error; times; bound; for K3 and K3-bwd also ``per_rank``, their
+checks and times at each rank's heads of (i)); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -832,14 +849,20 @@ def _init_model(device, cfg, seed: int, what: str):
     return model, params, n_params
 
 
-def phase_live(device, sizes: Sizes, seed: int, arch: str = "", n_requests: int = 0) -> dict:
+def phase_live(device, sizes: Sizes, seed: int, arch: str = "", n_requests: int = 0,
+               placed=None) -> dict:
     """The engine in live mode with the model ``arch`` (default
     ``sizes.arch``): ``n_requests`` requests (default
     ``sizes.live_requests``), each prefilled and decoded; the prefill and
-    decode times of each."""
+    decode times of each. ``placed(model, params) -> (params, rules)``, where
+    given, places the parameters drawn (on a mesh) and gives the
+    ``shardctx`` rules the requests are served under."""
     cfg = sizes.arch_config(arch)
     n_requests = n_requests or sizes.live_requests
     model, params, n_params = _init_model(device, cfg, seed, "live")
+    rules = {}
+    if placed is not None:
+        params, rules = placed(model, params)
     layout = layout_for(cfg, block_tokens=sizes.block_tokens)
     page_bytes = 2 * 2 * sizes.block_tokens * cfg.n_kv_heads * cfg.head_dim   # K+V, bf16
     pool_blocks = min(sizes.pool_blocks, LIVE_POOL_BYTES // page_bytes)
@@ -863,7 +886,8 @@ def phase_live(device, sizes: Sizes, seed: int, arch: str = "", n_requests: int 
         head = prompts[pi] if t < 2 else rng.integers(0, cfg.vocab_size, sizes.prefix_tokens)
         tokens = np.concatenate([head, rng.integers(0, cfg.vocab_size, sizes.user_tokens)])
         tenant = ("tenantA", "tenantB", "tenantC")[t]
-        res = engine.submit(tenant, tokens, max_new_tokens=sizes.new_tokens)
+        with shardctx.added(rules):
+            res = engine.submit(tenant, tokens, max_new_tokens=sizes.new_tokens)
         out = res.output
         if out is None or out.shape != (1, sizes.new_tokens) or out.dtype != np.int32:
             _fail(f"live: request {i} gave {None if out is None else (out.shape, out.dtype)}")
@@ -1638,33 +1662,44 @@ def _padded(x: torch.Tensor, D: int) -> torch.Tensor:
     return F.pad(x, (0, D - x.shape[-1])) if x.shape[-1] != D else x
 
 
+def check_training_kernels(errs: Errors, gen, device, dtype, shape: tuple) -> float:
+    """K3 with its lse and K3-bwd against their plain versions on the same
+    inputs at one (B, T, H, KV, D_qk, D_v, causal) shape, zero-padded as
+    the op pads them (scale 1/sqrt(D_qk)); logged. Returns K3-bwd's
+    largest error."""
+    B, T, H, KV, Dqk, Dv, causal = shape
+    D = kernel_head_dim(max(Dqk, Dv))
+    q, do = (_padded(_randn(gen, (B, T, H, d), dtype, device), D) for d in (Dqk, Dv))
+    k, v = (_padded(_randn(gen, (B, T, KV, d), dtype, device), D) for d in (Dqk, Dv))
+    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+    what = (f"K3-bwd {str(dtype)[6:]} B={B} T={T} H={H} KV={KV} D={Dqk}/{Dv}"
+            f"{f' (padded to {D})' if D != Dqk or D != Dv else ''} causal={int(causal)}")
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    errs.check("flash_attention", out, want_out, ATOL[dtype], what + ": K3 out")
+    lse_err = float((lse - want_lse).abs().max())
+    if not lse_err <= LSE_ATOL[dtype]:
+        _fail(f"{what}: K3 lse max abs err {lse_err:.3e} > {LSE_ATOL[dtype]:.1e}")
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    line, worst = [], 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        atol = (BWD_ATOL_F32 if dtype == torch.float32
+                else BWD_BF16_REL * float(w.float().abs().max()))
+        err = errs.check("flash_attention_bwd", g, w, atol, f"{what}: {name}")
+        worst = max(worst, err)
+        line.append(f"{name} {err:.3e} (bound {atol:.2e})")
+    _log(f"[train] {what}: K3 lse err {lse_err:.3e}; max abs err " + ", ".join(line))
+    return worst
+
+
 def phase_train_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
-    """(a) K3 with its lse and K3-bwd against their plain versions on the
-    same inputs, zero-padded as the op pads them (scale 1/sqrt(D_qk))."""
+    """(a) K3 with its lse and K3-bwd against their plain versions over
+    bwd_shapes (check_training_kernels), in f32 and bf16."""
     gen = torch.Generator(device=device).manual_seed(seed + 9)
     for dtype in (torch.float32, torch.bfloat16):
-        for B, T, H, KV, Dqk, Dv, causal in bwd_shapes(sizes):
-            D = kernel_head_dim(max(Dqk, Dv))
-            q, do = (_padded(_randn(gen, (B, T, H, d), dtype, device), D) for d in (Dqk, Dv))
-            k, v = (_padded(_randn(gen, (B, T, KV, d), dtype, device), D) for d in (Dqk, Dv))
-            kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
-            what = (f"K3-bwd {str(dtype)[6:]} B={B} T={T} H={H} KV={KV} D={Dqk}/{Dv}"
-                    f"{f' (padded to {D})' if D != Dqk or D != Dv else ''} causal={int(causal)}")
-            out, lse = flash_attention_fwd(q, k, v, **kw)
-            want_out, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
-            errs.check("flash_attention", out, want_out, ATOL[dtype], what + ": K3 out")
-            lse_err = float((lse - want_lse).abs().max())
-            if not lse_err <= LSE_ATOL[dtype]:
-                _fail(f"{what}: K3 lse max abs err {lse_err:.3e} > {LSE_ATOL[dtype]:.1e}")
-            got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
-            want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
-            line = []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                atol = (BWD_ATOL_F32 if dtype == torch.float32
-                        else BWD_BF16_REL * float(w.float().abs().max()))
-                err = errs.check("flash_attention_bwd", g, w, atol, f"{what}: {name}")
-                line.append(f"{name} {err:.3e} (bound {atol:.2e})")
-            _log(f"[train] {what}: K3 lse err {lse_err:.3e}; max abs err " + ", ".join(line))
+        for shape in bwd_shapes(sizes):
+            check_training_kernels(errs, gen, device, dtype, shape)
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -2177,21 +2212,30 @@ def split_cache_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
 
 def rank_bytes(shapes, n: int) -> Dict[str, tuple]:
     """(h5) arithmetic: the bytes one of ``n`` ranks holds of a training
-    state of f32 parameters of these shapes, for each placement: (the
-    state held between steps: parameters, mu and nu; what a step adds: the
-    whole f32 gradient, the bf16 compute copy and, for split parameters,
-    each gathered whole). A leaf no dim of which divides stays whole."""
-    out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0]}
-    for _, shape in shapes:
+    state of f32 parameters of these (path, shape)s, for each placement:
+    (the state held between steps: parameters, mu and nu; what a step
+    adds: the f32 gradient, the bf16 compute copy and, for split
+    parameters of the gathered route, each gathered whole). A leaf no dim
+    of which divides stays whole. "partitioned" (i4) is Megatron's
+    placement: its leaves' gradients and copies are blocks too.
+    Activations are not counted."""
+    out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0], "partitioned": [0, 0]}
+    for path, shape in shapes:
         e = int(np.prod(shape))
         first = _axis_at("x", n, shape, False)
         last = _axis_at("x", n, shape, True)
         out["replicated"][0] += 12 * e
         out["zero1"][0] += 4 * e + (8 * e // n if first else 8 * e)
         out["model"][0] += 12 * e // n if last else 12 * e
-        for k in out:
+        for k in ("replicated", "zero1", "model"):
             out[k][1] += 6 * e
         out["model"][1] += 4 * e if (last and n > 1) else 0
+        # Megatron's placement (i4): a partitioned leaf's parameter, moments,
+        # gradient and bf16 copy are its block; nothing is gathered
+        parted = ((path.endswith(COLUMN_LEAVES) and shape[-1] % n == 0)
+                  or (path.endswith(ROW_LEAVES) and shape[-2] % n == 0))
+        out["partitioned"][0] += 12 * e // n if parted else 12 * e
+        out["partitioned"][1] += 6 * e // n if parted else 6 * e
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -2209,18 +2253,29 @@ def per_rank_bytes(sizes: Sizes, shapes: dict) -> dict:
                                         for k, (a, b) in r.items())
                  for n, r in out[name].items()))
     cfg = sizes.arch_config()
+    q = out[cfg.name]
+    _log(f"[train] (i4) arithmetic, not a measurement: {cfg.name} training state, GB a rank "
+         f"holds + adds a step (parameters, moments; gradient, bf16 copy, gathered "
+         f"parameters; activations not counted), partitioned (Megatron's placement) against "
+         f"gathered ((h2)'s placement) at m model ranks: " + "; ".join(
+             f"m={n}: partitioned {q[n]['partitioned'][0] / 1e9:.2f} + "
+             f"{q[n]['partitioned'][1] / 1e9:.2f}, gathered {q[n]['model'][0] / 1e9:.2f} + "
+             f"{q[n]['model'][1] / 1e9:.2f}" for n in (2, 4, 8)))
     model = make_model(cfg)
     tokens = 32768
     held = [(path.endswith(("['k']", "['v']", "['c_kv']", "['k_rope']")),
              t.numel() * t.element_size())
             for path, t in flatten_with_paths(model.cache_specs(1, tokens))]
     total = sum(b for _, b in held)
-    # the attention caches split on their slots over "model", the rest whole
+    # the attention caches split on their slots over "model" (or, where
+    # attention is partitioned, on their KV heads: the same share while N
+    # divides KV), the rest whole
     out["kv_cache"] = {n: sum(b // n if slots else b for slots, b in held) for n in (1, 2, 4, 8)}
     _log(f"[train] (h5) arithmetic, not a measurement: {cfg.name} KV cache of one "
          f"{tokens}-token sequence in {model.compute_dtype}: {total / tokens / 1024:.1f} KiB a "
          f"token, " + ", ".join(f"N={n}: {b / 1e9:.3f} GB a model rank"
-                                for n, b in out["kv_cache"].items()))
+                                for n, b in out["kv_cache"].items())
+         + f" (split on its slots, or on its {cfg.n_kv_heads} KV heads where N divides them)")
     return out
 
 
@@ -2270,6 +2325,7 @@ def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
         del moe_mesh["plain"], moe_mesh["placed"]
         out["moe_mesh_steps"] = moe_mesh
         out.update(phase_train_placed(device, sizes, seed, count))
+        out.update(phase_train_partitioned(device, sizes, seed, card, count))
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2328,6 +2384,271 @@ def phase_train_placed(device, sizes: Sizes, seed: int, count) -> dict:
     want = attn_layers(out["split_cache"]["cfg"]) * out["split_cache"]["prefills"]
     if device.type == "cuda" and flash_attention.launches - before != want:
         _fail(f"train (h4): K3 launched {flash_attention.launches - before} times, not {want}")
+    return out
+
+
+# -- phase 9 (i): partitioned compute over "model" ---------------------------
+
+# Megatron's split (launch.mesh.COLUMN, ROW): the leaves split over "model"
+# on their output dim, and those split on their input dim
+COLUMN_LEAVES = ("['wq']", "['wk']", "['wv']", "['w_gate']", "['w_up']")
+ROW_LEAVES = ("['wo']", "['w_down']")
+# the model ranks at whose per-rank heads K3 and K3-bwd are held and timed
+RANK_SPLITS = (2, 4)
+
+
+def megatron_placement(mesh):
+    """(i) Megatron's placement: wq, wk, wv, w_gate and w_up (and their
+    moments and residuals) split over "model" on their last dim, wo and
+    w_down on the dim before it, every other leaf replicated."""
+    def place(path, shape):
+        nd = len(shape)
+        if nd and path.endswith(COLUMN_LEAVES):
+            return (None,) * (nd - 1) + ("model",)
+        if nd and path.endswith(ROW_LEAVES):
+            return (None,) * (nd - 2) + ("model", None)
+        return ()
+    return place
+
+
+def rank_heads(cfg) -> List[tuple]:
+    """(m, H/m, KV/m) for each m of RANK_SPLITS that divides both head
+    counts: the heads each rank's K3 and K3-bwd get when attention is
+    partitioned over m model ranks."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return [(m, H // m, KV // m) for m in RANK_SPLITS if H % m == 0 and KV % m == 0]
+
+
+def partitioned_all_reduces(cfg, n_leaves: int, comp: bool) -> int:
+    """(i1) the all-reduces of a Megatron-placed step at --remat (one
+    microbatch) of a state of ``n_leaves`` parameter leaves: one a
+    gradient leaf (the data group's average), the loss's 3, the global
+    norm's one over "model" (and with compression the scale's maximum and
+    the error's sums), then the model group's: per layer 2 after the row
+    products in the forward, 2 again in remat's second forward but for
+    the last of each tile (the checkpoint's recomputation stops once the
+    tensors the backward saved are made again, and nothing saves the
+    tile's last sum), and 2 in the backward before the column products;
+    and the q and k norms' packed gradient sum."""
+    tiles = cfg.n_layers // len(cfg.block_pattern)
+    return (n_leaves + 3 + 1 + (2 if comp else 0) + 6 * cfg.n_layers - tiles
+            + int(cfg.qk_norm))
+
+
+def rank_kernels(device, sizes: Sizes, errs: Errors, seed: int, card: str, flush=None) -> dict:
+    """(i) K3 and K3-bwd at each rank's heads of partitioned compute
+    (rank_heads): K3 with its lse on one prompt of the live length (B=1)
+    and K3-bwd at the training shape, in bf16, against their plain
+    versions at their tolerances; on the card each also timed beside its
+    bound and SDPA's (``flush`` given). Returns the records by kernel."""
+    cfg = sizes.arch_config()
+    D = cfg.head_dim
+    T3 = k3_lengths(cfg, sizes)[0]
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    out = {"flash_attention": [], "flash_attention_bwd": []}
+    for m, H, KV in rank_heads(cfg):
+        dt = torch.bfloat16
+        q, k, v = (_randn(gen, (1, T3, n, D), dt, device) for n in (H, KV, KV))
+        kw = dict(causal=True, sm_scale=1.0 / D ** 0.5)
+        what = f"K3 per rank of {m}: B=1 T=S={T3} H={H} KV={KV} D={D} causal, bf16"
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        wo, wl = flash_attention_fwd_plain(q, k, v, **kw)
+        err = errs.check("flash_attention", o, wo, ATOL[dt], what)
+        lse_err = float((lse - wl).abs().max())
+        if not lse_err <= LSE_ATOL[dt]:
+            _fail(f"{what}: lse max abs err {lse_err:.3e} > {LSE_ATOL[dt]:.1e}")
+        _log(f"[train] (i) {what} on {card}: max abs err {err:.3e} (atol {ATOL[dt]:.0e}), "
+             f"lse {lse_err:.3e} (atol {LSE_ATOL[dt]:.0e})")
+        r = dict(m=m, heads=f"H={H} KV={KV}", max_abs_err=err)
+        if flush is not None:
+            r.update(_time_k3(q, k, v, flush))
+            _log_timing(f"flash_attention, per rank of {m} model ranks", r)
+        out["flash_attention"].append(r)
+        del q, k, v, o, wo
+        shape = (sizes.train_batch, sizes.train_seq, H, KV, D, D, True)
+        err = check_training_kernels(errs, gen, device, dt, shape)
+        r = dict(m=m, heads=f"H={H} KV={KV}", max_abs_err=err)
+        if flush is not None:
+            r.update(k3_bwd_times(shape, gen, device, flush))
+            _log(f"[timing] flash_attention_bwd per rank of {m} model ranks:")
+            _log_bwd_timing(r)
+            torch.cuda.empty_cache()
+        out["flash_attention_bwd"].append(r)
+    return out
+
+
+def time_partitioned_step(device, sizes: Sizes, seed: int, mesh, card: str) -> dict:
+    """(i2) sizes.arch at full width and depth (--remat) on ``mesh``: one
+    state placed replicated, and views of its storage placed as Megatron
+    places it (partitioned) and as (h2) places it (every leaf on
+    "model" at its last dim: the gathered route); a step of each and a
+    plain step on the local tensors, MESH_ROUNDS each in turns after one
+    of each to warm up: medians on the host clock, the collectives a step
+    by kind, and each one's peak device memory over its steps; then one
+    partitioned and one plain step under the profiler (card busy ms and
+    idle share)."""
+    cfg = sizes.arch_config()
+    model = make_model(cfg, remat=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=100))
+    state = reshard_state(
+        init_train_state(model, torch.Generator(device=device).manual_seed(seed), tcfg),
+        Sharding(mesh))
+    runs = {"partitioned": world1_view(state, place_specs(state, mesh, megatron_placement(mesh))),
+            "gathered": world1_view(state, place_specs(state, mesh, model_placement(mesh))),
+            "plain": _tree_map(lambda t: t.to_local(), state)}
+    del state
+    step = make_train_step(model, tcfg)
+    data = SyntheticLMData(cfg.vocab_size, sizes.train_seq, sizes.train_batch, seed=seed)
+    names = list(runs)
+    ms = {k: [] for k in runs}
+    peak = {k: 0.0 for k in runs}
+    kinds = {}
+    for rnd in range(MESH_ROUNDS + 1):
+        for name in names[rnd % 3:] + names[:rnd % 3]:
+            batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+            _sync(device)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, m = step(runs[name], batch)
+            float(m["loss"])
+            if rnd:
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+            if device.type == "cuda":
+                peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 1e9)
+            if name != "plain":
+                kinds[name] = dict(_kinds(m), total=int(m["collectives"]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    # one more step of each under the profiler: is the difference the
+    # card's (busy) or the host's (idle)?
+    prof = {}
+    for name in ("partitioned", "plain"):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+        prof[name] = _device_profile(lambda: float(step(runs[name], batch)[1]["loss"]), device)
+        busy = prof[name]["busy_ms"]
+        _log(f"[train] (i2) profiled {name} step: {prof[name]['wall_ms']:.2f} ms (host clock), "
+             + ("card busy not measured" if busy is None else
+                f"card busy {busy:.2f} ms, idle share "
+                f"{1 - busy / prof[name]['wall_ms']:.3f}; top {prof[name]['top'][:4]}"))
+    _log(f"[train] (i2) {cfg.name} on {card}, full width and depth (--remat, "
+         f"B={sizes.train_batch} x T={sizes.train_seq}) on mesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)}: a step "
+         f"{med['partitioned']:.2f} ms partitioned (Megatron's placement), {med['gathered']:.2f} "
+         f"ms gathered ((h2)'s placement), {med['plain']:.2f} ms plain (medians of {MESH_ROUNDS} "
+         f"each, in turns, host clock; {ms}); collectives a step {kinds}; peak device memory "
+         f"{ {k: round(v, 3) for k, v in peak.items()} } GB; partitioned - plain "
+         f"{med['partitioned'] - med['plain']:.2f} ms, "
+         f"{(med['partitioned'] - med['plain']) / max(kinds['partitioned']['total'], 1):.3f} ms "
+         f"a collective")
+    want = partitioned_all_reduces(cfg, len(flatten_with_paths(runs["plain"]["params"])), False)
+    if kinds["partitioned"] != dict(all_reduce=want, reduce_scatter=0, all_gather=0, total=want):
+        _fail(f"train (i2): the partitioned step's collectives {kinds['partitioned']}, not "
+              f"{want} all-reduces and no gather")
+    return dict(ms=med, all_ms=ms, kinds=kinds, peak_gb=peak,
+                profiled={k: (v["wall_ms"], v["busy_ms"]) for k, v in prof.items()})
+
+
+def megatron_placed(mesh):
+    """(i3) ``phase_live``'s ``placed``: the parameters placed as Megatron
+    places them, served under ``SplitCaches(mesh, model, params)`` (K and V
+    split on their heads)."""
+    def placed(model, params):
+        pp = reshard_state(params, place_specs(params, mesh, megatron_placement(mesh)))
+        return pp, {"cache_split": flash_decode.SplitCaches(mesh, model, pp)}
+    return placed
+
+
+def megatron_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(i3) sizes.arch served with the live phase's requests twice: plain,
+    then with its parameters placed as Megatron places them on ``mesh`` and
+    caches split on their KV heads (megatron_placed): the same greedy
+    tokens; the first request's prefill and one decode step on each, the
+    logits equal (error 0: at world 1 every product is the whole one);
+    each rank's caches hold KV/(model ranks) heads; the model group's
+    all-reduces counted. Returns the prefills made (each launches K3 once a
+    global-attention layer)."""
+    from repro_torch.training.tree import leaves
+
+    plain = phase_live(device, sizes, seed)
+    want_tokens = _served_tokens(plain)
+    plain_ms = 1e3 * float(np.median(plain["timed"].decode_s))
+    del plain
+    live = phase_live(device, sizes, seed, placed=megatron_placed(mesh))
+    got_tokens, ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
+    for i, (g, w) in enumerate(zip(got_tokens, want_tokens)):
+        if not np.array_equal(g, w):
+            _fail(f"train (i3): request {i}: greedy tokens {g.tolist()} partitioned, "
+                  f"{w.tolist()} plain")
+    model, placed, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
+    local = _tree_map(lambda t: t.to_local(), placed)
+    split = flash_decode.SplitCaches(mesh, model, placed)
+    msz = launch_mesh.axis_size(mesh, "model")
+    S = len(tokens) + sizes.new_tokens
+    with torch.inference_mode():
+        dev = local["embed"].device
+        prompt = {"tokens": torch.as_tensor(tokens[None, :], device=dev)}
+        pos = torch.full((1,), len(tokens), dtype=torch.int32, device=dev)
+        out = {}
+        for name, params, rules in (("plain", local, {}), ("partitioned", placed,
+                                                         {"cache_split": split})):
+            with shardctx.rules(rules):
+                logits, caches = model.prefill(params, prompt, S)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                step, _ = model.decode_step(params, tok, caches, pos)
+                out[name] = (logits[0, -1].float(), step[0, -1].float())
+            if name == "partitioned":
+                held = [(t.to_local().shape[-2], t.shape[-2]) for t in leaves(caches)]
+            del caches
+    if not held or any(h * msz != n for h, n in held):
+        _fail(f"train (i3): the caches hold {held} of their KV heads on {msz} model ranks")
+    errs_ = [float((a - b).abs().max()) for a, b in zip(out["partitioned"], out["plain"])]
+    if max(errs_) != 0.0 or not all(torch.isfinite(a).all() for a in out["partitioned"]):
+        _fail(f"train (i3): partitioned logits differ from the plain ones by {errs_} at world 1")
+    kinds = dict(split.parallel.kinds)
+    want = 2 * cfg.n_layers * 2            # one prefill and one decode step, 2 a layer
+    if kinds != {"all_reduce": want}:
+        _fail(f"train (i3): the model group's collectives {kinds}, not {want} all-reduces")
+    _log(f"[train] (i3) {cfg.name} with its parameters placed as Megatron places them on mesh "
+         f"{tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} (families "
+         f"{sorted(split.parallel.families)}) and caches split on their KV heads ({msz} rank(s), "
+         f"each {held[0][0]} of {held[0][1]} heads): {len(got_tokens)} requests x "
+         f"{sizes.new_tokens} greedy tokens the same as plain; the first request's prefill and "
+         f"decode-step logits max abs err {errs_} (0 required); {kinds} for one prefill and one "
+         f"step; served decode {ms:.2f} ms per token partitioned, {plain_ms:.2f} plain (medians, "
+         f"host clock)")
+    return dict(logits_err=max(errs_), decode_ms=ms, plain_decode_ms=plain_ms, kinds=kinds,
+                prefills=2 * len(got_tokens) + 2, cfg=cfg)
+
+
+def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -> dict:
+    """(i): partitioned compute over "model" in the one-rank group: (i1) the
+    4-layer sizes.arch Megatron-placed (3 steps with compression on a
+    (data=1, model=1) mesh, 3 without on a mesh of "model" alone) against
+    as many plain steps, bit for bit, no gather, the all-reduces as
+    predicted; (i2) the full-size step partitioned, gathered and plain;
+    (i3) the live requests partitioned. ``count`` is phase_train_mesh's:
+    the parts' launches count on the path."""
+    mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
+    only = launch_mesh.make_mesh((1,), ("model",), device=device)
+    _log(f"[train] (i) meshes {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} and "
+         f"{tuple(only.shape)} {tuple(only.mesh_dim_names)} of the same group")
+    out = {}
+    for key, m, comp in (("i1_dm", mesh, True), ("i1_m", only, False)):
+        r = count(lambda: mesh_vs_plain(device, sizes, seed, m, sizes.arch, sizes.mesh_steps,
+                                        megatron_placement(m), comp, "partitioned"))
+        n_leaves = len(flatten_with_paths(r["plain"]["params"]))
+        del r["plain"], r["placed"]
+        want = partitioned_all_reduces(r["cfg"], n_leaves, comp)
+        if r["kinds"] != dict(all_reduce=want, reduce_scatter=0, all_gather=0):
+            _fail(f"train (i1) {key}: collectives a step {r['kinds']}, not {want} all-reduces "
+                  f"and no gather of a partitioned leaf")
+        out[key] = r
+    out["partitioned_timing"] = count(lambda: time_partitioned_step(device, sizes, seed, mesh,
+                                                                    card))
+    before = flash_attention.launches
+    out["megatron_serve"] = count(lambda: megatron_serve(device, sizes, seed, mesh))
+    want = attn_layers(out["megatron_serve"]["cfg"]) * out["megatron_serve"]["prefills"]
+    if device.type == "cuda" and flash_attention.launches - before != want:
+        _fail(f"train (i3): K3 launched {flash_attention.launches - before} times, not {want}")
     return out
 
 
@@ -2408,9 +2729,11 @@ def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
 
 def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
     """Phase 9: (a) the kernels, (b) the gradient hold, (c) the training
-    run (its launches: the training path's), (e)-(h) training state on a
-    mesh, placed leaf by leaf, the split KV cache and the other families
-    (phase_train_mesh; its paths' launches too), (d) K3-bwd's timing."""
+    run (its launches: the training path's), (e)-(i) training state on a
+    mesh, placed leaf by leaf, the split KV cache, the other families and
+    partitioned compute (phase_train_mesh; its paths' launches too), (d)
+    K3-bwd's timing, and (i) K3 and K3-bwd at each rank's heads
+    (rank_kernels)."""
     t0 = time.perf_counter()
     phase_train_kernels(device, sizes, errs, seed)
     grads = phase_train_grads(device, sizes, seed)
@@ -2420,12 +2743,13 @@ def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dic
     if device.type == "cuda":
         torch.cuda.empty_cache()
     mesh = phase_train_mesh(device, sizes, seed, card)
-    timing = None
+    timing, flush = None, None
     if device.type == "cuda":
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
         timing = time_k3_bwd(device, sizes, seed, flush)
+    per_rank = rank_kernels(device, sizes, errs, seed, card, flush)
     _log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
-    return dict(grads=grads, run=run, mesh=mesh, timing=timing)
+    return dict(grads=grads, run=run, mesh=mesh, timing=timing, per_rank=per_rank)
 
 
 # -- phase 10: launch --------------------------------------------------------
@@ -3101,7 +3425,7 @@ def main(argv=None) -> int:
     train_k3 = train_launches["flash_attention"]
     _log(f"[train] K3 launches: {live_k3} on the live path, {train_k3} on the training paths "
          f"({train['run']['launches']['flash_attention']} in the run, "
-         f"{train['mesh']['launches']['flash_attention']} in (e)-(h)); K3-bwd "
+         f"{train['mesh']['launches']['flash_attention']} in (e)-(i)); K3-bwd "
          f"{train_launches['flash_attention_bwd']}")
     reset_launches()                                  # the launch path starts here
     launch = phase_launch(device, sizes, args.seed)
@@ -3125,6 +3449,10 @@ def main(argv=None) -> int:
         })
         if name in ("lane_engine", "flash_attention_bwd"):   # what the yardstick is
             rows[-1]["library"] = t["library"]
+        if name in train["per_rank"]:       # (i): each rank's heads when partitioned
+            rows[-1]["per_rank"] = [
+                {k: r[k] for k in ("m", "heads", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")} for r in train["per_rank"][name]]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

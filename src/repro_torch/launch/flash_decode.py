@@ -35,9 +35,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.attention import CacheBlock, decode_partials
+from repro_torch.training.data_parallel import ModelParallel
 from repro_torch.training.tree import flatten_with_paths, tree_map, unflatten
 
-from .mesh import Sharding, axis_size, data_axes, gather_cat, local_block, place
+from .mesh import (Sharding, axis_size, data_axes, gather_cat, local_block, partitioned_leaves,
+                   path_keys, place)
 
 SLOT_LEAVES = ("k", "v", "c_kv", "k_rope")      # the caches indexed by slot
 
@@ -107,27 +109,101 @@ def _lead(path: str) -> int:
     return 1 if path.startswith("['blocks']") else 0
 
 
+def _kind(model, path: str) -> str:
+    """The block kind of the layer a cache leaf belongs to."""
+    keys = path_keys(path)
+    if keys[0] == "blocks":
+        return model.cfg.block_pattern[int(keys[1][1:])]
+    return model.tail_kinds[keys[1]]
+
+
+def _layer(path: str) -> str:
+    return path[:path.rindex("[")]
+
+
 class SplitCaches:
-    """The caches of a ``TransformerLM`` held split over ``mesh`` as the
-    reference's flash-decoding places them (``P(data, "model", None,
-    None)``): each attention cache (K, V; MLA's c_kv and k_rope) split on
-    its slots over ``"model"``, rank mi holding the contiguous slots
-    [mi S/msz, (mi+1) S/msz), and on its batch rows over the data axes
-    where they divide the batch (else whole there); every recurrent state
-    whole on every rank. Cached as DTensors.
+    """The caches of a ``TransformerLM`` held split over ``mesh``. Each
+    attention cache (K, V; MLA's c_kv and k_rope) is split as the
+    reference's flash-decoding places it (``P(data, "model", None,
+    None)``): on its slots over ``"model"``, rank mi holding the contiguous
+    slots [mi S/msz, (mi+1) S/msz), and on its batch rows over the data
+    axes where they divide the batch (else whole there). Where the
+    parameters (``params``, DTensors placed on ``mesh``, with their
+    ``model``) partition GQA over ``"model"`` (``launch.mesh.
+    partitioned_leaves``), each GQA layer's K and V are split on their KV
+    heads instead (``(B, S, KV, D)`` on ``P(None, None, "model", None)``):
+    a rank computes and holds only its heads, and reads them with no
+    merge. Every recurrent state is whole on every rank. Cached as
+    DTensors.
 
     Installed as the ``models.shardctx`` rule ``"cache_split"``, it makes
     the model's ``init_cache`` and ``prefill`` allocate and keep only this
     rank's block of each attention cache (:meth:`block`), and its
     ``decode_step`` read caches held so (:meth:`local`), whether written
     under the rule or placed by ``reshard_state(caches,
-    split.shardings(model, batch, cache_len))``."""
+    split.shardings(model, batch, cache_len))``. A cache placed otherwise
+    (a recurrent state or a non-partitioned layer's attention cache split
+    on any dim) is gathered whole for the step, and the rank keeps its
+    block of what the step wrote. Parameters on the mesh come to the
+    model through :meth:`params`: a partitioned leaf's block, every other
+    leaf whole."""
 
-    def __init__(self, mesh) -> None:
+    def __init__(self, mesh, model=None, params=None) -> None:
+        from torch.distributed.tensor import DTensor
+
         names = tuple(mesh.mesh_dim_names)
         if "model" not in names:
             raise ValueError(f"mesh axes {names} hold no 'model' axis to split the caches over")
         self.mesh = mesh
+        self.parallel, self._placed, self._parted = None, None, frozenset()
+        if params is None:
+            return
+        items = []
+        for path, t in flatten_with_paths(params):
+            if not isinstance(t, DTensor) or t.device_mesh != mesh:
+                raise ValueError(f"params{path} is not a DTensor on the caches' mesh")
+            items.append((path, tuple(t.shape), tuple(t.placements)))
+        families, self._parted = partitioned_leaves(model.cfg, mesh, items)
+        self._placed = {path: pl for path, _, pl in items}
+        if families:
+            self.parallel = ModelParallel(mesh, families)
+
+    def on_heads(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer's K and V are held split on their heads
+        (its attention partitioned over ``"model"``)."""
+        return (self.parallel is not None and "attn" in self.parallel.families
+                and kind in ("attn", "local") and not model._mla(kind))
+
+    def kv_heads(self, model, kind: str) -> int:
+        """The KV heads this rank holds of a ``kind`` layer's cache."""
+        n = model.cfg.n_kv_heads
+        return n // self.parallel.size if self.on_heads(model, kind) else n
+
+    def params(self, model, params):
+        """The parameters for this rank's prefill or decode step, and the
+        ``shardctx`` rules they run under: placed parameters (DTensors, as
+        they were when the rule was made) give each partitioned leaf's
+        block and every other leaf whole (gathered where split), under
+        ``"model_parallel"``; plain tensors are whole already."""
+        from torch.distributed.tensor import DTensor
+
+        flat = flatten_with_paths(params)
+        if not any(isinstance(t, DTensor) for _, t in flat):
+            if self._placed is not None:
+                raise ValueError("these caches were laid out for parameters on the mesh; the "
+                                 "parameters given are plain tensors")
+            return params, {}
+        if self._placed is None:
+            raise ValueError("parameters on a mesh (DTensors) serve under SplitCaches(mesh, "
+                             "model, params), made with them")
+        out = []
+        for path, t in flat:
+            if not isinstance(t, DTensor) or tuple(t.placements) != self._placed.get(path):
+                raise ValueError(f"params{path} is not placed as when the rule was made "
+                                 f"({self._placed.get(path)})")
+            out.append(t.to_local() if path in self._parted else t.full_tensor())
+        rules = {"model_parallel": self.parallel} if self.parallel is not None else {}
+        return unflatten(params, out), rules
 
     def _sharding(self, batch: int, ndim: int, lead: int) -> Sharding:
         dp = data_axes(self.mesh)
@@ -135,6 +211,15 @@ class SplitCaches:
         if dp and batch % axis_size(self.mesh, dp) == 0:
             rows = dp[0] if len(dp) == 1 else dp
         return Sharding(self.mesh, (None,) * lead + (rows, "model") + (None,) * (ndim - lead - 2))
+
+    def _leaf_sharding(self, model, path: str, shape) -> Sharding:
+        """The placement :meth:`shardings` gives the cache leaf at ``path``."""
+        lead = _lead(path)
+        if _leaf(path) in ("k", "v") and self.on_heads(model, _kind(model, path)):
+            return Sharding(self.mesh, (None,) * lead + (None, None, "model", None))
+        if _leaf(path) in SLOT_LEAVES:
+            return self._sharding(shape[lead], len(shape), lead)
+        return Sharding(self.mesh)
 
     def block(self, batch: int, slots: int, what: str = "") -> CacheBlock:
         """This rank's block of an attention cache of ``batch`` rows and
@@ -152,10 +237,8 @@ class SplitCaches:
         shapes = model.cache_specs(batch, cache_len)
         specs = []
         for path, t in flatten_with_paths(shapes):
-            sh = Sharding(self.mesh)
-            if _leaf(path) in SLOT_LEAVES:
-                sh = self._sharding(batch, t.ndim, _lead(path))
-                sh.placements(tuple(t.shape), "caches" + path)
+            sh = self._leaf_sharding(model, path, tuple(t.shape))
+            sh.placements(tuple(t.shape), "caches" + path)
             specs.append(sh)
         return unflatten(shapes, specs)
 
@@ -172,32 +255,55 @@ class SplitCaches:
                         model.cache_specs(batch, cache_len))
 
     def local(self, model, caches):
-        """The caches as this rank holds them (each DTensor's block) and,
-        per layer in the order the layers run, its attention cache's
-        :class:`CacheBlock` (None for a recurrent state). Plain tensors
-        are caches held whole: every block None. A leaf placed otherwise
-        than :meth:`shardings` places it raises, naming it."""
+        """The caches for this rank's decode step, per layer in the order the
+        layers run its attention cache's :class:`CacheBlock` (None where
+        the rank reads it as it is whole, or holds its heads, or for a
+        recurrent state), and a function that ends the step. Plain tensors
+        are caches held whole. A leaf placed as :meth:`shardings` places it
+        is read as it is held; a leaf placed otherwise is gathered whole
+        (a layer's attention caches together) and, when the step ends, the
+        rank keeps its block of it. A partitioned layer's K or V placed
+        otherwise than on its heads raises, naming it."""
         from torch.distributed.tensor import DTensor
 
         flat = flatten_with_paths(caches)
         if not any(isinstance(t, DTensor) for _, t in flat):
-            return caches, [None] * model.cfg.n_layers
-        out, blocks = [], {}
+            return caches, [None] * model.cfg.n_layers, lambda: None
+        held, gather = {}, set()
         for path, t in flat:
             where = "caches" + path
             if not isinstance(t, DTensor):
                 raise ValueError(f"{where} is a plain tensor among caches on a mesh")
+            if t.device_mesh != self.mesh:
+                raise ValueError(f"{where} is on another mesh than the rule's")
+            shape = tuple(t.shape)
+            want = self._leaf_sharding(model, path, shape).placements(shape, where)
+            if tuple(t.placements) == want:
+                continue
+            if _leaf(path) in ("k", "v") and self.on_heads(model, _kind(model, path)):
+                raise ValueError(f"{where} is placed {tuple(t.placements)}, not {want}: a "
+                                 f"partitioned attention layer reads a cache split on its KV "
+                                 f"heads over 'model'")
+            gather.add(_layer(path) if _leaf(path) in SLOT_LEAVES else path)
+        out, blocks, back = [], {}, []
+        for path, t in flat:
+            if path in gather or (_leaf(path) in SLOT_LEAVES and _layer(path) in gather):
+                whole = t.full_tensor()
+                out.append(whole)
+                if any(p.is_shard() for p in t.placements):
+                    back.append((t, whole))
+                continue
             lead, shape = _lead(path), tuple(t.shape)
-            want = Sharding(self.mesh).placements(shape)
-            if _leaf(path) in SLOT_LEAVES:
-                want = self._sharding(shape[lead], t.ndim, lead).placements(shape, where)
-                blocks[path[:path.rindex("[")]] = self.block(shape[lead], shape[lead + 1], where)
-            if t.device_mesh != self.mesh or tuple(t.placements) != want:
-                raise ValueError(f"{where} is placed {tuple(t.placements)}, not {want}: an "
-                                 f"attention cache is split on its slots over 'model' (and its "
-                                 f"rows over the data axes), a recurrent state held whole on "
-                                 f"every rank")
+            if _leaf(path) in SLOT_LEAVES and not self.on_heads(model, _kind(model, path)):
+                blocks[_layer(path)] = self.block(shape[lead], shape[lead + 1], "caches" + path)
             out.append(t.to_local())
+
+        def done():
+            """Each gathered leaf's block of what the step wrote, kept."""
+            for t, whole in back:
+                off, loc = local_block(tuple(t.shape), self.mesh, t.placements)
+                t.to_local().copy_(whole[tuple(slice(o, o + n) for o, n in zip(off, loc))])
+
         tile = [blocks.get(f"['blocks']['g{g}']") for g in range(len(model.cfg.block_pattern))]
         tail = [blocks.get(f"['tail'][{i}]") for i in range(model.n_tail)]
-        return unflatten(caches, out), tile * model.n_tiles + tail
+        return unflatten(caches, out), tile * model.n_tiles + tail, done

@@ -10,6 +10,7 @@ store, world size and rank), then builds the mesh over its ranks.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -122,12 +123,21 @@ def data_place(mesh) -> Tuple[Optional[object], int, int, Tuple[int, ...]]:
     on it (the first axis major) and the global ranks in that order. A
     ``model`` axis may have any size: the data group is this rank's
     column of the mesh, and the ranks of one ``model`` row hold the same
-    batch rows (the reference's batch on ``P("data")``). Any other axis
+    batch rows (the reference's batch on ``P("data")``); a mesh of
+    ``model`` alone has a data group of one rank each, every rank holding
+    the whole batch (the reference's batch replicated). Any other axis
     raises. Every rank of the mesh calls it (it may create a group:
     collective)."""
     names = tuple(mesh.mesh_dim_names)
     if not data_axes(mesh):
-        raise ValueError(f"mesh axes {names} hold no data axis {DATA_AXES}")
+        if names != ("model",):
+            raise ValueError(f"mesh axes {names} hold no data axis {DATA_AXES}")
+        me, group = dist.get_rank(), None
+        for r in mesh.mesh.flatten().tolist():      # every rank creates every group
+            g = dist.new_group([int(r)])
+            if int(r) == me:
+                group = g
+        return group, 1, 0, (me,)
     if model_axis(mesh) is not None:
         pl = place(mesh)
         return pl.data_group, pl.dsz, pl.di, tuple(row[pl.mi] for row in pl.ranks)
@@ -216,3 +226,102 @@ class Sharding:
         from torch.distributed.tensor import distribute_tensor
 
         return distribute_tensor(t, self.mesh, self.placements(tuple(t.shape), what))
+
+
+# -- partitioned compute over "model" (Megatron's column/row split) ----------
+
+# The dense blocks' products a placement can partition, by the dict that
+# holds their leaves: a column leaf split over "model" on its output (last)
+# dim, a row leaf on its input dim (the one before it). "attn" is GQA's
+# (MLA has no "wk" and is never partitioned); "ffn" the dense SwiGLU or
+# GELU MLP (an MoE layer's "ffn" holds a "router" and is never partitioned).
+COLUMN = {"attn": ("wq", "wk", "wv"), "ffn": ("w_gate", "w_up")}
+ROW = {"attn": ("wo",), "ffn": ("w_down",)}
+FAMILY = {"attn": "attn", "ffn": "mlp"}       # the dict's key -> the family's name
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def path_keys(path: str) -> list:
+    """The keys of a ``flatten_with_paths`` path, e.g. ``['blocks']['g0']``
+    -> ``['blocks', 'g0']`` (list indices as ints)."""
+    return [k if i == "" else int(i) for k, i in _KEY.findall(path)]
+
+
+def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optional[str]:
+    """``"column"`` or ``"row"`` where the parameter at ``path`` (a
+    ``flatten_with_paths`` path, with or without a ``['params']`` prefix),
+    of global ``shape`` and placed on ``mesh`` by the DTensor
+    ``placements``, is a :data:`COLUMN` leaf split over ``"model"`` on its
+    last dim or a :data:`ROW` leaf split on its dim before the last, and
+    replicated over every other mesh dim; else None. A ``model`` axis of
+    size 1 counts: the layout is named by the placement alone."""
+    names = tuple(mesh.mesh_dim_names)
+    keys = path_keys(path)
+    if "model" not in names or len(keys) < 2 or keys[-2] not in COLUMN:
+        return None
+    lead = 1 if "blocks" in keys else 0           # the tiles' stacking dim
+    nd = len(shape)
+    if nd != lead + 2:                            # an MoE layer's (E, d, f) experts
+        return None
+    km = names.index("model")
+    if any(not p.is_replicate() for k, p in enumerate(placements) if k != km):
+        return None
+    p = placements[km]
+    if not p.is_shard():
+        return None
+    if keys[-1] in COLUMN[keys[-2]] and p.dim in (nd - 1, -1):
+        return "column"
+    if keys[-1] in ROW[keys[-2]] and p.dim in (nd - 2, -2):
+        return "row"
+    return None
+
+
+def partitioned_leaves(cfg, mesh, items, agree=None) -> Tuple[frozenset, frozenset]:
+    """The families a model's parameter placements partition, and the paths
+    of their leaves. ``items`` are (path, global shape, DTensor placements)
+    of every parameter; ``agree(path)``, where given, must also hold for a
+    leaf (the train step's: its moments are split over "model" as it is).
+
+    A group is one dict of :data:`COLUMN` and :data:`ROW` leaves: GQA's
+    ``attn`` (wq, wk, wv, wo) or a dense MLP's ``ffn`` (w_gate, w_up,
+    w_down; or w_up, w_down). A family ("attn", "mlp") is partitioned when
+    the model has one of its groups at least and every group of it has
+    each leaf in its role (:func:`partition_role`), and, for attention,
+    the ``model`` axis divides ``cfg.n_heads`` and ``cfg.n_kv_heads`` (the
+    heads are contiguous in the columns: rank r holds q heads [r H/m,
+    (r+1) H/m) and exactly their KV heads). Every other leaf, and every
+    leaf of a family that is not partitioned, takes the gathered route."""
+    groups: dict = {}
+    for path, shape, placements in items:
+        keys = path_keys(path)
+        if len(keys) < 2 or keys[-2] not in COLUMN:
+            continue
+        cut = path.rindex("[")
+        g = groups.setdefault(path[:cut], {"kind": keys[-2], "leaves": {}})
+        role = partition_role(path, shape, placements, mesh)
+        if agree is not None and role is not None and not agree(path):
+            role = None
+        g["leaves"][keys[-1]] = (path, role)
+    m = axis_size(mesh, "model") if "model" in mesh.mesh_dim_names else 0
+    fam_groups: dict = {}
+    for g in groups.values():
+        kind, got = g["kind"], g["leaves"]
+        if "router" in got or (kind == "attn" and "wk" not in got):
+            continue                              # MoE or MLA: not a family here
+        fam_groups.setdefault(FAMILY[kind], []).append(g)
+    families, paths = set(), set()
+    for fam, gs in fam_groups.items():
+        if not m or (fam == "attn" and (cfg.n_heads % m or cfg.n_kv_heads % m)):
+            continue
+        if all(_group_ok(g) for g in gs):
+            families.add(fam)
+            paths.update(p for g in gs for p, _ in g["leaves"].values())
+    return frozenset(families), frozenset(paths)
+
+
+def _group_ok(g) -> bool:
+    """The group whole (the GELU MLP has no w_gate) and each leaf in its role."""
+    kind, got = g["kind"], g["leaves"]
+    want = {**{n: "column" for n in COLUMN[kind]}, **{n: "row" for n in ROW[kind]}}
+    need = set(want) - ({"w_gate"} if kind == "ffn" else set())
+    return need <= set(got) and all(got[n][1] == want.get(n) for n in got)

@@ -33,6 +33,14 @@ holds: the reference's cache placed ``P(data, "model", None, None)``): a
 decode step writes the new row only on the rank that owns its slot, and
 only the flash-decode override reads such a cache (no override, or one
 that declines, raises: nothing falls back to a part of the cache).
+
+GQA may be partitioned over the ``model`` ranks (the ``shardctx`` rule
+``"model_parallel"``, :func:`~repro_torch.models.layers.model_parallel`):
+wq, wk and wv then hold this rank's columns, so it projects, normalises,
+rotates and attends (K3 in a prefill or a forward, K3-bwd under autograd)
+its own H/m query heads and KV/m key-value heads, and wo its rows, summed
+over the ranks; its decode writes and reads a cache held split on its
+heads, with no flash-decode merge.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
 from repro_torch.launch import tuning
 
 from . import shardctx
-from .layers import Params, apply_rope, dense_init, matmul, rmsnorm, rmsnorm_init
+from .layers import (Params, apply_rope, dense_init, matmul, model_parallel, rmsnorm,
+                     rmsnorm_init)
 
 NEG_INF = -1e30
 
@@ -262,12 +271,17 @@ def gqa_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
     return p
 
 
-def _project_qkv(x, p, cfg, positions):
+def _project_qkv(x, p, cfg, positions, parallel=None):
+    """q, k and v of the heads whose columns ``p`` holds: every head, or
+    with ``parallel`` this rank's (H/m and KV/m: the counts come from the
+    weights' widths)."""
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = matmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = matmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if parallel is not None:
+        x = parallel.enter(x)
+    q = matmul(x, p["wq"]).reshape(B, T, -1, hd)
+    k = matmul(x, p["wk"]).reshape(B, T, -1, hd)
+    v = matmul(x, p["wv"]).reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -293,9 +307,16 @@ def gqa_forward(
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    mp = model_parallel("attn")
+    q, k, v = _project_qkv(x, p, cfg, positions, mp)
     out = _sequence_attention(q, k, v, causal=causal, window=window)
-    return matmul(out.reshape(B, T, -1), p["wo"])
+    return _out_proj(out.reshape(B, T, -1), p, mp)
+
+
+def _out_proj(o, p, parallel):
+    """``o @ wo``; partitioned, the sum of the ranks' rows of it."""
+    out = matmul(o, p["wo"])
+    return out if parallel is None else parallel.leave(out)
 
 
 def gqa_prefill(
@@ -305,9 +326,10 @@ def gqa_prefill(
     k's dtype. Windowless causal attention runs K3."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    out = matmul(_sequence_attention(q, k, v, causal=True, window=window).reshape(B, T, -1),
-                 p["wo"])
+    mp = model_parallel("attn")
+    q, k, v = _project_qkv(x, p, cfg, positions, mp)
+    out = _out_proj(_sequence_attention(q, k, v, causal=True, window=window).reshape(B, T, -1),
+                    p, mp)
     if window > 0:
         cache_len = min(cache_len, window)
         k_c, v_c = k[:, -cache_len:], v[:, -cache_len:]
@@ -343,7 +365,8 @@ def gqa_decode_step(
     """
     B = x.shape[0]
     position = position.to(x.device)
-    q, k, v = _project_qkv(x, p, cfg, position[:, None])
+    mp = model_parallel("attn")
+    q, k, v = _project_qkv(x, p, cfg, position[:, None], mp)
     S = cache["k"].shape[1] if block is None else block.total
     slot = position % max(window, 1) if window > 0 else position
     k_cache, v_cache = cache["k"], cache["v"]
@@ -352,8 +375,13 @@ def gqa_decode_step(
     # Ring buffer (window > 0): every resident slot is within the window
     # by construction; validity = min(position+1, window) slots.
     valid = torch.clamp(position + 1, max=S) if window > 0 else position + 1
-    out = _decode_attention(q, k_cache, v_cache, valid, 1.0 / math.sqrt(cfg.head_dim), block)
-    return matmul(out.reshape(B, 1, -1), p["wo"]), {"k": k_cache, "v": v_cache}
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if mp is not None:      # this rank's heads over every slot: nothing to merge
+        out = chunked_attention(q, k_cache, v_cache, causal=False, kv_valid_len=valid,
+                                scale=scale)
+    else:
+        out = _decode_attention(q, k_cache, v_cache, valid, scale, block)
+    return _out_proj(out.reshape(B, 1, -1), p, mp), {"k": k_cache, "v": v_cache}
 
 
 # ---------------------------------------------------------------------------

@@ -105,9 +105,26 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
+def model_parallel(family: str):
+    """The ``shardctx`` rule ``"model_parallel"`` (a
+    ``training.data_parallel.ModelParallel``) where it partitions
+    ``family`` ("attn": GQA, "mlp": the dense MLP) over the ``model`` ranks,
+    else None. Partitioned, a block's weights are this rank's columns (wq,
+    wk, wv, w_gate, w_up) and rows (wo, w_down): its code calls the rule's
+    ``enter`` on the input of the column products and ``leave`` on the
+    output of the row product (the sum of the ranks' parts)."""
+    mp = shardctx.get("model_parallel")
+    return mp if mp is not None and family in mp.families else None
+
+
+def mlp_apply(x: torch.Tensor, p: Params, parallel=None) -> torch.Tensor:
+    """The SwiGLU MLP; with ``parallel`` (:func:`model_parallel`), on this
+    rank's columns of it."""
+    if parallel is not None:
+        x = parallel.enter(x)
     gate = F.silu(matmul(x, p["w_gate"]))
-    return matmul(gate * matmul(x, p["w_up"]), p["w_down"])
+    out = matmul(gate * matmul(x, p["w_up"]), p["w_down"])
+    return out if parallel is None else parallel.leave(out)
 
 
 def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
@@ -118,9 +135,13 @@ def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.flo
     }
 
 
-def gelu_mlp_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """The tanh-approximated GELU MLP (``jax.nn.gelu(approximate=True)``)."""
-    return matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"), p["w_down"])
+def gelu_mlp_apply(x: torch.Tensor, p: Params, parallel=None) -> torch.Tensor:
+    """The tanh-approximated GELU MLP (``jax.nn.gelu(approximate=True)``);
+    with ``parallel``, on this rank's columns of it."""
+    if parallel is not None:
+        x = parallel.enter(x)
+    out = matmul(F.gelu(matmul(x, p["w_up"]), approximate="tanh"), p["w_down"])
+    return out if parallel is None else parallel.leave(out)
 
 
 # ---------------------------------------------------------------------------

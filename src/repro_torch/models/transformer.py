@@ -38,7 +38,10 @@ knows the placement and gives each layer its
 :class:`~repro_torch.models.attention.CacheBlock`), ``init_cache`` and
 ``prefill`` allocate and write only this rank's block, and
 ``decode_step`` reads caches held split (DTensors) through the
-flash-decode override only.
+flash-decode override only. Parameters placed on the mesh (DTensors) serve
+under the same rule, made with them: where they partition GQA over
+``model`` (Megatron's column/row split), each rank computes its own heads
+and holds its own KV heads of the cache, read with no merge.
 
 An encoder (hubert-xlarge) has no decode step: it raises there, as the
 reference does.
@@ -72,6 +75,7 @@ from .layers import (
     embed_init,
     mlp_apply,
     mlp_init,
+    model_parallel,
     rmsnorm,
     rmsnorm_init,
     softmax_cross_entropy,
@@ -236,7 +240,7 @@ class TransformerLM(nn.Module):
             else:
                 f, aux = self._moe(h2, p["ffn"])
             return x + f, aux
-        return x + mlp_apply(h2, p["ffn"]), None
+        return x + mlp_apply(h2, p["ffn"], model_parallel("mlp")), None
 
     def _window(self, kind: str) -> int:
         return self.cfg.window if kind == "local" else 0
@@ -395,12 +399,12 @@ class TransformerLM(nn.Module):
         """This rank's block of a ``kind`` layer's attention cache held
         split by ``split`` (the ``"cache_split"`` rule); None without one
         and for a recurrent state."""
-        if split is None or kind not in ("attn", "local"):
+        if split is None or kind not in ("attn", "local") or split.on_heads(self, kind):
             return None
         return split.block(batch, self._slots(kind, cache_len), f"a {kind!r} layer's cache")
 
     def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = (),
-                   block=None):
+                   block=None, kv_heads: int = 0):
         cfg, cdt = self.cfg, self.compute_dtype
         if kind == "mlstm":
             return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead)
@@ -418,7 +422,7 @@ class TransformerLM(nn.Module):
                                         device=dev),
                     "k_rope": torch.zeros(lead + (rows, S, cfg.qk_rope_head_dim), dtype=cdt,
                                           device=dev)}
-        shape = lead + (rows, S, cfg.n_kv_heads, cfg.head_dim)
+        shape = lead + (rows, S, kv_heads or cfg.n_kv_heads, cfg.head_dim)
         return {n: torch.zeros(shape, dtype=cdt, device=dev) for n in ("k", "v")}
 
     def init_cache(self, batch: int, cache_len: int, *, device: DeviceLike = None):
@@ -442,7 +446,8 @@ class TransformerLM(nn.Module):
     def _caches(self, batch: int, cache_len: int, dev: torch.device, split=None):
         def one(kind, lead):
             return self._cache_one(kind, batch, cache_len, dev, lead,
-                                   self._split_block(kind, batch, cache_len, split))
+                                   self._split_block(kind, batch, cache_len, split),
+                                   split.kv_heads(self, kind) if split is not None else 0)
 
         caches = {}
         if self.n_tiles > 0:
@@ -461,17 +466,32 @@ class TransformerLM(nn.Module):
         rule each layer keeps only this rank's block of its attention
         cache, and the caches come as DTensors."""
         split = shardctx.get("cache_split")
-        x = self._embed(params, batch)
-        B = x.shape[0]
-        per_layer = []
-        for kind, p in self._layers(params):
-            x, c = self._block_prefill(x, p, kind, cache_len,
-                                       self._split_block(kind, B, cache_len, split))
-            per_layer.append(c)
+        params, rules = self._serving_params(params, split)
+        with shardctx.added(rules):
+            x = self._embed(params, batch)
+            B = x.shape[0]
+            per_layer = []
+            for kind, p in self._layers(params):
+                x, c = self._block_prefill(x, p, kind, cache_len,
+                                           self._split_block(kind, B, cache_len, split))
+                per_layer.append(c)
         caches = self._collect(per_layer)
         if split is not None:
             caches = split.hold(self, caches, B, cache_len)
         return self._head(params, x[:, -1:, :]), caches
+
+    def _serving_params(self, params, split):
+        """The parameters a prefill or decode step computes with, and the
+        rules it runs under: placed ones (DTensors) through the
+        ``"cache_split"`` rule (``SplitCaches.params``: a partitioned
+        leaf's block under ``"model_parallel"``, every other leaf whole)."""
+        if split is not None:
+            return split.params(self, params)
+        if _any_dtensor(params):
+            raise ValueError("parameters on a mesh (DTensors) serve under the shardctx rule "
+                             "'cache_split' (launch.flash_decode.SplitCaches(mesh, model, "
+                             "params))")
+        return params, {}
 
     def decode_step(self, params, tokens, caches, position):
         """tokens: (B, 1) int; position: (B,). The caches are updated in
@@ -480,25 +500,29 @@ class TransformerLM(nn.Module):
         if self.cfg.modality == "audio":
             raise ValueError("encoder-only arch has no decode step")
         split = shardctx.get("cache_split")
+        params, rules = self._serving_params(params, split)
         if split is not None:
-            local, blocks = split.local(self, caches)
+            local, blocks, done = split.local(self, caches)
         elif _any_dtensor(caches):
             raise ValueError("caches held on a mesh (DTensors) decode under the shardctx rule "
                              "'cache_split' (launch.flash_decode.SplitCaches)")
         else:
-            local, blocks = caches, [None] * self.cfg.n_layers
+            local, blocks, done = caches, [None] * self.cfg.n_layers, lambda: None
         x = params["embed"][tokens].to(self.compute_dtype)
         plans = {}              # a split cache's SlotWrites, one a block and slot rule
-        for (kind, p), (_, c), block in zip(self._layers(params), self._layers(local), blocks):
-            writes = None
-            if block is not None:
-                window = self._window(kind)
-                writes = plans.get((block, window))
-                if writes is None:
-                    pos = position.to(x.device)
-                    slot = pos % window if window > 0 else pos
-                    writes = plans[block, window] = attn.SlotWrites(block, slot)
-            x = self._block_decode(x, p, kind, c, position, block, writes)
+        with shardctx.added(rules):
+            for (kind, p), (_, c), block in zip(self._layers(params), self._layers(local),
+                                                blocks):
+                writes = None
+                if block is not None:
+                    window = self._window(kind)
+                    writes = plans.get((block, window))
+                    if writes is None:
+                        pos = position.to(x.device)
+                        slot = pos % window if window > 0 else pos
+                        writes = plans[block, window] = attn.SlotWrites(block, slot)
+                x = self._block_decode(x, p, kind, c, position, block, writes)
+        done()
         return self._head(params, x), caches
 
 

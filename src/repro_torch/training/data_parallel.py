@@ -35,7 +35,22 @@ computes on the global batch:
   compression, the global-norm clip and AdamW run on the moments' local
   shards, with the whole tensor's scale and norm (:class:`Splits`), and
   each parameter's updated shard goes back to the parameter's own
-  placement (:meth:`DataParallel.redistribute`: all-gathers).
+  placement (:meth:`DataParallel.redistribute`: all-gathers);
+* μ and ν of a leaf may be placed apart: the update runs on μ's placement,
+  ν is redistributed into it and back (:class:`Placed`).
+
+Partitioned compute over ``model`` (Megatron's column/row split, what
+GSPMD derives from the same placements): where a family of the dense
+blocks is placed so (``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv
+split on their output dim and wo on its input dim; the dense MLP's w_gate,
+w_up and w_down likewise), its leaves are not gathered. Each rank computes
+its own heads (H/m query heads and their KV/m key-value heads) or its own
+columns of the MLP, with one all-reduce after each row product
+(:class:`ModelParallel`, the ``shardctx`` rule ``"model_parallel"``, whose
+two autograd functions the models call); a partitioned leaf's gradient is
+its block already and is averaged over the data group only. The q and k
+norms, replicated but applied to each rank's heads only, get their
+gradient summed over ``model`` (one packed all-reduce a step).
 """
 
 from __future__ import annotations
@@ -46,7 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import DATA_AXES, data_place, gather_cat
+from repro_torch.launch.mesh import DATA_AXES, data_place, gather_cat, partitioned_leaves
 
 from .elastic import is_dtensor
 from .tree import flatten_with_paths
@@ -62,7 +77,13 @@ Layout = Tuple[Optional[int], ...]
 
 def layout_of(t) -> Layout:
     """A DTensor's placements as a :data:`Layout`."""
-    return tuple(p.dim if p.is_shard() else None for p in t.placements)
+    return tuple(p.dim % t.ndim if p.is_shard() else None for p in t.placements)
+
+
+def _without(layout: Layout, k: Optional[int]) -> Layout:
+    """``layout`` with mesh dim ``k`` replicated (a partitioned leaf's block
+    is the whole tensor for the other mesh dims)."""
+    return layout if k is None else layout[:k] + (None,) + layout[k + 1:]
 
 
 class _AllSum(torch.autograd.Function):
@@ -79,6 +100,69 @@ class _AllSum(torch.autograd.Function):
         return ctx.dp.sum_(g.clone()), None
 
 
+class _ToModel(torch.autograd.Function):
+    """Megatron's f, before the column products: the identity forward; the
+    gradient summed over the model group backward (each rank's heads or
+    columns give a part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.sum_(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _FromModel(torch.autograd.Function):
+    """Megatron's g, after the row products: each rank's partial product
+    summed over the model group forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        return mp.sum_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ModelParallel:
+    """Partitioned compute over a mesh's ``model`` axis: the model group
+    and its size, the families of the dense blocks
+    that are partitioned (``"attn"``, ``"mlp"``) and the two functions
+    their code calls around its products: :meth:`enter` before the column
+    products (one a block: q, k and v share their input) and :meth:`leave`
+    after the row product. Installed as the ``models.shardctx`` rule
+    ``"model_parallel"`` (the train step's, with ``count`` the data
+    group's counter, or a serving path's, counting its own); without the
+    rule, the models call neither. Its all-reduces are counted in
+    ``kinds``."""
+
+    def __init__(self, mesh, families, count=None) -> None:
+        self.group = mesh.get_group("model")
+        self.size = int(mesh.shape[tuple(mesh.mesh_dim_names).index("model")])
+        self.families = frozenset(families)
+        self.kinds: Counter = Counter()
+        self._count = count if count is not None else self._own
+
+    def _own(self, kind: str) -> None:
+        self.kinds[kind] += 1
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group, in place (no gradient)."""
+        self._count("all_reduce")
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _ToModel.apply(x, self)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return _FromModel.apply(x, self)
+
+
 class DataParallel:
     """The groups of a mesh for the train step: the data group (its size,
     this rank's index), one group a mesh dim, and the collectives the step
@@ -92,6 +176,7 @@ class DataParallel:
         self.dim_groups = [mesh.get_group(n) for n in names]
         self.dim_sizes = tuple(int(n) for n in mesh.shape)
         self.coord = tuple(mesh.get_coordinate())
+        self.model_dim = names.index("model") if "model" in names else None
         me = dist.get_rank()
         for k, g in enumerate(self.dim_groups):
             # a gathered or scattered chunk i belongs to the group's rank i:
@@ -276,56 +361,116 @@ def state_mesh(state: Any) -> Optional[Any]:
 
 class Placed:
     """The placements of a state on a mesh, leaf by leaf, checked once a
-    step: each parameter's own (``params``), its moments' (``moments``: μ
-    and ν must be placed alike) and its compression residual's. Raises,
-    naming the leaf, for what the step cannot run."""
+    step: each parameter's own (``params``), its moments' (``moments``, μ's:
+    the update runs there; ``nu``, ν's, redistributed into μ's and back
+    where they differ) and its compression residual's; which parameters
+    are partitioned over ``model`` (``parted``; with ``cfg``, the model's
+    config, for the heads), the :class:`ModelParallel` of their families
+    (``mp``, None where none is) and the leaves whose gradient each model
+    rank holds a part of (``partial``: the q and k norms of partitioned
+    attention). A leaf is partitioned only where its moments and residual
+    are split over ``model`` as it is (and no data axis splits that dim);
+    else its family takes the gathered route."""
 
-    def __init__(self, state: Any, dp: DataParallel) -> None:
+    def __init__(self, state: Any, dp: DataParallel, cfg: Any = None) -> None:
         self.dp = dp
         params = flatten_with_paths(state["params"])
-        mu = flatten_with_paths(state["opt"]["mu"])
-        nu = flatten_with_paths(state["opt"]["nu"])
+        mu = [layout_of(t) for _, t in flatten_with_paths(state["opt"]["mu"])]
+        nu = [layout_of(t) for _, t in flatten_with_paths(state["opt"]["nu"])]
         res = flatten_with_paths(state["compress"]) if "compress" in state else None
         self.params = [layout_of(t) for _, t in params]
-        self.moments = []
-        for (pp, p), (mp, m), (np_, n) in zip(params, mu, nu):
-            if layout_of(m) != layout_of(n):
-                raise ValueError(f"['opt']['mu']{pp} is placed {tuple(m.placements)} and "
-                                 f"['opt']['nu']{pp} {tuple(n.placements)}: the moments of one "
-                                 f"leaf must be placed alike")
-            self.moments.append(layout_of(m))
+        self.moments, self.nu = mu, nu
         self.residuals = [layout_of(t) for _, t in res] if res is not None else None
         self.numels = [p.numel() for _, p in params]
         self.splits = Splits(dp, self.moments, self.numels)
+        km = dp.model_dim
+        self.parted, self.partial, self.mp = [False] * len(params), [], None
+        if km is None or cfg is None:
+            return
+        index = {path: i for i, (path, _) in enumerate(params)}
 
-    def gather_params(self, params: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each parameter whole, from its local block."""
-        return [self.dp.full(p, lay) for p, lay in zip(params, self.params)]
+        def agree(path: str) -> bool:
+            i = index[path]
+            d = self.params[i][km]
+            others = [mu[i], nu[i]] + ([self.residuals[i]] if res is not None else [])
+            return all(lay[km] == d and d not in _without(lay, km) for lay in others)
+
+        families, paths = partitioned_leaves(
+            cfg, dp.mesh, [(path, tuple(t.shape), t.placements) for path, t in params], agree)
+        if not families:
+            return
+        self.parted = [path in paths for path, _ in params]
+        self.mp = ModelParallel(dp.mesh, families, dp._count)
+        # the q and k norms of a partitioned attention group
+        groups = {path.rsplit("[", 1)[0] for path in paths}
+        self.partial = [i for i, (path, _) in enumerate(params)
+                        if path.endswith(("['q_norm']['scale']", "['k_norm']['scale']"))
+                        and path.rsplit("[", 2)[0] in groups]
+
+    def _rel(self, i: int, lay: Layout) -> Layout:
+        """Leaf ``i``'s layout within its ``model`` block where it is
+        partitioned (its blocks are taken there), else ``lay``."""
+        return _without(lay, self.dp.model_dim) if self.parted[i] else lay
+
+    def _move(self, x: torch.Tensor, i: int, src: Layout, dst: Layout) -> torch.Tensor:
+        """Leaf ``i``'s block ``x`` of ``src`` as its block of ``dst``."""
+        return self.dp.redistribute(x, self._rel(i, src), self._rel(i, dst))
+
+    def compute_params(self, params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each parameter for the forward and backward: a partitioned one
+        its local block, every other one whole (gathered from its block)."""
+        return [p if part else self.dp.full(p, lay)
+                for p, lay, part in zip(params, self.params, self.parted)]
+
+    def sum_partial(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of :attr:`partial` summed over the model group: one
+        all-reduce of them packed together."""
+        if not self.partial:
+            return grads
+        flat = torch.cat([grads[i].reshape(-1) for i in self.partial])
+        self.mp.sum_(flat)
+        out, at = list(grads), 0
+        for i in self.partial:
+            n = grads[i].numel()
+            out[i] = flat[at:at + n].view_as(grads[i])
+            at += n
+        return out
 
     def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each whole gradient averaged over the data group, on its moments'
-        placement. Takes the list's whole gradients out of it as it goes,
-        so that each can be freed once its block is made."""
+        """Each gradient (whole, or a partitioned leaf's block) averaged over
+        the data group, on its moments' placement. Takes the list's
+        gradients out of it as it goes, so that each can be freed once its
+        block is made."""
         out = []
         for i, lay in enumerate(self.moments):
-            out.append(self.dp.reduce_grad(grads[i], lay))
+            out.append(self.dp.reduce_grad(grads[i], self._rel(i, lay)))
             grads[i] = None
         return out
 
     def regions(self, full: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each whole parameter's block on its moments' placement (views)."""
-        return [self.dp.local(p, lay) for p, lay in zip(full, self.moments)]
+        """Each parameter's block on its moments' placement (views), from
+        :meth:`compute_params`'s tensors."""
+        return [self.dp.local(p, self._rel(i, lay))
+                for i, (p, lay) in enumerate(zip(full, self.moments))]
 
     def to_params(self, regions: List[torch.Tensor]) -> List[torch.Tensor]:
         """The updated blocks back on each parameter's own placement."""
-        return [self.dp.redistribute(r, lay, own)
-                for r, lay, own in zip(regions, self.moments, self.params)]
+        return [self._move(r, i, lay, own)
+                for i, (r, lay, own) in enumerate(zip(regions, self.moments, self.params))]
+
+    def nu_in(self, nu: List[torch.Tensor]) -> List[torch.Tensor]:
+        """ν's blocks on μ's placement, for the update."""
+        return [self._move(n, i, src, dst)
+                for i, (n, src, dst) in enumerate(zip(nu, self.nu, self.moments))]
+
+    def nu_back(self, nu: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [self._move(n, i, src, dst)
+                for i, (n, src, dst) in enumerate(zip(nu, self.moments, self.nu))]
 
     def residuals_to_moments(self, res: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [self.dp.redistribute(r, own, lay)
-                for r, own, lay in zip(res, self.residuals, self.moments)]
+        return [self._move(r, i, own, lay)
+                for i, (r, own, lay) in enumerate(zip(res, self.residuals, self.moments))]
 
     def residuals_back(self, res: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [self.dp.redistribute(r, lay, own)
-                for r, lay, own in zip(res, self.moments, self.residuals)]
-
+        return [self._move(r, i, lay, own)
+                for i, (r, lay, own) in enumerate(zip(res, self.moments, self.residuals))]

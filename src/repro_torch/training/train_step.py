@@ -13,7 +13,10 @@ launcher donates its state to the jitted step): a caller that wants the
 old state keeps a copy. A state whose leaves are DTensors on a mesh
 (``elastic.reshard_state``), each replicated or split (ZeRO-1 moments over
 the data axes, parameters over ``model``), steps data-parallel: each rank
-passes its own rows of the global batch (``data_parallel.py``).
+passes its own rows of the global batch (``data_parallel.py``; on a mesh
+of ``model`` alone, the whole batch). Where the placements partition the
+dense blocks over ``model`` (Megatron's column/row split), those leaves
+stay split and each rank computes its own heads and MLP columns.
 
 Two profiler ranges name the step's parts for ``torch.profiler``:
 ``train_step.forward`` (the loss) and ``train_step.optimizer`` (the
@@ -107,10 +110,13 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
         if dp is None:
             dp = groups[id(mesh)] = DataParallel(mesh)
         dp.reset()
-        placed = Placed(state, dp)
+        placed = Placed(state, dp, model.cfg)
         with torch.no_grad():
             local = tree_map(lambda t: t.to_local(), state)
-        with shardctx.added({"data_parallel": dp, "moe_chunks": dp.size}):
+        rules = {"data_parallel": dp, "moe_chunks": dp.size}
+        if placed.mp is not None:
+            rules["model_parallel"] = placed.mp
+        with shardctx.added(rules):
             new, metrics = step(local, dp.microbatch_rows(batch, train_cfg.microbatches), placed)
         with torch.no_grad():       # leaves the step made anew: params, the opt step, residuals
             for old, t in zip(leaves(local), leaves(new)):
@@ -124,12 +130,14 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
         params = state["params"]
         residuals = state["compress"] if train_cfg.compression is not None else None
         splits = None
-        if placed is not None:      # each parameter whole for the forward and backward
-            full = placed.gather_params(leaves(params))
+        opt = state["opt"]
+        if placed is not None:      # each parameter whole, or its block where partitioned
+            full = placed.compute_params(leaves(params))
             loss, metrics, grads = compute_grads(unflatten(params, full), batch)
             with torch.no_grad():
-                flat, grads = leaves(grads), None
+                flat, grads = placed.sum_partial(leaves(grads)), None
                 grads = unflatten(params, placed.reduce_grads(flat))
+                opt = {**opt, "nu": unflatten(opt["nu"], placed.nu_in(leaves(opt["nu"])))}
                 update = unflatten(params, placed.regions(full))
                 if residuals is not None:   # placed like the moments for the compression
                     residuals = unflatten(residuals,
@@ -143,11 +151,12 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
                                                              train_cfg.compression, splits)
             metrics = {**metrics, **comp_metrics}
         with record_function("train_step.optimizer"):
-            update, opt, opt_metrics = adamw_update(update, grads, state["opt"],
-                                                    train_cfg.optimizer, splits)
+            update, opt, opt_metrics = adamw_update(update, grads, opt, train_cfg.optimizer,
+                                                    splits)
         if placed is not None:      # the updated blocks back on the parameters' placements
             with torch.no_grad():
                 params = unflatten(params, placed.to_params(leaves(update)))
+                opt["nu"] = unflatten(opt["nu"], placed.nu_back(leaves(opt["nu"])))
                 if train_cfg.compression is not None:
                     comp_state = unflatten(comp_state, placed.residuals_back(leaves(comp_state)))
         else:

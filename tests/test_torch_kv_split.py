@@ -22,7 +22,10 @@ writes the caches split (the ``"cache_split"`` rule,
 * caches made whole and placed by ``reshard_state(caches,
   SplitCaches(mesh).shardings(...))`` decode to the same logits, bit for
   bit;
-* a split cache without the override raises: no rank decodes a part.
+* a split cache without the override raises: no rank decodes a part;
+* recurrentgemma's recurrent states placed split over "model" too decode
+  as the reference's jit does on that placement (each gathered whole for
+  a step, the rank keeping its block).
 """
 
 import dataclasses
@@ -144,6 +147,32 @@ def test_placed_and_whole_caches_decode_alike(results, name):
         np.testing.assert_array_equal(got["reshard_logits"], got["logits"])
         np.testing.assert_array_equal(got["whole_logits"], got["logits"])
         np.testing.assert_allclose(got["plain_logits"], got["logits"], atol=1e-5)
+
+
+def test_recurrent_state_split_decodes_as_the_reference(results):
+    """recurrentgemma's RG-LRU states (h and the conv inputs) placed split
+    on their last dim over "model", its attention caches on their slots:
+    the 5 steps' logits within 1e-4 of the reference's jit on the same
+    placement; each rank holds half of each state, and after the steps its
+    block of what each step wrote, bit for bit the slice of the whole
+    caches' decode."""
+    ref, port = results
+    name = ranks.REC_MODEL
+    want = ref[name]["rec_logits"]
+    for r, got in enumerate(port):
+        got = got[name]
+        np.testing.assert_allclose(got["rec_logits"], want, atol=1e-4)
+        n_rec = 0
+        for path, x in got["rec_local"].items():
+            if not path.endswith(tuple(f"[{n!r}]" for n in ranks.REC_LEAVES)):
+                continue
+            assert "Shard(dim=" in got["rec_placements"][path], path
+            whole = got["whole"][path]
+            half = whole.shape[-1] // WORLD
+            assert x.shape == whole.shape[:-1] + (half,), path
+            np.testing.assert_array_equal(x, whole[..., r * half:(r + 1) * half], err_msg=path)
+            n_rec += 1
+        assert n_rec > 0
 
 
 @pytest.mark.parametrize("name", MODELS)

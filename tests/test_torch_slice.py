@@ -352,6 +352,11 @@ print(json.dumps(dict(
             for k, v in mesh.items() if k.startswith(("h1_", "h2_"))},
     placed_timing={k: v for k, v in mesh["placed_timing"].items() if k != "cfg"},
     split_cache={k: v for k, v in mesh["split_cache"].items() if k != "cfg"},
+    partitioned={k: {f: v[f] for f in ("losses", "calls", "kinds", "split")}
+                 for k, v in mesh.items() if k.startswith("i1_")},
+    partitioned_timing=mesh["partitioned_timing"],
+    megatron_serve={k: v for k, v in mesh["megatron_serve"].items() if k != "cfg"},
+    per_rank=out["per_rank"],
     rank_bytes={name: {str(n): r for n, r in v.items()}
                 for name, v in mesh["rank_bytes"].items()})), flush=True)
 os._exit(0)     # no interpreter teardown after the gloo group (see test_torch_launch.py)
@@ -460,6 +465,38 @@ def test_chip_smoke_train_phase_places_the_state_leaf_by_leaf(train_phase):
     q = rb["qwen3-1.7b"]
     assert q["1"]["zero1"] == q["1"]["replicated"] and q["2"]["zero1"][0] < q["1"]["zero1"][0]
     assert rb["kv_cache"]["2"] * 2 == rb["kv_cache"]["1"]
+
+
+def test_chip_smoke_train_phase_partitions_over_model(train_phase):
+    """Phase 9 (i) at a small size, in the one-rank gloo group: (i1) the
+    reduced qwen3 placed as Megatron places it, on a (data=1, model=1)
+    mesh with compression and on a mesh of "model" alone, equal to the
+    plain steps (checked in the phase), with no gather and the all-reduces
+    predicted: 13 gradient leaves, the loss's 3, the norm's 1 (and the
+    compression's 2), per layer 2 + 1 + 2 of the model group at --remat
+    (the recomputation of each one-layer tile stops before its last sum)
+    and the norms' packed sum; (i2) the step timed partitioned, gathered
+    and plain; (i3) the live requests partitioned, the logits equal; and
+    K3 and K3-bwd at each rank's heads against their plain versions."""
+    out = train_phase
+    want = 13 + 3 + 1 + 5 * 2 + 1
+    for key, comp in (("i1_dm", True), ("i1_m", False)):
+        r = out["partitioned"][key]
+        assert len(r["losses"]) == 3
+        assert r["kinds"] == dict(all_reduce=want + (2 if comp else 0), reduce_scatter=0,
+                                  all_gather=0)
+        assert r["split"] == 7 * (3 if comp else 2) + 7     # params, mu, nu (, residuals)
+    t = out["partitioned_timing"]
+    assert set(t["ms"]) == {"partitioned", "gathered", "plain"} and min(t["ms"].values()) > 0
+    assert t["kinds"]["partitioned"] == dict(all_reduce=want, reduce_scatter=0, all_gather=0,
+                                             total=want)
+    assert t["kinds"]["gathered"]["all_gather"] == 13
+    sv = out["megatron_serve"]
+    assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
+    assert sv["kinds"] == {"all_reduce": 2 * 2 * 2}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert [r["heads"] for r in out["per_rank"][name]] == ["H=2 KV=2", "H=1 KV=1"]
+        assert all(r["max_abs_err"] == 0.0 for r in out["per_rank"][name])
 
 
 _LAUNCH_PHASE = """

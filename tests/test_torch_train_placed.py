@@ -3,14 +3,18 @@ against the reference's ``jax.jit(make_train_step)`` on 2 forced host
 devices, on the CPU.
 
 ``tests/torch_train_ranks.py ... placed`` runs each side as a script, for
-two placements (``ranks.PLACEMENTS``): ZeRO-1 on the mesh (data=2,
+four placements (``ranks.PLACEMENTS``): ZeRO-1 on the mesh (data=2,
 model=1), the moments and the compression residuals split over "data" at
-each leaf's first dim that divides, the parameters replicated; and on
+each leaf's first dim that divides, the parameters replicated; on
 (data=1, model=2) the parameters, moments and residuals split over
 "model" (granite's experts on their expert dim, every other leaf at its
-last dim that divides). Each runs two steps of the reduced qwen3
-(microbatches 1, and 2 with int8 compression) and the reduced
-granite-moe-1b. Held, in f32:
+last dim that divides); ZeRO-1 with ν replicated (μ and ν of a leaf
+placed apart: the update runs on μ's placement, ν is redistributed in and
+back); and the "model" placement on a mesh of "model" alone, (2,), whose
+two ranks each step the whole batch (the reference's batch replicated).
+Each runs two steps of the reduced qwen3 (microbatches 1, and 2 with int8
+compression) and, on the first two, the reduced granite-moe-1b. Held, in
+f32:
 
 * before the steps, each rank's local shard of every leaf equals the
   reference's shard on the matching device, bit for bit;
@@ -55,6 +59,7 @@ HELPER = Path(__file__).with_name("torch_train_ranks.py")
 WORLD = 2
 KINDS = list(ranks.PLACEMENTS)
 CASES = [c[0] for c in ranks.CASES]
+PAIRS = [(kind, c[0]) for kind in KINDS for c in ranks.cases_of(kind)]
 MOMENTS = ("['opt']['mu']", "['opt']['nu']", "['compress']")
 
 
@@ -84,8 +89,7 @@ def _names(kind, case, path, shape):
     return ranks.placed_names(kind, path, shape, experts)
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind,case", PAIRS)
 def test_placed_shards_equal_the_reference_shards(results, kind, case):
     ref, port, _ = results
     want = ref[kind, case]["before"]
@@ -99,8 +103,7 @@ def test_placed_shards_equal_the_reference_shards(results, kind, case):
     assert n_split > 0          # the placement split leaves
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind,case", PAIRS)
 def test_placed_steps_match_the_reference(results, kind, case):
     ref, port, _ = results
     want = ref[kind, case]
@@ -123,8 +126,7 @@ def test_placed_steps_match_the_reference(results, kind, case):
             np.testing.assert_allclose(g[off], single[path][off], atol=1e-4, err_msg=path)
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind,case", PAIRS)
 def test_ranks_agree(results, kind, case):
     _, port, _ = results
     a, b = (p[kind, case] for p in port)
@@ -156,28 +158,31 @@ def _split_leaves(ref, kind, case, prefix):
             if p.startswith(prefix) and _names(kind, case, p, w.shape)]
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind,case", PAIRS)
 def test_placed_step_collectives(results, kind, case):
     """ZeRO-1: a reduce-scatter and an all-gather for each parameter whose
-    moments are split, the batch's all-gathers with microbatches; on
-    "model": an all-gather a split parameter for the forward, none back
-    (the parameter is placed like its moments), no reduce-scatter. The
-    qwen3 cases' all-reduces exactly: each gradient leaf not split over
-    "data", the loss's sums (3 a microbatch), and one a mesh dim for the
-    global norm and, with compression, the scale's maximum and the
-    error's sums."""
+    moments are split, the batch's all-gathers with microbatches; μ and ν
+    placed apart: the same, and one more all-gather a leaf for ν's block
+    back on its own (replicated) placement; on "model" (and on a mesh of
+    "model" alone): an all-gather a split parameter for the forward, none
+    back (the parameter is placed like its moments), no reduce-scatter
+    (no Megatron group is whole: wo and w_down are split on their last
+    dim, so every leaf takes the gathered route). The qwen3 cases'
+    all-reduces exactly: each gradient leaf not split over "data", the
+    loss's sums (3 a microbatch), and one a mesh dim for the global norm
+    and, with compression, the scale's maximum and the error's sums."""
     ref, port, _ = results
     name, arch, mb, comp, _ = next(c for c in ranks.CASES if c[0] == case)
     n_leaves = sum(1 for p in ref[kind, case]["state"] if p.startswith("['params']"))
     mom = len(_split_leaves(ref, kind, case, "['opt']['mu']"))
     par = len(_split_leaves(ref, kind, case, "['params']"))
-    batch_gathers = 3 if (mb > 1 and ranks.PLACEMENTS[kind][0] > 1) else 0
+    batch_gathers = 3 if (mb > 1 and ranks.data_size(kind) > 1) else 0
     for got in port:
         for c in got[kind, case]["calls"]:
-            if kind == "zero1":
+            if kind in ("zero1", "apart"):
                 assert c["collectives.reduce_scatter"] == mom > 0
-                assert c["collectives.all_gather"] == mom + batch_gathers
+                assert c["collectives.all_gather"] == (2 if kind == "apart" else 1) * mom \
+                    + batch_gathers
                 reduced = n_leaves - mom
             else:
                 assert c["collectives.reduce_scatter"] == 0

@@ -18,10 +18,12 @@ script in a process of its own.
         slots, places its attention caches ``P(None, "model", None,
         None)`` and takes ``SPLIT_STEPS`` decode steps with its
         flash-decode override (DIR/reference_split.pkl: parameters,
-        tokens, logits); the port takes the same steps on caches that its
-        prefill writes split (and on caches placed by ``reshard_state``,
-        whole caches with and without the override, and a split cache
-        without it); each rank writes DIR/port_split_<rank>.pkl.
+        tokens, logits; for recurrentgemma also with its RG-LRU states
+        split on their last dim over "model"); the port takes the same
+        steps on caches that its prefill writes split (and on caches placed
+        by ``reshard_state``, the recurrent states split too, whole caches
+        with and without the override, and a split cache without it); each
+        rank writes DIR/port_split_<rank>.pkl.
 
 The pickles are written and read by these two functions only.
 """
@@ -53,6 +55,9 @@ PROMPT, CACHE = 5, 16          # prefill 5 tokens into 16 slots, then one decode
 # the rank boundary at CACHE / 2
 SPLIT_STEPS = 5
 SLOT_LEAVES = ("k", "v", "c_kv", "k_rope")
+# a recurrent state split over "model" (on its last dim): recurrentgemma's
+# RG-LRU h and conv inputs, decoded on the split caches
+REC_MODEL, REC_LEAVES = "recurrentgemma-2b", ("h", "conv")
 MOE_MODELS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 MOE_B, MOE_T = 2, 8
 NO_DROP_CF = 8.0               # capacity k N_loc cf / E >= N_loc: nothing drops
@@ -195,6 +200,25 @@ def reference_split(out_dir: Path) -> None:
 
         res[name] = dict(params=jax.tree.map(np.asarray, params), tokens=toks,
                          logits=np.asarray(jax.jit(steps)(params, toks)))
+        if name == REC_MODEL:
+            rec = lambda path, c: (jax.lax.with_sharding_constraint(       # noqa: E731
+                c, NamedSharding(mesh, P(*(None,) * (c.ndim - 1), "model")))
+                if getattr(path[-1], "key", None) in REC_LEAVES else place(path, c))
+
+            def rec_steps(params, toks, model=model, rec=rec):
+                _, caches = model.prefill(params, {"tokens": toks[:, :PROMPT]}, CACHE)
+                caches = jax.tree_util.tree_map_with_path(rec, caches)
+                out = []
+                with shardctx.rules({"decode_attention": ov}):
+                    for i in range(SPLIT_STEPS):
+                        pos = jnp.full((toks.shape[0],), PROMPT + i, jnp.int32)
+                        logits, caches = model.decode_step(
+                            params, toks[:, PROMPT + i:PROMPT + i + 1], caches, pos)
+                        caches = jax.tree_util.tree_map_with_path(rec, caches)
+                        out.append(logits)
+                return jnp.stack(out)
+
+            res[name]["rec_logits"] = np.asarray(jax.jit(rec_steps)(params, toks))
     with open(out_dir / "reference_split.pkl", "wb") as f:
         pickle.dump(res, f)
 
@@ -300,10 +324,10 @@ def _port_split(ref) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.launch.flash_decode import SplitCaches, make_decode_attention
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import Sharding, make_mesh
     from repro_torch.models import from_jax_params, make_model, shardctx
     from repro_torch.training.elastic import reshard_state
-    from repro_torch.training.tree import flatten_with_paths, tree_map
+    from repro_torch.training.tree import flatten_with_paths, leaves, tree_map, unflatten
 
     mesh = make_mesh((1, 2), AXES, device="cpu")
     ov, sc = make_decode_attention(mesh), SplitCaches(mesh)
@@ -346,6 +370,19 @@ def _port_split(ref) -> dict:
             _, whole = model.prefill(params, prompt, CACHE)
             placed = reshard_state(tree_map(torch.clone, whole), sc.shardings(model, B, CACHE))
             r["reshard_logits"], _ = decode(placed, split_rules)
+            if name == REC_MODEL:
+                # the recurrent states split on their last dim over "model":
+                # gathered whole for each step, each rank keeping its block
+                specs = sc.shardings(model, B, CACHE)
+                specs = unflatten(specs, [
+                    Sharding(mesh, (None,) * (len(x.shape) - 1) + ("model",))
+                    if p.endswith(tuple(f"[{n!r}]" for n in REC_LEAVES)) else sh
+                    for (p, x), sh in zip(flatten_with_paths(whole), leaves(specs))])
+                rec = reshard_state(tree_map(torch.clone, whole), specs)
+                r["rec_logits"], rec = decode(rec, split_rules)
+                r["rec_local"] = local(rec)
+                r["rec_placements"] = {p: str(tuple(x.placements))
+                                       for p, x in flatten_with_paths(rec)}
             # whole caches on every rank, with the override (each rank reads
             # its slots) and without it (one device's decode)
             r["whole_logits"], w = decode(tree_map(torch.clone, whole), {"decode_attention": ov})

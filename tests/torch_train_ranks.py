@@ -20,7 +20,9 @@ script in a process of its own.
         The same cases on a state placed leaf by leaf (``PLACEMENTS``):
         ZeRO-1 on (data=2, model=1), the moments and residuals split over
         "data", and the parameters with their moments and residuals split
-        over "model" on (data=1, model=2). The reference writes
+        over "model" on (data=1, model=2); and, for the qwen3 cases, μ and
+        ν placed apart on (data=2, model=1) and the "model" placement on a
+        mesh of "model" alone, (2,). The reference writes
         DIR/reference_placed.pkl (each device's shards before the steps,
         the losses and final states of ``jax.jit(make_train_step)``, and
         the final states of the same steps on one device); the
@@ -29,6 +31,18 @@ script in a process of its own.
         kind, the bytes it holds, the final states), the world-1
         checkpoint restored onto the ZeRO-1 placements, and the ZeRO-1
         state after two steps saved from the mesh (DIR/ckpt_zero1).
+
+    python tests/torch_train_ranks.py reference DIR megatron
+    python tests/torch_train_ranks.py port DIR megatron
+        Partitioned compute over "model" (``megatron_names``: Megatron's
+        column/row placement) for the reduced qwen3 with G = 2, on (data=1,
+        model=2) and on a mesh of "model" alone: the reference's placed
+        ``jax.jit`` steps (and one device's) for two cases, then its
+        prefill and greedy decode steps with the caches' K and V placed on
+        their heads (DIR/reference_megatron.pkl); the port's 2 gloo ranks
+        the same (DIR/port_megatron_<rank>.pkl: losses, collectives by
+        kind, the heads each K3 call got, each rank's gradient, state and
+        cache bytes, the final states, the logits and greedy tokens).
 
 The pickles are written and read by these two functions only.
 """
@@ -64,31 +78,49 @@ def batches(vocab: int):
     return out
 
 
-# the placed cases: the mesh of each placement
-PLACEMENTS = {"zero1": (2, 1), "model": (1, 2)}
+# the placed cases: the mesh of each placement (its axes AXES, but for
+# "model_only", a mesh of "model" alone); "apart" and "model_only" step
+# the qwen3 cases only
+PLACEMENTS = {"zero1": (2, 1), "model": (1, 2), "apart": (2, 1), "model_only": (2,)}
+QWEN_ONLY = ("apart", "model_only")
 EXPERTS = ("['w_gate']", "['w_up']", "['w_down']")
+
+
+def axes_of(kind: str) -> tuple:
+    return ("model",) if kind == "model_only" else AXES
+
+
+def data_size(kind: str) -> int:
+    """The data ranks of placement ``kind``'s mesh (1 without a data axis)."""
+    return PLACEMENTS[kind][0] if "data" in axes_of(kind) else 1
+
+
+def cases_of(kind: str) -> tuple:
+    return CASES[:2] if kind in QWEN_ONLY else CASES
 
 
 def placed_names(kind: str, path: str, shape, experts: bool) -> tuple:
     """The mesh axis of each dim of the state leaf at ``path`` (a
     ``PartitionSpec``'s entries; () replicates) under placement ``kind``:
     "zero1" splits the moments and residuals over "data" at their first
-    dim that divides; "model" splits the parameters, moments and
-    residuals over "model", the experts of an MoE layer on their expert
-    dim (as the reference's expert parallelism places them), every other
-    leaf at its last dim that divides."""
+    dim that divides; "apart" the same but for ν, replicated (μ and ν of a
+    leaf placed apart); "model" and "model_only" split the parameters,
+    moments and residuals over "model", the experts of an MoE layer on
+    their expert dim (as the reference's expert parallelism places them),
+    every other leaf at its last dim that divides."""
     nd = len(shape)
     moment = path.startswith(("['opt']['mu']", "['opt']['nu']", "['compress']"))
-    if nd == 0 or (kind == "zero1" and not moment):
+    data = kind in ("zero1", "apart")
+    if nd == 0 or (data and not moment) or (kind == "apart" and path.startswith("['opt']['nu']")):
         return ()
-    axis = "data" if kind == "zero1" else "model"
+    axis = "data" if data else "model"
     if kind == "model" and experts and path.endswith(EXPERTS):
         dim = nd - 3                      # (E, d, f) after the tile axis
     else:
         dims = [d for d in range(nd) if shape[d] % 2 == 0]
         if not dims:
             return ()
-        dim = dims[0] if kind == "zero1" else dims[-1]
+        dim = dims[0] if data else dims[-1]
     return tuple(axis if d == dim else None for d in range(nd))
 
 
@@ -176,8 +208,9 @@ def reference_placed(out_dir: Path) -> None:
                         sorted(x.addressable_shards, key=lambda s: s.device.id)]
     res = {}
     for kind, shape in PLACEMENTS.items():
-        mesh = make_mesh(shape, AXES)
-        for name, arch, mb, comp, chunks in CASES:
+        mesh = make_mesh(shape, axes_of(kind))
+        rows = P("data") if "data" in axes_of(kind) else P()
+        for name, arch, mb, comp, chunks in cases_of(kind):
             cfg = get_config(arch).reduced()
             model = make_model(cfg, compute_dtype=jnp.float32)
             tcfg = TrainConfig(optimizer=AdamWConfig(**LR), microbatches=mb,
@@ -196,8 +229,7 @@ def reference_placed(out_dir: Path) -> None:
                 step = jax.jit(make_train_step(model, tcfg))
                 losses = []
                 for b in batches(cfg.vocab_size):
-                    b = {k: jax.device_put(v, NamedSharding(mesh, P("data")))
-                         for k, v in b.items()}
+                    b = {k: jax.device_put(v, NamedSharding(mesh, rows)) for k, v in b.items()}
                     state, m = step(state, b)
                     losses.append(float(m["loss"]))
             case.update(losses=losses, state=dict(flat(jax.tree.map(np.asarray, state))))
@@ -221,7 +253,7 @@ def reference_placed(out_dir: Path) -> None:
 # ---------------------------------------------------------------------------
 # the port (torch.distributed, gloo)
 # ---------------------------------------------------------------------------
-def _setup(ref_case, arch, mb, comp):
+def _setup(ref_case, arch, mb, comp, cfg=None):
     import torch
 
     from repro_torch.configs import get_config
@@ -230,7 +262,7 @@ def _setup(ref_case, arch, mb, comp):
     from repro_torch.training.compression import CompressionConfig, compression_init
     from repro_torch.training.optimizer import adamw_init
 
-    cfg = get_config(arch).reduced()
+    cfg = cfg or get_config(arch).reduced()
     model = make_model(cfg, compute_dtype=torch.float32)
     tcfg = TrainConfig(optimizer=AdamWConfig(**LR), microbatches=mb, compute_dtype=torch.float32,
                        compression=CompressionConfig(min_size=COMPRESS_MIN) if comp else None)
@@ -241,7 +273,7 @@ def _setup(ref_case, arch, mb, comp):
     return cfg, model, tcfg, state
 
 
-def _port_rank(rank: int, world: int, out_dir: str, placed: bool = False) -> None:
+def _port_rank(rank: int, world: int, out_dir: str, tag: str = "") -> None:
     import torch
     import torch.distributed as dist
 
@@ -249,10 +281,10 @@ def _port_rank(rank: int, world: int, out_dir: str, placed: bool = False) -> Non
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
                             world_size=world, rank=rank)
     try:
-        tag = "_placed" if placed else ""
         with open(Path(out_dir) / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
-        res = (_port_placed if placed else _port_cases)(ref, Path(out_dir))
+        res = {"": _port_cases, "_placed": _port_placed,
+               "_megatron": _port_megatron}[tag](ref, Path(out_dir))
         with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -321,16 +353,17 @@ def _port_placed(ref, out_dir: Path) -> dict:
 
     res = {}
     for kind, shape in PLACEMENTS.items():
-        mesh = make_mesh(shape, AXES, device="cpu")
-        di = mesh.get_coordinate()[0]
-        rows = slice(di * B // shape[0], (di + 1) * B // shape[0])
+        mesh = make_mesh(shape, axes_of(kind), device="cpu")
+        ds = data_size(kind)
+        di = mesh.get_coordinate()[0] if ds > 1 else 0
+        rows = slice(di * B // ds, (di + 1) * B // ds)
 
         def specs(tree, cfg):
             return unflatten(tree, [Sharding(mesh, placed_names(kind, p, tuple(x.shape),
                                                                 bool(cfg.moe)))
                                     for p, x in flatten_with_paths(tree)])
 
-        for name, arch, mb, comp, chunks in CASES:
+        for name, arch, mb, comp, chunks in cases_of(kind):
             r = ref[kind, name]
             cfg, model, tcfg, state = _setup(r, arch, mb, comp)
             if kind == "zero1" and name == CASES[0][0]:
@@ -359,6 +392,226 @@ def _port_placed(ref, out_dir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# partitioned compute over "model" (tests/test_torch_model_parallel.py)
+# ---------------------------------------------------------------------------
+# the reduced qwen3 with G = 2 (H=4, KV=2: each of 2 model ranks 2 and 1)
+MP_ARCH, MP_CFG = "qwen3-1.7b", {"n_kv_heads": 2}
+# the meshes: (data=1, model=2), and "model" alone
+MP_MESHES = {"dm": ((1, 2), ("data", "model")), "m": ((2,), ("model",))}
+MP_CASES = CASES[:2]                    # microbatches 1; 2 with int8 compression
+MP_PROMPT, MP_CACHE, MP_DECODE = 5, 16, 4
+COLUMN = ("['wq']", "['wk']", "['wv']", "['w_gate']", "['w_up']")
+ROW = ("['wo']", "['w_down']")
+
+
+def megatron_names(mesh_name: str, path: str, shape) -> tuple:
+    """Megatron's placement of the state leaf (or parameter) at ``path``:
+    the column leaves (wq, wk, wv, w_gate, w_up) split over "model" on
+    their last dim, the row leaves (wo, w_down) on the dim before it, their
+    moments and residuals alike; every other leaf replicated, but on the
+    mesh of "model" alone the (tied) embedding, split on its last dim,
+    which the port gathers (the gathered route beside the partitioned
+    one)."""
+    nd = len(shape)
+    if nd and path.endswith(COLUMN):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(ROW):
+        return (None,) * (nd - 2) + ("model", None)
+    if nd and mesh_name == "m" and path.endswith("['embed']"):
+        return (None,) * (nd - 1) + ("model",)
+    return ()
+
+
+def reference_megatron(out_dir: Path) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.launch.mesh import make_mesh
+    from repro.models import make_model
+    from repro.training import AdamWConfig, TrainConfig, make_train_step
+    from repro.training.compression import CompressionConfig
+    from repro.training.elastic import reshard_state
+    from repro.training.train_step import init_train_state
+
+    flat = lambda tree: [(jax.tree_util.keystr(k), v)                  # noqa: E731
+                         for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    cfg = dataclasses.replace(get_config(MP_ARCH).reduced(), **MP_CFG)
+    model = make_model(cfg, compute_dtype=jnp.float32)
+    res = {}
+    for mname, (shape, axes) in MP_MESHES.items():
+        mesh = make_mesh(shape, axes)
+        rows = P("data") if "data" in axes else P()
+        for name, arch, mb, comp, _ in MP_CASES:
+            tcfg = TrainConfig(optimizer=AdamWConfig(**LR), microbatches=mb,
+                               compute_dtype=jnp.float32,
+                               compression=CompressionConfig(min_size=COMPRESS_MIN) if comp
+                               else None)
+            state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+            params = jax.tree.map(np.asarray, state["params"])
+            specs = jax.tree_util.tree_map_with_path(
+                lambda k, a, mname=mname, mesh=mesh: NamedSharding(mesh, P(*megatron_names(
+                    mname, jax.tree_util.keystr(k), np.shape(a)))), state)
+            state = reshard_state(state, specs)
+            step = jax.jit(make_train_step(model, tcfg))
+            losses = []
+            for b in batches(cfg.vocab_size):
+                b = {k: jax.device_put(v, NamedSharding(mesh, rows)) for k, v in b.items()}
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            case = dict(params=params, losses=losses,
+                        state=dict(flat(jax.tree.map(np.asarray, state))))
+            # the same steps on one device (the rounding rule of the tests)
+            key = ("single", name)
+            if key not in res:
+                single = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+                step = jax.jit(make_train_step(model, tcfg))
+                for b in batches(cfg.vocab_size):
+                    single, _ = step(single, b)
+                res[key] = dict(flat(jax.tree.map(np.asarray, single)))
+            case["single"] = key
+            res[mname, name] = case
+    # serving: the parameters placed so, prefill, greedy decode steps on K/V
+    # caches split on their heads
+    mesh = make_mesh(*MP_MESHES["dm"])
+    params = jax.jit(model.init)(jax.random.PRNGKey(1))
+    placed = reshard_state(params, jax.tree_util.tree_map_with_path(
+        lambda k, a: NamedSharding(mesh, P(*megatron_names(
+            "dm", jax.tree_util.keystr(k), np.shape(a)))), params))
+
+    def heads(path, c):
+        spec = (None,) * (c.ndim - 2) + ("model", None)
+        return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
+
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, MP_PROMPT)).astype(np.int32)
+    prefill = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, MP_CACHE))
+    decode = jax.jit(model.decode_step)
+    logits, caches = prefill(placed, toks)
+    caches = jax.tree_util.tree_map_with_path(heads, caches)
+    out, new = [np.asarray(logits)], []
+    for i in range(MP_DECODE):
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        new.append(np.asarray(tok))
+        pos = jnp.full((2,), MP_PROMPT + i, jnp.int32)
+        logits, caches = decode(placed, tok, caches, pos)
+        caches = jax.tree_util.tree_map_with_path(heads, caches)
+        out.append(np.asarray(logits))
+    res["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks,
+                        logits=out, greedy=np.concatenate(new, axis=1))
+    with open(out_dir / "reference_megatron.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _port_megatron(ref, out_dir: Path) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.flash_decode import SplitCaches
+    from repro_torch.launch.mesh import Sharding, make_mesh
+    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.training import data_parallel, make_train_step
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    cfg = dataclasses.replace(get_config(MP_ARCH).reduced(), **MP_CFG)
+    model = make_model(cfg, compute_dtype=torch.float32)
+    # spies: the heads each K3 call gets, the gradients each rank reduces
+    heads, grads = [], []
+    k3 = ops.flash_attention
+
+    def k3_spy(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return k3(q, k, v, **kw)
+
+    reduce = data_parallel.Placed.reduce_grads
+
+    def reduce_spy(self, gs):
+        grads.append([g.numel() * g.element_size() for g in gs])
+        return reduce(self, gs)
+
+    ops.flash_attention = k3_spy
+    data_parallel.Placed.reduce_grads = reduce_spy
+    res = {}
+    try:
+        for mname, (shape, axes) in MP_MESHES.items():
+            mesh = make_mesh(shape, axes, device="cpu")
+
+            def specs(tree, mname=mname, mesh=mesh):
+                return unflatten(tree, [Sharding(mesh, megatron_names(mname, p, tuple(x.shape)))
+                                        for p, x in flatten_with_paths(tree)])
+
+            for name, arch, mb, comp, _ in MP_CASES:
+                r = ref[mname, name]
+                _, _, tcfg, state = _setup(r, arch, mb, comp, cfg)
+                placed = reshard_state(state, specs(state))
+                step = make_train_step(model, tcfg)
+                losses, calls = [], []
+                heads.clear()
+                grads.clear()
+                for b in batches(cfg.vocab_size):           # every rank the whole batch
+                    placed, m = step(placed, {k: torch.from_numpy(v) for k, v in b.items()})
+                    losses.append(float(m["loss"]))
+                    calls.append({k: int(v) for k, v in m.items()
+                                  if k.startswith("collectives")})
+                paths = [p for p, _ in flatten_with_paths(placed["params"])]
+                res[mname, name] = dict(
+                    losses=losses, calls=calls, k3_heads=sorted(set(heads)),
+                    grad_bytes=dict(zip(paths, grads[0])),
+                    bytes={p: x.to_local().numel() * x.element_size()
+                           for p, x in flatten_with_paths(placed)},
+                    state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
+        # serving on (data=1, model=2)
+        mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+        sv = ref["serve"]
+        params = from_jax_params(sv["params"], cfg, device="cpu")
+        placed = reshard_state(params, unflatten(params, [
+            Sharding(mesh, megatron_names("dm", p, tuple(x.shape)))
+            for p, x in flatten_with_paths(params)]))
+        split = SplitCaches(mesh, model, placed)
+        toks = torch.from_numpy(sv["tokens"]).long()
+        heads.clear()
+        with torch.no_grad(), shardctx.rules({"cache_split": split}):
+            logits, caches = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+            prefill_heads = sorted(set(heads))
+            out, new = [logits.numpy()], []
+            for i in range(MP_DECODE):
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                new.append(tok.numpy())
+                pos = torch.full((2,), MP_PROMPT + i, dtype=torch.int32)
+                logits, caches = model.decode_step(placed, tok, caches, pos)
+                out.append(logits.numpy())
+            # K/V placed on their slots (flash-decoding's placement) under
+            # partitioned attention: refused, naming the leaf
+            with shardctx.rules({}):
+                _, whole = model.prefill(params, {"tokens": toks}, MP_CACHE)
+            slots = reshard_state(whole, SplitCaches(mesh).shardings(model, 2, MP_CACHE))
+            try:
+                model.decode_step(placed, toks[:, :1], slots,
+                                  torch.full((2,), MP_PROMPT, dtype=torch.int32))
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+        res["serve"] = dict(
+            refused=refused,
+            logits=out, greedy=np.concatenate(new, axis=1), k3_heads=prefill_heads,
+            kinds=dict(split.parallel.kinds), families=sorted(split.parallel.families),
+            cache={p: (tuple(x.to_local().shape), x.to_local().numel() * x.element_size(),
+                       x.numel() * x.element_size(), str(tuple(x.placements)))
+                   for p, x in flatten_with_paths(caches)})
+    finally:
+        ops.flash_attention = k3
+        data_parallel.Placed.reduce_grads = reduce
+    return res
+
+
 def world1_state(ref):
     """The first case's state with moments that are not zero, on the host."""
     import torch
@@ -378,16 +631,17 @@ def save_world1(ref, out_dir: Path) -> None:
     Checkpointer(out_dir / "ckpt1").save(7, world1_state(ref), {"step": 7})
 
 
-def port(out_dir: Path, world: int = 2, timeout: float = 150.0, placed: bool = False) -> None:
+def port(out_dir: Path, world: int = 2, timeout: float = 150.0, tag: str = "") -> None:
     import multiprocessing as mp
 
-    with open(out_dir / ("reference_placed.pkl" if placed else "reference.pkl"), "rb") as f:
-        ref = pickle.load(f)
-    if placed:
-        ref = {"cases": {CASES[0][0]: ref["zero1", CASES[0][0]]}}
-    save_world1(ref, out_dir)
+    if tag != "_megatron":
+        with open(out_dir / f"reference{tag}.pkl", "rb") as f:
+            ref = pickle.load(f)
+        if tag == "_placed":
+            ref = {"cases": {CASES[0][0]: ref["zero1", CASES[0][0]]}}
+        save_world1(ref, out_dir)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir), placed))
+    procs = [ctx.Process(target=_port_rank, args=(r, world, str(out_dir), tag))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -404,10 +658,10 @@ def port(out_dir: Path, world: int = 2, timeout: float = 150.0, placed: bool = F
 
 if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
-    placed = sys.argv[3:] == ["placed"]
+    tag = f"_{sys.argv[3]}" if sys.argv[3:] else ""
     if mode == "reference":
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-        (reference_placed if placed else reference)(out)
+        {"": reference, "_placed": reference_placed, "_megatron": reference_megatron}[tag](out)
     else:
-        port(out, placed=placed)
+        port(out, tag=tag)
