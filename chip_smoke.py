@@ -132,9 +132,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              deepseek-v2 layer's training state, qwen3's KV cache of a
              32768-token sequence): arithmetic from the shapes, printed as
              such, not a measurement; (i) partitioned compute over
-             "model" (Megatron's placement: wq, wk, wv, w_gate, w_up split
-             on their output dim, wo, w_down on their input dim) in the
-             same group: (i1) qwen3-1.7b at 4 layers, 3 steps on a
+             "model" (Megatron's placement: wq, wk, wv, MLA's wq_b, w_uk,
+             w_uv, w_gate, w_up split on their output dim, wo, w_down on
+             their input dim; the routed experts so or on their expert
+             dim) in the same group: (i1) qwen3-1.7b at 4 layers, 3 steps on a
              (data=1, model=1) mesh (with int8 compression) and 3 on a mesh
              of "model" alone, each against as many plain steps (equal
              losses, every leaf bit-identical), no gather, the all-reduces
@@ -144,10 +145,21 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              parameters placed so and K/V caches split on their heads: the
              same greedy tokens, logits error 0; (i4) the bytes a rank
              would hold and add a step at 2, 4 and 8 model ranks,
-             partitioned against gathered (arithmetic); and K3 (B=1,
-             T=1280) and K3-bwd (B=4, T=1024) at each rank's heads of 2 and
-             4 model ranks (H=8 KV=4, H=4 KV=2) against their plain
-             versions, timed beside their bounds and SDPA;
+             partitioned against gathered, and deepseek-v2's layer
+             partitioned at 2, 4 and 8 (arithmetic); (i5) granite-moe-1b
+             at 4 layers, 3 steps with its experts split on their columns
+             and 3 with them split on their expert dim, each against as
+             many plain steps, bit for bit, the all-reduces as predicted;
+             (i6) deepseek-v2's one-layer loss and gradient (B=1 x
+             T=1024) with MLA, its experts and shared experts partitioned
+             against plain, bit for bit (the plain gradients waiting in
+             host memory); (i7) the live requests of granite-moe-1b and
+             deepseek-v2 (4 layers) with their parameters so placed:
+             the same greedy tokens, logits error 0; and K3 (B=1, T=1280)
+             and K3-bwd (B=4, T=1024) at each rank's heads of 2 and 4
+             model ranks (qwen3's H=8 KV=4, H=4 KV=2; MLA's H=64 and H=32,
+             192/128 padded to 256) against their plain versions, timed
+             beside their bounds and SDPA;
 10. launch   the launch modules through a one-rank NCCL group (a file://
              store in a temporary directory, no TCP port) and a (data=1,
              model=1) mesh: (a) qwen3-1.7b at full width and depth serves
@@ -2079,8 +2091,9 @@ def time_mesh_step(device, sizes: Sizes, seed: int, mesh) -> dict:
 
 
 def world1_view(state, specs):
-    """At world 1 every block is the whole tensor: the state's local
-    tensors as DTensors placed by ``specs``, sharing their storage."""
+    """At world 1 every block is the whole tensor: the state's tensors (or
+    DTensors' local tensors) as DTensors placed by ``specs``, sharing their
+    storage."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.training.tree import leaves, unflatten
@@ -2089,7 +2102,8 @@ def world1_view(state, specs):
     for t, sh in zip(leaves(state), leaves(specs)):
         if sh.mesh.size() != 1:
             _fail("world1_view: a mesh of more than one rank")
-        out.append(DTensor.from_local(t.to_local(), sh.mesh, sh.placements(tuple(t.shape)),
+        local = t.to_local() if isinstance(t, DTensor) else t
+        out.append(DTensor.from_local(local, sh.mesh, sh.placements(tuple(t.shape)),
                                       run_check=False))
     return unflatten(state, out)
 
@@ -2210,15 +2224,16 @@ def split_cache_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
                 prefills=2 * len(got_tokens) + 2, cfg=cfg)
 
 
-def rank_bytes(shapes, n: int) -> Dict[str, tuple]:
+def rank_bytes(shapes, n: int, experts: str = "column") -> Dict[str, tuple]:
     """(h5) arithmetic: the bytes one of ``n`` ranks holds of a training
     state of f32 parameters of these (path, shape)s, for each placement:
     (the state held between steps: parameters, mu and nu; what a step
     adds: the f32 gradient, the bf16 compute copy and, for split
     parameters of the gathered route, each gathered whole). A leaf no dim
     of which divides stays whole. "partitioned" (i4) is Megatron's
-    placement: its leaves' gradients and copies are blocks too.
-    Activations are not counted."""
+    placement (megatron_spec, the routed experts in the role ``experts``):
+    its leaves' gradients and copies are blocks too. Activations are not
+    counted."""
     out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0], "partitioned": [0, 0]}
     for path, shape in shapes:
         e = int(np.prod(shape))
@@ -2232,8 +2247,8 @@ def rank_bytes(shapes, n: int) -> Dict[str, tuple]:
         out["model"][1] += 4 * e if (last and n > 1) else 0
         # Megatron's placement (i4): a partitioned leaf's parameter, moments,
         # gradient and bf16 copy are its block; nothing is gathered
-        parted = ((path.endswith(COLUMN_LEAVES) and shape[-1] % n == 0)
-                  or (path.endswith(ROW_LEAVES) and shape[-2] % n == 0))
+        spec = megatron_spec(path, shape, experts)
+        parted = "model" in spec and shape[spec.index("model")] % n == 0
         out["partitioned"][0] += 12 * e // n if parted else 12 * e
         out["partitioned"][1] += 6 * e // n if parted else 6 * e
     return {k: tuple(v) for k, v in out.items()}
@@ -2245,7 +2260,8 @@ def per_rank_bytes(sizes: Sizes, shapes: dict) -> dict:
     "model" (its shapes on the meta device). Printed as arithmetic."""
     out = {}
     for name, sh in shapes.items():
-        out[name] = {n: rank_bytes(sh, n) for n in (1, 2, 4, 8)}
+        role = "expert" if name.startswith(GRAD_ONLY_ARCH) else "column"
+        out[name] = {n: rank_bytes(sh, n, role) for n in (1, 2, 4, 8)}
         _log(f"[train] (h5) arithmetic, not a measurement: {name} training state "
              f"({sum(int(np.prod(s)) for _, s in sh) / 1e9:.3f} B f32 parameters), GB a rank "
              f"holds (state between steps + what a step adds) at N ranks: " + "; ".join(
@@ -2276,6 +2292,39 @@ def per_rank_bytes(sizes: Sizes, shapes: dict) -> dict:
          f"token, " + ", ".join(f"N={n}: {b / 1e9:.3f} GB a model rank"
                                 for n, b in out["kv_cache"].items())
          + f" (split on its slots, or on its {cfg.n_kv_heads} KV heads where N divides them)")
+    return out
+
+
+def deepseek_layer_bytes(shapes) -> dict:
+    """(i4) arithmetic for GRAD_ONLY_ARCH's layer partitioned over m = 2,
+    4, 8 model ranks (megatron_spec with the experts on their expert dim:
+    160 experts over m, MLA's 128 heads over m, the shared experts on
+    their columns): the parameters a rank holds of the layer (experts; MLA
+    and shared experts; replicated leaves), with the embedding and the
+    head (replicated), and the GB a rank at 16 bytes a parameter (f32
+    master, mu, nu, gradient). Printed as arithmetic."""
+    out = {}
+    for m in (2, 4, 8):
+        parts = {"experts": 0, "mla_shared": 0, "replicated": 0, "embed_head": 0}
+        for path, shape in shapes:
+            e = int(np.prod(shape))
+            spec = megatron_spec(path, shape, "expert")
+            if "['blocks']" not in path and "['tail']" not in path:
+                parts["embed_head"] += e
+            elif "model" not in spec:
+                parts["replicated"] += e
+            else:
+                parts["experts" if path.endswith(EXPERT_LEAVES) else "mla_shared"] += e // m
+        layer = parts["experts"] + parts["mla_shared"] + parts["replicated"]
+        out[m] = dict(parts, layer=layer, gb=16 * (layer + parts["embed_head"]) / 1e9)
+    _log(f"[train] (i4) arithmetic, not a measurement: {GRAD_ONLY_ARCH}'s layer partitioned "
+         f"(experts on their expert dim, MLA on its heads, shared experts on their columns), "
+         f"parameters a rank (B) and GB a rank at 16 bytes a parameter with the replicated "
+         f"embedding and head: " + "; ".join(
+             f"m={m}: layer {r['layer'] / 1e9:.3f} (experts {r['experts'] / 1e9:.3f}, MLA and "
+             f"shared {r['mla_shared'] / 1e9:.3f}, replicated {r['replicated'] / 1e9:.3f}) + "
+             f"embedding and head {r['embed_head'] / 1e9:.3f} = {r['gb']:.2f} GB"
+             for m, r in out.items()))
     return out
 
 
@@ -2352,9 +2401,11 @@ def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
         path[k] += v
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    layer = out[GRAD_ONLY_ARCH].pop("shapes")
     out["rank_bytes"] = per_rank_bytes(sizes, {
         sizes.arch_config().name: out["placed_timing"].pop("shapes"),
-        f"{GRAD_ONLY_ARCH} at {GRAD_ONLY_LAYERS} layer": out[GRAD_ONLY_ARCH].pop("shapes")})
+        f"{GRAD_ONLY_ARCH} at {GRAD_ONLY_LAYERS} layer": layer})
+    out["layer_bytes"] = deepseek_layer_bytes(layer)
     out["launches"] = path
     return out
 
@@ -2390,90 +2441,129 @@ def phase_train_placed(device, sizes: Sizes, seed: int, count) -> dict:
 # -- phase 9 (i): partitioned compute over "model" ---------------------------
 
 # Megatron's split (launch.mesh.COLUMN, ROW): the leaves split over "model"
-# on their output dim, and those split on their input dim
-COLUMN_LEAVES = ("['wq']", "['wk']", "['wv']", "['w_gate']", "['w_up']")
+# on their output dim (GQA's, MLA's, the MLPs' and the experts'), and those
+# split on their input dim; the routed experts, (E, d, f) after the tiles'
+# dim, may be split on E instead (the "expert" role)
+COLUMN_LEAVES = ("['wq']", "['wk']", "['wv']", "['wq_b']", "['w_uk']", "['w_uv']",
+                 "['w_gate']", "['w_up']")
 ROW_LEAVES = ("['wo']", "['w_down']")
+EXPERT_LEAVES = ("['ffn']['w_gate']", "['ffn']['w_up']", "['ffn']['w_down']")
 # the model ranks at whose per-rank heads K3 and K3-bwd are held and timed
 RANK_SPLITS = (2, 4)
+# (i5)-(i7): the MoE families partitioned, MLA's too ((i6) and (i7) place
+# the experts on their expert dim, as the reference's expert parallelism)
+MOE_ROLES = ("column", "expert")
+PARTITIONED_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 
 
-def megatron_placement(mesh):
-    """(i) Megatron's placement: wq, wk, wv, w_gate and w_up (and their
-    moments and residuals) split over "model" on their last dim, wo and
-    w_down on the dim before it, every other leaf replicated."""
-    def place(path, shape):
-        nd = len(shape)
-        if nd and path.endswith(COLUMN_LEAVES):
-            return (None,) * (nd - 1) + ("model",)
-        if nd and path.endswith(ROW_LEAVES):
-            return (None,) * (nd - 2) + ("model", None)
-        return ()
-    return place
+def megatron_spec(path: str, shape: tuple, experts: str = "column") -> tuple:
+    """Megatron's placement of the state leaf at ``path``: a column leaf
+    split over "model" on its last dim, a row leaf on the dim before it,
+    an MoE layer's routed expert so too or, with ``experts="expert"``, on
+    its expert dim; every other leaf replicated (a spec's entries)."""
+    nd = len(shape)
+    lead = 1 if "['blocks']" in path else 0
+    if experts == "expert" and nd == lead + 3 and path.endswith(EXPERT_LEAVES):
+        return (None,) * lead + ("model", None, None)
+    if nd and path.endswith(COLUMN_LEAVES):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(ROW_LEAVES):
+        return (None,) * (nd - 2) + ("model", None)
+    return ()
+
+
+def megatron_placement(mesh, experts: str = "column"):
+    """(i) Megatron's placement (megatron_spec): wq, wk, wv, wq_b, w_uk,
+    w_uv, w_gate and w_up (and their moments and residuals) split over
+    "model" on their last dim, wo and w_down on the dim before it, the
+    routed experts so or on their expert dim, every other leaf
+    replicated."""
+    return lambda path, shape: megatron_spec(path, shape, experts)
 
 
 def rank_heads(cfg) -> List[tuple]:
     """(m, H/m, KV/m) for each m of RANK_SPLITS that divides both head
     counts: the heads each rank's K3 and K3-bwd get when attention is
-    partitioned over m model ranks."""
-    H, KV = cfg.n_heads, cfg.n_kv_heads
+    partitioned over m model ranks (MLA's expanded heads: KV = H)."""
+    H, KV, _, _, _ = k3_shape(cfg)
     return [(m, H // m, KV // m) for m in RANK_SPLITS if H % m == 0 and KV % m == 0]
 
 
-def partitioned_all_reduces(cfg, n_leaves: int, comp: bool) -> int:
-    """(i1) the all-reduces of a Megatron-placed step at --remat (one
-    microbatch) of a state of ``n_leaves`` parameter leaves: one a
-    gradient leaf (the data group's average), the loss's 3, the global
-    norm's one over "model" (and with compression the scale's maximum and
-    the error's sums), then the model group's: per layer 2 after the row
-    products in the forward, 2 again in remat's second forward but for
+def partitioned_all_reduces(cfg, n_leaves: int, comp: bool, remat: bool = True) -> int:
+    """(i1), (i5) the all-reduces of a Megatron-placed step (one
+    microbatch) of a state of ``n_leaves`` parameter leaves, every layer
+    attention (GQA or MLA) with a dense MLP or an MoE: one a gradient leaf
+    (the data group's average), the loss's 3, the global norm's one over
+    "model" (and with compression the scale's maximum and the error's
+    sums), the MoE aux loss's 3 a layer (f_e; m_e and its backward), then
+    the model group's: per layer one after attention's and one after the
+    MLP's or the MoE's row products in the forward, and in the backward
+    GQA's and the MLP's one each before their column products, MLA's 3
+    (the q latent, c_kv, k_rope) and the MoE's 2 (its tokens, its combine
+    weights); and GQA's q and k norms' packed gradient sum. At --remat
+    (``remat``) the forward's run again: its sums a second time but for
     the last of each tile (the checkpoint's recomputation stops once the
     tensors the backward saved are made again, and nothing saves the
-    tile's last sum), and 2 in the backward before the column products;
-    and the q and k norms' packed gradient sum."""
+    tile's last sum), the aux loss's 2 too."""
+    aux = cfg.n_layers * ((5 if remat else 3) if cfg.moe else 0)
+    return (n_leaves + 3 + 1 + (2 if comp else 0) + model_group_all_reduces(cfg, remat) + aux
+            + int(cfg.qk_norm and cfg.attention != "mla"))
+
+
+def model_group_all_reduces(cfg, remat: bool) -> int:
+    """partitioned_all_reduces' model group: the row products' sums and
+    the backward's, per layer, at --remat (``remat``) less the tiles'
+    last sums that the recomputation does not reach."""
     tiles = cfg.n_layers // len(cfg.block_pattern)
-    return (n_leaves + 3 + 1 + (2 if comp else 0) + 6 * cfg.n_layers - tiles
-            + int(cfg.qk_norm))
+    backward = (3 if cfg.attention == "mla" else 1) + (2 if cfg.moe else 1)
+    return cfg.n_layers * (2 * (2 if remat else 1) + backward) - (tiles if remat else 0)
 
 
 def rank_kernels(device, sizes: Sizes, errs: Errors, seed: int, card: str, flush=None) -> dict:
     """(i) K3 and K3-bwd at each rank's heads of partitioned compute
-    (rank_heads): K3 with its lse on one prompt of the live length (B=1)
-    and K3-bwd at the training shape, in bf16, against their plain
-    versions at their tolerances; on the card each also timed beside its
-    bound and SDPA's (``flush`` given). Returns the records by kernel."""
-    cfg = sizes.arch_config()
-    D = cfg.head_dim
-    T3 = k3_lengths(cfg, sizes)[0]
+    (rank_heads) of sizes.arch's GQA and of deepseek-v2's MLA (192/128,
+    padded to 256 as the op pads it): K3 with its lse on one prompt of the
+    live length (B=1) and K3-bwd at the training shape, in bf16, against
+    their plain versions at their tolerances; on the card each also timed
+    beside its bound and SDPA's (``flush`` given). Returns the records by
+    kernel."""
     gen = torch.Generator(device=device).manual_seed(seed + 11)
     out = {"flash_attention": [], "flash_attention_bwd": []}
-    for m, H, KV in rank_heads(cfg):
-        dt = torch.bfloat16
-        q, k, v = (_randn(gen, (1, T3, n, D), dt, device) for n in (H, KV, KV))
-        kw = dict(causal=True, sm_scale=1.0 / D ** 0.5)
-        what = f"K3 per rank of {m}: B=1 T=S={T3} H={H} KV={KV} D={D} causal, bf16"
-        o, lse = flash_attention_fwd(q, k, v, **kw)
-        wo, wl = flash_attention_fwd_plain(q, k, v, **kw)
-        err = errs.check("flash_attention", o, wo, ATOL[dt], what)
-        lse_err = float((lse - wl).abs().max())
-        if not lse_err <= LSE_ATOL[dt]:
-            _fail(f"{what}: lse max abs err {lse_err:.3e} > {LSE_ATOL[dt]:.1e}")
-        _log(f"[train] (i) {what} on {card}: max abs err {err:.3e} (atol {ATOL[dt]:.0e}), "
-             f"lse {lse_err:.3e} (atol {LSE_ATOL[dt]:.0e})")
-        r = dict(m=m, heads=f"H={H} KV={KV}", max_abs_err=err)
-        if flush is not None:
-            r.update(_time_k3(q, k, v, flush))
-            _log_timing(f"flash_attention, per rank of {m} model ranks", r)
-        out["flash_attention"].append(r)
-        del q, k, v, o, wo
-        shape = (sizes.train_batch, sizes.train_seq, H, KV, D, D, True)
-        err = check_training_kernels(errs, gen, device, dt, shape)
-        r = dict(m=m, heads=f"H={H} KV={KV}", max_abs_err=err)
-        if flush is not None:
-            r.update(k3_bwd_times(shape, gen, device, flush))
-            _log(f"[timing] flash_attention_bwd per rank of {m} model ranks:")
-            _log_bwd_timing(r)
-            torch.cuda.empty_cache()
-        out["flash_attention_bwd"].append(r)
+    dt = torch.bfloat16
+    for cfg in (sizes.arch_config(), sizes.arch_config(PARTITIONED_ARCHS[1])):
+        _, _, Dqk, Dv, _ = k3_shape(cfg)
+        D = kernel_head_dim(max(Dqk, Dv))
+        T3 = k3_lengths(cfg, sizes)[0]
+        for m, H, KV in rank_heads(cfg):
+            widths = f" D={Dqk}/{Dv} (padded to {D})" if (Dqk, Dv) != (D, D) else ""
+            heads = f"H={H} KV={KV}" + widths
+            q, k = (_randn(gen, (1, T3, n, Dqk), dt, device) for n in (H, KV))
+            v = _randn(gen, (1, T3, KV, Dv), dt, device)
+            kw = dict(causal=True, sm_scale=1.0 / Dqk ** 0.5)
+            what = f"K3 per rank of {m}: {cfg.name} B=1 T=S={T3} {heads} causal, bf16"
+            o, lse = flash_attention_fwd(*(_padded(x, D) for x in (q, k, v)), **kw)
+            wo, wl = flash_attention_fwd_plain(*(_padded(x, D) for x in (q, k, v)), **kw)
+            err = errs.check("flash_attention", o, wo, ATOL[dt], what)
+            lse_err = float((lse - wl).abs().max())
+            if not lse_err <= LSE_ATOL[dt]:
+                _fail(f"{what}: lse max abs err {lse_err:.3e} > {LSE_ATOL[dt]:.1e}")
+            _log(f"[train] (i) {what} on {card}: max abs err {err:.3e} (atol {ATOL[dt]:.0e}), "
+                 f"lse {lse_err:.3e} (atol {LSE_ATOL[dt]:.0e})")
+            r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
+            if flush is not None:
+                r.update(_time_k3(q, k, v, flush))
+                _log_timing(f"flash_attention, {cfg.name} per rank of {m} model ranks", r)
+            out["flash_attention"].append(r)
+            del q, k, v, o, wo
+            shape = (sizes.train_batch, sizes.train_seq, H, KV, Dqk, Dv, True)
+            err = check_training_kernels(errs, gen, device, dt, shape)
+            r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
+            if flush is not None:
+                r.update(k3_bwd_times(shape, gen, device, flush))
+                _log(f"[timing] flash_attention_bwd, {cfg.name} per rank of {m} model ranks:")
+                _log_bwd_timing(r)
+                torch.cuda.empty_cache()
+            out["flash_attention_bwd"].append(r)
     return out
 
 
@@ -2547,38 +2637,50 @@ def time_partitioned_step(device, sizes: Sizes, seed: int, mesh, card: str) -> d
                 profiled={k: (v["wall_ms"], v["busy_ms"]) for k, v in prof.items()})
 
 
-def megatron_placed(mesh):
-    """(i3) ``phase_live``'s ``placed``: the parameters placed as Megatron
-    places them, served under ``SplitCaches(mesh, model, params)`` (K and V
-    split on their heads)."""
+def megatron_placed(mesh, experts: str = "column"):
+    """(i3), (i7) ``phase_live``'s ``placed``: the parameters placed as
+    Megatron places them (megatron_spec, the routed experts in the role
+    ``experts``), served under ``SplitCaches(mesh, model, params)`` (GQA's
+    K and V split on their heads, MLA's latent whole). At world 1 the
+    parameters drawn are wrapped as they are (every block is the whole
+    tensor: no copy, so deepseek-v2's 33.9 GB are held once)."""
     def placed(model, params):
-        pp = reshard_state(params, place_specs(params, mesh, megatron_placement(mesh)))
+        specs = place_specs(params, mesh, megatron_placement(mesh, experts))
+        pp = world1_view(params, specs) if mesh.size() == 1 else reshard_state(params, specs)
         return pp, {"cache_split": flash_decode.SplitCaches(mesh, model, pp)}
     return placed
 
 
-def megatron_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
-    """(i3) sizes.arch served with the live phase's requests twice: plain,
-    then with its parameters placed as Megatron places them on ``mesh`` and
-    caches split on their KV heads (megatron_placed): the same greedy
-    tokens; the first request's prefill and one decode step on each, the
-    logits equal (error 0: at world 1 every product is the whole one);
-    each rank's caches hold KV/(model ranks) heads; the model group's
-    all-reduces counted. Returns the prefills made (each launches K3 once a
-    global-attention layer)."""
-    from repro_torch.training.tree import leaves
+def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
+                   experts: str = "column", n_requests: int = 0) -> dict:
+    """(i3), (i7) ``arch`` (sizes.arch) served with the live phase's
+    requests (``n_requests``, default sizes.live_requests) twice: plain,
+    then with its parameters placed as Megatron places them on ``mesh``
+    (megatron_placed: the routed experts in the role ``experts``) and its
+    attention caches held as partitioned attention reads them: the same
+    greedy tokens; the first request's prefill and one decode step on
+    each, the logits equal (error 0: at world 1 every product is the whole
+    one); each rank's caches hold KV/(model ranks) of GQA's heads and
+    MLA's whole latent; the model group's all-reduces counted (one after
+    attention and one after the MLP or the MoE, a layer and pass).
+    Returns the prefills made (each launches K3 once a global-attention
+    layer)."""
+    from repro_torch.training.tree import flatten_with_paths as paths_of
 
-    plain = phase_live(device, sizes, seed)
+    plain = phase_live(device, sizes, seed, arch, n_requests)
     want_tokens = _served_tokens(plain)
     plain_ms = 1e3 * float(np.median(plain["timed"].decode_s))
     del plain
-    live = phase_live(device, sizes, seed, placed=megatron_placed(mesh))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    live = phase_live(device, sizes, seed, arch, n_requests, placed=megatron_placed(mesh, experts))
     got_tokens, ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
     for i, (g, w) in enumerate(zip(got_tokens, want_tokens)):
         if not np.array_equal(g, w):
-            _fail(f"train (i3): request {i}: greedy tokens {g.tolist()} partitioned, "
+            _fail(f"train (i3/i7): request {i}: greedy tokens {g.tolist()} partitioned, "
                   f"{w.tolist()} plain")
     model, placed, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
+    del live
     local = _tree_map(lambda t: t.to_local(), placed)
     split = flash_decode.SplitCaches(mesh, model, placed)
     msz = launch_mesh.axis_size(mesh, "model")
@@ -2596,27 +2698,98 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
                 step, _ = model.decode_step(params, tok, caches, pos)
                 out[name] = (logits[0, -1].float(), step[0, -1].float())
             if name == "partitioned":
-                held = [(t.to_local().shape[-2], t.shape[-2]) for t in leaves(caches)]
+                # GQA's K and V: (heads held, heads); MLA's latent: (slots held, slots)
+                held = {path: (t.to_local().shape[-2], t.shape[-2])
+                        for path, t in paths_of(caches)}
             del caches
-    if not held or any(h * msz != n for h, n in held):
-        _fail(f"train (i3): the caches hold {held} of their KV heads on {msz} model ranks")
+    heads = [path.endswith(("['k']", "['v']")) for path in held]
+    if not held or any(h * (msz if kv else 1) != n for kv, (h, n) in zip(heads, held.values())):
+        _fail(f"train (i3/i7): the caches hold {held} of their KV heads (GQA) or latent slots "
+              f"(MLA) on {msz} model ranks")
     errs_ = [float((a - b).abs().max()) for a, b in zip(out["partitioned"], out["plain"])]
     if max(errs_) != 0.0 or not all(torch.isfinite(a).all() for a in out["partitioned"]):
-        _fail(f"train (i3): partitioned logits differ from the plain ones by {errs_} at world 1")
+        _fail(f"train (i3/i7): {cfg.name}: partitioned logits differ from the plain ones by "
+              f"{errs_} at world 1")
     kinds = dict(split.parallel.kinds)
     want = 2 * cfg.n_layers * 2            # one prefill and one decode step, 2 a layer
     if kinds != {"all_reduce": want}:
-        _fail(f"train (i3): the model group's collectives {kinds}, not {want} all-reduces")
-    _log(f"[train] (i3) {cfg.name} with its parameters placed as Megatron places them on mesh "
-         f"{tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} (families "
-         f"{sorted(split.parallel.families)}) and caches split on their KV heads ({msz} rank(s), "
-         f"each {held[0][0]} of {held[0][1]} heads): {len(got_tokens)} requests x "
-         f"{sizes.new_tokens} greedy tokens the same as plain; the first request's prefill and "
-         f"decode-step logits max abs err {errs_} (0 required); {kinds} for one prefill and one "
-         f"step; served decode {ms:.2f} ms per token partitioned, {plain_ms:.2f} plain (medians, "
-         f"host clock)")
+        _fail(f"train (i3/i7): the model group's collectives {kinds}, not {want} all-reduces")
+    _log(f"[train] {'(i3)' if cfg.name == sizes.arch_config().name else '(i7)'} {cfg.name} with "
+         f"its parameters placed as Megatron places them on mesh {tuple(mesh.shape)} "
+         f"{tuple(mesh.mesh_dim_names)} (families {sorted(split.parallel.families)}"
+         + (f", experts on their {'expert dim' if experts == 'expert' else 'columns'}"
+            if cfg.moe else "") + f"; caches held / whole, {'KV heads' if heads[0] else 'slots'}"
+         f" {next(iter(held.values()))} on {msz} rank(s)): "
+         f"{len(got_tokens)} requests x {sizes.new_tokens} greedy tokens the same as plain; the "
+         f"first request's prefill and decode-step logits max abs err {errs_} (0 required); "
+         f"{kinds} for one prefill and one step; served decode {ms:.2f} ms per token "
+         f"partitioned, {plain_ms:.2f} plain (medians, host clock)")
     return dict(logits_err=max(errs_), decode_ms=ms, plain_decode_ms=plain_ms, kinds=kinds,
                 prefills=2 * len(got_tokens) + 2, cfg=cfg)
+
+
+def partitioned_grad_hold(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(i6) GRAD_ONLY_ARCH at GRAD_ONLY_LAYERS layer, full width, f32
+    masters and bf16 compute, its training batch: one loss and gradient on
+    the kernel route (K3, K3-bwd), plain, then partitioned as the
+    placements of megatron_spec (the experts on their expert dim) name it
+    on ``mesh`` (the ``"model_parallel"`` rule; at world 1 each block is
+    the whole tensor, so the same parameters serve), one gradient tree at
+    a time: the plain one waits in host memory and each partitioned leaf
+    is held to it bit for bit; the loss equal; the model group's
+    all-reduces counted (partitioned_all_reduces' model group without
+    remat: 7 a layer)."""
+    from repro_torch.training.data_parallel import ModelParallel
+
+    B, T = train_shape(sizes, GRAD_ONLY_ARCH)
+    cfg = dataclasses.replace(sizes.arch_config(GRAD_ONLY_ARCH), n_layers=GRAD_ONLY_LAYERS)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    data = _train_batch(cfg, sizes, seed, device, B, T)
+    items = [(path, tuple(t.shape),
+              Sharding(mesh, megatron_spec(path, tuple(t.shape), "expert")).placements(
+                  tuple(t.shape), path)) for path, t in flatten_with_paths(params)]
+    families, parted = launch_mesh.partitioned_leaves(cfg, mesh, items)
+    if set(families) != {"mla", "moe"}:
+        _fail(f"train (i6): the placements partition {sorted(families)}, not MLA and the MoE")
+    grad_fn = make_grad_fn(model, TrainConfig())
+    t0 = time.perf_counter()
+    loss, _, grads = grad_fn(params, data)
+    plain = [(path, g.to("cpu")) for path, g in flatten_with_paths(grads)]
+    del grads
+    t_plain = time.perf_counter() - t0
+    mp = ModelParallel(mesh, families)
+    n3, nb = flash_attention.launches, flash_attention_bwd.launches
+    t0 = time.perf_counter()
+    with shardctx.rules({"model_parallel": mp}):
+        p_loss, _, grads = grad_fn(params, data)
+    _sync(device)
+    t_part = time.perf_counter() - t0
+    got = (flash_attention.launches - n3, flash_attention_bwd.launches - nb)
+    differ = [path for (path, w), (_, g) in zip(plain, flatten_with_paths(grads))
+              if not torch.equal(g, w.to(g.device))]
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    kinds = dict(mp.kinds)
+    want = model_group_all_reduces(cfg, remat=False)
+    _log(f"[train] (i6) {cfg.name} at {cfg.n_layers} of {get_config(cfg.name).n_layers} layers, "
+         f"full width, B={B} x T={T}, partitioned (families {sorted(families)}; {len(parted)} "
+         f"leaves split: MLA on its heads, experts on their expert dim, shared experts on their "
+         f"columns) against plain: loss {float(p_loss):.6f} vs {float(loss):.6f}; leaves that "
+         f"differ: {len(differ)} of {len(plain)} (0 required); model group {kinds} (want {want} "
+         f"all-reduces); K3 / K3-bwd launches {got}; {t_part:.2f} s partitioned, {t_plain:.2f} s "
+         f"plain with its copy to the host (host clock); peak device memory "
+         + (f"{peak:.2f} GB" if peak is not None else "not measured"))
+    if float(p_loss) != float(loss) or differ:
+        _fail(f"train (i6): the partitioned loss or gradients differ from the plain ones "
+              f"({float(p_loss)} vs {float(loss)}; {differ[:4]})")
+    if kinds != {"all_reduce": want}:
+        _fail(f"train (i6): the model group's collectives {kinds}, not {want} all-reduces")
+    if device.type == "cuda" and got != (attn_layers(cfg), attn_layers(cfg)):
+        _fail(f"train (i6): K3 / K3-bwd launched {got}, not once a layer")
+    return dict(loss=float(loss), kinds=kinds, launches=got, peak_gb=peak, split=len(parted),
+                seconds=t_part)
 
 
 def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -> dict:
@@ -2625,30 +2798,45 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     (data=1, model=1) mesh, 3 without on a mesh of "model" alone) against
     as many plain steps, bit for bit, no gather, the all-reduces as
     predicted; (i2) the full-size step partitioned, gathered and plain;
-    (i3) the live requests partitioned. ``count`` is phase_train_mesh's:
-    the parts' launches count on the path."""
+    (i3) the live requests partitioned; (i5) 4-layer granite-moe-1b
+    Megatron-placed with its experts on their columns and on their expert
+    dim, each against as many plain steps; (i6) deepseek-v2's one-layer
+    loss and gradient partitioned against plain; (i7) granite's and
+    deepseek-v2's live requests partitioned. ``count`` is
+    phase_train_mesh's: the parts' launches count on the path."""
     mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
     only = launch_mesh.make_mesh((1,), ("model",), device=device)
     _log(f"[train] (i) meshes {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} and "
          f"{tuple(only.shape)} {tuple(only.mesh_dim_names)} of the same group")
     out = {}
-    for key, m, comp in (("i1_dm", mesh, True), ("i1_m", only, False)):
-        r = count(lambda: mesh_vs_plain(device, sizes, seed, m, sizes.arch, sizes.mesh_steps,
-                                        megatron_placement(m), comp, "partitioned"))
+    steps = [("i1_dm", sizes.arch, mesh, True, "column"), ("i1_m", sizes.arch, only, False, "column")]
+    steps += [(f"i5_{role}", PARTITIONED_ARCHS[0], mesh, False, role) for role in MOE_ROLES]
+    for key, arch, m, comp, role in steps:
+        where = "columns" if role == "column" else "expert dim"
+        what = f"({key[:2]}) partitioned" + (f" (experts on their {where})"
+                                               if key.startswith("i5") else "")
+        r = count(lambda: mesh_vs_plain(device, sizes, seed, m, arch, sizes.mesh_steps,
+                                        megatron_placement(m, role), comp, what))
         n_leaves = len(flatten_with_paths(r["plain"]["params"]))
         del r["plain"], r["placed"]
         want = partitioned_all_reduces(r["cfg"], n_leaves, comp)
         if r["kinds"] != dict(all_reduce=want, reduce_scatter=0, all_gather=0):
-            _fail(f"train (i1) {key}: collectives a step {r['kinds']}, not {want} all-reduces "
-                  f"and no gather of a partitioned leaf")
+            _fail(f"train ({key[:2]}) {key}: collectives a step {r['kinds']}, not {want} "
+                  f"all-reduces and no gather of a partitioned leaf")
         out[key] = r
     out["partitioned_timing"] = count(lambda: time_partitioned_step(device, sizes, seed, mesh,
                                                                     card))
-    before = flash_attention.launches
-    out["megatron_serve"] = count(lambda: megatron_serve(device, sizes, seed, mesh))
-    want = attn_layers(out["megatron_serve"]["cfg"]) * out["megatron_serve"]["prefills"]
-    if device.type == "cuda" and flash_attention.launches - before != want:
-        _fail(f"train (i3): K3 launched {flash_attention.launches - before} times, not {want}")
+    serve = [("megatron_serve", sizes.arch, "column", 0)]
+    serve += [(f"i7_{get_config(a).name}", a, "expert", sizes.more_requests)
+              for a in PARTITIONED_ARCHS]
+    for key, arch, role, n in serve:
+        before = flash_attention.launches
+        out[key] = count(lambda: megatron_serve(device, sizes, seed, mesh, arch, role, n))
+        want = attn_layers(out[key]["cfg"]) * out[key]["prefills"]
+        if device.type == "cuda" and flash_attention.launches - before != want:
+            _fail(f"train {key}: K3 launched {flash_attention.launches - before} times, not "
+                  f"{want}")
+    out["i6"] = count(lambda: partitioned_grad_hold(device, sizes, seed, mesh))
     return out
 
 
@@ -3451,8 +3639,9 @@ def main(argv=None) -> int:
             rows[-1]["library"] = t["library"]
         if name in train["per_rank"]:       # (i): each rank's heads when partitioned
             rows[-1]["per_rank"] = [
-                {k: r[k] for k in ("m", "heads", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")} for r in train["per_rank"][name]]
+                {k: r[k] for k in ("m", "arch", "heads", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in train["per_rank"][name]]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import shardctx
 from repro_torch.models.attention import CacheBlock, decode_partials
 from repro_torch.training.data_parallel import ModelParallel
 from repro_torch.training.tree import flatten_with_paths, tree_map, unflatten
@@ -129,11 +130,13 @@ class SplitCaches:
     slots [mi S/msz, (mi+1) S/msz), and on its batch rows over the data
     axes where they divide the batch (else whole there). Where the
     parameters (``params``, DTensors placed on ``mesh``, with their
-    ``model``) partition GQA over ``"model"`` (``launch.mesh.
+    ``model``) partition attention over ``"model"`` (``launch.mesh.
     partitioned_leaves``), each GQA layer's K and V are split on their KV
     heads instead (``(B, S, KV, D)`` on ``P(None, None, "model", None)``):
     a rank computes and holds only its heads, and reads them with no
-    merge. Every recurrent state is whole on every rank. Cached as
+    merge; and each MLA layer's latent cache is held whole on every rank
+    (every head reads all of it: 576 values a token a layer at full
+    width). Every recurrent state is whole on every rank. Cached as
     DTensors.
 
     Installed as the ``models.shardctx`` rule ``"cache_split"``, it makes
@@ -142,11 +145,12 @@ class SplitCaches:
     ``decode_step`` read caches held so (:meth:`local`), whether written
     under the rule or placed by ``reshard_state(caches,
     split.shardings(model, batch, cache_len))``. A cache placed otherwise
-    (a recurrent state or a non-partitioned layer's attention cache split
-    on any dim) is gathered whole for the step, and the rank keeps its
-    block of what the step wrote. Parameters on the mesh come to the
-    model through :meth:`params`: a partitioned leaf's block, every other
-    leaf whole."""
+    (a recurrent state, a latent cache or a non-partitioned layer's
+    attention cache split on any dim; a partitioned layer's K and V held
+    otherwise than on their heads) is gathered whole for the step, and
+    the rank keeps its block of what the step wrote. Parameters on the
+    mesh come to the model through :meth:`params`: a partitioned leaf's
+    block, every other leaf whole."""
 
     def __init__(self, mesh, model=None, params=None) -> None:
         from torch.distributed.tensor import DTensor
@@ -156,6 +160,7 @@ class SplitCaches:
             raise ValueError(f"mesh axes {names} hold no 'model' axis to split the caches over")
         self.mesh = mesh
         self.parallel, self._placed, self._parted = None, None, frozenset()
+        self._ep = None             # (parallel, parted) under the expert-parallel override
         if params is None:
             return
         items = []
@@ -167,12 +172,29 @@ class SplitCaches:
         self._placed = {path: pl for path, _, pl in items}
         if families:
             self.parallel = ModelParallel(mesh, families)
+        if "moe" in families:
+            # under the expert-parallel override the MoE's weights come whole
+            fams, parted = partitioned_leaves(model.cfg, mesh, items, gathered=("moe",))
+            self._ep = ((ModelParallel(mesh, fams, self.parallel._count), parted) if fams
+                        else (None, frozenset()))
 
     def on_heads(self, model, kind: str) -> bool:
         """Whether a ``kind`` layer's K and V are held split on their heads
-        (its attention partitioned over ``"model"``)."""
+        (its GQA attention partitioned over ``"model"``)."""
         return (self.parallel is not None and "attn" in self.parallel.families
                 and kind in ("attn", "local") and not model._mla(kind))
+
+    def latent_whole(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer is MLA partitioned over ``"model"``: its
+        latent cache is held whole on every rank."""
+        return (self.parallel is not None and "mla" in self.parallel.families
+                and model._mla(kind))
+
+    def slot_split(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer's attention cache is held split on its
+        slots (and read through :class:`CacheBlock`)."""
+        return (kind in ("attn", "local") and not self.on_heads(model, kind)
+                and not self.latent_whole(model, kind))
 
     def kv_heads(self, model, kind: str) -> int:
         """The KV heads this rank holds of a ``kind`` layer's cache."""
@@ -196,13 +218,16 @@ class SplitCaches:
         if self._placed is None:
             raise ValueError("parameters on a mesh (DTensors) serve under SplitCaches(mesh, "
                              "model, params), made with them")
+        parallel, parted = self.parallel, self._parted
+        if self._ep is not None and shardctx.get("moe_apply") is not None:
+            parallel, parted = self._ep
         out = []
         for path, t in flat:
             if not isinstance(t, DTensor) or tuple(t.placements) != self._placed.get(path):
                 raise ValueError(f"params{path} is not placed as when the rule was made "
                                  f"({self._placed.get(path)})")
-            out.append(t.to_local() if path in self._parted else t.full_tensor())
-        rules = {"model_parallel": self.parallel} if self.parallel is not None else {}
+            out.append(t.to_local() if path in parted else t.full_tensor())
+        rules = {"model_parallel": parallel} if parallel is not None else {}
         return unflatten(params, out), rules
 
     def _sharding(self, batch: int, ndim: int, lead: int) -> Sharding:
@@ -214,9 +239,11 @@ class SplitCaches:
 
     def _leaf_sharding(self, model, path: str, shape) -> Sharding:
         """The placement :meth:`shardings` gives the cache leaf at ``path``."""
-        lead = _lead(path)
-        if _leaf(path) in ("k", "v") and self.on_heads(model, _kind(model, path)):
+        lead, kind = _lead(path), _kind(model, path)
+        if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
             return Sharding(self.mesh, (None,) * lead + (None, None, "model", None))
+        if _leaf(path) in SLOT_LEAVES and self.latent_whole(model, kind):
+            return Sharding(self.mesh)
         if _leaf(path) in SLOT_LEAVES:
             return self._sharding(shape[lead], len(shape), lead)
         return Sharding(self.mesh)
@@ -254,22 +281,26 @@ class SplitCaches:
         return tree_map(held, caches, self.shardings(model, batch, cache_len),
                         model.cache_specs(batch, cache_len))
 
-    def local(self, model, caches):
-        """The caches for this rank's decode step, per layer in the order the
-        layers run its attention cache's :class:`CacheBlock` (None where
-        the rank reads it as it is whole, or holds its heads, or for a
-        recurrent state), and a function that ends the step. Plain tensors
-        are caches held whole. A leaf placed as :meth:`shardings` places it
-        is read as it is held; a leaf placed otherwise is gathered whole
-        (a layer's attention caches together) and, when the step ends, the
-        rank keeps its block of it. A partitioned layer's K or V placed
-        otherwise than on its heads raises, naming it."""
+    def local(self, model, caches, position):
+        """The caches for this rank's decode step at ``position`` (B,), per
+        layer in the order the layers run its attention cache's
+        :class:`CacheBlock` (None where the rank reads it whole, or holds
+        its heads, or for a recurrent state), and a function that ends the
+        step. Plain tensors are caches held whole. A leaf placed as
+        :meth:`shardings` places it is read as it is held; a leaf placed
+        otherwise is gathered whole (a layer's attention caches together)
+        and, when the step ends, the rank keeps its block of it. A
+        partitioned layer's K and V gathered so are handed to it as this
+        rank's KV heads; each rank writes only its heads of the new row,
+        so the step's end all-gathers the new rows' heads over ``"model"``
+        (B x KV x D values a leaf) before the rank that holds the slot
+        keeps them."""
         from torch.distributed.tensor import DTensor
 
         flat = flatten_with_paths(caches)
         if not any(isinstance(t, DTensor) for _, t in flat):
             return caches, [None] * model.cfg.n_layers, lambda: None
-        held, gather = {}, set()
+        gather = set()
         for path, t in flat:
             where = "caches" + path
             if not isinstance(t, DTensor):
@@ -278,28 +309,33 @@ class SplitCaches:
                 raise ValueError(f"{where} is on another mesh than the rule's")
             shape = tuple(t.shape)
             want = self._leaf_sharding(model, path, shape).placements(shape, where)
-            if tuple(t.placements) == want:
-                continue
-            if _leaf(path) in ("k", "v") and self.on_heads(model, _kind(model, path)):
-                raise ValueError(f"{where} is placed {tuple(t.placements)}, not {want}: a "
-                                 f"partitioned attention layer reads a cache split on its KV "
-                                 f"heads over 'model'")
-            gather.add(_layer(path) if _leaf(path) in SLOT_LEAVES else path)
-        out, blocks, back = [], {}, []
+            if tuple(t.placements) != want:
+                gather.add(_layer(path) if _leaf(path) in SLOT_LEAVES else path)
+        out, blocks, back, rows = [], {}, [], []
         for path, t in flat:
+            kind = _kind(model, path)
             if path in gather or (_leaf(path) in SLOT_LEAVES and _layer(path) in gather):
                 whole = t.full_tensor()
+                if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
+                    n = whole.shape[-2] // self.parallel.size
+                    mine = whole[..., self.parallel.index * n:(self.parallel.index + 1) * n, :]
+                    out.append(mine.contiguous())
+                    rows.append((whole, out[-1], model._window(kind)))
+                    back.append((t, whole))
+                    continue
                 out.append(whole)
                 if any(p.is_shard() for p in t.placements):
                     back.append((t, whole))
                 continue
             lead, shape = _lead(path), tuple(t.shape)
-            if _leaf(path) in SLOT_LEAVES and not self.on_heads(model, _kind(model, path)):
+            if _leaf(path) in SLOT_LEAVES and self.slot_split(model, kind):
                 blocks[_layer(path)] = self.block(shape[lead], shape[lead + 1], "caches" + path)
             out.append(t.to_local())
 
         def done():
             """Each gathered leaf's block of what the step wrote, kept."""
+            for whole, mine, window in rows:
+                self._new_rows(whole, mine, window, position)
             for t, whole in back:
                 off, loc = local_block(tuple(t.shape), self.mesh, t.placements)
                 t.to_local().copy_(whole[tuple(slice(o, o + n) for o, n in zip(off, loc))])
@@ -307,3 +343,14 @@ class SplitCaches:
         tile = [blocks.get(f"['blocks']['g{g}']") for g in range(len(model.cfg.block_pattern))]
         tail = [blocks.get(f"['tail'][{i}]") for i in range(model.n_tail)]
         return unflatten(caches, out), tile * model.n_tiles + tail, done
+
+    def _new_rows(self, whole, mine, window: int, position) -> None:
+        """Into ``whole`` (a K or V leaf (lead, B, S, KV, D) gathered for the
+        step), the rows a decode step at ``position`` wrote into this rank's
+        heads ``mine`` of it, with the other ranks' heads of them: one
+        all-gather over ``"model"``."""
+        lead = mine.ndim - 4
+        pos = position.to(mine.device)
+        at = (slice(None),) * lead + (torch.arange(mine.shape[lead], device=mine.device),
+                                      pos % window if window > 0 else pos)
+        whole[at] = self.parallel.gather(mine[at], dim=-2).to(whole.dtype)

@@ -230,14 +230,18 @@ class Sharding:
 
 # -- partitioned compute over "model" (Megatron's column/row split) ----------
 
-# The dense blocks' products a placement can partition, by the dict that
-# holds their leaves: a column leaf split over "model" on its output (last)
-# dim, a row leaf on its input dim (the one before it). "attn" is GQA's
-# (MLA has no "wk" and is never partitioned); "ffn" the dense SwiGLU or
-# GELU MLP (an MoE layer's "ffn" holds a "router" and is never partitioned).
-COLUMN = {"attn": ("wq", "wk", "wv"), "ffn": ("w_gate", "w_up")}
-ROW = {"attn": ("wo",), "ffn": ("w_down",)}
-FAMILY = {"attn": "attn", "ffn": "mlp"}       # the dict's key -> the family's name
+# The products a placement can partition, by the dict that holds their
+# leaves: a column leaf split over "model" on its output (last) dim, a row
+# leaf on its input dim (the one before it). "attn" holds GQA's (wq, wk,
+# wv; wo) or MLA's (wq_b, w_uk, w_uv, head-major in their columns; wo);
+# "ffn" a dense MLP's (w_gate, w_up; w_down) or an MoE layer's routed
+# experts, (E, d, f) and (E, f, d) after the tiles' dim, which may also be
+# split on E (the "expert" role); "shared" an MoE layer's shared experts,
+# a dense MLP.
+COLUMN = {"attn": ("wq", "wk", "wv", "wq_b", "w_uk", "w_uv"), "ffn": ("w_gate", "w_up"),
+          "shared": ("w_gate", "w_up")}
+ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",)}
+EXPERTS = ("w_gate", "w_up", "w_down")
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
@@ -248,49 +252,91 @@ def path_keys(path: str) -> list:
 
 
 def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optional[str]:
-    """``"column"`` or ``"row"`` where the parameter at ``path`` (a
-    ``flatten_with_paths`` path, with or without a ``['params']`` prefix),
-    of global ``shape`` and placed on ``mesh`` by the DTensor
-    ``placements``, is a :data:`COLUMN` leaf split over ``"model"`` on its
-    last dim or a :data:`ROW` leaf split on its dim before the last, and
-    replicated over every other mesh dim; else None. A ``model`` axis of
-    size 1 counts: the layout is named by the placement alone."""
+    """``"column"``, ``"row"`` or ``"expert"`` where the parameter at
+    ``path`` (a ``flatten_with_paths`` path, with or without a
+    ``['params']`` prefix), of global ``shape`` and placed on ``mesh`` by
+    the DTensor ``placements``, is a :data:`COLUMN` leaf split over
+    ``"model"`` on its last dim, a :data:`ROW` leaf split on its dim
+    before the last, or an MoE layer's routed expert (``(E, d, f)`` after
+    the tiles' dim) split on E; split evenly, and replicated over every
+    other mesh dim; else None. A ``model`` axis of size 1 counts: the
+    layout is named by the placement alone."""
     names = tuple(mesh.mesh_dim_names)
     keys = path_keys(path)
     if "model" not in names or len(keys) < 2 or keys[-2] not in COLUMN:
         return None
     lead = 1 if "blocks" in keys else 0           # the tiles' stacking dim
     nd = len(shape)
-    if nd != lead + 2:                            # an MoE layer's (E, d, f) experts
+    experts = keys[-2] == "ffn" and keys[-1] in EXPERTS and nd == lead + 3
+    if nd != lead + 2 and not experts:
         return None
     km = names.index("model")
     if any(not p.is_replicate() for k, p in enumerate(placements) if k != km):
         return None
     p = placements[km]
-    if not p.is_shard():
+    if not p.is_shard() or shape[p.dim % nd] % int(mesh.shape[km]):
         return None
-    if keys[-1] in COLUMN[keys[-2]] and p.dim in (nd - 1, -1):
+    dim = p.dim % nd
+    if experts and dim == lead:
+        return "expert"
+    if keys[-1] in COLUMN[keys[-2]] and dim == nd - 1:
         return "column"
-    if keys[-1] in ROW[keys[-2]] and p.dim in (nd - 2, -2):
+    if keys[-1] in ROW[keys[-2]] and dim == nd - 2:
         return "row"
     return None
 
 
-def partitioned_leaves(cfg, mesh, items, agree=None) -> Tuple[frozenset, frozenset]:
-    """The families a model's parameter placements partition, and the paths
-    of their leaves. ``items`` are (path, global shape, DTensor placements)
-    of every parameter; ``agree(path)``, where given, must also hold for a
-    leaf (the train step's: its moments are split over "model" as it is).
+def _replicated(placements) -> bool:
+    return all(p.is_replicate() for p in placements)
 
-    A group is one dict of :data:`COLUMN` and :data:`ROW` leaves: GQA's
-    ``attn`` (wq, wk, wv, wo) or a dense MLP's ``ffn`` (w_gate, w_up,
-    w_down; or w_up, w_down). A family ("attn", "mlp") is partitioned when
-    the model has one of its groups at least and every group of it has
-    each leaf in its role (:func:`partition_role`), and, for attention,
-    the ``model`` axis divides ``cfg.n_heads`` and ``cfg.n_kv_heads`` (the
+
+def _family(got: dict, kind: str) -> Optional[str]:
+    """The family of a group of leaves ``got`` held by a dict ``kind`` of
+    :data:`COLUMN`: "attn" (GQA), "mla", "mlp" (a dense MLP) or "moe" (an
+    MoE layer's routed experts with their router, or its shared experts);
+    None for an ``attn`` dict of neither attention."""
+    if kind == "attn":
+        return "mla" if "w_uk" in got else "attn" if "wk" in got else None
+    if kind == "shared":
+        return "moe"
+    return "moe" if "router" in got else "mlp"
+
+
+# the roles a whole group takes: for each family, the choices of
+# {leaf: role}; every other leaf of the group replicated
+ROLES = {
+    "attn": ({"wq": "column", "wk": "column", "wv": "column", "wo": "row"},),
+    "mla": ({"wq_b": "column", "w_uk": "column", "w_uv": "column", "wo": "row"},),
+    "mlp": ({"w_gate": "column", "w_up": "column", "w_down": "row"},),
+    "experts": ({"w_gate": "expert", "w_up": "expert", "w_down": "expert"},
+                {"w_gate": "column", "w_up": "column", "w_down": "row"}),
+}
+
+
+def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[frozenset, frozenset]:
+    """The families a model's parameter placements partition, and the paths
+    of their split leaves. ``items`` are (path, global shape, DTensor placements)
+    of every parameter; ``agree(path)``, where given, must also hold for a
+    leaf (the train step's: its moments are split over "model" as it is);
+    the families named in ``gathered`` are never partitioned (the MoE
+    under the launcher's expert-parallel override, which takes global
+    weights).
+
+    A group is one dict of :data:`COLUMN` and :data:`ROW` leaves: GQA's or
+    MLA's ``attn``, a dense MLP's ``ffn`` (w_gate, w_up, w_down; or w_up,
+    w_down), an MoE layer's ``ffn`` (its routed experts and router) or its
+    ``shared`` experts. A family ("attn", "mla", "mlp", "moe") is
+    partitioned when the model has one of its groups at least and every
+    group of it is whole in its roles (:data:`ROLES`, each leaf's by
+    :func:`partition_role`; every other leaf of the group, the norms, MLA's
+    down-projections and the router, replicated), and the ``model`` axis
+    divides the heads: GQA's ``cfg.n_heads`` and ``cfg.n_kv_heads`` (the
     heads are contiguous in the columns: rank r holds q heads [r H/m,
-    (r+1) H/m) and exactly their KV heads). Every other leaf, and every
-    leaf of a family that is not partitioned, takes the gathered route."""
+    (r+1) H/m) and exactly their KV heads), MLA's ``cfg.n_heads``. An MoE
+    layer's experts are split on E (rank r holds experts [r E/m, (r+1)
+    E/m)) or on their f columns; its shared experts as a dense MLP.
+    Every other leaf, and every leaf of a family that is not partitioned,
+    takes the gathered route."""
     groups: dict = {}
     for path, shape, placements in items:
         keys = path_keys(path)
@@ -301,27 +347,35 @@ def partitioned_leaves(cfg, mesh, items, agree=None) -> Tuple[frozenset, frozens
         role = partition_role(path, shape, placements, mesh)
         if agree is not None and role is not None and not agree(path):
             role = None
-        g["leaves"][keys[-1]] = (path, role)
+        g["leaves"][keys[-1]] = (path, role, _replicated(placements))
     m = axis_size(mesh, "model") if "model" in mesh.mesh_dim_names else 0
     fam_groups: dict = {}
     for g in groups.values():
-        kind, got = g["kind"], g["leaves"]
-        if "router" in got or (kind == "attn" and "wk" not in got):
-            continue                              # MoE or MLA: not a family here
-        fam_groups.setdefault(FAMILY[kind], []).append(g)
+        fam = _family(g["leaves"], g["kind"])
+        if fam is not None:
+            fam_groups.setdefault(fam, []).append(g)
     families, paths = set(), set()
     for fam, gs in fam_groups.items():
-        if not m or (fam == "attn" and (cfg.n_heads % m or cfg.n_kv_heads % m)):
+        if not m or fam in gathered:
             continue
-        if all(_group_ok(g) for g in gs):
+        if fam == "attn" and (cfg.n_heads % m or cfg.n_kv_heads % m):
+            continue
+        if fam == "mla" and cfg.n_heads % m:
+            continue
+        if all(_group_ok(g, fam) for g in gs):
             families.add(fam)
-            paths.update(p for g in gs for p, _ in g["leaves"].values())
+            paths.update(p for g in gs for p, role, _ in g["leaves"].values() if role)
     return frozenset(families), frozenset(paths)
 
 
-def _group_ok(g) -> bool:
-    """The group whole (the GELU MLP has no w_gate) and each leaf in its role."""
-    kind, got = g["kind"], g["leaves"]
-    want = {**{n: "column" for n in COLUMN[kind]}, **{n: "row" for n in ROW[kind]}}
-    need = set(want) - ({"w_gate"} if kind == "ffn" else set())
-    return need <= set(got) and all(got[n][1] == want.get(n) for n in got)
+def _group_ok(g, fam: str) -> bool:
+    """The group whole (the GELU MLP has no w_gate) with each leaf in its
+    role, every other leaf replicated."""
+    got = g["leaves"]
+    routed = fam == "moe" and g["kind"] == "ffn"
+    for want in ROLES["experts" if routed else "mlp" if fam == "moe" else fam]:
+        need = set(want) - ({"w_gate"} if fam == "mlp" else set())
+        if need <= set(got) and all(role == want[n] if n in want else rep
+                                    for n, (_, role, rep) in got.items()):
+            return True
+    return False

@@ -40,7 +40,11 @@ wq, wk and wv then hold this rank's columns, so it projects, normalises,
 rotates and attends (K3 in a prefill or a forward, K3-bwd under autograd)
 its own H/m query heads and KV/m key-value heads, and wo its rows, summed
 over the ranks; its decode writes and reads a cache held split on its
-heads, with no flash-decode merge.
+heads, with no flash-decode merge. MLA may be partitioned too: wq_b,
+w_uk and w_uv hold this rank's H/m heads' columns and wo their rows; the
+down-projections, their norms, the latent and its rotary key are computed
+whole on every rank (each head reads all of them), the prefill's K3 runs
+at H/m heads and the absorbed decode reads the latent cache held whole.
 """
 
 from __future__ import annotations
@@ -411,10 +415,14 @@ def mla_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
     }
 
 
-def _mla_q(x, p, cfg, positions):
+def _mla_q(x, p, cfg, positions, parallel=None):
+    """The query heads whose columns ``wq_b`` holds (all, or this rank's
+    with ``parallel``: the normed q latent enters the partitioned part)."""
     B, T, _ = x.shape
-    q = matmul(rmsnorm(matmul(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps), p["wq_b"])
-    q = q.reshape(B, T, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_lat = rmsnorm(matmul(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps)
+    if parallel is not None:
+        q_lat = parallel.enter(q_lat)
+    q = matmul(q_lat, p["wq_b"]).reshape(B, T, -1, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     q_nope = q[..., : cfg.qk_nope_head_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -430,18 +438,21 @@ def _mla_latent(x, p, cfg, positions):
 
 
 def _mla_expanded(x, p, cfg, causal, positions):
-    """The expanded form: K and V per head from the latent, one K3 launch.
-    Returns the output and the latent."""
+    """The expanded form: K and V per head from the latent, one K3 launch
+    (partitioned: this rank's H/m heads, the latent and k_rope entering
+    them). Returns the output and the latent."""
     B, T, _ = x.shape
-    H = cfg.n_heads
-    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    mp = model_parallel("mla")
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mp)
     c_kv, k_rope = _mla_latent(x, p, cfg, positions)
-    k_nope = matmul(c_kv, p["w_uk"]).reshape(B, T, H, cfg.qk_nope_head_dim)
-    v = matmul(c_kv, p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
+    c_in, r_in = (c_kv, k_rope) if mp is None else (mp.enter(c_kv), mp.enter(k_rope))
+    H = q_nope.shape[2]
+    k_nope = matmul(c_in, p["w_uk"]).reshape(B, T, H, cfg.qk_nope_head_dim)
+    v = matmul(c_in, p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(B, T, H, cfg.qk_rope_head_dim)], dim=-1)
+    k = torch.cat([k_nope, r_in.expand(B, T, H, cfg.qk_rope_head_dim)], dim=-1)
     out = ops.flash_attention(q, k, v.contiguous(), causal=causal)   # scale 1/sqrt(192)
-    return matmul(out.reshape(B, T, -1), p["wo"]), c_kv, k_rope
+    return _out_proj(out.reshape(B, T, -1), p, mp), c_kv, k_rope
 
 
 def mla_forward(
@@ -491,9 +502,11 @@ def mla_decode_step(
     split (``block``), on the rank that holds its slot only.
     """
     B = x.shape[0]
-    H, R = cfg.n_heads, cfg.kv_lora_rank
+    R = cfg.kv_lora_rank
     position = position.to(x.device)
-    q_nope, q_rope = _mla_q(x, p, cfg, position[:, None])           # (B,1,H,*)
+    mp = model_parallel("mla")
+    q_nope, q_rope = _mla_q(x, p, cfg, position[:, None], mp)       # (B,1,H,*)
+    H = q_nope.shape[2]                         # partitioned: this rank's H/m
     c_new, k_rope_new = _mla_latent(x, p, cfg, position[:, None])
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
     _write_rows(c_cache, c_new[:, 0], position, block, writes)
@@ -508,9 +521,13 @@ def mla_decode_step(
     # the scores are the expanded form's dot products, whose query width
     # is nope + rope, not the latent's
     mla_scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    o_lat = _decode_attention(q_cat, k_cat, c_cache[:, :, None, :], position + 1,
-                              mla_scale, block)                         # (B,1,H,R)
+    if mp is not None:      # this rank's heads over the whole latent: nothing to merge
+        o_lat = chunked_attention(q_cat, k_cat, c_cache[:, :, None, :], causal=False,
+                                  kv_valid_len=position + 1, scale=mla_scale)
+    else:
+        o_lat = _decode_attention(q_cat, k_cat, c_cache[:, :, None, :], position + 1,
+                                  mla_scale, block)                     # (B,1,H,R)
     w_uv = p["w_uv"].reshape(R, H, cfg.v_head_dim)
     dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
     out = torch.einsum("bhr,rhv->bhv", o_lat[:, 0].to(dt), w_uv.to(dt)).reshape(B, 1, -1)
-    return matmul(out, p["wo"]), {"c_kv": c_cache, "k_rope": r_cache}
+    return _out_proj(out, p, mp), {"c_kv": c_cache, "k_rope": r_cache}

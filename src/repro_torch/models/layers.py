@@ -108,11 +108,13 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
 def model_parallel(family: str):
     """The ``shardctx`` rule ``"model_parallel"`` (a
     ``training.data_parallel.ModelParallel``) where it partitions
-    ``family`` ("attn": GQA, "mlp": the dense MLP) over the ``model`` ranks,
-    else None. Partitioned, a block's weights are this rank's columns (wq,
-    wk, wv, w_gate, w_up) and rows (wo, w_down): its code calls the rule's
-    ``enter`` on the input of the column products and ``leave`` on the
-    output of the row product (the sum of the ranks' parts)."""
+    ``family`` ("attn": GQA, "mla", "mlp": the dense MLP, "moe": the MoE
+    layer) over the ``model`` ranks, else None. Partitioned, a block's
+    weights are this rank's columns (wq, wk, wv; wq_b, w_uk, w_uv; w_gate,
+    w_up), rows (wo, w_down) or experts: its code calls the rule's
+    ``enter`` on the replicated tensors the column products read and
+    ``leave`` on the output of the row product (the sum of the ranks'
+    parts)."""
     mp = shardctx.get("model_parallel")
     return mp if mp is not None and family in mp.families else None
 

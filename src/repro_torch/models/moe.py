@@ -8,6 +8,18 @@ over E, and one gather per routing choice back, accumulated in f32. The
 reference computes all of it in XLA outside any Pallas kernel, so its
 plain torch is the port.
 
+The layer may be partitioned over the ``model`` ranks (the ``shardctx``
+rule ``"model_parallel"`` with the family ``"moe"``): every rank routes
+the same tokens alike, so the kept slots are the single-device layer's;
+a rank holding E/m of the experts (split on their expert dim) dispatches,
+runs and gathers back only the choices that landed on them, a rank
+holding f/m columns of every expert runs all of them on its columns, and
+the shared experts run on this rank's columns as a partitioned dense MLP;
+one all-reduce sums the ranks' parts. The tokens that reach the experts
+and the combine weights enter the partitioned part, so that the router's
+gradient sums every rank's choices once (its aux loss's part is the same
+on every rank, and is not summed).
+
 Two points where torch differs from JAX and the port follows JAX:
 ``jax.lax.top_k`` breaks ties toward the lower index, which ``torch.topk``
 does not promise, so the top k are the first k of a stable descending
@@ -22,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import shardctx
-from .layers import Params, dense_init, matmul, mlp_apply, mlp_init
+from .layers import Params, dense_init, matmul, mlp_apply, mlp_init, model_parallel
 
 
 def moe_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
@@ -133,12 +145,33 @@ def moe_apply(
 def moe_combine(xf: torch.Tensor, p: Params, cfg, r: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The expert outputs of the tokens ``xf`` (N, d) under the routing
     ``r`` of :func:`moe_route`, weighted and summed, plus the shared
-    experts: (N, d)."""
-    xe = moe_dispatch(xf, r, cfg.n_experts)
-    out = moe_gather(expert_ffn(xe, p), r, xf.dtype)
+    experts: (N, d). Partitioned (:func:`~.layers.model_parallel`), the
+    experts ``p`` holds: E/m of them (``w_gate`` holds fewer than
+    ``cfg.n_experts``: this rank's, from expert ``index`` E/m) or f/m
+    columns of each; the ranks' parts summed."""
+    mp = model_parallel("moe")
+    E = cfg.n_experts
+    if mp is not None:
+        xf = mp.enter(xf)
+        r = {**r, "top_w": mp.enter(r["top_w"])}
+        E = p["w_gate"].shape[-3]
+        if E != cfg.n_experts:
+            r = held_routing(r, mp.index * E, E)
+    out = moe_gather(expert_ffn(moe_dispatch(xf, r, E), p), r, xf.dtype)
     if cfg.n_shared_experts > 0:
         out = out + mlp_apply(xf, p["shared"])
-    return out
+    return out if mp is None else mp.leave(out)
+
+
+def held_routing(r: Dict[str, torch.Tensor], first: int, held: int) -> Dict[str, torch.Tensor]:
+    """The routing ``r`` as the ``held`` experts from expert ``first`` see
+    it: each choice's slot among them (``first * C`` less) and kept where
+    it was kept and landed on one of them, else on the sentinel slot
+    ``held * C``. :func:`moe_dispatch` and :func:`moe_gather` over ``held``
+    experts then dispatch and combine those choices alone."""
+    C, top_i = r["C"], r["top_i"]
+    keep = r["keep"] & (top_i >= first) & (top_i < first + held)
+    return {**r, "keep": keep, "dest": torch.where(keep, r["dest"] - first * C, held * C)}
 
 
 def moe_dispatch(xf: torch.Tensor, r: Dict[str, torch.Tensor], E: int) -> torch.Tensor:

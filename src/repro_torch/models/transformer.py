@@ -41,7 +41,10 @@ knows the placement and gives each layer its
 flash-decode override only. Parameters placed on the mesh (DTensors) serve
 under the same rule, made with them: where they partition GQA over
 ``model`` (Megatron's column/row split), each rank computes its own heads
-and holds its own KV heads of the cache, read with no merge.
+and holds its own KV heads of the cache, read with no merge; partitioned
+MLA reads its latent cache held whole on every rank; partitioned MoE
+experts (split on their expert dim or on their columns) serve in prefill
+and in the drop-free decode alike.
 
 An encoder (hubert-xlarge) has no decode step: it raises there, as the
 reference does.
@@ -399,7 +402,7 @@ class TransformerLM(nn.Module):
         """This rank's block of a ``kind`` layer's attention cache held
         split by ``split`` (the ``"cache_split"`` rule); None without one
         and for a recurrent state."""
-        if split is None or kind not in ("attn", "local") or split.on_heads(self, kind):
+        if split is None or not split.slot_split(self, kind):
             return None
         return split.block(batch, self._slots(kind, cache_len), f"a {kind!r} layer's cache")
 
@@ -502,7 +505,7 @@ class TransformerLM(nn.Module):
         split = shardctx.get("cache_split")
         params, rules = self._serving_params(params, split)
         if split is not None:
-            local, blocks, done = split.local(self, caches)
+            local, blocks, done = split.local(self, caches, position)
         elif _any_dtensor(caches):
             raise ValueError("caches held on a mesh (DTensors) decode under the shardctx rule "
                              "'cache_split' (launch.flash_decode.SplitCaches)")

@@ -40,17 +40,24 @@ computes on the global batch:
   ν is redistributed into it and back (:class:`Placed`).
 
 Partitioned compute over ``model`` (Megatron's column/row split, what
-GSPMD derives from the same placements): where a family of the dense
-blocks is placed so (``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv
-split on their output dim and wo on its input dim; the dense MLP's w_gate,
-w_up and w_down likewise), its leaves are not gathered. Each rank computes
-its own heads (H/m query heads and their KV/m key-value heads) or its own
-columns of the MLP, with one all-reduce after each row product
-(:class:`ModelParallel`, the ``shardctx`` rule ``"model_parallel"``, whose
-two autograd functions the models call); a partitioned leaf's gradient is
-its block already and is averaged over the data group only. The q and k
-norms, replicated but applied to each rank's heads only, get their
-gradient summed over ``model`` (one packed all-reduce a step).
+GSPMD derives from the same placements): where a family is placed so
+(``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv or MLA's wq_b, w_uk,
+w_uv split on their output dim and wo on its input dim; the dense MLP's
+w_gate, w_up and w_down likewise; an MoE layer's routed experts on their
+expert dim or on their f columns, its shared experts as a dense MLP), its
+leaves are not gathered. Each rank computes its own heads (H/m query
+heads and their KV/m key-value heads; MLA's H/m heads over the shared
+latent), its own columns of the MLP, or its own experts (or columns of
+every expert) over the routing that every rank computes alike, with one
+all-reduce after each row product or MoE combine (:class:`ModelParallel`,
+the ``shardctx`` rule ``"model_parallel"``, whose two autograd functions
+the models call); a partitioned leaf's gradient is its block already and
+is averaged over the data group only. The q and k norms of GQA,
+replicated but applied to each rank's heads only, get their gradient
+summed over ``model`` (one packed all-reduce a step); every other
+replicated leaf (MLA's down-projections and norms, the router) gets its
+whole gradient on every rank, from the ``enter`` calls the models place
+after it.
 """
 
 from __future__ import annotations
@@ -129,20 +136,22 @@ class _FromModel(torch.autograd.Function):
 
 
 class ModelParallel:
-    """Partitioned compute over a mesh's ``model`` axis: the model group
-    and its size, the families of the dense blocks
-    that are partitioned (``"attn"``, ``"mlp"``) and the two functions
-    their code calls around its products: :meth:`enter` before the column
-    products (one a block: q, k and v share their input) and :meth:`leave`
-    after the row product. Installed as the ``models.shardctx`` rule
-    ``"model_parallel"`` (the train step's, with ``count`` the data
-    group's counter, or a serving path's, counting its own); without the
-    rule, the models call neither. Its all-reduces are counted in
-    ``kinds``."""
+    """Partitioned compute over a mesh's ``model`` axis: the model group,
+    its size and this rank's index on it, the families that are
+    partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``) and the two
+    functions their code calls around its products: :meth:`enter` on a
+    replicated tensor that this rank's columns read (the block's input;
+    MLA's normed latents; the MoE's tokens and combine weights) and
+    :meth:`leave` after the row product or the combine. Installed as the
+    ``models.shardctx`` rule ``"model_parallel"`` (the train step's, with
+    ``count`` the data group's counter, or a serving path's, counting its
+    own); without the rule, the models call neither. Its collectives are
+    counted in ``kinds``."""
 
     def __init__(self, mesh, families, count=None) -> None:
         self.group = mesh.get_group("model")
         self.size = int(mesh.shape[tuple(mesh.mesh_dim_names).index("model")])
+        self.index = int(mesh.get_local_rank("model"))
         self.families = frozenset(families)
         self.kinds: Counter = Counter()
         self._count = count if count is not None else self._own
@@ -155,6 +164,14 @@ class ModelParallel:
         self._count("all_reduce")
         dist.all_reduce(x, group=self.group)
         return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` (one shape) concatenated along ``dim`` in the
+        model group's order (no gradient)."""
+        self._count("all_gather")
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(x, self)
@@ -370,9 +387,11 @@ class Placed:
     rank holds a part of (``partial``: the q and k norms of partitioned
     attention). A leaf is partitioned only where its moments and residual
     are split over ``model`` as it is (and no data axis splits that dim);
-    else its family takes the gathered route."""
+    else its family takes the gathered route, as do the families named in
+    ``gathered``."""
 
-    def __init__(self, state: Any, dp: DataParallel, cfg: Any = None) -> None:
+    def __init__(self, state: Any, dp: DataParallel, cfg: Any = None,
+                 gathered: Tuple[str, ...] = ()) -> None:
         self.dp = dp
         params = flatten_with_paths(state["params"])
         mu = [layout_of(t) for _, t in flatten_with_paths(state["opt"]["mu"])]
@@ -396,7 +415,8 @@ class Placed:
             return all(lay[km] == d and d not in _without(lay, km) for lay in others)
 
         families, paths = partitioned_leaves(
-            cfg, dp.mesh, [(path, tuple(t.shape), t.placements) for path, t in params], agree)
+            cfg, dp.mesh, [(path, tuple(t.shape), t.placements) for path, t in params], agree,
+            gathered)
         if not families:
             return
         self.parted = [path in paths for path, _ in params]

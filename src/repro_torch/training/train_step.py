@@ -14,9 +14,10 @@ old state keeps a copy. A state whose leaves are DTensors on a mesh
 (``elastic.reshard_state``), each replicated or split (ZeRO-1 moments over
 the data axes, parameters over ``model``), steps data-parallel: each rank
 passes its own rows of the global batch (``data_parallel.py``; on a mesh
-of ``model`` alone, the whole batch). Where the placements partition the
-dense blocks over ``model`` (Megatron's column/row split), those leaves
-stay split and each rank computes its own heads and MLP columns.
+of ``model`` alone, the whole batch). Where the placements partition
+attention, the MLPs or the MoE experts over ``model`` (Megatron's
+column/row split; experts also on their expert dim), those leaves stay
+split and each rank computes its own heads, MLP columns or experts.
 
 Two profiler ranges name the step's parts for ``torch.profiler``:
 ``train_step.forward`` (the loss) and ``train_step.optimizer`` (the
@@ -110,7 +111,9 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
         if dp is None:
             dp = groups[id(mesh)] = DataParallel(mesh)
         dp.reset()
-        placed = Placed(state, dp, model.cfg)
+        # the expert-parallel override takes the MoE's weights whole
+        placed = Placed(state, dp, model.cfg,
+                        ("moe",) if shardctx.get("moe_apply") is not None else ())
         with torch.no_grad():
             local = tree_map(lambda t: t.to_local(), state)
         rules = {"data_parallel": dp, "moe_chunks": dp.size}

@@ -353,9 +353,11 @@ print(json.dumps(dict(
     placed_timing={k: v for k, v in mesh["placed_timing"].items() if k != "cfg"},
     split_cache={k: v for k, v in mesh["split_cache"].items() if k != "cfg"},
     partitioned={k: {f: v[f] for f in ("losses", "calls", "kinds", "split")}
-                 for k, v in mesh.items() if k.startswith("i1_")},
+                 for k, v in mesh.items() if k.startswith(("i1_", "i5_"))},
     partitioned_timing=mesh["partitioned_timing"],
-    megatron_serve={k: v for k, v in mesh["megatron_serve"].items() if k != "cfg"},
+    megatron_serve={k: {f: x for f, x in v.items() if f != "cfg"}
+                    for k, v in mesh.items() if k == "megatron_serve" or k.startswith("i7_")},
+    partitioned_grads=mesh["i6"], layer_bytes=mesh["layer_bytes"],
     per_rank=out["per_rank"],
     rank_bytes={name: {str(n): r for n, r in v.items()}
                 for name, v in mesh["rank_bytes"].items()})), flush=True)
@@ -476,8 +478,16 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
     compression's 2), per layer 2 + 1 + 2 of the model group at --remat
     (the recomputation of each one-layer tile stops before its last sum)
     and the norms' packed sum; (i2) the step timed partitioned, gathered
-    and plain; (i3) the live requests partitioned, the logits equal; and
-    K3 and K3-bwd at each rank's heads against their plain versions."""
+    and plain; (i3) the live requests partitioned, the logits equal; (i5)
+    the reduced granite-moe-1b with its experts on their columns and on
+    their expert dim, equal to the plain steps, its all-reduces: 12
+    gradient leaves, the loss's 3, the norm's 1, per layer the aux loss's
+    2 + 2 + 1 and the model group's 2 + 1 + 3 at --remat; (i6) the reduced
+    deepseek-v2's one-layer loss and gradients partitioned, equal to the
+    plain ones, 7 model-group all-reduces (MLA 1 + 3, the MoE 1 + 2); (i7)
+    granite's and deepseek-v2's live requests partitioned, the logits
+    equal; the layer arithmetic of (i4); and K3 and K3-bwd at each rank's
+    heads (GQA's and MLA's) against their plain versions."""
     out = train_phase
     want = 13 + 3 + 1 + 5 * 2 + 1
     for key, comp in (("i1_dm", True), ("i1_m", False)):
@@ -486,16 +496,30 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
         assert r["kinds"] == dict(all_reduce=want + (2 if comp else 0), reduce_scatter=0,
                                   all_gather=0)
         assert r["split"] == 7 * (3 if comp else 2) + 7     # params, mu, nu (, residuals)
+    for role in ("column", "expert"):
+        r = out["partitioned"][f"i5_{role}"]
+        assert len(r["losses"]) == 3
+        assert r["kinds"] == dict(all_reduce=12 + 3 + 1 + 5 * 2 + 6 * 2, reduce_scatter=0,
+                                  all_gather=0)
+        assert r["split"] == 7 * 3                           # params, mu, nu
     t = out["partitioned_timing"]
     assert set(t["ms"]) == {"partitioned", "gathered", "plain"} and min(t["ms"].values()) > 0
     assert t["kinds"]["partitioned"] == dict(all_reduce=want, reduce_scatter=0, all_gather=0,
                                              total=want)
     assert t["kinds"]["gathered"]["all_gather"] == 13
-    sv = out["megatron_serve"]
-    assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
-    assert sv["kinds"] == {"all_reduce": 2 * 2 * 2}
+    serves = out["megatron_serve"]
+    assert sorted(serves) == ["i7_deepseek-v2-236b", "i7_granite-moe-1b-a400m", "megatron_serve"]
+    for sv in serves.values():          # 4 requests each (live_requests, more_requests)
+        assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
+        assert sv["kinds"] == {"all_reduce": 2 * 2 * 2}
+    g = out["partitioned_grads"]
+    assert g["kinds"] == {"all_reduce": 7} and g["split"] == 10
+    lb = out["layer_bytes"]
+    assert set(lb) == {"2", "4", "8"} and lb["2"]["experts"] == 2 * lb["4"]["experts"]
+    gqa, mla = " D=16/16 (padded to 64)", " D=24/16 (padded to 64)"
     for name in ("flash_attention", "flash_attention_bwd"):
-        assert [r["heads"] for r in out["per_rank"][name]] == ["H=2 KV=2", "H=1 KV=1"]
+        assert [r["heads"] for r in out["per_rank"][name]] == [
+            "H=2 KV=2" + gqa, "H=1 KV=1" + gqa, "H=2 KV=2" + mla, "H=1 KV=1" + mla]
         assert all(r["max_abs_err"] == 0.0 for r in out["per_rank"][name])
 
 

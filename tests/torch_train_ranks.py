@@ -39,10 +39,16 @@ script in a process of its own.
         model=2) and on a mesh of "model" alone: the reference's placed
         ``jax.jit`` steps (and one device's) for two cases, then its
         prefill and greedy decode steps with the caches' K and V placed on
-        their heads (DIR/reference_megatron.pkl); the port's 2 gloo ranks
-        the same (DIR/port_megatron_<rank>.pkl: losses, collectives by
-        kind, the heads each K3 call got, each rank's gradient, state and
-        cache bytes, the final states, the logits and greedy tokens).
+        their heads; and the reduced granite-moe-1b (experts split on their
+        expert dim, and on their columns) and deepseek-v2 (MLA on its
+        heads, experts on their expert dim) on (data=1, model=2)
+        (``MP_MOE_CASES``): two placed steps, the first step's gradient and
+        greedy serving (DIR/reference_megatron.pkl); the port's 2 gloo
+        ranks the same (DIR/port_megatron_<rank>.pkl: losses, collectives
+        by kind, the heads each K3 call got, each rank's gradient, state
+        and cache bytes, the final states, the logits and greedy tokens,
+        the MoE routings against a plain forward's; qwen3's decode also on
+        K/V placed on their slots).
 
 The pickles are written and read by these two functions only.
 """
@@ -401,19 +407,36 @@ MP_ARCH, MP_CFG = "qwen3-1.7b", {"n_kv_heads": 2}
 MP_MESHES = {"dm": ((1, 2), ("data", "model")), "m": ((2,), ("model",))}
 MP_CASES = CASES[:2]                    # microbatches 1; 2 with int8 compression
 MP_PROMPT, MP_CACHE, MP_DECODE = 5, 16, 4
-COLUMN = ("['wq']", "['wk']", "['wv']", "['w_gate']", "['w_up']")
+COLUMN = ("['wq']", "['wk']", "['wv']", "['wq_b']", "['w_uk']", "['w_uv']", "['w_gate']",
+          "['w_up']")
 ROW = ("['wo']", "['w_down']")
+EXPERT_LEAVES = ("['ffn']['w_gate']", "['ffn']['w_up']", "['ffn']['w_down']")
+# the MoE families on (data=1, model=2): (name, arch, the experts' role)
+MP_MOE_CASES = (("granite_expert", "granite-moe-1b-a400m", "expert"),
+                ("granite_column", "granite-moe-1b-a400m", "column"),
+                ("deepseek_expert", "deepseek-v2-236b", "expert"))
+# granite's experts on their expert dim under the launcher's expert-parallel
+# override (launch/moe_ep.py), attention partitioned or replicated: (name,
+# whether attention is split); a prompt that splits over "model", so that
+# the prefill takes the override too
+MP_EP_ARCH, MP_EP_PROMPT = "granite-moe-1b-a400m", 6
+MP_EP_CASES = (("granite_ep_attn", True), ("granite_ep_replicated", False))
 
 
-def megatron_names(mesh_name: str, path: str, shape) -> tuple:
+def megatron_names(mesh_name: str, path: str, shape, experts: str = "column") -> tuple:
     """Megatron's placement of the state leaf (or parameter) at ``path``:
-    the column leaves (wq, wk, wv, w_gate, w_up) split over "model" on
-    their last dim, the row leaves (wo, w_down) on the dim before it, their
-    moments and residuals alike; every other leaf replicated, but on the
-    mesh of "model" alone the (tied) embedding, split on its last dim,
-    which the port gathers (the gathered route beside the partitioned
-    one)."""
+    the column leaves (wq, wk, wv; MLA's wq_b, w_uk, w_uv; w_gate, w_up)
+    split over "model" on their last dim, the row leaves (wo, w_down) on
+    the dim before it, their moments and residuals alike; an MoE layer's
+    routed experts ((E, d, f) after the tiles' dim) so too, or with
+    ``experts="expert"`` on their expert dim; every other leaf replicated,
+    but on the mesh of "model" alone the (tied) embedding, split on its
+    last dim, which the port gathers (the gathered route beside the
+    partitioned one)."""
     nd = len(shape)
+    lead = 1 if "['blocks']" in path else 0
+    if experts == "expert" and nd == lead + 3 and path.endswith(EXPERT_LEAVES):
+        return (None,) * lead + ("model", None, None)
     if nd and path.endswith(COLUMN):
         return (None,) * (nd - 1) + ("model",)
     if nd and path.endswith(ROW):
@@ -421,6 +444,14 @@ def megatron_names(mesh_name: str, path: str, shape) -> tuple:
     if nd and mesh_name == "m" and path.endswith("['embed']"):
         return (None,) * (nd - 1) + ("model",)
     return ()
+
+
+def ep_names(path: str, shape, attn: bool) -> tuple:
+    """An ``MP_EP_CASES`` placement: the routed experts on their expert
+    dim, and with ``attn`` GQA's leaves as Megatron places them; every
+    other leaf replicated."""
+    spec = megatron_names("dm", path, shape, "expert")
+    return spec if attn or path.endswith(EXPERT_LEAVES) else ()
 
 
 def reference_megatron(out_dir: Path) -> None:
@@ -502,9 +533,151 @@ def reference_megatron(out_dir: Path) -> None:
         caches = jax.tree_util.tree_map_with_path(heads, caches)
         out.append(np.asarray(logits))
     res["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks,
-                        logits=out, greedy=np.concatenate(new, axis=1))
+                        logits=out, greedy=np.concatenate(new, axis=1),
+                        caches=dict(flat(jax.tree.map(np.asarray, caches))))
+    for name, arch, role in MP_MOE_CASES:
+        res[name] = _reference_moe(mesh, arch, role)
+    for name, attn in MP_EP_CASES:
+        res[name] = _reference_ep(mesh, attn)
     with open(out_dir / "reference_megatron.pkl", "wb") as f:
         pickle.dump(res, f)
+
+
+def _reference_moe(mesh, arch: str, role: str) -> dict:
+    """An MoE case of ``reference_megatron`` on ``mesh`` (data=1, model=2):
+    the state placed by ``megatron_names`` with the experts in ``role``,
+    the first batch's gradient of the placed parameters and two placed
+    ``jax.jit`` steps; then fresh parameters so placed, a prefill and
+    greedy decode steps (GQA's K and V placed on their heads; MLA's latent
+    cache as the program leaves it)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.models import make_model
+    from repro.training import AdamWConfig, TrainConfig, make_train_step
+    from repro.training.elastic import reshard_state
+    from repro.training.train_step import init_train_state, make_loss_fn
+
+    flat = lambda tree: [(jax.tree_util.keystr(k), v)                  # noqa: E731
+                         for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    cfg = get_config(arch).reduced()
+    model = make_model(cfg, compute_dtype=jnp.float32)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**LR), compute_dtype=jnp.float32)
+
+    def specs(tree):
+        return jax.tree_util.tree_map_with_path(
+            lambda k, a: NamedSharding(mesh, P(*megatron_names(
+                "dm", jax.tree_util.keystr(k), np.shape(a), role))), tree)
+
+    state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+    out = dict(params=jax.tree.map(np.asarray, state["params"]))
+    state = reshard_state(state, specs(state))
+    put = lambda b: {k: jax.device_put(v, NamedSharding(mesh, P("data")))  # noqa: E731
+                     for k, v in b.items()}
+    bs = batches(cfg.vocab_size)
+    loss_fn = make_loss_fn(model, tcfg)
+    grad = jax.jit(jax.grad(lambda p, b: loss_fn(p, b)[0]))(state["params"], put(bs[0]))
+    out["grad"] = dict(flat(jax.tree.map(np.asarray, grad)))
+    step = jax.jit(make_train_step(model, tcfg))
+    losses = []
+    for b in bs:
+        state, m = step(state, put(b))
+        losses.append(float(m["loss"]))
+    out.update(losses=losses, state=dict(flat(jax.tree.map(np.asarray, state))))
+
+    params = jax.jit(model.init)(jax.random.PRNGKey(1))
+    placed = reshard_state(params, specs(params))
+
+    def heads(path, c):
+        if jax.tree_util.keystr(path).endswith(("['k']", "['v']")):
+            spec = (None,) * (c.ndim - 2) + ("model", None)
+            return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
+        return c
+
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, MP_PROMPT)).astype(np.int32)
+    prefill = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, MP_CACHE))
+    decode = jax.jit(model.decode_step)
+    logits, caches = prefill(placed, toks)
+    caches = jax.tree_util.tree_map_with_path(heads, caches)
+    got, new = [np.asarray(logits)], []
+    for i in range(MP_DECODE):
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        new.append(np.asarray(tok))
+        logits, caches = decode(placed, tok, caches, jnp.full((2,), MP_PROMPT + i, jnp.int32))
+        caches = jax.tree_util.tree_map_with_path(heads, caches)
+        got.append(np.asarray(logits))
+    out["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, logits=got,
+                        greedy=np.concatenate(new, axis=1))
+    return out
+
+
+def _reference_ep(mesh, attn: bool) -> dict:
+    """An ``MP_EP_CASES`` case of ``reference_megatron``: two placed
+    ``jax.jit`` steps and greedy serving (K and V placed on their heads
+    where attention is split), each traced under the reference's
+    expert-parallel ``moe_apply`` override."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.launch.moe_ep import make_moe_apply_ep
+    from repro.models import make_model, shardctx
+    from repro.training import AdamWConfig, TrainConfig, make_train_step
+    from repro.training.elastic import reshard_state
+    from repro.training.train_step import init_train_state
+
+    flat = lambda tree: [(jax.tree_util.keystr(k), v)                  # noqa: E731
+                         for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    cfg = get_config(MP_EP_ARCH).reduced()
+    model = make_model(cfg, compute_dtype=jnp.float32)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**LR), compute_dtype=jnp.float32)
+
+    def specs(tree):
+        return jax.tree_util.tree_map_with_path(
+            lambda k, a: NamedSharding(mesh, P(*ep_names(jax.tree_util.keystr(k), np.shape(a),
+                                                         attn))), tree)
+
+    def heads(path, c):
+        if not attn:
+            return c
+        spec = (None,) * (c.ndim - 2) + ("model", None)
+        return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
+
+    with shardctx.rules({"moe_apply": make_moe_apply_ep(mesh, cfg)}):
+        state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+        out = dict(params=jax.tree.map(np.asarray, state["params"]))
+        state = reshard_state(state, specs(state))
+        step = jax.jit(make_train_step(model, tcfg))
+        losses = []
+        for b in batches(cfg.vocab_size):
+            state, m = step(state, {k: jax.device_put(v, NamedSharding(mesh, P("data")))
+                                    for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        out.update(losses=losses, state=dict(flat(jax.tree.map(np.asarray, state))))
+        params = jax.jit(model.init)(jax.random.PRNGKey(1))
+        placed = reshard_state(params, specs(params))
+        toks = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                                 (2, MP_EP_PROMPT)).astype(np.int32)
+        logits, caches = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, MP_CACHE))(
+            placed, toks)
+        caches = jax.tree_util.tree_map_with_path(heads, caches)
+        decode = jax.jit(model.decode_step)
+        got, new = [np.asarray(logits)], []
+        for i in range(MP_DECODE):
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+            new.append(np.asarray(tok))
+            logits, caches = decode(placed, tok, caches,
+                                    jnp.full((2,), MP_EP_PROMPT + i, jnp.int32))
+            caches = jax.tree_util.tree_map_with_path(heads, caches)
+            got.append(np.asarray(logits))
+    out["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, logits=got,
+                        greedy=np.concatenate(new, axis=1))
+    return out
 
 
 def _port_megatron(ref, out_dir: Path) -> dict:
@@ -516,7 +689,7 @@ def _port_megatron(ref, out_dir: Path) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.flash_decode import SplitCaches
     from repro_torch.launch.mesh import Sharding, make_mesh
-    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.models import from_jax_params, make_model, moe, shardctx
     from repro_torch.training import data_parallel, make_train_step
     from repro_torch.training.elastic import reshard_state
     from repro_torch.training.tree import flatten_with_paths, unflatten
@@ -524,8 +697,9 @@ def _port_megatron(ref, out_dir: Path) -> dict:
     cfg = dataclasses.replace(get_config(MP_ARCH).reduced(), **MP_CFG)
     model = make_model(cfg, compute_dtype=torch.float32)
     # spies: the heads each K3 call gets, the gradients each rank reduces
-    heads, grads = [], []
-    k3 = ops.flash_attention
+    # (the first step's kept), the MoE routings
+    heads, grads, routes = [], [], []
+    k3, route = ops.flash_attention, moe.moe_route
 
     def k3_spy(q, k, v, **kw):
         heads.append((q.shape[2], k.shape[2]))
@@ -534,11 +708,19 @@ def _port_megatron(ref, out_dir: Path) -> dict:
     reduce = data_parallel.Placed.reduce_grads
 
     def reduce_spy(self, gs):
-        grads.append([g.numel() * g.element_size() for g in gs])
+        if not grads:
+            grads.append([g.detach().clone() for g in gs])
         return reduce(self, gs)
 
+    def route_spy(*args, **kw):
+        r = route(*args, **kw)
+        routes.append((r["keep"].numpy().copy(), r["dest"].numpy().copy()))
+        return r
+
     ops.flash_attention = k3_spy
+    moe.moe_route = route_spy
     data_parallel.Placed.reduce_grads = reduce_spy
+    spies = dict(heads=heads, grads=grads, routes=routes)
     res = {}
     try:
         for mname, (shape, axes) in MP_MESHES.items():
@@ -564,7 +746,8 @@ def _port_megatron(ref, out_dir: Path) -> dict:
                 paths = [p for p, _ in flatten_with_paths(placed["params"])]
                 res[mname, name] = dict(
                     losses=losses, calls=calls, k3_heads=sorted(set(heads)),
-                    grad_bytes=dict(zip(paths, grads[0])),
+                    grad_bytes={p: g.numel() * g.element_size()
+                                for p, g in zip(paths, grads[0])},
                     bytes={p: x.to_local().numel() * x.element_size()
                            for p, x in flatten_with_paths(placed)},
                     state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
@@ -588,28 +771,202 @@ def _port_megatron(ref, out_dir: Path) -> dict:
                 pos = torch.full((2,), MP_PROMPT + i, dtype=torch.int32)
                 logits, caches = model.decode_step(placed, tok, caches, pos)
                 out.append(logits.numpy())
-            # K/V placed on their slots (flash-decoding's placement) under
-            # partitioned attention: refused, naming the leaf
-            with shardctx.rules({}):
-                _, whole = model.prefill(params, {"tokens": toks}, MP_CACHE)
-            slots = reshard_state(whole, SplitCaches(mesh).shardings(model, 2, MP_CACHE))
-            try:
-                model.decode_step(placed, toks[:, :1], slots,
-                                  torch.full((2,), MP_PROMPT, dtype=torch.int32))
-                refused = None
-            except ValueError as e:
-                refused = str(e)
         res["serve"] = dict(
-            refused=refused,
+            slots=_slot_split_decode(model, sv, placed, mesh),
             logits=out, greedy=np.concatenate(new, axis=1), k3_heads=prefill_heads,
             kinds=dict(split.parallel.kinds), families=sorted(split.parallel.families),
             cache={p: (tuple(x.to_local().shape), x.to_local().numel() * x.element_size(),
                        x.numel() * x.element_size(), str(tuple(x.placements)))
                    for p, x in flatten_with_paths(caches)})
+        mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+        for name, arch, role in MP_MOE_CASES:
+            res[name] = _port_moe(ref[name], arch, role, mesh, spies)
+        for name, attn in MP_EP_CASES:
+            res[name] = _port_ep(ref[name], attn, mesh)
     finally:
         ops.flash_attention = k3
+        moe.moe_route = route
         data_parallel.Placed.reduce_grads = reduce
     return res
+
+
+def _slot_split_decode(model, sv, placed, mesh) -> dict:
+    """The serving case's prefill under partitioned attention, its K and V
+    then placed on their slots over "model" (flash-decoding's placement),
+    and the greedy decode steps on them beside the same steps on K and V
+    held on their heads: each step's logits and placements, the caches
+    after the steps (whole) and the collectives of the slot route."""
+    import torch
+
+    from repro_torch.launch.flash_decode import SplitCaches
+    from repro_torch.models import shardctx
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, tree_map
+
+    heads, slots = SplitCaches(mesh, model, placed), SplitCaches(mesh, model, placed)
+    on_slots = SplitCaches(mesh).shardings(model, 2, MP_CACHE)
+    toks = torch.from_numpy(sv["tokens"]).long()
+    out = dict(logits=[], placements=[], greedy=[])
+    with torch.no_grad():
+        with shardctx.rules({"cache_split": heads}):
+            logits, held = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+        moved = reshard_state(tree_map(lambda t: t.full_tensor(), held), on_slots)
+        want = {p: str(tuple(x.placements)) for p, x in flatten_with_paths(moved)}
+        for i in range(MP_DECODE):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            out["greedy"].append(tok.numpy())
+            pos = torch.full((2,), MP_PROMPT + i, dtype=torch.int32)
+            with shardctx.rules({"cache_split": heads}):
+                logits, held = model.decode_step(placed, tok, held, pos)
+            with shardctx.rules({"cache_split": slots}):
+                got, moved = model.decode_step(placed, tok, moved, pos)
+            out["logits"].append(got.numpy())
+            out["same_logits"] = out.get("same_logits", True) and torch.equal(got, logits)
+            out["placements"].append({p: str(tuple(x.placements)) == want[p]
+                                      for p, x in flatten_with_paths(moved)})
+    out.update(greedy=np.concatenate(out["greedy"], axis=1), kinds=dict(slots.parallel.kinds),
+               held={p: x.full_tensor().numpy() for p, x in flatten_with_paths(held)},
+               moved={p: x.full_tensor().numpy() for p, x in flatten_with_paths(moved)})
+    return out
+
+
+def _port_moe(r, arch: str, role: str, mesh, spies) -> dict:
+    """An MoE case of ``_port_megatron`` on ``mesh`` (data=1, model=2), as
+    ``_reference_moe`` runs it: two placed steps (losses, collectives by
+    kind, the heads each K3 call got, the first step's gradient and each
+    rank's state bytes, the final state; the first step's MoE routings and
+    a plain forward's on the same parameters and batch), then serving
+    (logits, greedy tokens, the families, the model group's collectives,
+    the cache's local and whole bytes)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.flash_decode import SplitCaches
+    from repro_torch.launch.mesh import Sharding
+    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.training import make_train_step
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    cfg = get_config(arch).reduced()
+    model = make_model(cfg, compute_dtype=torch.float32)
+
+    def specs(tree):
+        return unflatten(tree, [Sharding(mesh, megatron_names("dm", p, tuple(x.shape), role))
+                                for p, x in flatten_with_paths(tree)])
+
+    _, _, tcfg, state = _setup(r, arch, 1, False, cfg)
+    placed = reshard_state(state, specs(state))
+    step = make_train_step(model, tcfg)
+    for v in spies.values():
+        v.clear()
+    bs = batches(cfg.vocab_size)
+    losses, calls, routes = [], [], []
+    for b in bs:
+        placed, m = step(placed, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        calls.append({k: int(v) for k, v in m.items() if k.startswith("collectives")})
+        routes.append(list(spies["routes"]))
+        spies["routes"].clear()
+    k3_heads = sorted(set(spies["heads"]))
+    with torch.no_grad():
+        model.loss(from_jax_params(r["params"], cfg, device="cpu"),
+                   {k: torch.from_numpy(v) for k, v in bs[0].items()})
+    paths = [p for p, _ in flatten_with_paths(placed["params"])]
+    out = dict(losses=losses, calls=calls, k3_heads=k3_heads,
+               routes=routes[0], plain_routes=list(spies["routes"]),
+               grad={p: g.numpy() for p, g in zip(paths, spies["grads"][0])},
+               bytes={p: x.to_local().numel() * x.element_size()
+                      for p, x in flatten_with_paths(placed)},
+               state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
+    sv = r["serve"]
+    params = from_jax_params(sv["params"], cfg, device="cpu")
+    placed = reshard_state(params, specs(params))
+    split = SplitCaches(mesh, model, placed)
+    toks = torch.from_numpy(sv["tokens"]).long()
+    spies["heads"].clear()
+    with torch.no_grad(), shardctx.rules({"cache_split": split}):
+        logits, caches = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+        k3_heads = sorted(set(spies["heads"]))
+        got, new = [logits.numpy()], []
+        for i in range(MP_DECODE):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            new.append(tok.numpy())
+            logits, caches = model.decode_step(placed, tok, caches,
+                                               torch.full((2,), MP_PROMPT + i, dtype=torch.int32))
+            got.append(logits.numpy())
+    out["serve"] = dict(
+        logits=got, greedy=np.concatenate(new, axis=1), k3_heads=k3_heads,
+        kinds=dict(split.parallel.kinds), families=sorted(split.parallel.families),
+        cache={p: (tuple(x.to_local().shape), x.to_local().numel() * x.element_size(),
+                   x.numel() * x.element_size(), str(tuple(x.placements)))
+               for p, x in flatten_with_paths(caches)})
+    return out
+
+
+def _port_ep(r, attn: bool, mesh) -> dict:
+    """An ``MP_EP_CASES`` case of ``_port_megatron``, as ``_reference_ep``
+    runs it, under the port's ``make_moe_apply_ep`` override: the losses
+    and final state of two placed steps, the serving logits and greedy
+    tokens, the families each program partitions, and the expert counts
+    of the weights each call of the override got (global weights: E)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.flash_decode import SplitCaches, make_decode_attention
+    from repro_torch.launch.mesh import Sharding
+    from repro_torch.launch.moe_ep import make_moe_apply_ep
+    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.training import make_train_step
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    cfg = get_config(MP_EP_ARCH).reduced()
+    model = make_model(cfg, compute_dtype=torch.float32)
+    ep, experts = make_moe_apply_ep(mesh, cfg), []
+
+    def ep_spy(x, p, *args, **kw):
+        experts.append(p["w_gate"].shape[-3])
+        return ep(x, p, *args, **kw)
+
+    def specs(tree):
+        return unflatten(tree, [Sharding(mesh, ep_names(p, tuple(x.shape), attn))
+                                for p, x in flatten_with_paths(tree)])
+
+    _, _, tcfg, state = _setup(r, MP_EP_ARCH, 1, False, cfg)
+    placed = reshard_state(state, specs(state))
+    step = make_train_step(model, tcfg)
+    losses = []
+    with shardctx.rules({"moe_apply": ep_spy}):
+        for b in batches(cfg.vocab_size):
+            placed, m = step(placed, {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    out = dict(losses=losses, step_experts=list(experts),
+               state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
+    sv = r["serve"]
+    params = from_jax_params(sv["params"], cfg, device="cpu")
+    placed = reshard_state(params, specs(params))
+    split = SplitCaches(mesh, model, placed)
+    toks = torch.from_numpy(sv["tokens"]).long()
+    experts.clear()
+    # where attention is replicated its K and V are held on their slots,
+    # read through the flash-decoding override
+    with torch.no_grad(), shardctx.rules({"cache_split": split, "moe_apply": ep_spy,
+                                          "decode_attention": make_decode_attention(mesh)}):
+        _, rules = split.params(model, placed)
+        logits, caches = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+        got, new = [logits.numpy()], []
+        for i in range(MP_DECODE):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            new.append(tok.numpy())
+            logits, caches = model.decode_step(
+                placed, tok, caches, torch.full((2,), MP_EP_PROMPT + i, dtype=torch.int32))
+            got.append(logits.numpy())
+    mp = rules.get("model_parallel")
+    out["serve"] = dict(logits=got, greedy=np.concatenate(new, axis=1),
+                        experts=list(experts), families=sorted(split.parallel.families),
+                        ep_families=sorted(mp.families) if mp is not None else [])
+    return out
 
 
 def world1_state(ref):
