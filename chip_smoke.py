@@ -145,8 +145,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              parameters placed so and K/V caches split on their heads: the
              same greedy tokens, logits error 0; (i4) the bytes a rank
              would hold and add a step at 2, 4 and 8 model ranks,
-             partitioned against gathered, and deepseek-v2's layer
-             partitioned at 2, 4 and 8 (arithmetic); (i5) granite-moe-1b
+             partitioned (and partitioned + vocab, (i8)'s placement)
+             against gathered, and deepseek-v2's layer partitioned (and
+             + vocab) at 2, 4 and 8 (arithmetic); (i5) granite-moe-1b
              at 4 layers, 3 steps with its experts split on their columns
              and 3 with them split on their expert dim, each against as
              many plain steps, bit for bit, the all-reduces as predicted;
@@ -155,7 +156,16 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              against plain, bit for bit (the plain gradients waiting in
              host memory); (i7) the live requests of granite-moe-1b and
              deepseek-v2 (4 layers) with their parameters so placed:
-             the same greedy tokens, logits error 0; and K3 (B=1, T=1280)
+             the same greedy tokens, logits error 0; (i8) the embedding
+             and the head split on their vocabulary too (a masked lookup,
+             the vocabulary-parallel cross-entropy, the serving logits
+             all-gathered): qwen3-1.7b at 4 layers, 3 steps against as
+             many plain steps, bit for bit, 4 all-reduces more a step and
+             no gather; deepseek-v2's one-layer loss and gradient (in
+             (i6)'s call) bit for bit, 4 model-group all-reduces more;
+             qwen3's live requests so placed: (i3)'s greedy tokens,
+             logits error 0, one all-reduce and one all-gather more a
+             pass; and K3 (B=1, T=1280)
              and K3-bwd (B=4, T=1024) at each rank's heads of 2 and 4
              model ranks (qwen3's H=8 KV=4, H=4 KV=2; MLA's H=64 and H=32,
              192/128 padded to 256) against their plain versions, timed
@@ -2232,9 +2242,11 @@ def rank_bytes(shapes, n: int, experts: str = "column") -> Dict[str, tuple]:
     parameters of the gathered route, each gathered whole). A leaf no dim
     of which divides stays whole. "partitioned" (i4) is Megatron's
     placement (megatron_spec, the routed experts in the role ``experts``):
-    its leaves' gradients and copies are blocks too. Activations are not
-    counted."""
-    out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0], "partitioned": [0, 0]}
+    its leaves' gradients and copies are blocks too; "partitioned + vocab"
+    (i8) the same with the embedding and the head split on their
+    vocabulary. Activations are not counted."""
+    out = {"replicated": [0, 0], "zero1": [0, 0], "model": [0, 0], "partitioned": [0, 0],
+           "partitioned + vocab": [0, 0]}
     for path, shape in shapes:
         e = int(np.prod(shape))
         first = _axis_at("x", n, shape, False)
@@ -2247,10 +2259,11 @@ def rank_bytes(shapes, n: int, experts: str = "column") -> Dict[str, tuple]:
         out["model"][1] += 4 * e if (last and n > 1) else 0
         # Megatron's placement (i4): a partitioned leaf's parameter, moments,
         # gradient and bf16 copy are its block; nothing is gathered
-        spec = megatron_spec(path, shape, experts)
-        parted = "model" in spec and shape[spec.index("model")] % n == 0
-        out["partitioned"][0] += 12 * e // n if parted else 12 * e
-        out["partitioned"][1] += 6 * e // n if parted else 6 * e
+        for key, vocab in (("partitioned", False), ("partitioned + vocab", True)):
+            spec = megatron_spec(path, shape, experts, vocab)
+            parted = "model" in spec and shape[spec.index("model")] % n == 0
+            out[key][0] += 12 * e // n if parted else 12 * e
+            out[key][1] += 6 * e // n if parted else 6 * e
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -2272,10 +2285,13 @@ def per_rank_bytes(sizes: Sizes, shapes: dict) -> dict:
     q = out[cfg.name]
     _log(f"[train] (i4) arithmetic, not a measurement: {cfg.name} training state, GB a rank "
          f"holds + adds a step (parameters, moments; gradient, bf16 copy, gathered "
-         f"parameters; activations not counted), partitioned (Megatron's placement) against "
-         f"gathered ((h2)'s placement) at m model ranks: " + "; ".join(
+         f"parameters; activations not counted), partitioned (Megatron's placement), "
+         f"partitioned + vocab (i8: the embedding and the head split on their vocabulary too) "
+         f"and gathered ((h2)'s placement) at m model ranks: " + "; ".join(
              f"m={n}: partitioned {q[n]['partitioned'][0] / 1e9:.2f} + "
-             f"{q[n]['partitioned'][1] / 1e9:.2f}, gathered {q[n]['model'][0] / 1e9:.2f} + "
+             f"{q[n]['partitioned'][1] / 1e9:.2f}, partitioned + vocab "
+             f"{q[n]['partitioned + vocab'][0] / 1e9:.2f} + "
+             f"{q[n]['partitioned + vocab'][1] / 1e9:.2f}, gathered {q[n]['model'][0] / 1e9:.2f} + "
              f"{q[n]['model'][1] / 1e9:.2f}" for n in (2, 4, 8)))
     model = make_model(cfg)
     tokens = 32768
@@ -2302,7 +2318,9 @@ def deepseek_layer_bytes(shapes) -> dict:
     their columns): the parameters a rank holds of the layer (experts; MLA
     and shared experts; replicated leaves), with the embedding and the
     head (replicated), and the GB a rank at 16 bytes a parameter (f32
-    master, mu, nu, gradient). Printed as arithmetic."""
+    master, mu, nu, gradient); ``gb_vocab`` (i8) the same with the
+    embedding and the head split on their vocabulary over m. Printed as
+    arithmetic."""
     out = {}
     for m in (2, 4, 8):
         parts = {"experts": 0, "mla_shared": 0, "replicated": 0, "embed_head": 0}
@@ -2316,15 +2334,17 @@ def deepseek_layer_bytes(shapes) -> dict:
             else:
                 parts["experts" if path.endswith(EXPERT_LEAVES) else "mla_shared"] += e // m
         layer = parts["experts"] + parts["mla_shared"] + parts["replicated"]
-        out[m] = dict(parts, layer=layer, gb=16 * (layer + parts["embed_head"]) / 1e9)
+        out[m] = dict(parts, layer=layer, gb=16 * (layer + parts["embed_head"]) / 1e9,
+                      gb_vocab=16 * (layer + parts["embed_head"] // m) / 1e9)
     _log(f"[train] (i4) arithmetic, not a measurement: {GRAD_ONLY_ARCH}'s layer partitioned "
          f"(experts on their expert dim, MLA on its heads, shared experts on their columns), "
          f"parameters a rank (B) and GB a rank at 16 bytes a parameter with the replicated "
          f"embedding and head: " + "; ".join(
              f"m={m}: layer {r['layer'] / 1e9:.3f} (experts {r['experts'] / 1e9:.3f}, MLA and "
              f"shared {r['mla_shared'] / 1e9:.3f}, replicated {r['replicated'] / 1e9:.3f}) + "
-             f"embedding and head {r['embed_head'] / 1e9:.3f} = {r['gb']:.2f} GB"
-             for m, r in out.items()))
+             f"embedding and head {r['embed_head'] / 1e9:.3f} = {r['gb']:.2f} GB; partitioned + "
+             f"vocab (i8: the embedding and head split on their vocabulary too) "
+             f"{r['gb_vocab']:.2f} GB" for m, r in out.items()))
     return out
 
 
@@ -2448,6 +2468,13 @@ COLUMN_LEAVES = ("['wq']", "['wk']", "['wv']", "['wq_b']", "['w_uk']", "['w_uv']
                  "['w_gate']", "['w_up']")
 ROW_LEAVES = ("['wo']", "['w_down']")
 EXPERT_LEAVES = ("['ffn']['w_gate']", "['ffn']['w_up']", "['ffn']['w_down']")
+# (i8): the embedding split on its rows, the head on its columns
+VOCAB_LEAVES = ("['embed']", "['lm_head']")
+# the all-reduces the vocabulary split adds to a training microbatch: the
+# lookup's sum, the loss's row max and its packed sums, the head's input
+# gradient; and to a prefill or a decode step: the lookup's sum (and one
+# all-gather of the logits)
+VOCAB_ALL_REDUCES, VOCAB_SERVE_ALL_REDUCES = 4, 1
 # the model ranks at whose per-rank heads K3 and K3-bwd are held and timed
 RANK_SPLITS = (2, 4)
 # (i5)-(i7): the MoE families partitioned, MLA's too ((i6) and (i7) place
@@ -2456,13 +2483,17 @@ MOE_ROLES = ("column", "expert")
 PARTITIONED_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 
 
-def megatron_spec(path: str, shape: tuple, experts: str = "column") -> tuple:
+def megatron_spec(path: str, shape: tuple, experts: str = "column", vocab: bool = False) -> tuple:
     """Megatron's placement of the state leaf at ``path``: a column leaf
     split over "model" on its last dim, a row leaf on the dim before it,
     an MoE layer's routed expert so too or, with ``experts="expert"``, on
-    its expert dim; every other leaf replicated (a spec's entries)."""
+    its expert dim; with ``vocab`` (i8) the embedding on its vocabulary
+    rows and the head on its vocabulary columns; every other leaf
+    replicated (a spec's entries)."""
     nd = len(shape)
     lead = 1 if "['blocks']" in path else 0
+    if vocab and nd == 2 and path.endswith(VOCAB_LEAVES):
+        return ("model", None) if path.endswith("['embed']") else (None, "model")
     if experts == "expert" and nd == lead + 3 and path.endswith(EXPERT_LEAVES):
         return (None,) * lead + ("model", None, None)
     if nd and path.endswith(COLUMN_LEAVES):
@@ -2472,13 +2503,14 @@ def megatron_spec(path: str, shape: tuple, experts: str = "column") -> tuple:
     return ()
 
 
-def megatron_placement(mesh, experts: str = "column"):
+def megatron_placement(mesh, experts: str = "column", vocab: bool = False):
     """(i) Megatron's placement (megatron_spec): wq, wk, wv, wq_b, w_uk,
     w_uv, w_gate and w_up (and their moments and residuals) split over
     "model" on their last dim, wo and w_down on the dim before it, the
-    routed experts so or on their expert dim, every other leaf
+    routed experts so or on their expert dim, with ``vocab`` (i8) the
+    embedding and the head on their vocabulary; every other leaf
     replicated."""
-    return lambda path, shape: megatron_spec(path, shape, experts)
+    return lambda path, shape: megatron_spec(path, shape, experts, vocab)
 
 
 def rank_heads(cfg) -> List[tuple]:
@@ -2637,47 +2669,60 @@ def time_partitioned_step(device, sizes: Sizes, seed: int, mesh, card: str) -> d
                 profiled={k: (v["wall_ms"], v["busy_ms"]) for k, v in prof.items()})
 
 
-def megatron_placed(mesh, experts: str = "column"):
-    """(i3), (i7) ``phase_live``'s ``placed``: the parameters placed as
-    Megatron places them (megatron_spec, the routed experts in the role
-    ``experts``), served under ``SplitCaches(mesh, model, params)`` (GQA's
+def megatron_placed(mesh, experts: str = "column", vocab: bool = False):
+    """(i3), (i7), (i8) ``phase_live``'s ``placed``: the parameters placed
+    as Megatron places them (megatron_spec, the routed experts in the role
+    ``experts``, with ``vocab`` the embedding and head on their
+    vocabulary), served under ``SplitCaches(mesh, model, params)`` (GQA's
     K and V split on their heads, MLA's latent whole). At world 1 the
     parameters drawn are wrapped as they are (every block is the whole
     tensor: no copy, so deepseek-v2's 33.9 GB are held once)."""
     def placed(model, params):
-        specs = place_specs(params, mesh, megatron_placement(mesh, experts))
+        specs = place_specs(params, mesh, megatron_placement(mesh, experts, vocab))
         pp = world1_view(params, specs) if mesh.size() == 1 else reshard_state(params, specs)
         return pp, {"cache_split": flash_decode.SplitCaches(mesh, model, pp)}
     return placed
 
 
 def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
-                   experts: str = "column", n_requests: int = 0) -> dict:
-    """(i3), (i7) ``arch`` (sizes.arch) served with the live phase's
-    requests (``n_requests``, default sizes.live_requests) twice: plain,
-    then with its parameters placed as Megatron places them on ``mesh``
-    (megatron_placed: the routed experts in the role ``experts``) and its
+                   experts: str = "column", n_requests: int = 0, vocab: bool = False,
+                   plain=None) -> dict:
+    """(i3), (i7), (i8) ``arch`` (sizes.arch) served with the live phase's
+    requests (``n_requests``, default sizes.live_requests) twice: plain
+    (or ``plain``, an earlier run's (tokens, decode ms) on the same
+    requests), then with its parameters placed as Megatron places them on
+    ``mesh`` (megatron_placed: the routed experts in the role ``experts``;
+    with ``vocab`` the embedding and head on their vocabulary too) and its
     attention caches held as partitioned attention reads them: the same
     greedy tokens; the first request's prefill and one decode step on
     each, the logits equal (error 0: at world 1 every product is the whole
     one); each rank's caches hold KV/(model ranks) of GQA's heads and
-    MLA's whole latent; the model group's all-reduces counted (one after
-    attention and one after the MLP or the MoE, a layer and pass).
-    Returns the prefills made (each launches K3 once a global-attention
-    layer)."""
+    MLA's whole latent; the model group's collectives counted (one
+    all-reduce after attention and one after the MLP or the MoE, a layer
+    and pass; with ``vocab`` one more for the lookup and one all-gather
+    of the logits a pass). Returns the prefills made (each launches K3
+    once a global-attention layer) and the greedy tokens."""
     from repro_torch.training.tree import flatten_with_paths as paths_of
 
-    plain = phase_live(device, sizes, seed, arch, n_requests)
-    want_tokens = _served_tokens(plain)
-    plain_ms = 1e3 * float(np.median(plain["timed"].decode_s))
-    del plain
+    part = "(i8)" if vocab else "(i3/i7)"
+    if plain is None:
+        run = phase_live(device, sizes, seed, arch, n_requests)
+        plain = (_served_tokens(run), 1e3 * float(np.median(run["timed"].decode_s)))
+        prefills = len(plain[0])
+        del run
+    else:
+        prefills = 0
+    want_tokens, plain_ms = plain
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    live = phase_live(device, sizes, seed, arch, n_requests, placed=megatron_placed(mesh, experts))
+    live = phase_live(device, sizes, seed, arch, n_requests,
+                      placed=megatron_placed(mesh, experts, vocab))
     got_tokens, ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
+    if len(got_tokens) != len(want_tokens):
+        _fail(f"train {part}: {len(got_tokens)} requests served, {len(want_tokens)} plain")
     for i, (g, w) in enumerate(zip(got_tokens, want_tokens)):
         if not np.array_equal(g, w):
-            _fail(f"train (i3/i7): request {i}: greedy tokens {g.tolist()} partitioned, "
+            _fail(f"train {part}: request {i}: greedy tokens {g.tolist()} partitioned, "
                   f"{w.tolist()} plain")
     model, placed, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
     del live
@@ -2704,18 +2749,25 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
             del caches
     heads = [path.endswith(("['k']", "['v']")) for path in held]
     if not held or any(h * (msz if kv else 1) != n for kv, (h, n) in zip(heads, held.values())):
-        _fail(f"train (i3/i7): the caches hold {held} of their KV heads (GQA) or latent slots "
+        _fail(f"train {part}: the caches hold {held} of their KV heads (GQA) or latent slots "
               f"(MLA) on {msz} model ranks")
     errs_ = [float((a - b).abs().max()) for a, b in zip(out["partitioned"], out["plain"])]
     if max(errs_) != 0.0 or not all(torch.isfinite(a).all() for a in out["partitioned"]):
-        _fail(f"train (i3/i7): {cfg.name}: partitioned logits differ from the plain ones by "
+        _fail(f"train {part}: {cfg.name}: partitioned logits differ from the plain ones by "
               f"{errs_} at world 1")
     kinds = dict(split.parallel.kinds)
-    want = 2 * cfg.n_layers * 2            # one prefill and one decode step, 2 a layer
-    if kinds != {"all_reduce": want}:
-        _fail(f"train (i3/i7): the model group's collectives {kinds}, not {want} all-reduces")
-    _log(f"[train] {'(i3)' if cfg.name == sizes.arch_config().name else '(i7)'} {cfg.name} with "
-         f"its parameters placed as Megatron places them on mesh {tuple(mesh.shape)} "
+    # one prefill and one decode step, 2 a layer (and the vocabulary's)
+    want = {"all_reduce": 2 * (cfg.n_layers * 2 + (VOCAB_SERVE_ALL_REDUCES if vocab else 0))}
+    if vocab:
+        want["all_gather"] = 2
+    if kinds != want or ("vocab" in split.parallel.families) != vocab:
+        _fail(f"train {part}: the model group's collectives {kinds} (families "
+              f"{sorted(split.parallel.families)}), not {want}")
+    name = "(i8)" if vocab else "(i3)" if cfg.name == sizes.arch_config().name else "(i7)"
+    _log(f"[train] {name} {cfg.name} with "
+         f"its parameters placed as Megatron places them"
+         + (" and its embedding and head on their vocabulary" if vocab else "")
+         + f" on mesh {tuple(mesh.shape)} "
          f"{tuple(mesh.mesh_dim_names)} (families {sorted(split.parallel.families)}"
          + (f", experts on their {'expert dim' if experts == 'expert' else 'columns'}"
             if cfg.moe else "") + f"; caches held / whole, {'KV heads' if heads[0] else 'slots'}"
@@ -2725,7 +2777,7 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
          f"{kinds} for one prefill and one step; served decode {ms:.2f} ms per token "
          f"partitioned, {plain_ms:.2f} plain (medians, host clock)")
     return dict(logits_err=max(errs_), decode_ms=ms, plain_decode_ms=plain_ms, kinds=kinds,
-                prefills=2 * len(got_tokens) + 2, cfg=cfg)
+                prefills=prefills + len(got_tokens) + 2, cfg=cfg, tokens=got_tokens)
 
 
 def partitioned_grad_hold(device, sizes: Sizes, seed: int, mesh) -> dict:
@@ -2734,11 +2786,12 @@ def partitioned_grad_hold(device, sizes: Sizes, seed: int, mesh) -> dict:
     the kernel route (K3, K3-bwd), plain, then partitioned as the
     placements of megatron_spec (the experts on their expert dim) name it
     on ``mesh`` (the ``"model_parallel"`` rule; at world 1 each block is
-    the whole tensor, so the same parameters serve), one gradient tree at
-    a time: the plain one waits in host memory and each partitioned leaf
-    is held to it bit for bit; the loss equal; the model group's
-    all-reduces counted (partitioned_all_reduces' model group without
-    remat: 7 a layer)."""
+    the whole tensor, so the same parameters serve), and (i8) once more
+    with the embedding and the head split on their vocabulary too, one
+    gradient tree at a time: the plain one waits in host memory and each
+    partitioned leaf is held to it bit for bit; the loss equal; the model
+    group's all-reduces counted (partitioned_all_reduces' model group
+    without remat: 7 a layer; with the vocabulary 4 more)."""
     from repro_torch.training.data_parallel import ModelParallel
 
     B, T = train_shape(sizes, GRAD_ONLY_ARCH)
@@ -2748,48 +2801,61 @@ def partitioned_grad_hold(device, sizes: Sizes, seed: int, mesh) -> dict:
     model = make_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed))
     data = _train_batch(cfg, sizes, seed, device, B, T)
-    items = [(path, tuple(t.shape),
-              Sharding(mesh, megatron_spec(path, tuple(t.shape), "expert")).placements(
-                  tuple(t.shape), path)) for path, t in flatten_with_paths(params)]
-    families, parted = launch_mesh.partitioned_leaves(cfg, mesh, items)
-    if set(families) != {"mla", "moe"}:
-        _fail(f"train (i6): the placements partition {sorted(families)}, not MLA and the MoE")
     grad_fn = make_grad_fn(model, TrainConfig())
     t0 = time.perf_counter()
     loss, _, grads = grad_fn(params, data)
     plain = [(path, g.to("cpu")) for path, g in flatten_with_paths(grads)]
     del grads
     t_plain = time.perf_counter() - t0
-    mp = ModelParallel(mesh, families)
-    n3, nb = flash_attention.launches, flash_attention_bwd.launches
-    t0 = time.perf_counter()
-    with shardctx.rules({"model_parallel": mp}):
-        p_loss, _, grads = grad_fn(params, data)
-    _sync(device)
-    t_part = time.perf_counter() - t0
-    got = (flash_attention.launches - n3, flash_attention_bwd.launches - nb)
-    differ = [path for (path, w), (_, g) in zip(plain, flatten_with_paths(grads))
-              if not torch.equal(g, w.to(g.device))]
-    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
-    kinds = dict(mp.kinds)
-    want = model_group_all_reduces(cfg, remat=False)
-    _log(f"[train] (i6) {cfg.name} at {cfg.n_layers} of {get_config(cfg.name).n_layers} layers, "
-         f"full width, B={B} x T={T}, partitioned (families {sorted(families)}; {len(parted)} "
-         f"leaves split: MLA on its heads, experts on their expert dim, shared experts on their "
-         f"columns) against plain: loss {float(p_loss):.6f} vs {float(loss):.6f}; leaves that "
-         f"differ: {len(differ)} of {len(plain)} (0 required); model group {kinds} (want {want} "
-         f"all-reduces); K3 / K3-bwd launches {got}; {t_part:.2f} s partitioned, {t_plain:.2f} s "
-         f"plain with its copy to the host (host clock); peak device memory "
-         + (f"{peak:.2f} GB" if peak is not None else "not measured"))
-    if float(p_loss) != float(loss) or differ:
-        _fail(f"train (i6): the partitioned loss or gradients differ from the plain ones "
-              f"({float(p_loss)} vs {float(loss)}; {differ[:4]})")
-    if kinds != {"all_reduce": want}:
-        _fail(f"train (i6): the model group's collectives {kinds}, not {want} all-reduces")
-    if device.type == "cuda" and got != (attn_layers(cfg), attn_layers(cfg)):
-        _fail(f"train (i6): K3 / K3-bwd launched {got}, not once a layer")
-    return dict(loss=float(loss), kinds=kinds, launches=got, peak_gb=peak, split=len(parted),
-                seconds=t_part)
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    out = {}
+    for part, vocab in (("(i6)", False), ("(i8)", True)):
+        items = [(path, tuple(t.shape),
+                  Sharding(mesh, megatron_spec(path, tuple(t.shape), "expert", vocab)).placements(
+                      tuple(t.shape), path)) for path, t in flatten_with_paths(params)]
+        families, parted = launch_mesh.partitioned_leaves(cfg, mesh, items)
+        fams = {"mla", "moe"} | ({"vocab"} if vocab else set())
+        if set(families) != fams:
+            _fail(f"train {part}: the placements partition {sorted(families)}, not "
+                  f"{sorted(fams)}")
+        mp = ModelParallel(mesh, families)
+        n3, nb = flash_attention.launches, flash_attention_bwd.launches
+        before = _allocated_gb(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with shardctx.rules({"model_parallel": mp}):
+            p_loss, _, grads = grad_fn(params, data)
+        _sync(device)
+        t_part = time.perf_counter() - t0
+        got = (flash_attention.launches - n3, flash_attention_bwd.launches - nb)
+        differ = [path for (path, w), (_, g) in zip(plain, flatten_with_paths(grads))
+                  if not torch.equal(g, w.to(g.device))]
+        del grads
+        peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+        kinds = dict(mp.kinds)
+        want = model_group_all_reduces(cfg, remat=False) + (VOCAB_ALL_REDUCES if vocab else 0)
+        _log(f"[train] {part} {cfg.name} at {cfg.n_layers} of {get_config(cfg.name).n_layers} "
+             f"layers, full width, B={B} x T={T}, partitioned (families {sorted(families)}; "
+             f"{len(parted)} leaves split: MLA on its heads, experts on their expert dim, shared "
+             f"experts on their columns" + ("; the embedding on its vocabulary rows, the head on "
+                                            "its vocabulary columns" if vocab else "")
+             + f") against plain: loss {float(p_loss):.6f} vs {float(loss):.6f}; leaves that "
+             f"differ: {len(differ)} of {len(plain)} (0 required); model group {kinds} (want "
+             f"{want} all-reduces); K3 / K3-bwd launches {got}; {t_part:.2f} s partitioned, "
+             f"{t_plain:.2f} s plain with its copy to the host (host clock); peak device memory "
+             + (f"{peak:.2f} GB over the pass and its check ({before:.2f} allocated before it; "
+                f"the plain pass {plain_peak:.2f})" if peak is not None else "not measured"))
+        if float(p_loss) != float(loss) or differ:
+            _fail(f"train {part}: the partitioned loss or gradients differ from the plain ones "
+                  f"({float(p_loss)} vs {float(loss)}; {differ[:4]})")
+        if kinds != {"all_reduce": want}:
+            _fail(f"train {part}: the model group's collectives {kinds}, not {want} all-reduces")
+        if device.type == "cuda" and got != (attn_layers(cfg), attn_layers(cfg)):
+            _fail(f"train {part}: K3 / K3-bwd launched {got}, not once a layer")
+        out[part] = dict(loss=float(loss), kinds=kinds, launches=got, peak_gb=peak,
+                         split=len(parted), seconds=t_part)
+    return dict(out["(i6)"], vocab=out["(i8)"])
 
 
 def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -> dict:
@@ -2802,8 +2868,12 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     Megatron-placed with its experts on their columns and on their expert
     dim, each against as many plain steps; (i6) deepseek-v2's one-layer
     loss and gradient partitioned against plain; (i7) granite's and
-    deepseek-v2's live requests partitioned. ``count`` is
-    phase_train_mesh's: the parts' launches count on the path."""
+    deepseek-v2's live requests partitioned; (i8) the embedding and the
+    head split on their vocabulary too: the 4-layer sizes.arch's steps
+    (VOCAB_ALL_REDUCES more a step), deepseek-v2's one-layer loss and
+    gradient (in (i6)'s call) and sizes.arch's live requests (against
+    (i3)'s tokens), each bit for bit. ``count`` is phase_train_mesh's: the
+    parts' launches count on the path."""
     mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
     only = launch_mesh.make_mesh((1,), ("model",), device=device)
     _log(f"[train] (i) meshes {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} and "
@@ -2811,15 +2881,19 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     out = {}
     steps = [("i1_dm", sizes.arch, mesh, True, "column"), ("i1_m", sizes.arch, only, False, "column")]
     steps += [(f"i5_{role}", PARTITIONED_ARCHS[0], mesh, False, role) for role in MOE_ROLES]
+    steps += [("i8_dm", sizes.arch, mesh, False, "column")]
     for key, arch, m, comp, role in steps:
         where = "columns" if role == "column" else "expert dim"
+        vocab = key.startswith("i8")
         what = f"({key[:2]}) partitioned" + (f" (experts on their {where})"
                                                if key.startswith("i5") else "")
+        what += " (the embedding and head on their vocabulary too)" if vocab else ""
         r = count(lambda: mesh_vs_plain(device, sizes, seed, m, arch, sizes.mesh_steps,
-                                        megatron_placement(m, role), comp, what))
+                                        megatron_placement(m, role, vocab), comp, what))
         n_leaves = len(flatten_with_paths(r["plain"]["params"]))
         del r["plain"], r["placed"]
-        want = partitioned_all_reduces(r["cfg"], n_leaves, comp)
+        want = (partitioned_all_reduces(r["cfg"], n_leaves, comp)
+                + (VOCAB_ALL_REDUCES if vocab else 0))
         if r["kinds"] != dict(all_reduce=want, reduce_scatter=0, all_gather=0):
             _fail(f"train ({key[:2]}) {key}: collectives a step {r['kinds']}, not {want} "
                   f"all-reduces and no gather of a partitioned leaf")
@@ -2829,13 +2903,20 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     serve = [("megatron_serve", sizes.arch, "column", 0)]
     serve += [(f"i7_{get_config(a).name}", a, "expert", sizes.more_requests)
               for a in PARTITIONED_ARCHS]
+    serve += [("i8_serve", sizes.arch, "column", 0)]
     for key, arch, role, n in serve:
         before = flash_attention.launches
-        out[key] = count(lambda: megatron_serve(device, sizes, seed, mesh, arch, role, n))
+        # (i8) is held to (i3)'s tokens, which were the plain run's
+        plain = ((out["megatron_serve"]["tokens"], out["megatron_serve"]["plain_decode_ms"])
+                 if key == "i8_serve" else None)
+        out[key] = count(lambda: megatron_serve(device, sizes, seed, mesh, arch, role, n,
+                                                key == "i8_serve", plain))
         want = attn_layers(out[key]["cfg"]) * out[key]["prefills"]
         if device.type == "cuda" and flash_attention.launches - before != want:
             _fail(f"train {key}: K3 launched {flash_attention.launches - before} times, not "
                   f"{want}")
+    for key in serve:
+        del out[key[0]]["tokens"]
     out["i6"] = count(lambda: partitioned_grad_hold(device, sizes, seed, mesh))
     return out
 

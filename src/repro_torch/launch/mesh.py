@@ -237,11 +237,16 @@ class Sharding:
 # "ffn" a dense MLP's (w_gate, w_up; w_down) or an MoE layer's routed
 # experts, (E, d, f) and (E, f, d) after the tiles' dim, which may also be
 # split on E (the "expert" role); "shared" an MoE layer's shared experts,
-# a dense MLP.
+# a dense MLP. Beside them, the vocabulary leaves at the top of the tree
+# (the "vocab" role): ``embed`` (V, d) split on its rows, ``lm_head`` (d,
+# V) on its columns, each rank V/m of the vocabulary.
 COLUMN = {"attn": ("wq", "wk", "wv", "wq_b", "w_uk", "w_uv"), "ffn": ("w_gate", "w_up"),
           "shared": ("w_gate", "w_up")}
 ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",)}
 EXPERTS = ("w_gate", "w_up", "w_down")
+VOCAB = {"embed": 0, "lm_head": 1}            # the leaf and its vocabulary dim
+# the keys a train state puts before a parameter's own path
+STATE_KEYS = ("params", "opt", "mu", "nu", "compress")
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
@@ -251,23 +256,32 @@ def path_keys(path: str) -> list:
     return [k if i == "" else int(i) for k, i in _KEY.findall(path)]
 
 
+def _vocab_leaf(keys: list) -> bool:
+    """Whether ``keys`` name a top-level :data:`VOCAB` leaf (after a
+    state's own keys, if any)."""
+    return bool(keys) and keys[-1] in VOCAB and all(k in STATE_KEYS for k in keys[:-1])
+
+
 def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optional[str]:
-    """``"column"``, ``"row"`` or ``"expert"`` where the parameter at
-    ``path`` (a ``flatten_with_paths`` path, with or without a
-    ``['params']`` prefix), of global ``shape`` and placed on ``mesh`` by
-    the DTensor ``placements``, is a :data:`COLUMN` leaf split over
-    ``"model"`` on its last dim, a :data:`ROW` leaf split on its dim
-    before the last, or an MoE layer's routed expert (``(E, d, f)`` after
-    the tiles' dim) split on E; split evenly, and replicated over every
+    """``"column"``, ``"row"``, ``"expert"`` or ``"vocab"`` where the
+    parameter at ``path`` (a ``flatten_with_paths`` path, with or without
+    a state's prefix: ``['params']``, the moments, the residuals), of
+    global ``shape`` and placed on ``mesh`` by the DTensor ``placements``,
+    is a :data:`COLUMN` leaf split over ``"model"`` on its last dim, a
+    :data:`ROW` leaf split on its dim before the last, an MoE layer's
+    routed expert (``(E, d, f)`` after the tiles' dim) split on E, or the
+    top-level ``embed`` (V, d) split on its rows or ``lm_head`` (d, V) on
+    its columns (:data:`VOCAB`); split evenly, and replicated over every
     other mesh dim; else None. A ``model`` axis of size 1 counts: the
     layout is named by the placement alone."""
     names = tuple(mesh.mesh_dim_names)
     keys = path_keys(path)
-    if "model" not in names or len(keys) < 2 or keys[-2] not in COLUMN:
+    vocab = _vocab_leaf(keys)
+    if "model" not in names or not vocab and (len(keys) < 2 or keys[-2] not in COLUMN):
         return None
     lead = 1 if "blocks" in keys else 0           # the tiles' stacking dim
     nd = len(shape)
-    experts = keys[-2] == "ffn" and keys[-1] in EXPERTS and nd == lead + 3
+    experts = not vocab and keys[-2] == "ffn" and keys[-1] in EXPERTS and nd == lead + 3
     if nd != lead + 2 and not experts:
         return None
     km = names.index("model")
@@ -277,6 +291,8 @@ def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optio
     if not p.is_shard() or shape[p.dim % nd] % int(mesh.shape[km]):
         return None
     dim = p.dim % nd
+    if vocab:
+        return "vocab" if dim == VOCAB[keys[-1]] else None
     if experts and dim == lead:
         return "expert"
     if keys[-1] in COLUMN[keys[-2]] and dim == nd - 1:
@@ -335,8 +351,13 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
     (r+1) H/m) and exactly their KV heads), MLA's ``cfg.n_heads``. An MoE
     layer's experts are split on E (rank r holds experts [r E/m, (r+1)
     E/m)) or on their f columns; its shared experts as a dense MLP.
-    Every other leaf, and every leaf of a family that is not partitioned,
-    takes the gathered route."""
+    "vocab" is partitioned when every vocabulary leaf the model has (a
+    tied model's ``embed``, an untied one's ``embed`` and ``lm_head``, an
+    audio model's ``lm_head``) is in the "vocab" role: rank r holds the
+    vocabulary [r V/m, (r+1) V/m). One of the two split and the other
+    not, or ``embed`` split on d, is not the family. Every other leaf,
+    and every leaf of a family that is not partitioned, takes the
+    gathered route."""
     groups: dict = {}
     for path, shape, placements in items:
         keys = path_keys(path)
@@ -355,6 +376,14 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
         if fam is not None:
             fam_groups.setdefault(fam, []).append(g)
     families, paths = set(), set()
+    vocab = {}
+    for path, shape, placements in items:
+        if _vocab_leaf(path_keys(path)):
+            role = partition_role(path, shape, placements, mesh)
+            vocab[path] = role == "vocab" and (agree is None or agree(path))
+    if m and "vocab" not in gathered and vocab and all(vocab.values()):
+        families.add("vocab")
+        paths.update(vocab)
     for fam, gs in fam_groups.items():
         if not m or fam in gathered:
             continue

@@ -1,6 +1,7 @@
 """Foundational layers of the model zoo: RMSNorm, RoPE, linear and
-embedding initializers, the SwiGLU and GELU MLPs, the causal depthwise
-conv1d of the RG-LRU blocks, the cross-entropy. Functional, as in the reference
+embedding initializers, the embedding lookup, the SwiGLU and GELU MLPs,
+the causal depthwise conv1d of the RG-LRU blocks, the cross-entropy (and
+both vocabulary-parallel). Functional, as in the reference
 (``repro.models.layers``): parameters are plain dicts of tensors and the
 apply functions take them explicitly.
 
@@ -109,14 +110,35 @@ def model_parallel(family: str):
     """The ``shardctx`` rule ``"model_parallel"`` (a
     ``training.data_parallel.ModelParallel``) where it partitions
     ``family`` ("attn": GQA, "mla", "mlp": the dense MLP, "moe": the MoE
-    layer) over the ``model`` ranks, else None. Partitioned, a block's
-    weights are this rank's columns (wq, wk, wv; wq_b, w_uk, w_uv; w_gate,
-    w_up), rows (wo, w_down) or experts: its code calls the rule's
-    ``enter`` on the replicated tensors the column products read and
-    ``leave`` on the output of the row product (the sum of the ranks'
-    parts)."""
+    layer, "vocab": the embedding and the head) over the ``model`` ranks,
+    else None. Partitioned, a block's weights are this rank's columns (wq,
+    wk, wv; wq_b, w_uk, w_uv; w_gate, w_up; the head's vocabulary), rows
+    (wo, w_down; the embedding's vocabulary) or experts: its code calls the
+    rule's ``enter`` on the replicated tensors the column products read
+    and ``leave`` on the output of the row product or the masked lookup
+    (the sum of the ranks' parts). The norms, the router and MLA's
+    down-projections stay replicated."""
     mp = shardctx.get("model_parallel")
     return mp if mp is not None and family in mp.families else None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
+                 parallel=None) -> torch.Tensor:
+    """The rows of the embedding ``table`` (V, d) at ``tokens``, cast to
+    ``dtype`` (the row gather first, then the cast: the same values as the
+    reference's cast-then-gather, without casting the whole table). With
+    ``parallel`` (:func:`model_parallel` of "vocab"), ``table`` is this
+    rank's rows [lo, lo + n) of the vocabulary: the tokens it owns are
+    gathered, the others' rows zeroed, and the ranks' rows summed
+    (``leave``: one all-reduce; exactly one rank gives each token a row
+    that is not zero, so the sum is exact)."""
+    if parallel is None:
+        return table[tokens].to(dtype)
+    n = table.shape[0]
+    local = tokens - parallel.index * n
+    owned = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    return parallel.leave(torch.where(owned[..., None], rows, 0.0))
 
 
 def mlp_apply(x: torch.Tensor, p: Params, parallel=None) -> torch.Tensor:
@@ -187,10 +209,67 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean cross-entropy over the masked positions; logits (..., V) are
     taken to f32 first, labels (...) are integer ids. Under a data-parallel
     train step (``shardctx`` ``"data_parallel"``) the mean is the global
-    batch's: the numerator and the count are summed over the ranks."""
+    batch's: the numerator and the count are summed over the ranks. With
+    the vocabulary split over ``model``, :func:`vocab_parallel_cross_entropy`
+    takes each rank's block of the logits instead."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _masked_mean(lse, ll, mask, z_loss)
+
+
+class _VocabParallelLse(torch.autograd.Function):
+    """The log-sum-exp and the label's logit of each row of the whole
+    logits, from this rank's f32 block of them (its vocabulary [lo, lo +
+    n)), in ATen's ``logsumexp`` order: the block's row max, its maximum
+    over the model group (MAX), an infinite max taken as 0, the sum of
+    ``exp(x - max)`` over the block, packed with the label's logit (0 where
+    another rank owns the label) into one SUM over the model group, then
+    ``log(sum) + max``. At one rank that is ``torch.logsumexp`` and
+    ``torch.gather`` bit for bit. The backward is their autograd's:
+    ``g_lse exp(x - lse)``, plus ``g_ll`` at the label's column on the
+    rank that owns it; no collective."""
+
+    @staticmethod
+    def forward(ctx, block, labels, mp):
+        n = block.shape[-1]
+        local = labels.long() - mp.index * n
+        owned = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)[..., None]
+        m = mp.max_(torch.amax(block, dim=-1, keepdim=True))
+        m.masked_fill_(m.abs() == float("inf"), 0.0)
+        ll = torch.where(owned, torch.gather(block, -1, local)[..., 0], 0.0)
+        sums = mp.sum_(torch.stack([torch.sum(torch.exp(block - m), dim=-1), ll]))
+        lse = torch.log(sums[0]).add_(m[..., 0])
+        ctx.save_for_backward(block, lse, local, owned)
+        return lse, sums[1].clone()
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ll):
+        block, lse, local, owned = ctx.saved_tensors
+        grad = g_lse[..., None] * torch.exp(block - lse[..., None])
+        grad.scatter_add_(-1, local, torch.where(owned, g_ll, 0.0)[..., None])
+        return grad, None, None
+
+
+def vocab_parallel_cross_entropy(block: torch.Tensor, labels: torch.Tensor, parallel,
+                                 mask: Optional[torch.Tensor] = None,
+                                 z_loss: float = 0.0) -> torch.Tensor:
+    """:func:`softmax_cross_entropy` of the logits split over ``model`` on
+    their vocabulary: ``block`` (..., V/m) is this rank's columns of them
+    (``parallel``, :func:`model_parallel` of "vocab"), taken to f32. Two
+    all-reduces over the model group (the row max; the exponentials' sum
+    and the label's logit, packed) and none backward; no rank builds or
+    gathers the whole (..., V) logits. The mask, ``z_loss`` and the data
+    group's sums as the plain one's."""
+    lse, ll = _VocabParallelLse.apply(block.float(), labels, parallel)
+    return _masked_mean(lse, ll, mask, z_loss)
+
+
+def _masked_mean(lse: torch.Tensor, ll: torch.Tensor, mask: Optional[torch.Tensor],
+                 z_loss: float) -> torch.Tensor:
+    """The cross-entropies ``lse - ll`` (with ``z_loss``) averaged over the
+    masked positions, over the global batch under a data-parallel step."""
     loss = lse - ll
     if z_loss > 0.0:
         loss = loss + z_loss * lse.square()

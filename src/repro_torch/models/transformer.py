@@ -44,7 +44,10 @@ under the same rule, made with them: where they partition GQA over
 and holds its own KV heads of the cache, read with no merge; partitioned
 MLA reads its latent cache held whole on every rank; partitioned MoE
 experts (split on their expert dim or on their columns) serve in prefill
-and in the drop-free decode alike.
+and in the drop-free decode alike; an embedding and head split on their
+vocabulary look each token up on the rank that owns it (one all-reduce)
+and return the whole logits (one all-gather of the last position's
+blocks), a prefill or a step.
 
 An encoder (hubert-xlarge) has no decode step: it raises there, as the
 reference does.
@@ -76,12 +79,14 @@ from .layers import (
     Params,
     dense_init,
     embed_init,
+    embed_lookup,
     mlp_apply,
     mlp_init,
     model_parallel,
     rmsnorm,
     rmsnorm_init,
     softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
 )
 
 KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
@@ -328,9 +333,7 @@ class TransformerLM(nn.Module):
             pos = torch.nn.functional.conv1d(xp, w.T[:, None, :], groups=cfg.d_model)
             pos = pos.transpose(1, 2) + params["conv_pos"]["b"].to(cdt)
             return x + torch.nn.functional.gelu(pos, approximate="tanh")
-        # row gather first, then the cast: the same values as the
-        # reference's cast-then-gather, without casting the whole table
-        x = params["embed"][batch["tokens"]].to(cdt)
+        x = embed_lookup(params["embed"], batch["tokens"], cdt, model_parallel("vocab"))
         if cfg.modality == "vision_text" and "image_embeds" in batch:
             pj = params["projector"]
             img = batch["image_embeds"].to(cdt) @ pj["w1"].to(cdt)
@@ -339,10 +342,24 @@ class TransformerLM(nn.Module):
         return x
 
     def _head(self, params, x) -> torch.Tensor:
+        """The logits of ``x`` after the final norm; with the vocabulary
+        split over ``model`` (:func:`model_parallel` of "vocab"), this
+        rank's block of them (..., V/m), the gradient of its input summed
+        over the ranks (``enter``)."""
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        vp = model_parallel("vocab")
+        if vp is not None:
+            x = vp.enter(x)
         if self.cfg.tie_embeddings:
             return x @ params["embed"].to(x.dtype).T
         return x @ params["lm_head"].to(x.dtype)
+
+    def _logits(self, params, x) -> torch.Tensor:
+        """The whole logits (..., V) of ``x``: with the vocabulary split,
+        the ranks' blocks all-gathered over ``model`` (no gradient)."""
+        logits = self._head(params, x)
+        vp = model_parallel("vocab")
+        return logits if vp is None else vp.gather(logits, dim=-1)
 
     # ------------------------------------------------------------------
     # full-sequence forward
@@ -372,19 +389,25 @@ class TransformerLM(nn.Module):
 
     def forward_logits(self, params, batch) -> torch.Tensor:
         x, _ = self.forward_hidden(params, batch)
-        return self._head(params, x)
+        return self._logits(params, x)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
         ``batch["mask"]`` where given: an encoder's masked frames), plus
         0.01 x the MoE aux loss; a vision model's image positions carry no
-        loss. Returns (loss, {"ce", "aux", "loss"})."""
+        loss. Returns (loss, {"ce", "aux", "loss"}). With the vocabulary
+        split over ``model``, each rank's block of the logits goes to the
+        vocabulary-parallel cross-entropy: no rank builds the whole."""
         cfg = self.cfg
         x, aux = self.forward_hidden(params, batch)
         if cfg.modality == "vision_text":
             x = x[:, -batch["tokens"].shape[1]:, :]      # image positions carry no loss
         logits = self._head(params, x)
-        ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        vp = model_parallel("vocab")
+        if vp is None:
+            ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        else:
+            ce = vocab_parallel_cross_entropy(logits, batch["labels"], vp, batch.get("mask"))
         loss = ce + (0.01 if cfg.moe else 0.0) * aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}
 
@@ -478,10 +501,11 @@ class TransformerLM(nn.Module):
                 x, c = self._block_prefill(x, p, kind, cache_len,
                                            self._split_block(kind, B, cache_len, split))
                 per_layer.append(c)
+            logits = self._logits(params, x[:, -1:, :])
         caches = self._collect(per_layer)
         if split is not None:
             caches = split.hold(self, caches, B, cache_len)
-        return self._head(params, x[:, -1:, :]), caches
+        return logits, caches
 
     def _serving_params(self, params, split):
         """The parameters a prefill or decode step computes with, and the
@@ -511,9 +535,10 @@ class TransformerLM(nn.Module):
                              "'cache_split' (launch.flash_decode.SplitCaches)")
         else:
             local, blocks, done = caches, [None] * self.cfg.n_layers, lambda: None
-        x = params["embed"][tokens].to(self.compute_dtype)
         plans = {}              # a split cache's SlotWrites, one a block and slot rule
         with shardctx.added(rules):
+            x = embed_lookup(params["embed"], tokens, self.compute_dtype,
+                             model_parallel("vocab"))
             for (kind, p), (_, c), block in zip(self._layers(params), self._layers(local),
                                                 blocks):
                 writes = None
@@ -525,8 +550,9 @@ class TransformerLM(nn.Module):
                         slot = pos % window if window > 0 else pos
                         writes = plans[block, window] = attn.SlotWrites(block, slot)
                 x = self._block_decode(x, p, kind, c, position, block, writes)
+            logits = self._logits(params, x)
         done()
-        return self._head(params, x), caches
+        return logits, caches
 
 
 def _any_dtensor(tree) -> bool:

@@ -44,20 +44,26 @@ GSPMD derives from the same placements): where a family is placed so
 (``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv or MLA's wq_b, w_uk,
 w_uv split on their output dim and wo on its input dim; the dense MLP's
 w_gate, w_up and w_down likewise; an MoE layer's routed experts on their
-expert dim or on their f columns, its shared experts as a dense MLP), its
-leaves are not gathered. Each rank computes its own heads (H/m query
-heads and their KV/m key-value heads; MLA's H/m heads over the shared
-latent), its own columns of the MLP, or its own experts (or columns of
-every expert) over the routing that every rank computes alike, with one
-all-reduce after each row product or MoE combine (:class:`ModelParallel`,
-the ``shardctx`` rule ``"model_parallel"``, whose two autograd functions
-the models call); a partitioned leaf's gradient is its block already and
-is averaged over the data group only. The q and k norms of GQA,
-replicated but applied to each rank's heads only, get their gradient
-summed over ``model`` (one packed all-reduce a step); every other
-replicated leaf (MLA's down-projections and norms, the router) gets its
-whole gradient on every rank, from the ``enter`` calls the models place
-after it.
+expert dim or on their f columns, its shared experts as a dense MLP; the
+embedding on its vocabulary rows and the head on its vocabulary columns,
+"vocab"), its leaves are not gathered. Each rank computes its own heads
+(H/m query heads and their KV/m key-value heads; MLA's H/m heads over the
+shared latent), its own columns of the MLP, its own experts (or columns of
+every expert) over the routing that every rank computes alike, or its own
+V/m of the vocabulary (a masked lookup summed over ``model``; its block of
+the logits, which the vocabulary-parallel cross-entropy reduces without
+building the whole), with one all-reduce after each row product, MoE
+combine or lookup (:class:`ModelParallel`, the ``shardctx`` rule
+``"model_parallel"``, whose two autograd functions the models call); a
+partitioned leaf's gradient is its block already and is averaged over the
+data group only (a tied embedding's two uses both land in the rank's own
+rows). The q and k norms of GQA, replicated but applied to each rank's
+heads only, get their gradient summed over ``model`` (one packed
+all-reduce a step); every other replicated leaf (the norms, the final
+norm, MLA's down-projections, the router) gets its whole gradient on every
+rank, from the ``enter`` calls the models place after it. With every
+family partitioned, only the norms, the router and MLA's down-projections
+stay replicated.
 """
 
 from __future__ import annotations
@@ -138,15 +144,18 @@ class _FromModel(torch.autograd.Function):
 class ModelParallel:
     """Partitioned compute over a mesh's ``model`` axis: the model group,
     its size and this rank's index on it, the families that are
-    partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``) and the two
-    functions their code calls around its products: :meth:`enter` on a
-    replicated tensor that this rank's columns read (the block's input;
-    MLA's normed latents; the MoE's tokens and combine weights) and
-    :meth:`leave` after the row product or the combine. Installed as the
+    partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``, ``"vocab"``)
+    and the two functions their code calls around its products:
+    :meth:`enter` on a replicated tensor that this rank's columns read
+    (the block's input; MLA's normed latents; the MoE's tokens and combine
+    weights; the head's normed input) and :meth:`leave` after the row
+    product, the combine or the masked lookup. The vocabulary-parallel
+    cross-entropy reduces with :meth:`max_` and :meth:`sum_`; serving
+    gathers the logits with :meth:`gather`. Installed as the
     ``models.shardctx`` rule ``"model_parallel"`` (the train step's, with
     ``count`` the data group's counter, or a serving path's, counting its
-    own); without the rule, the models call neither. Its collectives are
-    counted in ``kinds``."""
+    own); without the rule, the models call none of them. Its collectives
+    are counted in ``kinds``."""
 
     def __init__(self, mesh, families, count=None) -> None:
         self.group = mesh.get_group("model")
@@ -163,6 +172,13 @@ class ModelParallel:
         """``x`` summed over the model group, in place (no gradient)."""
         self._count("all_reduce")
         dist.all_reduce(x, group=self.group)
+        return x
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s maximum over the model group, in place (no gradient);
+        counted as an all-reduce."""
+        self._count("all_reduce")
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:

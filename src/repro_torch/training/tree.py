@@ -34,18 +34,19 @@ def leaves(tree) -> list:
 
 
 def unflatten(like, values) -> Any:
-    """A tree of ``like``'s structure with ``values`` (in order) as leaves."""
-    it = iter(values)
+    """A tree of ``like``'s structure with ``values`` (in order) as leaves.
+    No reference cycle holds ``values`` afterwards (a recursive closure
+    would, until the garbage collector ran: a step's gradients too)."""
+    return _build(like, iter(values))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}          # the caller's key order
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}          # the caller's key order
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -353,10 +353,11 @@ print(json.dumps(dict(
     placed_timing={k: v for k, v in mesh["placed_timing"].items() if k != "cfg"},
     split_cache={k: v for k, v in mesh["split_cache"].items() if k != "cfg"},
     partitioned={k: {f: v[f] for f in ("losses", "calls", "kinds", "split")}
-                 for k, v in mesh.items() if k.startswith(("i1_", "i5_"))},
+                 for k, v in mesh.items() if k.startswith(("i1_", "i5_", "i8_dm"))},
     partitioned_timing=mesh["partitioned_timing"],
     megatron_serve={k: {f: x for f, x in v.items() if f != "cfg"}
-                    for k, v in mesh.items() if k == "megatron_serve" or k.startswith("i7_")},
+                    for k, v in mesh.items()
+                    if k in ("megatron_serve", "i8_serve") or k.startswith("i7_")},
     partitioned_grads=mesh["i6"], layer_bytes=mesh["layer_bytes"],
     per_rank=out["per_rank"],
     rank_bytes={name: {str(n): r for n, r in v.items()}
@@ -487,7 +488,15 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
     plain ones, 7 model-group all-reduces (MLA 1 + 3, the MoE 1 + 2); (i7)
     granite's and deepseek-v2's live requests partitioned, the logits
     equal; the layer arithmetic of (i4); and K3 and K3-bwd at each rank's
-    heads (GQA's and MLA's) against their plain versions."""
+    heads (GQA's and MLA's) against their plain versions. (i8) the
+    embedding and the head split on their vocabulary too: qwen3's steps
+    equal to the plain ones with 4 more all-reduces (the lookup's, the
+    loss's 2, the head's input gradient) and its embedding split too,
+    deepseek-v2's one-layer gradients equal with 4 more model-group
+    all-reduces, qwen3's live requests with the logits equal, per pass one
+    all-reduce more (the lookup) and one all-gather of the logits; the
+    arithmetic of "partitioned + vocab" below "partitioned" at every
+    rank count."""
     out = train_phase
     want = 13 + 3 + 1 + 5 * 2 + 1
     for key, comp in (("i1_dm", True), ("i1_m", False)):
@@ -507,15 +516,31 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
     assert t["kinds"]["partitioned"] == dict(all_reduce=want, reduce_scatter=0, all_gather=0,
                                              total=want)
     assert t["kinds"]["gathered"]["all_gather"] == 13
+    r = out["partitioned"]["i8_dm"]
+    assert len(r["losses"]) == 3
+    assert r["kinds"] == dict(all_reduce=want + 4, reduce_scatter=0, all_gather=0)
+    assert r["split"] == 8 * 3                               # params, mu, nu; the embedding
     serves = out["megatron_serve"]
-    assert sorted(serves) == ["i7_deepseek-v2-236b", "i7_granite-moe-1b-a400m", "megatron_serve"]
-    for sv in serves.values():          # 4 requests each (live_requests, more_requests)
-        assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
-        assert sv["kinds"] == {"all_reduce": 2 * 2 * 2}
+    assert sorted(serves) == ["i7_deepseek-v2-236b", "i7_granite-moe-1b-a400m", "i8_serve",
+                              "megatron_serve"]
+    for key, sv in serves.items():      # 4 requests each (live_requests, more_requests)
+        vocab = key == "i8_serve"       # held to megatron_serve's tokens: no plain run
+        assert sv["logits_err"] == 0.0 and sv["prefills"] == (1 if vocab else 2) * 4 + 2
+        assert sv["kinds"] == ({"all_reduce": 2 * (2 * 2 + 1), "all_gather": 2} if vocab
+                               else {"all_reduce": 2 * 2 * 2})
     g = out["partitioned_grads"]
     assert g["kinds"] == {"all_reduce": 7} and g["split"] == 10
+    assert g["vocab"]["kinds"] == {"all_reduce": 7 + 4} and g["vocab"]["split"] == 10 + 2
+    assert g["vocab"]["loss"] == g["loss"]
     lb = out["layer_bytes"]
     assert set(lb) == {"2", "4", "8"} and lb["2"]["experts"] == 2 * lb["4"]["experts"]
+    assert all(r["gb_vocab"] < r["gb"] for r in lb.values())
+    q = out["rank_bytes"]["qwen3-1.7b"]
+    for n in ("2", "4", "8"):
+        assert q[n]["partitioned + vocab"][0] < q[n]["partitioned"][0]
+        assert q[n]["partitioned + vocab"][1] < q[n]["partitioned"][1]
+    # at 1 rank nothing splits; the reduced vocabulary (512) divides over 8
+    assert q["1"]["partitioned + vocab"] == q["1"]["partitioned"] == q["1"]["replicated"]
     gqa, mla = " D=16/16 (padded to 64)", " D=24/16 (padded to 64)"
     for name in ("flash_attention", "flash_attention_bwd"):
         assert [r["heads"] for r in out["per_rank"][name]] == [

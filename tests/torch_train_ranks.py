@@ -49,12 +49,23 @@ script in a process of its own.
         and cache bytes, the final states, the logits and greedy tokens,
         the MoE routings against a plain forward's; qwen3's decode also on
         K/V placed on their slots).
+    python tests/torch_train_ranks.py reference DIR vocab
+    python tests/torch_train_ranks.py port DIR vocab
+        The embedding and the head split on their vocabulary too
+        (``vocab_names``: Megatron's placement with ``embed`` on its rows
+        and ``lm_head`` on its columns) on (data=1, model=2): the reduced
+        qwen3 (G=2, tied) and deepseek-v2 (untied, its experts on their
+        expert dim) (``VOCAB_CASES``), each as an ``MP_MOE_CASES`` case:
+        the first step's gradient, two placed steps and greedy serving
+        (DIR/reference_vocab.pkl; DIR/port_vocab_<rank>.pkl, with the
+        shapes of the logits each loss call got).
 
 The pickles are written and read by these two functions only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import sys
@@ -289,8 +300,8 @@ def _port_rank(rank: int, world: int, out_dir: str, tag: str = "") -> None:
     try:
         with open(Path(out_dir) / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
-        res = {"": _port_cases, "_placed": _port_placed,
-               "_megatron": _port_megatron}[tag](ref, Path(out_dir))
+        res = {"": _port_cases, "_placed": _port_placed, "_megatron": _port_megatron,
+               "_vocab": _port_vocab}[tag](ref, Path(out_dir))
         with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -421,6 +432,10 @@ MP_MOE_CASES = (("granite_expert", "granite-moe-1b-a400m", "expert"),
 # the prefill takes the override too
 MP_EP_ARCH, MP_EP_PROMPT = "granite-moe-1b-a400m", 6
 MP_EP_CASES = (("granite_ep_attn", True), ("granite_ep_replicated", False))
+# the vocabulary split over "model" too, on (data=1, model=2): (name, arch,
+# config changes, the experts' role)
+VOCAB_CASES = (("qwen3_tied", MP_ARCH, MP_CFG, "column"),
+               ("deepseek_untied", "deepseek-v2-236b", {}, "expert"))
 
 
 def megatron_names(mesh_name: str, path: str, shape, experts: str = "column") -> tuple:
@@ -444,6 +459,25 @@ def megatron_names(mesh_name: str, path: str, shape, experts: str = "column") ->
     if nd and mesh_name == "m" and path.endswith("['embed']"):
         return (None,) * (nd - 1) + ("model",)
     return ()
+
+
+def vocab_names(path: str, shape, experts: str = "column") -> tuple:
+    """``megatron_names`` on (data=1, model=2) with the vocabulary split over
+    "model" too: ``embed`` (V, d) on its rows, ``lm_head`` (d, V) on its
+    columns, their moments and residuals alike. Every leaf left replicated
+    is a norm, the router or one of MLA's down-projections."""
+    if len(shape) == 2 and path.endswith("['embed']"):
+        return ("model", None)
+    if len(shape) == 2 and path.endswith("['lm_head']"):
+        return (None, "model")
+    return megatron_names("dm", path, shape, experts)
+
+
+def case_names(path: str, shape, experts: str, vocab: bool) -> tuple:
+    """The placement of an ``MP_MOE_CASES`` case, or with ``vocab`` of a
+    ``VOCAB_CASES`` one."""
+    return vocab_names(path, shape, experts) if vocab else megatron_names("dm", path, shape,
+                                                                          experts)
 
 
 def ep_names(path: str, shape, attn: bool) -> tuple:
@@ -543,13 +577,16 @@ def reference_megatron(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
-def _reference_moe(mesh, arch: str, role: str) -> dict:
+def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False) -> dict:
     """An MoE case of ``reference_megatron`` on ``mesh`` (data=1, model=2):
-    the state placed by ``megatron_names`` with the experts in ``role``,
-    the first batch's gradient of the placed parameters and two placed
-    ``jax.jit`` steps; then fresh parameters so placed, a prefill and
-    greedy decode steps (GQA's K and V placed on their heads; MLA's latent
-    cache as the program leaves it)."""
+    the state placed by ``megatron_names`` with the experts in ``role``
+    (with ``vocab``, by ``vocab_names``; the reduced config with
+    ``changes``), the first batch's gradient of the placed parameters and
+    two placed ``jax.jit`` steps; then fresh parameters so placed, a
+    prefill and greedy decode steps (GQA's K and V placed on their heads;
+    MLA's latent cache as the program leaves it)."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -563,14 +600,14 @@ def _reference_moe(mesh, arch: str, role: str) -> dict:
 
     flat = lambda tree: [(jax.tree_util.keystr(k), v)                  # noqa: E731
                          for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **(changes or {}))
     model = make_model(cfg, compute_dtype=jnp.float32)
     tcfg = TrainConfig(optimizer=AdamWConfig(**LR), compute_dtype=jnp.float32)
 
     def specs(tree):
         return jax.tree_util.tree_map_with_path(
-            lambda k, a: NamedSharding(mesh, P(*megatron_names(
-                "dm", jax.tree_util.keystr(k), np.shape(a), role))), tree)
+            lambda k, a: NamedSharding(mesh, P(*case_names(
+                jax.tree_util.keystr(k), np.shape(a), role, vocab))), tree)
 
     state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
     out = dict(params=jax.tree.map(np.asarray, state["params"]))
@@ -680,49 +717,74 @@ def _reference_ep(mesh, attn: bool) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _spied():
+    """Spies, as lists in the dict yielded: the heads each K3 call gets
+    (``heads``), the gradients each rank reduces (``grads``, the first
+    step's kept), the MoE routings (``routes``) and the logits each loss
+    call gets (``ce``: the function's name and the logits' shape)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.training import data_parallel
+
+    spies = dict(heads=[], grads=[], routes=[], ce=[])
+    k3, route = ops.flash_attention, moe.moe_route
+    reduce = data_parallel.Placed.reduce_grads
+    plain_ce, vocab_ce = transformer.softmax_cross_entropy, transformer.vocab_parallel_cross_entropy
+
+    def k3_spy(q, k, v, **kw):
+        spies["heads"].append((q.shape[2], k.shape[2]))
+        return k3(q, k, v, **kw)
+
+    def reduce_spy(self, gs):
+        if not spies["grads"]:
+            spies["grads"].append([g.detach().clone() for g in gs])
+        return reduce(self, gs)
+
+    def route_spy(*args, **kw):
+        r = route(*args, **kw)
+        spies["routes"].append((r["keep"].numpy().copy(), r["dest"].numpy().copy()))
+        return r
+
+    def ce_spy(fn):
+        def spy(logits, *args, **kw):
+            spies["ce"].append((fn.__name__, tuple(logits.shape)))
+            return fn(logits, *args, **kw)
+        return spy
+
+    ops.flash_attention = k3_spy
+    moe.moe_route = route_spy
+    data_parallel.Placed.reduce_grads = reduce_spy
+    transformer.softmax_cross_entropy = ce_spy(plain_ce)
+    transformer.vocab_parallel_cross_entropy = ce_spy(vocab_ce)
+    try:
+        yield spies
+    finally:
+        ops.flash_attention = k3
+        moe.moe_route = route
+        data_parallel.Placed.reduce_grads = reduce
+        transformer.softmax_cross_entropy = plain_ce
+        transformer.vocab_parallel_cross_entropy = vocab_ce
+
+
 def _port_megatron(ref, out_dir: Path) -> dict:
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.flash_decode import SplitCaches
     from repro_torch.launch.mesh import Sharding, make_mesh
-    from repro_torch.models import from_jax_params, make_model, moe, shardctx
-    from repro_torch.training import data_parallel, make_train_step
+    from repro_torch.models import from_jax_params, make_model, shardctx
+    from repro_torch.training import make_train_step
     from repro_torch.training.elastic import reshard_state
     from repro_torch.training.tree import flatten_with_paths, unflatten
 
     cfg = dataclasses.replace(get_config(MP_ARCH).reduced(), **MP_CFG)
     model = make_model(cfg, compute_dtype=torch.float32)
-    # spies: the heads each K3 call gets, the gradients each rank reduces
-    # (the first step's kept), the MoE routings
-    heads, grads, routes = [], [], []
-    k3, route = ops.flash_attention, moe.moe_route
-
-    def k3_spy(q, k, v, **kw):
-        heads.append((q.shape[2], k.shape[2]))
-        return k3(q, k, v, **kw)
-
-    reduce = data_parallel.Placed.reduce_grads
-
-    def reduce_spy(self, gs):
-        if not grads:
-            grads.append([g.detach().clone() for g in gs])
-        return reduce(self, gs)
-
-    def route_spy(*args, **kw):
-        r = route(*args, **kw)
-        routes.append((r["keep"].numpy().copy(), r["dest"].numpy().copy()))
-        return r
-
-    ops.flash_attention = k3_spy
-    moe.moe_route = route_spy
-    data_parallel.Placed.reduce_grads = reduce_spy
-    spies = dict(heads=heads, grads=grads, routes=routes)
     res = {}
-    try:
+    with _spied() as spies:
+        heads, grads = spies["heads"], spies["grads"]
         for mname, (shape, axes) in MP_MESHES.items():
             mesh = make_mesh(shape, axes, device="cpu")
 
@@ -783,11 +845,26 @@ def _port_megatron(ref, out_dir: Path) -> dict:
             res[name] = _port_moe(ref[name], arch, role, mesh, spies)
         for name, attn in MP_EP_CASES:
             res[name] = _port_ep(ref[name], attn, mesh)
-    finally:
-        ops.flash_attention = k3
-        moe.moe_route = route
-        data_parallel.Placed.reduce_grads = reduce
     return res
+
+
+def reference_vocab(out_dir: Path) -> None:
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"])
+    res = {name: _reference_moe(mesh, arch, role, changes, vocab=True)
+           for name, arch, changes, role in VOCAB_CASES}
+    with open(out_dir / "reference_vocab.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _port_vocab(ref, out_dir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+    with _spied() as spies:
+        return {name: _port_moe(ref[name], arch, role, mesh, spies, changes, vocab=True)
+                for name, arch, changes, role in VOCAB_CASES}
 
 
 def _slot_split_decode(model, sv, placed, mesh) -> dict:
@@ -830,14 +907,17 @@ def _slot_split_decode(model, sv, placed, mesh) -> dict:
     return out
 
 
-def _port_moe(r, arch: str, role: str, mesh, spies) -> dict:
+def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = False) -> dict:
     """An MoE case of ``_port_megatron`` on ``mesh`` (data=1, model=2), as
-    ``_reference_moe`` runs it: two placed steps (losses, collectives by
-    kind, the heads each K3 call got, the first step's gradient and each
+    ``_reference_moe`` runs it (a ``VOCAB_CASES`` case with ``vocab``): two
+    placed steps (losses, collectives by kind, the heads each K3 call got,
+    the logits each loss call got, the first step's gradient and each
     rank's state bytes, the final state; the first step's MoE routings and
     a plain forward's on the same parameters and batch), then serving
     (logits, greedy tokens, the families, the model group's collectives,
     the cache's local and whole bytes)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -848,11 +928,11 @@ def _port_moe(r, arch: str, role: str, mesh, spies) -> dict:
     from repro_torch.training.elastic import reshard_state
     from repro_torch.training.tree import flatten_with_paths, unflatten
 
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **(changes or {}))
     model = make_model(cfg, compute_dtype=torch.float32)
 
     def specs(tree):
-        return unflatten(tree, [Sharding(mesh, megatron_names("dm", p, tuple(x.shape), role))
+        return unflatten(tree, [Sharding(mesh, case_names(p, tuple(x.shape), role, vocab))
                                 for p, x in flatten_with_paths(tree)])
 
     _, _, tcfg, state = _setup(r, arch, 1, False, cfg)
@@ -869,11 +949,12 @@ def _port_moe(r, arch: str, role: str, mesh, spies) -> dict:
         routes.append(list(spies["routes"]))
         spies["routes"].clear()
     k3_heads = sorted(set(spies["heads"]))
+    ce = sorted(set(spies["ce"]))
     with torch.no_grad():
         model.loss(from_jax_params(r["params"], cfg, device="cpu"),
                    {k: torch.from_numpy(v) for k, v in bs[0].items()})
     paths = [p for p, _ in flatten_with_paths(placed["params"])]
-    out = dict(losses=losses, calls=calls, k3_heads=k3_heads,
+    out = dict(losses=losses, calls=calls, k3_heads=k3_heads, ce=ce,
                routes=routes[0], plain_routes=list(spies["routes"]),
                grad={p: g.numpy() for p, g in zip(paths, spies["grads"][0])},
                bytes={p: x.to_local().numel() * x.element_size()
@@ -991,7 +1072,7 @@ def save_world1(ref, out_dir: Path) -> None:
 def port(out_dir: Path, world: int = 2, timeout: float = 150.0, tag: str = "") -> None:
     import multiprocessing as mp
 
-    if tag != "_megatron":
+    if tag not in ("_megatron", "_vocab"):
         with open(out_dir / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
         if tag == "_placed":
@@ -1019,6 +1100,7 @@ if __name__ == "__main__":
     if mode == "reference":
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-        {"": reference, "_placed": reference_placed, "_megatron": reference_megatron}[tag](out)
+        {"": reference, "_placed": reference_placed, "_megatron": reference_megatron,
+         "_vocab": reference_vocab}[tag](out)
     else:
         port(out, tag=tag)
