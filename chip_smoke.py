@@ -165,7 +165,21 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              (i6)'s call) bit for bit, 4 model-group all-reduces more;
              qwen3's live requests so placed: (i3)'s greedy tokens,
              logits error 0, one all-reduce and one all-gather more a
-             pass; and K3 (B=1, T=1280)
+             pass; (i9) recurrentgemma-2b partitioned (the RG-LRU on
+             its width: its products' columns, w_out's rows, the conv
+             and log_lambda on their channels, the gates reading the
+             conv output all-gathered; its local attention's query
+             heads split with the one KV head replicated; the MLP and
+             the vocabulary as (i8)): at full width and 8 layers (two
+             tiles of its pattern and a tail of two; B=1 x T=4096, past
+             its window) 3 steps against as many plain steps, bit for
+             bit, with the collectives a step as predicted before the
+             run; its live requests at full depth with prompts past the
+             window (2048 + 256 tokens) partitioned, the RG-LRU states
+             held on their width: the plain run's greedy tokens, logits
+             error 0; and (i4)'s bytes a rank at 2, 4, 5 and 8 model
+             ranks with the families each partitions (arithmetic); and
+             K3 (B=1, T=1280)
              and K3-bwd (B=4, T=1024) at each rank's heads of 2 and 4
              model ranks (qwen3's H=8 KV=4, H=4 KV=2; MLA's H=64 and H=32,
              192/128 padded to 256) against their plain versions, timed
@@ -393,6 +407,9 @@ class Sizes:
     # grad_layers layers; recurrentgemma-2b's sequence, past its window
     mesh_steps: int = 3
     window_seq: int = 4096
+    # phase 9 (i9): recurrentgemma-2b's layers in its partitioned steps (its
+    # pattern of three twice and a tail of two RG-LRU layers)
+    rec_layers: int = 8
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
@@ -1985,8 +2002,9 @@ def model_placement(mesh):
 
 
 def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int,
-                  placement=None, compress: bool = False, what: str = "data-parallel") -> dict:
-    """``arch`` at full width and sizes.grad_layers layers (--remat): one
+                  placement=None, compress: bool = False, what: str = "data-parallel",
+                  layers: int = 0) -> dict:
+    """``arch`` at full width and ``layers`` (sizes.grad_layers) layers (--remat): one
     state drawn from the seed, copied; the copy placed on ``mesh``
     (reshard_state; replicated, or leaf by leaf by ``placement``) takes
     ``n_steps`` steps and the other as many plain steps on the same
@@ -1996,7 +2014,7 @@ def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int
     counted, by kind."""
     from repro_torch.training.tree import leaves, tree_map
 
-    cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=sizes.grad_layers)
+    cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=layers or sizes.grad_layers)
     model = make_model(cfg, remat=True)
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=n_steps),
                        compression=CompressionConfig() if compress else None)
@@ -2513,6 +2531,101 @@ def megatron_placement(mesh, experts: str = "column", vocab: bool = False):
     return lambda path, shape: megatron_spec(path, shape, experts, vocab)
 
 
+# (i9): recurrentgemma-2b partitioned: the RG-LRU on its width (its column
+# products and per-channel leaves on their last dim, w_out on its rows), its
+# local attention's query heads split with the one KV head replicated (MQA),
+# the MLP and the vocabulary as (i8) places them
+REC_ARCH = "recurrentgemma-2b"
+RGLRU_LAST = ("['core']['wx']", "['core']['wgate']", "['core']['w_input_gate']",
+              "['core']['w_rec_gate']", "['core']['log_lambda']", "['core']['conv']['w']",
+              "['core']['conv']['b']")
+RGLRU_ROW = ("['core']['w_out']",)
+MQA_KV = ("['attn']['wk']", "['attn']['wv']")
+# the model ranks of (i4)'s arithmetic for it: m = 4 and 8 do not divide its
+# 10 query heads, so its attention stays gathered there
+REC_SPLITS = (2, 4, 5, 8)
+
+
+def recurrent_spec(path: str, shape: tuple) -> tuple:
+    """(i9)'s placement of the state leaf at ``path``: megatron_spec with the
+    vocabulary split, but MQA's wk and wv replicated and the RG-LRU's
+    leaves on their width."""
+    nd = len(shape)
+    if path.endswith(MQA_KV):
+        return ()
+    if nd and path.endswith(RGLRU_LAST):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(RGLRU_ROW):
+        return (None,) * (nd - 2) + ("model", None)
+    return megatron_spec(path, shape, vocab=True)
+
+
+def recurrent_collectives(cfg, n_leaves: int) -> Dict[str, int]:
+    """(i9) the collectives a step (one microbatch) of recurrentgemma
+    placed by recurrent_spec, predicted: all-reduces one a gradient leaf,
+    the loss's 3, the global norm's one, the packed sum of MQA's wk and wv
+    gradients, the vocabulary's 4, and per layer the model group's 2 after
+    the mixer's and the MLP's row products and 2 before their column
+    products in the backward; per RG-LRU layer one all-gather of the conv
+    output (the gates read all of it) and one reduce-scatter of its
+    gradient. At --remat (mesh_vs_plain's) each tile's forward runs again
+    in the backward: its sums but the tile's last, and its all-gathers; the
+    tail's layers are not rematerialised."""
+    G = len(cfg.block_pattern)
+    kinds = [cfg.block_pattern[i % G] for i in range(cfg.n_layers)]
+    tiles = cfg.n_layers // G
+    tiled = kinds[:tiles * G]
+    rg, rg_tiled = kinds.count("rglru"), tiled.count("rglru")
+    all_reduce = (n_leaves + 3 + 1 + 1 + VOCAB_ALL_REDUCES + 4 * cfg.n_layers
+                  + 2 * len(tiled) - tiles)
+    return dict(all_reduce=all_reduce, reduce_scatter=rg, all_gather=rg + rg_tiled)
+
+
+def recurrent_rank_bytes(cfg, shapes) -> dict:
+    """(i4) arithmetic for recurrentgemma-2b's training state of these
+    (path, shape)s at m = REC_SPLITS model ranks, placed by recurrent_spec:
+    the families ``launch.mesh.partitioned_leaves`` partitions there, and
+    the GB a rank holds + adds a step: a partitioned leaf's parameter and
+    moments (12 bytes an element) and gradient and bf16 copy (6) its block;
+    a leaf the placement splits in a family that stays gathered held split
+    but gathered whole for the step (+ 4 bytes an element); every other
+    leaf whole. Activations are not counted."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = {}
+    for m in REC_SPLITS:
+        mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, m))
+        specs = {path: recurrent_spec(path, shape) for path, shape in shapes}
+        items = [(path, shape, (Replicate(), Shard(specs[path].index("model"))
+                                if "model" in specs[path] else Replicate()))
+                 for path, shape in shapes]
+        families, parted = launch_mesh.partitioned_leaves(cfg, mesh, items)
+        held = adds = 0
+        for path, shape in shapes:
+            e = int(np.prod(shape))
+            spec = specs[path]
+            split = "model" in spec and shape[spec.index("model")] % m == 0
+            if path in parted:
+                held, adds = held + 12 * e // m, adds + 6 * e // m
+            elif split:
+                held, adds = held + 12 * e // m, adds + 6 * e + 4 * e
+            else:
+                held, adds = held + 12 * e, adds + 6 * e
+        out[m] = dict(families=sorted(families), held_gb=held / 1e9, adds_gb=adds / 1e9)
+    whole = sum(int(np.prod(sh)) for _, sh in shapes)
+    _log(f"[train] (i4) arithmetic, not a measurement: {cfg.name} training state "
+         f"({whole / 1e9:.3f} B f32 parameters, {12 * whole / 1e9:.2f} + {6 * whole / 1e9:.2f} "
+         f"GB whole) placed as (i9) places it (the RG-LRU on its width, MQA's query heads, "
+         f"the MLP, the vocabulary), GB a rank holds + adds a step at m model ranks: " + "; ".join(
+             f"m={m}: families {r['families']}, {r['held_gb']:.2f} + {r['adds_gb']:.2f}"
+             + ("" if "attn" in r["families"] else
+                f" (attention gathered: {m} does not divide its {cfg.n_heads} query heads)")
+             for m, r in out.items()))
+    return out
+
+
 def rank_heads(cfg) -> List[tuple]:
     """(m, H/m, KV/m) for each m of RANK_SPLITS that divides both head
     counts: the heads each rank's K3 and K3-bwd get when attention is
@@ -2669,16 +2782,19 @@ def time_partitioned_step(device, sizes: Sizes, seed: int, mesh, card: str) -> d
                 profiled={k: (v["wall_ms"], v["busy_ms"]) for k, v in prof.items()})
 
 
-def megatron_placed(mesh, experts: str = "column", vocab: bool = False):
-    """(i3), (i7), (i8) ``phase_live``'s ``placed``: the parameters placed
-    as Megatron places them (megatron_spec, the routed experts in the role
-    ``experts``, with ``vocab`` the embedding and head on their
-    vocabulary), served under ``SplitCaches(mesh, model, params)`` (GQA's
-    K and V split on their heads, MLA's latent whole). At world 1 the
-    parameters drawn are wrapped as they are (every block is the whole
-    tensor: no copy, so deepseek-v2's 33.9 GB are held once)."""
+def megatron_placed(mesh, experts: str = "column", vocab: bool = False, placement=None):
+    """(i3), (i7), (i8), (i9) ``phase_live``'s ``placed``: the parameters
+    placed as Megatron places them (megatron_spec, the routed experts in
+    the role ``experts``, with ``vocab`` the embedding and head on their
+    vocabulary; or by ``placement(path, shape)``), served under
+    ``SplitCaches(mesh, model, params)`` (GQA's K and V split on their
+    heads, MLA's latent and MQA's K and V whole, RG-LRU states on their
+    width). At world 1 the parameters drawn are wrapped as they are (every
+    block is the whole tensor: no copy, so deepseek-v2's 33.9 GB are held
+    once)."""
     def placed(model, params):
-        specs = place_specs(params, mesh, megatron_placement(mesh, experts, vocab))
+        specs = place_specs(params, mesh,
+                            placement or megatron_placement(mesh, experts, vocab))
         pp = world1_view(params, specs) if mesh.size() == 1 else reshard_state(params, specs)
         return pp, {"cache_split": flash_decode.SplitCaches(mesh, model, pp)}
     return placed
@@ -2686,25 +2802,28 @@ def megatron_placed(mesh, experts: str = "column", vocab: bool = False):
 
 def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
                    experts: str = "column", n_requests: int = 0, vocab: bool = False,
-                   plain=None) -> dict:
-    """(i3), (i7), (i8) ``arch`` (sizes.arch) served with the live phase's
-    requests (``n_requests``, default sizes.live_requests) twice: plain
-    (or ``plain``, an earlier run's (tokens, decode ms) on the same
+                   plain=None, placement=None, part: str = "") -> dict:
+    """(i3), (i7), (i8), (i9) ``arch`` (sizes.arch) served with the live
+    phase's requests (``n_requests``, default sizes.live_requests) twice:
+    plain (or ``plain``, an earlier run's (tokens, decode ms) on the same
     requests), then with its parameters placed as Megatron places them on
     ``mesh`` (megatron_placed: the routed experts in the role ``experts``;
-    with ``vocab`` the embedding and head on their vocabulary too) and its
-    attention caches held as partitioned attention reads them: the same
-    greedy tokens; the first request's prefill and one decode step on
-    each, the logits equal (error 0: at world 1 every product is the whole
-    one); each rank's caches hold KV/(model ranks) of GQA's heads and
-    MLA's whole latent; the model group's collectives counted (one
-    all-reduce after attention and one after the MLP or the MoE, a layer
-    and pass; with ``vocab`` one more for the lookup and one all-gather
-    of the logits a pass). Returns the prefills made (each launches K3
-    once a global-attention layer) and the greedy tokens."""
+    with ``vocab`` the embedding and head on their vocabulary too; or by
+    ``placement``) and its caches held as the partitioned layers read
+    them: the same greedy tokens; the first request's prefill and one
+    decode step on each, the logits equal (error 0: at world 1 every
+    product is the whole one); each rank's caches hold KV/(model ranks) of
+    GQA's heads, MLA's latent and MQA's K and V whole, and a partitioned
+    RG-LRU layer's state W/(model ranks) of its channels; the model
+    group's collectives counted (one all-reduce after each block's mixer
+    and one after its MLP or MoE, a layer and pass, and one all-gather a
+    partitioned RG-LRU layer; with the vocabulary split one all-reduce
+    more for the lookup and one all-gather of the logits a pass). Returns
+    the prefills made (each launches K3 once a global-attention layer),
+    the greedy tokens and the parameters' (path, shape)s."""
     from repro_torch.training.tree import flatten_with_paths as paths_of
 
-    part = "(i8)" if vocab else "(i3/i7)"
+    part = part or ("(i8)" if vocab else "(i3/i7)")
     if plain is None:
         run = phase_live(device, sizes, seed, arch, n_requests)
         plain = (_served_tokens(run), 1e3 * float(np.median(run["timed"].decode_s)))
@@ -2716,7 +2835,7 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
     if device.type == "cuda":
         torch.cuda.empty_cache()
     live = phase_live(device, sizes, seed, arch, n_requests,
-                      placed=megatron_placed(mesh, experts, vocab))
+                      placed=megatron_placed(mesh, experts, vocab, placement))
     got_tokens, ms = _served_tokens(live), 1e3 * float(np.median(live["timed"].decode_s))
     if len(got_tokens) != len(want_tokens):
         _fail(f"train {part}: {len(got_tokens)} requests served, {len(want_tokens)} plain")
@@ -2726,6 +2845,7 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
                   f"{w.tolist()} plain")
     model, placed, cfg, tokens = live["model"], live["params"], live["cfg"], live["requests"][0]
     del live
+    shapes = [(path, tuple(t.shape)) for path, t in paths_of(placed)]
     local = _tree_map(lambda t: t.to_local(), placed)
     split = flash_decode.SplitCaches(mesh, model, placed)
     msz = launch_mesh.axis_size(mesh, "model")
@@ -2743,41 +2863,59 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
                 step, _ = model.decode_step(params, tok, caches, pos)
                 out[name] = (logits[0, -1].float(), step[0, -1].float())
             if name == "partitioned":
-                # GQA's K and V: (heads held, heads); MLA's latent: (slots held, slots)
-                held = {path: (t.to_local().shape[-2], t.shape[-2])
-                        for path, t in paths_of(caches)}
+                # each cache leaf: (split over "model" as the partitioned
+                # layer holds it, elements held, elements whole)
+                held = {path: (any(p.is_shard() for p in t.placements), t.to_local().numel(),
+                               t.numel()) for path, t in paths_of(caches)}
             del caches
-    heads = [path.endswith(("['k']", "['v']")) for path in held]
-    if not held or any(h * (msz if kv else 1) != n for kv, (h, n) in zip(heads, held.values())):
-        _fail(f"train {part}: the caches hold {held} of their KV heads (GQA) or latent slots "
-              f"(MLA) on {msz} model ranks")
+    want_split = {}
+    for path in held:
+        kind = flash_decode._kind(model, path)
+        want_split[path] = (split.on_heads(model, kind) if path.endswith(("['k']", "['v']"))
+                            else split.on_width(model, kind))
+    bad = [path for path, (sh, n, whole) in held.items()
+           if sh != want_split[path] or n * (msz if sh else 1) != whole]
+    if not held or bad:
+        _fail(f"train {part}: the caches {bad or held} are not held as the partitioned layers "
+              f"read them on {msz} model ranks")
     errs_ = [float((a - b).abs().max()) for a, b in zip(out["partitioned"], out["plain"])]
     if max(errs_) != 0.0 or not all(torch.isfinite(a).all() for a in out["partitioned"]):
         _fail(f"train {part}: {cfg.name}: partitioned logits differ from the plain ones by "
               f"{errs_} at world 1")
     kinds = dict(split.parallel.kinds)
-    # one prefill and one decode step, 2 a layer (and the vocabulary's)
+    # one prefill and one decode step: 2 all-reduces a layer, an all-gather
+    # a partitioned RG-LRU layer, and the vocabulary's
+    fams = split.parallel.families
+    if ("vocab" in fams) != vocab:
+        _fail(f"train {part}: the families {sorted(fams)}, the vocabulary "
+              f"{'not ' if vocab else ''}among them")
+    lru = sum(1 for i in range(cfg.n_layers)
+              if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru") if "rglru" in fams else 0
     want = {"all_reduce": 2 * (cfg.n_layers * 2 + (VOCAB_SERVE_ALL_REDUCES if vocab else 0))}
-    if vocab:
-        want["all_gather"] = 2
-    if kinds != want or ("vocab" in split.parallel.families) != vocab:
+    if vocab or lru:
+        want["all_gather"] = 2 * (lru + int(vocab))
+    if kinds != want:
         _fail(f"train {part}: the model group's collectives {kinds} (families "
-              f"{sorted(split.parallel.families)}), not {want}")
-    name = "(i8)" if vocab else "(i3)" if cfg.name == sizes.arch_config().name else "(i7)"
+              f"{sorted(fams)}), not {want}")
+    name = part if part != "(i3/i7)" else (
+        "(i3)" if cfg.name == sizes.arch_config().name else "(i7)")
+    n_split = sum(1 for sh, _, _ in held.values() if sh)
     _log(f"[train] {name} {cfg.name} with "
-         f"its parameters placed as Megatron places them"
+         f"its parameters placed as " + ("(i9) places them" if placement else
+                                         "Megatron places them")
          + (" and its embedding and head on their vocabulary" if vocab else "")
          + f" on mesh {tuple(mesh.shape)} "
-         f"{tuple(mesh.mesh_dim_names)} (families {sorted(split.parallel.families)}"
+         f"{tuple(mesh.mesh_dim_names)} (families {sorted(fams)}"
          + (f", experts on their {'expert dim' if experts == 'expert' else 'columns'}"
-            if cfg.moe else "") + f"; caches held / whole, {'KV heads' if heads[0] else 'slots'}"
-         f" {next(iter(held.values()))} on {msz} rank(s)): "
-         f"{len(got_tokens)} requests x {sizes.new_tokens} greedy tokens the same as plain; the "
+            if cfg.moe else "") + f"; {n_split} of {len(held)} cache leaves held split over "
+         f"'model' on {msz} rank(s), the rest whole): {len(got_tokens)} requests of "
+         f"{len(tokens)} tokens x {sizes.new_tokens} greedy tokens the same as plain; the "
          f"first request's prefill and decode-step logits max abs err {errs_} (0 required); "
          f"{kinds} for one prefill and one step; served decode {ms:.2f} ms per token "
          f"partitioned, {plain_ms:.2f} plain (medians, host clock)")
     return dict(logits_err=max(errs_), decode_ms=ms, plain_decode_ms=plain_ms, kinds=kinds,
-                prefills=prefills + len(got_tokens) + 2, cfg=cfg, tokens=got_tokens)
+                prefills=prefills + len(got_tokens) + 2, cfg=cfg, tokens=got_tokens,
+                shapes=shapes)
 
 
 def partitioned_grad_hold(device, sizes: Sizes, seed: int, mesh) -> dict:
@@ -2872,8 +3010,10 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     head split on their vocabulary too: the 4-layer sizes.arch's steps
     (VOCAB_ALL_REDUCES more a step), deepseek-v2's one-layer loss and
     gradient (in (i6)'s call) and sizes.arch's live requests (against
-    (i3)'s tokens), each bit for bit. ``count`` is phase_train_mesh's: the
-    parts' launches count on the path."""
+    (i3)'s tokens), each bit for bit; (i9) recurrentgemma-2b with the
+    RG-LRU on its width and MQA's query heads split (recurrent_partitioned).
+    ``count`` is phase_train_mesh's: the parts' launches count on the
+    path."""
     mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
     only = launch_mesh.make_mesh((1,), ("model",), device=device)
     _log(f"[train] (i) meshes {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} and "
@@ -2916,8 +3056,50 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
             _fail(f"train {key}: K3 launched {flash_attention.launches - before} times, not "
                   f"{want}")
     for key in serve:
-        del out[key[0]]["tokens"]
+        del out[key[0]]["tokens"], out[key[0]]["shapes"]
     out["i6"] = count(lambda: partitioned_grad_hold(device, sizes, seed, mesh))
+    out.update(recurrent_partitioned(device, sizes, seed, mesh, count))
+    return out
+
+
+def recurrent_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
+    """(i9) recurrentgemma-2b placed by recurrent_spec on ``mesh``: at full
+    width and sizes.rec_layers layers (--remat, its sequence past its
+    window) sizes.mesh_steps steps against as many plain steps, bit for bit,
+    with the collectives a step predicted (recurrent_collectives, logged
+    before the steps); its live requests (full width and depth) with
+    prompts past the window, partitioned against plain: the same greedy
+    tokens, logits error 0, the RG-LRU states held on their width; and
+    (i4)'s arithmetic for it at REC_SPLITS model ranks."""
+    out = {}
+    cfg = dataclasses.replace(sizes.arch_config(REC_ARCH), n_layers=sizes.rec_layers)
+    # the leaves of that tree: its structure at the reduced widths
+    small = dataclasses.replace(get_config(REC_ARCH).reduced(), n_layers=cfg.n_layers)
+    n_leaves = len(flatten_with_paths(make_model(small).init(torch.Generator().manual_seed(0))))
+    want = recurrent_collectives(cfg, n_leaves)
+    _log(f"[train] (i9) predicted, before the steps: {cfg.name} at {cfg.n_layers} layers "
+         f"({n_leaves} parameter leaves) placed as recurrent_spec places it, collectives a step "
+         f"{want}")
+    r = count(lambda: mesh_vs_plain(
+        device, sizes, seed, mesh, REC_ARCH, sizes.mesh_steps, recurrent_spec, False,
+        "(i9) partitioned (the RG-LRU on its width, MQA's query heads, the MLP and the "
+        "vocabulary)", layers=sizes.rec_layers))
+    del r["plain"], r["placed"]
+    if r["kinds"] != want:
+        _fail(f"train (i9): collectives a step {r['kinds']}, not the predicted {want}")
+    out["i9_steps"] = r
+    window = sizes.arch_config(REC_ARCH).window
+    rec = dataclasses.replace(sizes, prefix_tokens=window)     # prompts past the window
+    before = flash_attention.launches
+    sv = count(lambda: megatron_serve(device, rec, seed, mesh, REC_ARCH, vocab=True,
+                                      placement=recurrent_spec, part="(i9)"))
+    if device.type == "cuda" and flash_attention.launches != before:
+        _fail(f"train (i9): K3 launched {flash_attention.launches - before} times serving "
+              f"{REC_ARCH}, whose windows run the chunked attention")
+    shapes = sv.pop("shapes")
+    del sv["tokens"]
+    out["i9_serve"] = sv
+    out["i9_bytes"] = recurrent_rank_bytes(sv["cfg"], shapes)
     return out
 
 

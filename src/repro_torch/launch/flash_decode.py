@@ -134,9 +134,14 @@ class SplitCaches:
     partitioned_leaves``), each GQA layer's K and V are split on their KV
     heads instead (``(B, S, KV, D)`` on ``P(None, None, "model", None)``):
     a rank computes and holds only its heads, and reads them with no
-    merge; and each MLA layer's latent cache is held whole on every rank
-    (every head reads all of it: 576 values a token a layer at full
-    width). Every recurrent state is whole on every rank. Cached as
+    merge; an MQA layer's (one KV head, its wk and wv replicated) and each
+    MLA layer's latent cache are held whole on every rank (every head reads
+    all of it: 576 values a token a layer of MLA at full width). Where they
+    partition the RG-LRU on its width, each RG-LRU layer's state (``h`` (B,
+    W) and ``conv`` (B, K-1, W)) is split on its last dim, rank r holding
+    the channels it computes; every other recurrent state is whole on every
+    rank. The batch rows of a cache split on its heads or its width are
+    whole on every rank (every rank computes every row). Cached as
     DTensors.
 
     Installed as the ``models.shardctx`` rule ``"cache_split"``, it makes
@@ -147,8 +152,9 @@ class SplitCaches:
     split.shardings(model, batch, cache_len))``. A cache placed otherwise
     (a recurrent state, a latent cache or a non-partitioned layer's
     attention cache split on any dim; a partitioned layer's K and V held
-    otherwise than on their heads) is gathered whole for the step, and
-    the rank keeps its block of what the step wrote. Parameters on the
+    otherwise than on their heads, or its state otherwise than on its
+    width) is gathered whole for the step, and the rank keeps its block of
+    what the step wrote. Parameters on the
     mesh come to the model through :meth:`params`: a partitioned leaf's
     block, every other leaf whole."""
 
@@ -161,6 +167,7 @@ class SplitCaches:
         self.mesh = mesh
         self.parallel, self._placed, self._parted = None, None, frozenset()
         self._ep = None             # (parallel, parted) under the expert-parallel override
+        self._mqa = False           # attention partitioned with its KV head replicated
         if params is None:
             return
         items = []
@@ -170,6 +177,8 @@ class SplitCaches:
             items.append((path, tuple(t.shape), tuple(t.placements)))
         families, self._parted = partitioned_leaves(model.cfg, mesh, items)
         self._placed = {path: pl for path, _, pl in items}
+        self._mqa = "attn" in families and not any(
+            p.endswith("['attn']['wk']") for p in self._parted)
         if families:
             self.parallel = ModelParallel(mesh, families)
         if "moe" in families:
@@ -178,17 +187,33 @@ class SplitCaches:
             self._ep = ((ModelParallel(mesh, fams, self.parallel._count), parted) if fams
                         else (None, frozenset()))
 
-    def on_heads(self, model, kind: str) -> bool:
-        """Whether a ``kind`` layer's K and V are held split on their heads
-        (its GQA attention partitioned over ``"model"``)."""
+    def _gqa_parted(self, model, kind: str) -> bool:
         return (self.parallel is not None and "attn" in self.parallel.families
                 and kind in ("attn", "local") and not model._mla(kind))
 
+    def on_heads(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer's K and V are held split on their heads
+        (its GQA attention partitioned over ``"model"``, the KV heads too)."""
+        return self._gqa_parted(model, kind) and not self._mqa
+
     def latent_whole(self, model, kind: str) -> bool:
-        """Whether a ``kind`` layer is MLA partitioned over ``"model"``: its
-        latent cache is held whole on every rank."""
-        return (self.parallel is not None and "mla" in self.parallel.families
+        """Whether a ``kind`` layer's attention cache is held whole on every
+        rank: MLA's latent, or MQA's one KV head, partitioned over
+        ``"model"``."""
+        return (self._gqa_parted(model, kind) and self._mqa
+                or self.parallel is not None and "mla" in self.parallel.families
                 and model._mla(kind))
+
+    def on_width(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer's recurrent state is held split on its
+        width (the RG-LRU partitioned over ``"model"``)."""
+        return (kind == "rglru" and self.parallel is not None
+                and "rglru" in self.parallel.families)
+
+    def lru_width(self, model, kind: str) -> int:
+        """The RG-LRU channels this rank holds of a ``kind`` layer's state."""
+        W = model.cfg.lru_width
+        return W // self.parallel.size if self.on_width(model, kind) else W
 
     def slot_split(self, model, kind: str) -> bool:
         """Whether a ``kind`` layer's attention cache is held split on its
@@ -242,6 +267,8 @@ class SplitCaches:
         lead, kind = _lead(path), _kind(model, path)
         if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
             return Sharding(self.mesh, (None,) * lead + (None, None, "model", None))
+        if self.on_width(model, kind):
+            return Sharding(self.mesh, (None,) * (len(shape) - 1) + ("model",))
         if _leaf(path) in SLOT_LEAVES and self.latent_whole(model, kind):
             return Sharding(self.mesh)
         if _leaf(path) in SLOT_LEAVES:
@@ -294,7 +321,9 @@ class SplitCaches:
         rank's KV heads; each rank writes only its heads of the new row,
         so the step's end all-gathers the new rows' heads over ``"model"``
         (B x KV x D values a leaf) before the rank that holds the slot
-        keeps them."""
+        keeps them. A partitioned RG-LRU layer's state gathered so is
+        handed to it as this rank's channels, and the step's end
+        all-gathers the new state over ``"model"``."""
         from torch.distributed.tensor import DTensor
 
         flat = flatten_with_paths(caches)
@@ -311,11 +340,20 @@ class SplitCaches:
             want = self._leaf_sharding(model, path, shape).placements(shape, where)
             if tuple(t.placements) != want:
                 gather.add(_layer(path) if _leaf(path) in SLOT_LEAVES else path)
-        out, blocks, back, rows = [], {}, [], []
+        out, blocks, back, rows, states = [], {}, [], [], []
         for path, t in flat:
             kind = _kind(model, path)
             if path in gather or (_leaf(path) in SLOT_LEAVES and _layer(path) in gather):
                 whole = t.full_tensor()
+                if self.on_width(model, kind):
+                    # the rank's channels for its step; the whole new state
+                    # gathered from the ranks' at the step's end
+                    n = whole.shape[-1] // self.parallel.size
+                    out.append(whole[..., self.parallel.index * n:
+                                     (self.parallel.index + 1) * n].contiguous())
+                    states.append((whole, out[-1]))
+                    back.append((t, whole))
+                    continue
                 if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
                     n = whole.shape[-2] // self.parallel.size
                     mine = whole[..., self.parallel.index * n:(self.parallel.index + 1) * n, :]
@@ -336,6 +374,8 @@ class SplitCaches:
             """Each gathered leaf's block of what the step wrote, kept."""
             for whole, mine, window in rows:
                 self._new_rows(whole, mine, window, position)
+            for whole, mine in states:
+                whole.copy_(self.parallel.gather(mine, dim=-1))
             for t, whole in back:
                 off, loc = local_block(tuple(t.shape), self.mesh, t.placements)
                 t.to_local().copy_(whole[tuple(slice(o, o + n) for o, n in zip(off, loc))])

@@ -237,12 +237,17 @@ class Sharding:
 # "ffn" a dense MLP's (w_gate, w_up; w_down) or an MoE layer's routed
 # experts, (E, d, f) and (E, f, d) after the tiles' dim, which may also be
 # split on E (the "expert" role); "shared" an MoE layer's shared experts,
-# a dense MLP. Beside them, the vocabulary leaves at the top of the tree
-# (the "vocab" role): ``embed`` (V, d) split on its rows, ``lm_head`` (d,
-# V) on its columns, each rank V/m of the vocabulary.
+# a dense MLP; "core" an RG-LRU layer's (wx, wgate, and the gates' dense
+# (W, W) w_input_gate, w_rec_gate; w_out), whose per-channel leaves
+# (:data:`WIDTH`: log_lambda, and the depthwise conv's w (K, W) and b (W)
+# in its nested ``conv`` dict) split on their last dim too (the "width"
+# role). Beside them, the vocabulary leaves at the top of the tree (the
+# "vocab" role): ``embed`` (V, d) split on its rows, ``lm_head`` (d, V) on
+# its columns, each rank V/m of the vocabulary.
 COLUMN = {"attn": ("wq", "wk", "wv", "wq_b", "w_uk", "w_uv"), "ffn": ("w_gate", "w_up"),
-          "shared": ("w_gate", "w_up")}
-ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",)}
+          "shared": ("w_gate", "w_up"), "core": ("wx", "wgate", "w_input_gate", "w_rec_gate")}
+ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",), "core": ("w_out",)}
+WIDTH = ("log_lambda", "conv.w", "conv.b")     # a core leaf's name in its group
 EXPERTS = ("w_gate", "w_up", "w_down")
 VOCAB = {"embed": 0, "lm_head": 1}            # the leaf and its vocabulary dim
 # the keys a train state puts before a parameter's own path
@@ -262,27 +267,43 @@ def _vocab_leaf(keys: list) -> bool:
     return bool(keys) and keys[-1] in VOCAB and all(k in STATE_KEYS for k in keys[:-1])
 
 
+def _group_of(path: str, keys: list) -> Optional[Tuple[str, str, str]]:
+    """The group of the leaf at ``path`` (``keys``): the path of the dict
+    of :data:`COLUMN` that holds it, that dict's key and the leaf's name in
+    the group (a ``conv`` leaf of a ``core`` dict as ``"conv.w"``); None
+    for a leaf of no such dict."""
+    if len(keys) >= 3 and keys[-3] == "core" and keys[-2] == "conv":
+        return path[:path.rindex("['conv']")], "core", "conv." + keys[-1]
+    if len(keys) >= 2 and keys[-2] in COLUMN:
+        return path[:path.rindex("[")], keys[-2], keys[-1]
+    return None
+
+
 def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optional[str]:
-    """``"column"``, ``"row"``, ``"expert"`` or ``"vocab"`` where the
-    parameter at ``path`` (a ``flatten_with_paths`` path, with or without
-    a state's prefix: ``['params']``, the moments, the residuals), of
-    global ``shape`` and placed on ``mesh`` by the DTensor ``placements``,
-    is a :data:`COLUMN` leaf split over ``"model"`` on its last dim, a
-    :data:`ROW` leaf split on its dim before the last, an MoE layer's
-    routed expert (``(E, d, f)`` after the tiles' dim) split on E, or the
-    top-level ``embed`` (V, d) split on its rows or ``lm_head`` (d, V) on
-    its columns (:data:`VOCAB`); split evenly, and replicated over every
-    other mesh dim; else None. A ``model`` axis of size 1 counts: the
+    """``"column"``, ``"row"``, ``"expert"``, ``"width"`` or ``"vocab"``
+    where the parameter at ``path`` (a ``flatten_with_paths`` path, with or
+    without a state's prefix: ``['params']``, the moments, the residuals),
+    of global ``shape`` and placed on ``mesh`` by the DTensor
+    ``placements``, is a :data:`COLUMN` leaf split over ``"model"`` on its
+    last dim, a :data:`ROW` leaf split on its dim before the last, an MoE
+    layer's routed expert (``(E, d, f)`` after the tiles' dim) split on E,
+    an RG-LRU layer's per-channel leaf (:data:`WIDTH`) split on its last
+    dim, or the top-level ``embed`` (V, d) split on its rows or ``lm_head``
+    (d, V) on its columns (:data:`VOCAB`); split evenly, and replicated over
+    every other mesh dim; else None. A ``model`` axis of size 1 counts: the
     layout is named by the placement alone."""
     names = tuple(mesh.mesh_dim_names)
     keys = path_keys(path)
     vocab = _vocab_leaf(keys)
-    if "model" not in names or not vocab and (len(keys) < 2 or keys[-2] not in COLUMN):
+    group = None if vocab else _group_of(path, keys)
+    if "model" not in names or not vocab and group is None:
         return None
+    kind, leaf = (None, keys[-1]) if vocab else group[1:]
     lead = 1 if "blocks" in keys else 0           # the tiles' stacking dim
     nd = len(shape)
-    experts = not vocab and keys[-2] == "ffn" and keys[-1] in EXPERTS and nd == lead + 3
-    if nd != lead + 2 and not experts:
+    experts = kind == "ffn" and leaf in EXPERTS and nd == lead + 3
+    width = kind == "core" and leaf in WIDTH and nd in (lead + 1, lead + 2)
+    if nd != lead + 2 and not (experts or width):
         return None
     km = names.index("model")
     if any(not p.is_replicate() for k, p in enumerate(placements) if k != km):
@@ -292,12 +313,14 @@ def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optio
         return None
     dim = p.dim % nd
     if vocab:
-        return "vocab" if dim == VOCAB[keys[-1]] else None
+        return "vocab" if dim == VOCAB[leaf] else None
     if experts and dim == lead:
         return "expert"
-    if keys[-1] in COLUMN[keys[-2]] and dim == nd - 1:
+    if width:
+        return "width" if dim == nd - 1 else None
+    if leaf in COLUMN[kind] and dim == nd - 1:
         return "column"
-    if keys[-1] in ROW[keys[-2]] and dim == nd - 2:
+    if leaf in ROW[kind] and dim == nd - 2:
         return "row"
     return None
 
@@ -308,24 +331,33 @@ def _replicated(placements) -> bool:
 
 def _family(got: dict, kind: str) -> Optional[str]:
     """The family of a group of leaves ``got`` held by a dict ``kind`` of
-    :data:`COLUMN`: "attn" (GQA), "mla", "mlp" (a dense MLP) or "moe" (an
-    MoE layer's routed experts with their router, or its shared experts);
-    None for an ``attn`` dict of neither attention."""
+    :data:`COLUMN`: "attn" (GQA), "mla", "mlp" (a dense MLP), "moe" (an MoE
+    layer's routed experts with their router, or its shared experts) or
+    "rglru"; None for an ``attn`` dict of neither attention and for an
+    xLSTM block's ``core``."""
     if kind == "attn":
         return "mla" if "w_uk" in got else "attn" if "wk" in got else None
+    if kind == "core":
+        return "rglru" if "w_rec_gate" in got else None
     if kind == "shared":
         return "moe"
     return "moe" if "router" in got else "mlp"
 
 
 # the roles a whole group takes: for each family, the choices of
-# {leaf: role}; every other leaf of the group replicated
+# {leaf: role}; every other leaf of the group replicated. Attention's
+# second choice is MQA's: the query heads split, the one KV head (wk, wv
+# and a k_norm) replicated on every rank
 ROLES = {
-    "attn": ({"wq": "column", "wk": "column", "wv": "column", "wo": "row"},),
+    "attn": ({"wq": "column", "wk": "column", "wv": "column", "wo": "row"},
+             {"wq": "column", "wo": "row"}),
     "mla": ({"wq_b": "column", "w_uk": "column", "w_uv": "column", "wo": "row"},),
     "mlp": ({"w_gate": "column", "w_up": "column", "w_down": "row"},),
     "experts": ({"w_gate": "expert", "w_up": "expert", "w_down": "expert"},
                 {"w_gate": "column", "w_up": "column", "w_down": "row"}),
+    "rglru": ({"wx": "column", "wgate": "column", "w_input_gate": "column",
+               "w_rec_gate": "column", "w_out": "row", "log_lambda": "width",
+               "conv.w": "width", "conv.b": "width"},),
 }
 
 
@@ -341,34 +373,39 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
     A group is one dict of :data:`COLUMN` and :data:`ROW` leaves: GQA's or
     MLA's ``attn``, a dense MLP's ``ffn`` (w_gate, w_up, w_down; or w_up,
     w_down), an MoE layer's ``ffn`` (its routed experts and router) or its
-    ``shared`` experts. A family ("attn", "mla", "mlp", "moe") is
-    partitioned when the model has one of its groups at least and every
-    group of it is whole in its roles (:data:`ROLES`, each leaf's by
-    :func:`partition_role`; every other leaf of the group, the norms, MLA's
-    down-projections and the router, replicated), and the ``model`` axis
-    divides the heads: GQA's ``cfg.n_heads`` and ``cfg.n_kv_heads`` (the
-    heads are contiguous in the columns: rank r holds q heads [r H/m,
-    (r+1) H/m) and exactly their KV heads), MLA's ``cfg.n_heads``. An MoE
-    layer's experts are split on E (rank r holds experts [r E/m, (r+1)
-    E/m)) or on their f columns; its shared experts as a dense MLP.
-    "vocab" is partitioned when every vocabulary leaf the model has (a
-    tied model's ``embed``, an untied one's ``embed`` and ``lm_head``, an
-    audio model's ``lm_head``) is in the "vocab" role: rank r holds the
-    vocabulary [r V/m, (r+1) V/m). One of the two split and the other
-    not, or ``embed`` split on d, is not the family. Every other leaf,
-    and every leaf of a family that is not partitioned, takes the
-    gathered route."""
+    ``shared`` experts, an RG-LRU layer's ``core`` (with its ``conv``). A
+    family ("attn", "mla", "mlp", "moe", "rglru") is partitioned when the
+    model has one of its groups at least and every group of it is whole in
+    its roles (:data:`ROLES`, each leaf's by :func:`partition_role`; every
+    other leaf of the group, the norms, MLA's down-projections and the
+    router, replicated), and the ``model`` axis divides the heads or the
+    width: GQA's ``cfg.n_heads`` and ``cfg.n_kv_heads`` (the heads are
+    contiguous in the columns: rank r holds q heads [r H/m, (r+1) H/m) and
+    exactly their KV heads), or for MQA (``cfg.n_kv_heads`` 1, wk and wv
+    replicated: attention's second choice) ``cfg.n_heads`` alone, every
+    rank reading the one KV head; MLA's ``cfg.n_heads``; the RG-LRU's
+    ``cfg.lru_width`` (rank r holds the channels [r W/m, (r+1) W/m) of every
+    product's output, of the conv and of the recurrence). A KV wider than
+    one head with replicated wk and wv is not MQA: its heads would pair
+    with the wrong query heads, so it stays gathered. An MoE layer's
+    experts are split on E (rank r holds experts [r E/m, (r+1) E/m)) or on
+    their f columns; its shared experts as a dense MLP. "vocab" is
+    partitioned when every vocabulary leaf the model has (a tied model's
+    ``embed``, an untied one's ``embed`` and ``lm_head``, an audio model's
+    ``lm_head``) is in the "vocab" role: rank r holds the vocabulary [r
+    V/m, (r+1) V/m). One of the two split and the other not, or ``embed``
+    split on d, is not the family. Every other leaf, and every leaf of a
+    family that is not partitioned, takes the gathered route."""
     groups: dict = {}
     for path, shape, placements in items:
-        keys = path_keys(path)
-        if len(keys) < 2 or keys[-2] not in COLUMN:
+        group = _group_of(path, path_keys(path))
+        if group is None:
             continue
-        cut = path.rindex("[")
-        g = groups.setdefault(path[:cut], {"kind": keys[-2], "leaves": {}})
+        g = groups.setdefault(group[0], {"kind": group[1], "leaves": {}})
         role = partition_role(path, shape, placements, mesh)
         if agree is not None and role is not None and not agree(path):
             role = None
-        g["leaves"][keys[-1]] = (path, role, _replicated(placements))
+        g["leaves"][group[2]] = (path, role, _replicated(placements))
     m = axis_size(mesh, "model") if "model" in mesh.mesh_dim_names else 0
     fam_groups: dict = {}
     for g in groups.values():
@@ -387,22 +424,31 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
     for fam, gs in fam_groups.items():
         if not m or fam in gathered:
             continue
-        if fam == "attn" and (cfg.n_heads % m or cfg.n_kv_heads % m):
-            continue
+        choices = ROLES["experts" if fam == "moe" else fam]
+        if fam == "attn":
+            # GQA's split of the KV heads where "model" divides them; MQA's
+            # replicated KV head where there is one
+            choices = [c for c, ok in zip(choices, (cfg.n_kv_heads % m == 0,
+                                                    cfg.n_kv_heads == 1)) if ok]
+            if cfg.n_heads % m:
+                continue
         if fam == "mla" and cfg.n_heads % m:
             continue
-        if all(_group_ok(g, fam) for g in gs):
+        if fam == "rglru" and cfg.lru_width % m:
+            continue
+        if all(_group_ok(g, fam, choices) for g in gs):
             families.add(fam)
             paths.update(p for g in gs for p, role, _ in g["leaves"].values() if role)
     return frozenset(families), frozenset(paths)
 
 
-def _group_ok(g, fam: str) -> bool:
-    """The group whole (the GELU MLP has no w_gate) with each leaf in its
-    role, every other leaf replicated."""
+def _group_ok(g, fam: str, choices) -> bool:
+    """The group whole in one of ``choices`` (the GELU MLP has no w_gate),
+    each leaf in its role, every other leaf replicated."""
     got = g["leaves"]
-    routed = fam == "moe" and g["kind"] == "ffn"
-    for want in ROLES["experts" if routed else "mlp" if fam == "moe" else fam]:
+    if fam == "moe" and g["kind"] != "ffn":       # the shared experts: a dense MLP
+        choices = ROLES["mlp"]
+    for want in choices:
         need = set(want) - ({"w_gate"} if fam == "mlp" else set())
         if need <= set(got) and all(role == want[n] if n in want else rep
                                     for n, (_, role, rep) in got.items()):

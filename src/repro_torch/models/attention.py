@@ -40,7 +40,11 @@ wq, wk and wv then hold this rank's columns, so it projects, normalises,
 rotates and attends (K3 in a prefill or a forward, K3-bwd under autograd)
 its own H/m query heads and KV/m key-value heads, and wo its rows, summed
 over the ranks; its decode writes and reads a cache held split on its
-heads, with no flash-decode merge. MLA may be partitioned too: wq_b,
+heads, with no flash-decode merge. With one KV head (MQA, recurrentgemma's
+local blocks) only wq and wo are split: each rank attends its H/m query
+heads over the one KV head, which wk and wv (replicated) compute whole on
+every rank, in its window and ring buffer as ever; its cache is held whole
+on every rank. MLA may be partitioned too: wq_b,
 w_uk and w_uv hold this rank's H/m heads' columns and wo their rows; the
 down-projections, their norms, the latent and its rotary key are computed
 whole on every rank (each head reads all of them), the prefill's K3 runs
@@ -277,8 +281,8 @@ def gqa_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
 
 def _project_qkv(x, p, cfg, positions, parallel=None):
     """q, k and v of the heads whose columns ``p`` holds: every head, or
-    with ``parallel`` this rank's (H/m and KV/m: the counts come from the
-    weights' widths)."""
+    with ``parallel`` this rank's (H/m and KV/m, or MQA's H/m and its one
+    KV head: the counts come from the weights' widths)."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     if parallel is not None:

@@ -42,7 +42,9 @@ flash-decode override only. Parameters placed on the mesh (DTensors) serve
 under the same rule, made with them: where they partition GQA over
 ``model`` (Megatron's column/row split), each rank computes its own heads
 and holds its own KV heads of the cache, read with no merge; partitioned
-MLA reads its latent cache held whole on every rank; partitioned MoE
+MLA reads its latent cache held whole on every rank, as MQA (one KV
+head: recurrentgemma's local blocks) its K and V; a partitioned RG-LRU
+layer computes and holds its channels of the state; partitioned MoE
 experts (split on their expert dim or on their columns) serve in prefill
 and in the drop-free decode alike; an embedding and head split on their
 vocabulary look each token up on the rank that owns it (one all-reduce)
@@ -430,17 +432,17 @@ class TransformerLM(nn.Module):
         return split.block(batch, self._slots(kind, cache_len), f"a {kind!r} layer's cache")
 
     def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = (),
-                   block=None, kv_heads: int = 0):
+                   block=None, kv_heads: int = 0, width: int = 0):
         cfg, cdt = self.cfg, self.compute_dtype
         if kind == "mlstm":
             return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead)
         if kind == "slstm":
             return xlstm_mod.slstm_state_init(batch, cfg, dev, lead)
         if kind == "rglru":
-            return {"h": torch.zeros(lead + (batch, cfg.lru_width), dtype=torch.float32,
-                                     device=dev),
-                    "conv": torch.zeros(lead + (batch, cfg.conv1d_size - 1, cfg.lru_width),
-                                        dtype=cdt, device=dev)}
+            W = width or cfg.lru_width
+            return {"h": torch.zeros(lead + (batch, W), dtype=torch.float32, device=dev),
+                    "conv": torch.zeros(lead + (batch, cfg.conv1d_size - 1, W), dtype=cdt,
+                                        device=dev)}
         rows, S = ((batch, self._slots(kind, cache_len)) if block is None
                    else (block.rows, block.slots))
         if self._mla(kind):
@@ -458,7 +460,8 @@ class TransformerLM(nn.Module):
         f32 state ``h`` and its conv inputs, the xLSTM blocks' f32 states
         (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs.
         Under the ``"cache_split"`` rule, DTensors of which each rank
-        allocates its attention caches' block only."""
+        allocates its attention caches' block only (and its channels of a
+        partitioned RG-LRU layer's state)."""
         dev = resolve_device(device)
         split = shardctx.get("cache_split")
         caches = self._caches(batch, cache_len, dev, split)
@@ -473,7 +476,8 @@ class TransformerLM(nn.Module):
         def one(kind, lead):
             return self._cache_one(kind, batch, cache_len, dev, lead,
                                    self._split_block(kind, batch, cache_len, split),
-                                   split.kv_heads(self, kind) if split is not None else 0)
+                                   split.kv_heads(self, kind) if split is not None else 0,
+                                   split.lru_width(self, kind) if split is not None else 0)
 
         caches = {}
         if self.n_tiles > 0:

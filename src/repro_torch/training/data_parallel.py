@@ -41,14 +41,15 @@ computes on the global batch:
 
 Partitioned compute over ``model`` (Megatron's column/row split, what
 GSPMD derives from the same placements): where a family is placed so
-(``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv or MLA's wq_b, w_uk,
-w_uv split on their output dim and wo on its input dim; the dense MLP's
+(``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv (MQA's wq alone) or
+MLA's wq_b, w_uk, w_uv split on their output dim and wo on its input dim;
+the RG-LRU's products so and its per-channel leaves on their width; the dense MLP's
 w_gate, w_up and w_down likewise; an MoE layer's routed experts on their
 expert dim or on their f columns, its shared experts as a dense MLP; the
 embedding on its vocabulary rows and the head on its vocabulary columns,
 "vocab"), its leaves are not gathered. Each rank computes its own heads
-(H/m query heads and their KV/m key-value heads; MLA's H/m heads over the
-shared latent), its own columns of the MLP, its own experts (or columns of
+(H/m query heads and their KV/m key-value heads, or MQA's one; MLA's H/m
+heads over the shared latent), its own RG-LRU channels, its own columns of the MLP, its own experts (or columns of
 every expert) over the routing that every rank computes alike, or its own
 V/m of the vocabulary (a masked lookup summed over ``model``; its block of
 the logits, which the vocabulary-parallel cross-entropy reduces without
@@ -58,12 +59,17 @@ combine or lookup (:class:`ModelParallel`, the ``shardctx`` rule
 partitioned leaf's gradient is its block already and is averaged over the
 data group only (a tied embedding's two uses both land in the rank's own
 rows). The q and k norms of GQA, replicated but applied to each rank's
-heads only, get their gradient summed over ``model`` (one packed
+heads only, and MQA's replicated wk and wv (every rank's query heads read
+the one KV head), get their gradient summed over ``model`` (one packed
 all-reduce a step); every other replicated leaf (the norms, the final
 norm, MLA's down-projections, the router) gets its whole gradient on every
-rank, from the ``enter`` calls the models place after it. With every
-family partitioned, only the norms, the router and MLA's down-projections
-stay replicated.
+rank, from the ``enter`` calls the models place after it. An RG-LRU layer
+partitioned on its width computes its W/m channels: the x and gate
+branches' columns, the conv and the recurrence on them, the gates' columns
+of the whole conv output (one differentiable all-gather a layer, a
+reduce-scatter backward) and w_out's rows. With every family partitioned,
+only the norms, the router, MLA's down-projections and MQA's KV head stay
+replicated.
 """
 
 from __future__ import annotations
@@ -91,6 +97,15 @@ Layout = Tuple[Optional[int], ...]
 def layout_of(t) -> Layout:
     """A DTensor's placements as a :data:`Layout`."""
     return tuple(p.dim % t.ndim if p.is_shard() else None for p in t.placements)
+
+
+def _scatter_sum(x: torch.Tensor, d: int, n: int, group) -> torch.Tensor:
+    """``x`` summed over the ``n`` ranks of ``group``, this rank's block of
+    it along ``d`` (a reduce-scatter)."""
+    src = x.movedim(d, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _reduce_scatter(out, src, group=group)
+    return out.movedim(0, d)
 
 
 def _without(layout: Layout, k: Optional[int]) -> Layout:
@@ -141,17 +156,36 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherModel(torch.autograd.Function):
+    """The ranks' blocks concatenated along ``dim`` in the model group's
+    order (an all-gather) forward; the transpose backward: the gradient
+    summed over the model group, this rank's block of it (a
+    reduce-scatter). Each rank's columns downstream give a part of every
+    block's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return mp.gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.scatter_sum(g, ctx.dim), None, None
+
+
 class ModelParallel:
     """Partitioned compute over a mesh's ``model`` axis: the model group,
     its size and this rank's index on it, the families that are
-    partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``, ``"vocab"``)
-    and the two functions their code calls around its products:
-    :meth:`enter` on a replicated tensor that this rank's columns read
-    (the block's input; MLA's normed latents; the MoE's tokens and combine
-    weights; the head's normed input) and :meth:`leave` after the row
-    product, the combine or the masked lookup. The vocabulary-parallel
-    cross-entropy reduces with :meth:`max_` and :meth:`sum_`; serving
-    gathers the logits with :meth:`gather`. Installed as the
+    partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``, ``"rglru"``,
+    ``"vocab"``) and the two functions their code calls around its
+    products: :meth:`enter` on a replicated tensor that this rank's columns
+    read (the block's input; MLA's normed latents; the MoE's tokens and
+    combine weights; the head's normed input) and :meth:`leave` after the
+    row product, the combine or the masked lookup. The RG-LRU's gates read
+    the whole of a tensor each rank holds a block of: :meth:`gather_blocks`
+    (differentiable). The vocabulary-parallel cross-entropy reduces with
+    :meth:`max_` and :meth:`sum_`; serving gathers the logits with
+    :meth:`gather`. Installed as the
     ``models.shardctx`` rule ``"model_parallel"`` (the train step's, with
     ``count`` the data group's counter, or a serving path's, counting its
     own); without the rule, the models call none of them. Its collectives
@@ -188,6 +222,18 @@ class ModelParallel:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=dim)
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the model group, this rank's block of it along
+        ``dim`` (no gradient)."""
+        self._count("reduce_scatter")
+        return _scatter_sum(x, dim, self.size, self.group)
+
+    def gather_blocks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in the model group's
+        order, differentiable: the backward is a reduce-scatter (the sum of
+        the ranks' gradients, this rank's block)."""
+        return _GatherModel.apply(x, self, dim)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(x, self)
@@ -270,10 +316,7 @@ class DataParallel:
     def _scatter_dim(self, x: torch.Tensor, k: int, d: int) -> torch.Tensor:
         """``x`` summed over mesh dim ``k``, this rank's block along ``d``."""
         self._count("reduce_scatter")
-        src = x.movedim(d, 0).contiguous()
-        out = src.new_empty((src.shape[0] // self.dim_sizes[k],) + tuple(src.shape[1:]))
-        _reduce_scatter(out, src, group=self.dim_groups[k])
-        return out.movedim(0, d).contiguous()
+        return _scatter_sum(x, d, self.dim_sizes[k], self.dim_groups[k]).contiguous()
 
     def _slice_dim(self, x: torch.Tensor, k: int, d: int) -> torch.Tensor:
         """This rank's block of ``x`` along ``d`` over mesh dim ``k`` (a view)."""
@@ -401,7 +444,7 @@ class Placed:
     config, for the heads), the :class:`ModelParallel` of their families
     (``mp``, None where none is) and the leaves whose gradient each model
     rank holds a part of (``partial``: the q and k norms of partitioned
-    attention). A leaf is partitioned only where its moments and residual
+    attention, MQA's wk and wv). A leaf is partitioned only where its moments and residual
     are split over ``model`` as it is (and no data axis splits that dim);
     else its family takes the gathered route, as do the families named in
     ``gathered``."""
@@ -437,11 +480,14 @@ class Placed:
             return
         self.parted = [path in paths for path, _ in params]
         self.mp = ModelParallel(dp.mesh, families, dp._count)
-        # the q and k norms of a partitioned attention group
+        # the q and k norms of a partitioned attention group, and MQA's
+        # replicated wk and wv (each rank's query heads read the one KV head)
         groups = {path.rsplit("[", 1)[0] for path in paths}
-        self.partial = [i for i, (path, _) in enumerate(params)
-                        if path.endswith(("['q_norm']['scale']", "['k_norm']['scale']"))
-                        and path.rsplit("[", 2)[0] in groups]
+        self.partial = [i for i, (path, _) in enumerate(params) if path not in paths and (
+            path.endswith(("['q_norm']['scale']", "['k_norm']['scale']"))
+            and path.rsplit("[", 2)[0] in groups
+            or path.endswith(("['attn']['wk']", "['attn']['wv']"))
+            and path.rsplit("[", 1)[0] in groups)]
 
     def _rel(self, i: int, lay: Layout) -> Layout:
         """Leaf ``i``'s layout within its ``model`` block where it is

@@ -359,6 +359,9 @@ print(json.dumps(dict(
                     for k, v in mesh.items()
                     if k in ("megatron_serve", "i8_serve") or k.startswith("i7_")},
     partitioned_grads=mesh["i6"], layer_bytes=mesh["layer_bytes"],
+    recurrent=dict(steps={f: mesh["i9_steps"][f] for f in ("losses", "calls", "kinds", "split")},
+                   serve={k: v for k, v in mesh["i9_serve"].items() if k != "cfg"},
+                   bytes={str(m): r for m, r in mesh["i9_bytes"].items()}),
     per_rank=out["per_rank"],
     rank_bytes={name: {str(n): r for n, r in v.items()}
                 for name, v in mesh["rank_bytes"].items()})), flush=True)
@@ -546,6 +549,39 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
         assert [r["heads"] for r in out["per_rank"][name]] == [
             "H=2 KV=2" + gqa, "H=1 KV=1" + gqa, "H=2 KV=2" + mla, "H=1 KV=1" + mla]
         assert all(r["max_abs_err"] == 0.0 for r in out["per_rank"][name])
+
+
+def test_chip_smoke_train_phase_partitions_recurrentgemma(train_phase):
+    """Phase 9 (i9) at a small size, in the one-rank gloo group: the reduced
+    recurrentgemma (8 layers: two tiles of (rglru, rglru, local) and two
+    RG-LRU layers in the tail; a sequence past its window) placed with the
+    RG-LRU on its width, MQA's query heads split, the MLP and the
+    vocabulary, equal to the plain steps (checked in the phase), with the
+    collectives predicted: 63 gradient leaves, the loss's 3, the norm's 1,
+    wk's and wv's packed sum, the vocabulary's 4, 4 a layer of the model
+    group and at --remat each tile's 5 again; an all-gather a RG-LRU layer
+    (the tiles' again at --remat) and a reduce-scatter each; its live
+    requests (the reduced config's 6 layers) with prompts past the window
+    partitioned, the logits equal, the states on their width; (i4)'s
+    arithmetic at 2, 4, 5 and 8 ranks."""
+    r = train_phase["recurrent"]
+    steps = r["steps"]
+    assert len(steps["losses"]) == 3
+    assert steps["kinds"] == dict(all_reduce=63 + 3 + 1 + 1 + 4 + 4 * 8 + 2 * 5,
+                                  reduce_scatter=6, all_gather=6 + 4)
+    # params, mu, nu of the split leaves: 8 in each of 4 RG-LRU groups, wq
+    # and wo, 3 in each of 5 MLPs, the embedding
+    assert steps["split"] == 3 * (8 * 4 + 2 + 3 * 5 + 1)
+    sv = r["serve"]
+    assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
+    # served at the reduced config's depth: 6 layers, 4 of them RG-LRU
+    assert sv["kinds"] == {"all_reduce": 2 * (2 * 6 + 1), "all_gather": 2 * (4 + 1)}
+    b = r["bytes"]
+    assert sorted(b) == ["2", "4", "5", "8"]
+    # the reduced widths: H=4, W=64, d_ff=128, V=512; 5 divides none of them
+    assert b["2"]["families"] == b["4"]["families"] == ["attn", "mlp", "rglru", "vocab"]
+    assert b["8"]["families"] == ["mlp", "rglru", "vocab"] and b["5"]["families"] == []
+    assert b["2"]["held_gb"] > b["4"]["held_gb"] > b["8"]["held_gb"]
 
 
 _LAUNCH_PHASE = """

@@ -60,6 +60,29 @@ script in a process of its own.
         (DIR/reference_vocab.pkl; DIR/port_vocab_<rank>.pkl, with the
         shapes of the logits each loss call got).
 
+    python tests/torch_train_ranks.py reference DIR recurrent
+    python tests/torch_train_ranks.py port DIR recurrent
+        The reduced recurrentgemma-2b (H=4, KV=1, a tail layer) on
+        (data=1, model=2), placed by ``recurrent_names``: the RG-LRU on its
+        width, its local attention's query heads split with the one KV head
+        replicated (MQA), the MLP Megatron-style and the vocabulary split;
+        as an ``MP_MOE_CASES`` case (the first step's gradient, two placed
+        steps, greedy serving) at sequences and a prompt past its window,
+        the RG-LRU states placed on their width (DIR/reference_recurrent.pkl;
+        DIR/port_recurrent_<rank>.pkl, with each rank's cache blocks).
+    python tests/torch_train_ranks.py reference DIR mesh22
+    python tests/torch_train_ranks.py port DIR mesh22
+        A mesh with both axes larger than one: (data=2, model=2) on 4
+        forced host devices and 4 gloo ranks (``MESH22_CASES``): the reduced
+        qwen3 (G=2, tied) placed by ``vocab_names`` and granite-moe-1b with
+        its experts on their expert dim under ``moe_chunks`` 2, each as an
+        ``MP_MOE_CASES`` case with the batch's rows over "data"; qwen3's
+        greedy serving also on K/V placed on their slots with the rows over
+        "data" (``_slot_split_decode``) and, with its parameters
+        replicated, through the flash-decoding override
+        (DIR/reference_mesh22.pkl; DIR/port_mesh22_<rank>.pkl, with every
+        all-reduce's group).
+
 The pickles are written and read by these two functions only.
 """
 
@@ -83,14 +106,14 @@ LR = dict(lr=3e-3, warmup_steps=5, total_steps=100)
 COMPRESS_MIN = 256          # the reduced leaves are small: compress most of them
 
 
-def batches(vocab: int):
-    """STEPS batches of B x T tokens, each with a mask that drops other
-    positions in each row, so that the ranks' token counts differ."""
+def batches(vocab: int, seq: int = T):
+    """STEPS batches of B x ``seq`` tokens, each with a mask that drops
+    other positions in each row, so that the ranks' token counts differ."""
     rng = np.random.default_rng(11)
     out = []
     for _ in range(STEPS):
-        toks = rng.integers(0, vocab, (B, T + 1)).astype(np.int32)
-        mask = rng.random((B, T)) < np.linspace(0.3, 1.0, B)[:, None]
+        toks = rng.integers(0, vocab, (B, seq + 1)).astype(np.int32)
+        mask = rng.random((B, seq)) < np.linspace(0.3, 1.0, B)[:, None]
         out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask})
     return out
 
@@ -301,7 +324,8 @@ def _port_rank(rank: int, world: int, out_dir: str, tag: str = "") -> None:
         with open(Path(out_dir) / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
         res = {"": _port_cases, "_placed": _port_placed, "_megatron": _port_megatron,
-               "_vocab": _port_vocab}[tag](ref, Path(out_dir))
+               "_vocab": _port_vocab, "_recurrent": _port_recurrent,
+               "_mesh22": _port_mesh22}[tag](ref, Path(out_dir))
         with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -473,6 +497,43 @@ def vocab_names(path: str, shape, experts: str = "column") -> tuple:
     return megatron_names("dm", path, shape, experts)
 
 
+# recurrentgemma partitioned over "model" (data=1, model=2): the reduced
+# config with a tail layer (8 layers: 2 tiles of (rglru, rglru, local) and
+# two RG-LRU layers after them), its training sequences and its prompt past
+# the window of 32, the cache's slots and the decode steps
+REC_ARCH, REC_CFG = "recurrentgemma-2b", {"n_layers": 8}
+REC_SEQ, REC_PROMPT, REC_CACHE = 40, 40, 48
+# the RG-LRU's leaves in its "core" dict: split on their last dim (the
+# column products and the per-channel leaves) or on the dim before it (w_out)
+RGLRU_LAST = ("['core']['wx']", "['core']['wgate']", "['core']['w_input_gate']",
+              "['core']['w_rec_gate']", "['core']['log_lambda']", "['core']['conv']['w']",
+              "['core']['conv']['b']")
+RGLRU_ROW = ("['core']['w_out']",)
+MQA_KV = ("['attn']['wk']", "['attn']['wv']")
+
+
+def recurrent_names(path: str, shape, experts: str = "column") -> tuple:
+    """recurrentgemma's placement: ``vocab_names`` (Megatron's with the
+    vocabulary split), but MQA's wk and wv replicated (the one KV head on
+    every rank), and the RG-LRU's leaves on their width (``RGLRU_LAST`` on
+    their last dim, w_out on the dim before it)."""
+    nd = len(shape)
+    if path.endswith(MQA_KV):
+        return ()
+    if nd and path.endswith(RGLRU_LAST):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(RGLRU_ROW):
+        return (None,) * (nd - 2) + ("model", None)
+    return vocab_names(path, shape, experts)
+
+
+# (data=2, model=2): (name, arch, config changes, the experts' role, whether
+# the vocabulary is split, the reference's moe_chunks)
+MESH22 = ((2, 2), ("data", "model"))
+MESH22_CASES = (("qwen3_vocab", MP_ARCH, MP_CFG, "column", True, 0),
+                ("granite_expert", "granite-moe-1b-a400m", {}, "expert", False, 2))
+
+
 def case_names(path: str, shape, experts: str, vocab: bool) -> tuple:
     """The placement of an ``MP_MOE_CASES`` case, or with ``vocab`` of a
     ``VOCAB_CASES`` one."""
@@ -577,14 +638,20 @@ def reference_megatron(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
-def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False) -> dict:
+def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False, *,
+                   names=None, seq: int = T, prompt: int = MP_PROMPT, cache: int = MP_CACHE,
+                   chunks: int = 0, cache_spec=None) -> dict:
     """An MoE case of ``reference_megatron`` on ``mesh`` (data=1, model=2):
     the state placed by ``megatron_names`` with the experts in ``role``
-    (with ``vocab``, by ``vocab_names``; the reduced config with
-    ``changes``), the first batch's gradient of the placed parameters and
-    two placed ``jax.jit`` steps; then fresh parameters so placed, a
-    prefill and greedy decode steps (GQA's K and V placed on their heads;
-    MLA's latent cache as the program leaves it)."""
+    (with ``vocab``, by ``vocab_names``; with ``names``, by
+    ``names(path, shape)``; the reduced config with ``changes``), the first
+    batch's gradient of the placed parameters and two placed ``jax.jit``
+    steps on batches of ``seq`` tokens (their rows on P("data"); with
+    ``chunks``, under that ``moe_chunks``); then fresh parameters so
+    placed, a prefill of ``prompt`` tokens into ``cache`` slots and greedy
+    decode steps (GQA's K and V placed on their heads, or each cache leaf
+    by ``cache_spec(path, leaf)`` where given; MLA's latent cache as the
+    program leaves it), and the caches after them."""
     import dataclasses
 
     import jax
@@ -593,7 +660,7 @@ def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False
     from jax.sharding import PartitionSpec as P
 
     from repro.configs import get_config
-    from repro.models import make_model
+    from repro.models import make_model, shardctx
     from repro.training import AdamWConfig, TrainConfig, make_train_step
     from repro.training.elastic import reshard_state
     from repro.training.train_step import init_train_state, make_loss_fn
@@ -606,36 +673,41 @@ def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False
 
     def specs(tree):
         return jax.tree_util.tree_map_with_path(
-            lambda k, a: NamedSharding(mesh, P(*case_names(
-                jax.tree_util.keystr(k), np.shape(a), role, vocab))), tree)
+            lambda k, a: NamedSharding(mesh, P(*(names or (lambda p, sh: case_names(
+                p, sh, role, vocab)))(jax.tree_util.keystr(k), np.shape(a)))), tree)
 
     state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
     out = dict(params=jax.tree.map(np.asarray, state["params"]))
     state = reshard_state(state, specs(state))
     put = lambda b: {k: jax.device_put(v, NamedSharding(mesh, P("data")))  # noqa: E731
                      for k, v in b.items()}
-    bs = batches(cfg.vocab_size)
-    loss_fn = make_loss_fn(model, tcfg)
-    grad = jax.jit(jax.grad(lambda p, b: loss_fn(p, b)[0]))(state["params"], put(bs[0]))
-    out["grad"] = dict(flat(jax.tree.map(np.asarray, grad)))
-    step = jax.jit(make_train_step(model, tcfg))
-    losses = []
-    for b in bs:
-        state, m = step(state, put(b))
-        losses.append(float(m["loss"]))
+    bs = batches(cfg.vocab_size, seq)
+    with shardctx.rules({"moe_chunks": chunks} if chunks else {}):
+        loss_fn = make_loss_fn(model, tcfg)
+        grad = jax.jit(jax.grad(lambda p, b: loss_fn(p, b)[0]))(state["params"], put(bs[0]))
+        out["grad"] = dict(flat(jax.tree.map(np.asarray, grad)))
+        step = jax.jit(make_train_step(model, tcfg))
+        losses = []
+        for b in bs:
+            state, m = step(state, put(b))
+            losses.append(float(m["loss"]))
     out.update(losses=losses, state=dict(flat(jax.tree.map(np.asarray, state))))
 
     params = jax.jit(model.init)(jax.random.PRNGKey(1))
     placed = reshard_state(params, specs(params))
 
     def heads(path, c):
+        if cache_spec is not None:
+            spec = cache_spec(jax.tree_util.keystr(path), c)
+            return c if spec is None else jax.lax.with_sharding_constraint(
+                c, NamedSharding(mesh, P(*spec)))
         if jax.tree_util.keystr(path).endswith(("['k']", "['v']")):
             spec = (None,) * (c.ndim - 2) + ("model", None)
             return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
         return c
 
-    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, MP_PROMPT)).astype(np.int32)
-    prefill = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, MP_CACHE))
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+    prefill = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, cache))
     decode = jax.jit(model.decode_step)
     logits, caches = prefill(placed, toks)
     caches = jax.tree_util.tree_map_with_path(heads, caches)
@@ -643,11 +715,12 @@ def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False
     for i in range(MP_DECODE):
         tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
         new.append(np.asarray(tok))
-        logits, caches = decode(placed, tok, caches, jnp.full((2,), MP_PROMPT + i, jnp.int32))
+        logits, caches = decode(placed, tok, caches, jnp.full((2,), prompt + i, jnp.int32))
         caches = jax.tree_util.tree_map_with_path(heads, caches)
         got.append(np.asarray(logits))
     out["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, logits=got,
-                        greedy=np.concatenate(new, axis=1))
+                        greedy=np.concatenate(new, axis=1),
+                        caches=dict(flat(jax.tree.map(np.asarray, caches))))
     return out
 
 
@@ -721,16 +794,35 @@ def _reference_ep(mesh, attn: bool) -> dict:
 def _spied():
     """Spies, as lists in the dict yielded: the heads each K3 call gets
     (``heads``), the gradients each rank reduces (``grads``, the first
-    step's kept), the MoE routings (``routes``) and the logits each loss
-    call gets (``ce``: the function's name and the logits' shape)."""
+    step's kept) and what it makes of them (``reduced``, the first step's),
+    the MoE routings (``routes``), the logits each loss call gets (``ce``:
+    the function's name and the logits' shape), the q and KV heads of each
+    chunked (windowed) attention call (``attn``), the channels each RG-LRU
+    scan or step computes (``lru``), the leaves whose gradient the step
+    sums over "model" (``partial``, the first step's), the shapes of the
+    parameters the step gathers whole (``gathered``), every all-reduce's
+    and all-gather's group (``coll``: the kind and the group's ranks), the
+    collectives of each gradient's reduction (``reduce_groups``) and the
+    groups of flash-decoding's gathers (``gather_cat``)."""
+    import torch.distributed as dist
+
     from repro_torch.kernels import ops
-    from repro_torch.models import moe, transformer
+    from repro_torch.launch import flash_decode
+    from repro_torch.models import attention, moe, rglru, transformer
     from repro_torch.training import data_parallel
 
-    spies = dict(heads=[], grads=[], routes=[], ce=[])
+    spies = dict(heads=[], grads=[], reduced=[], routes=[], ce=[], attn=[], lru=[], partial=[],
+                 gathered=[], coll=[], reduce_groups=[], gather_cat=[])
     k3, route = ops.flash_attention, moe.moe_route
-    reduce = data_parallel.Placed.reduce_grads
+    reduce, reduce_one = data_parallel.Placed.reduce_grads, data_parallel.DataParallel.reduce_grad
+    sum_partial, full = data_parallel.Placed.sum_partial, data_parallel.DataParallel.full
     plain_ce, vocab_ce = transformer.softmax_cross_entropy, transformer.vocab_parallel_cross_entropy
+    chunked, scan, lru_step = attention.chunked_attention, rglru.rglru_scan, rglru.rglru_step
+    all_reduce, all_gather, gather_cat = dist.all_reduce, dist.all_gather, flash_decode.gather_cat
+
+    def ranks_of(group):
+        return tuple(dist.get_process_group_ranks(group)) if group is not None else tuple(
+            range(dist.get_world_size()))
 
     def k3_spy(q, k, v, **kw):
         spies["heads"].append((q.shape[2], k.shape[2]))
@@ -739,7 +831,26 @@ def _spied():
     def reduce_spy(self, gs):
         if not spies["grads"]:
             spies["grads"].append([g.detach().clone() for g in gs])
-        return reduce(self, gs)
+        out = reduce(self, gs)
+        if not spies["reduced"]:
+            spies["reduced"].append([g.detach().clone() for g in out])
+        return out
+
+    def reduce_one_spy(self, g, layout):
+        n = len(spies["coll"])
+        out = reduce_one(self, g, layout)
+        spies["reduce_groups"].append(spies["coll"][n:])
+        return out
+
+    def partial_spy(self, grads):
+        if not spies["partial"]:
+            spies["partial"].append(list(self.partial))
+        return sum_partial(self, grads)
+
+    def full_spy(self, x, layout):
+        if any(d is not None for d in layout):
+            spies["gathered"].append(tuple(x.shape))
+        return full(self, x, layout)
 
     def route_spy(*args, **kw):
         r = route(*args, **kw)
@@ -752,19 +863,48 @@ def _spied():
             return fn(logits, *args, **kw)
         return spy
 
-    ops.flash_attention = k3_spy
-    moe.moe_route = route_spy
-    data_parallel.Placed.reduce_grads = reduce_spy
-    transformer.softmax_cross_entropy = ce_spy(plain_ce)
-    transformer.vocab_parallel_cross_entropy = ce_spy(vocab_ce)
+    def chunked_spy(q, k, v, **kw):
+        spies["attn"].append((q.shape[2], k.shape[2]))
+        return chunked(q, k, v, **kw)
+
+    def scan_spy(xc, *args, **kw):
+        spies["lru"].append(xc.shape[-1])
+        return scan(xc, *args, **kw)
+
+    def step_spy(x_t, *args, **kw):
+        spies["lru"].append(x_t.shape[-1])
+        return lru_step(x_t, *args, **kw)
+
+    def all_reduce_spy(t, *args, group=None, **kw):
+        spies["coll"].append(("all_reduce", ranks_of(group)))
+        return all_reduce(t, *args, group=group, **kw)
+
+    def all_gather_spy(out, t, *args, group=None, **kw):
+        spies["coll"].append(("all_gather", ranks_of(group)))
+        return all_gather(out, t, *args, group=group, **kw)
+
+    def gather_cat_spy(x, group, order, dim=0):
+        spies["gather_cat"].append(ranks_of(group))
+        return gather_cat(x, group, order, dim)
+
+    patches = [(ops, "flash_attention", k3_spy), (moe, "moe_route", route_spy),
+               (data_parallel.Placed, "reduce_grads", reduce_spy),
+               (data_parallel.DataParallel, "reduce_grad", reduce_one_spy),
+               (data_parallel.Placed, "sum_partial", partial_spy),
+               (data_parallel.DataParallel, "full", full_spy),
+               (transformer, "softmax_cross_entropy", ce_spy(plain_ce)),
+               (transformer, "vocab_parallel_cross_entropy", ce_spy(vocab_ce)),
+               (attention, "chunked_attention", chunked_spy), (rglru, "rglru_scan", scan_spy),
+               (rglru, "rglru_step", step_spy), (dist, "all_reduce", all_reduce_spy),
+               (dist, "all_gather", all_gather_spy), (flash_decode, "gather_cat", gather_cat_spy)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, spy in patches:
+        setattr(obj, name, spy)
     try:
         yield spies
     finally:
-        ops.flash_attention = k3
-        moe.moe_route = route
-        data_parallel.Placed.reduce_grads = reduce
-        transformer.softmax_cross_entropy = plain_ce
-        transformer.vocab_parallel_cross_entropy = vocab_ce
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def _port_megatron(ref, out_dir: Path) -> dict:
@@ -858,6 +998,131 @@ def reference_vocab(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
+def _rec_cache_spec(path: str, c):
+    """recurrentgemma's caches as the port holds them: an RG-LRU layer's
+    state on its width over "model", MQA's one K/V head whole."""
+    if path.endswith(("['h']", "['conv']")):
+        return (None,) * (c.ndim - 1) + ("model",)
+    return ()
+
+
+def reference_recurrent(out_dir: Path) -> None:
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"])
+    res = {"recurrent": _reference_moe(mesh, REC_ARCH, "column", REC_CFG, names=recurrent_names,
+                                       seq=REC_SEQ, prompt=REC_PROMPT, cache=REC_CACHE,
+                                       cache_spec=_rec_cache_spec)}
+    with open(out_dir / "reference_recurrent.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def reference_mesh22(out_dir: Path) -> None:
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MESH22)
+    res = {name: _reference_moe(mesh, arch, role, changes, vocab, chunks=chunks)
+           for name, arch, changes, role, vocab, chunks in MESH22_CASES}
+    with open(out_dir / "reference_mesh22.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _port_recurrent(ref, out_dir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Sharding
+    from repro_torch.models import from_jax_params, make_model
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+    with _spied() as spies:
+        out = _port_moe(ref["recurrent"], REC_ARCH, "column", mesh, spies, REC_CFG,
+                        names=recurrent_names, seq=REC_SEQ, prompt=REC_PROMPT, cache=REC_CACHE)
+    # the same serving parameters on K and V placed on their slots and the
+    # states whole: gathered for each step, the rank's channels handed on
+    cfg = dataclasses.replace(get_config(REC_ARCH).reduced(), **REC_CFG)
+    model = make_model(cfg, compute_dtype=torch.float32)
+    sv = ref["recurrent"]["serve"]
+    params = from_jax_params(sv["params"], cfg, device="cpu")
+    placed = reshard_state(params, unflatten(params, [
+        Sharding(mesh, recurrent_names(p, tuple(x.shape))) for p, x in flatten_with_paths(params)]))
+    out["slots"] = _slot_split_decode(model, sv, placed, mesh, REC_PROMPT, REC_CACHE)
+    return {"recurrent": out}
+
+
+def _port_mesh22(ref, out_dir: Path) -> dict:
+    """The ``MESH22_CASES`` on (data=2, model=2), each rank its data row's
+    batch rows; then qwen3's serving parameters placed so on K/V placed on
+    their slots with the rows over "data" (``_slot_split_decode``), and
+    replicated through the flash-decoding override (``_flash_serve``);
+    the ranks of this rank's model and data groups."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Sharding, make_mesh, place
+    from repro_torch.models import from_jax_params, make_model
+    from repro_torch.training.elastic import reshard_state
+    from repro_torch.training.tree import flatten_with_paths, unflatten
+
+    mesh = make_mesh(*MESH22, device="cpu")
+    pl = place(mesh)
+    rows = slice(pl.di * B // pl.dsz, (pl.di + 1) * B // pl.dsz)
+    out = {"model_group": sorted(dist.get_process_group_ranks(pl.model_group)),
+           "data_group": sorted(dist.get_process_group_ranks(pl.data_group))}
+    with _spied() as spies:
+        for name, arch, changes, role, vocab, _ in MESH22_CASES:
+            out[name] = _port_moe(ref[name], arch, role, mesh, spies, changes, vocab, rows=rows)
+        name, arch, changes, role, vocab, _ = MESH22_CASES[0]
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        model = make_model(cfg, compute_dtype=torch.float32)
+        sv = ref[name]["serve"]
+        params = from_jax_params(sv["params"], cfg, device="cpu")
+        placed = reshard_state(params, unflatten(params, [
+            Sharding(mesh, case_names(p, tuple(x.shape), role, vocab))
+            for p, x in flatten_with_paths(params)]))
+        out["slots"] = _slot_split_decode(model, sv, placed, mesh)
+        out["flash"] = _flash_serve(model, sv, params, mesh, spies)
+    return out
+
+
+def _flash_serve(model, sv, params, mesh, spies) -> dict:
+    """The serving case with its parameters replicated (plain tensors) on
+    caches its prefill writes split (``SplitCaches(mesh)``: K and V on
+    their slots over "model", their rows over "data"), decoded through
+    the flash-decoding override: the logits, the greedy tokens, the
+    caches' placements and the groups of the override's gathers."""
+    import torch
+
+    from repro_torch.launch.flash_decode import SplitCaches, make_decode_attention
+    from repro_torch.models import shardctx
+    from repro_torch.training.tree import flatten_with_paths
+
+    rules = {"cache_split": SplitCaches(mesh), "decode_attention": make_decode_attention(mesh)}
+    toks = torch.from_numpy(sv["tokens"]).long()
+    spies["gather_cat"].clear()
+    with torch.no_grad(), shardctx.rules(rules):
+        logits, caches = model.prefill(params, {"tokens": toks}, MP_CACHE)
+        got, new = [logits.numpy()], []
+        for i in range(MP_DECODE):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            new.append(tok.numpy())
+            logits, caches = model.decode_step(params, tok, caches,
+                                               torch.full((2,), MP_PROMPT + i, dtype=torch.int32))
+            got.append(logits.numpy())
+    return dict(logits=got, greedy=np.concatenate(new, axis=1), gathers=list(spies["gather_cat"]),
+                cache={p: (tuple(x.to_local().shape), str(tuple(x.placements)))
+                       for p, x in flatten_with_paths(caches)})
+
+
 def _port_vocab(ref, out_dir: Path) -> dict:
     from repro_torch.launch.mesh import make_mesh
 
@@ -867,12 +1132,16 @@ def _port_vocab(ref, out_dir: Path) -> dict:
                 for name, arch, changes, role in VOCAB_CASES}
 
 
-def _slot_split_decode(model, sv, placed, mesh) -> dict:
-    """The serving case's prefill under partitioned attention, its K and V
-    then placed on their slots over "model" (flash-decoding's placement),
-    and the greedy decode steps on them beside the same steps on K and V
-    held on their heads: each step's logits and placements, the caches
-    after the steps (whole) and the collectives of the slot route."""
+def _slot_split_decode(model, sv, placed, mesh, prompt: int = MP_PROMPT,
+                       cache: int = MP_CACHE) -> dict:
+    """The serving case's prefill (``prompt`` tokens into ``cache`` slots)
+    under partitioned attention, its K and V then placed on their slots
+    over "model" (flash-decoding's placement; any RG-LRU state whole), and
+    the greedy decode steps on them beside the same steps on the caches
+    as the prefill held them (K and V on their heads, or whole for MQA;
+    the states on their width): each step's logits and placements, the
+    caches after the steps (whole) and the collectives of the slot
+    route."""
     import torch
 
     from repro_torch.launch.flash_decode import SplitCaches
@@ -881,18 +1150,18 @@ def _slot_split_decode(model, sv, placed, mesh) -> dict:
     from repro_torch.training.tree import flatten_with_paths, tree_map
 
     heads, slots = SplitCaches(mesh, model, placed), SplitCaches(mesh, model, placed)
-    on_slots = SplitCaches(mesh).shardings(model, 2, MP_CACHE)
+    on_slots = SplitCaches(mesh).shardings(model, 2, cache)
     toks = torch.from_numpy(sv["tokens"]).long()
     out = dict(logits=[], placements=[], greedy=[])
     with torch.no_grad():
         with shardctx.rules({"cache_split": heads}):
-            logits, held = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+            logits, held = model.prefill(placed, {"tokens": toks}, cache)
         moved = reshard_state(tree_map(lambda t: t.full_tensor(), held), on_slots)
         want = {p: str(tuple(x.placements)) for p, x in flatten_with_paths(moved)}
         for i in range(MP_DECODE):
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             out["greedy"].append(tok.numpy())
-            pos = torch.full((2,), MP_PROMPT + i, dtype=torch.int32)
+            pos = torch.full((2,), prompt + i, dtype=torch.int32)
             with shardctx.rules({"cache_split": heads}):
                 logits, held = model.decode_step(placed, tok, held, pos)
             with shardctx.rules({"cache_split": slots}):
@@ -907,16 +1176,25 @@ def _slot_split_decode(model, sv, placed, mesh) -> dict:
     return out
 
 
-def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = False) -> dict:
+def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = False, *,
+              names=None, seq: int = T, prompt: int = MP_PROMPT, cache: int = MP_CACHE,
+              rows=None) -> dict:
     """An MoE case of ``_port_megatron`` on ``mesh`` (data=1, model=2), as
-    ``_reference_moe`` runs it (a ``VOCAB_CASES`` case with ``vocab``): two
-    placed steps (losses, collectives by kind, the heads each K3 call got,
-    the logits each loss call got, the first step's gradient and each
-    rank's state bytes, the final state; the first step's MoE routings and
-    a plain forward's on the same parameters and batch), then serving
-    (logits, greedy tokens, the families, the model group's collectives,
-    the cache's local and whole bytes)."""
+    ``_reference_moe`` runs it (a ``VOCAB_CASES`` case with ``vocab``; with
+    ``names``, placed by it; batches of ``seq`` tokens, a prompt of
+    ``prompt`` tokens into ``cache`` slots; with ``rows``, each rank
+    stepping its rows of the batch): two placed steps (losses, collectives
+    by kind and by group, the heads each K3 and chunked attention call got,
+    the RG-LRU's channels, the logits each loss call got, the first step's
+    gradient before and after its reduction, the leaves summed over
+    "model", the leaves gathered and each rank's state bytes, the final
+    state; without ``rows``, the first step's MoE routings and a plain
+    forward's on the same parameters and batch), then serving (logits,
+    greedy tokens, the families, the model group's collectives, the
+    attention heads and RG-LRU channels computed, each cache leaf's local
+    block and its local and whole bytes)."""
     import dataclasses
+    from collections import Counter
 
     import torch
 
@@ -930,9 +1208,10 @@ def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = 
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **(changes or {}))
     model = make_model(cfg, compute_dtype=torch.float32)
+    rule = names or (lambda path, shape: case_names(path, shape, role, vocab))
 
     def specs(tree):
-        return unflatten(tree, [Sharding(mesh, case_names(p, tuple(x.shape), role, vocab))
+        return unflatten(tree, [Sharding(mesh, rule(p, tuple(x.shape)))
                                 for p, x in flatten_with_paths(tree)])
 
     _, _, tcfg, state = _setup(r, arch, 1, False, cfg)
@@ -940,45 +1219,56 @@ def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = 
     step = make_train_step(model, tcfg)
     for v in spies.values():
         v.clear()
-    bs = batches(cfg.vocab_size)
-    losses, calls, routes = [], [], []
+    bs = batches(cfg.vocab_size, seq)
+    take = (lambda v: v) if rows is None else (lambda v: v[rows])
+    losses, calls, routes, groups = [], [], [], []
     for b in bs:
-        placed, m = step(placed, {k: torch.from_numpy(v) for k, v in b.items()})
+        n = len(spies["coll"])
+        placed, m = step(placed, {k: torch.from_numpy(take(v)) for k, v in b.items()})
         losses.append(float(m["loss"]))
         calls.append({k: int(v) for k, v in m.items() if k.startswith("collectives")})
+        groups.append(dict(Counter(spies["coll"][n:])))
         routes.append(list(spies["routes"]))
         spies["routes"].clear()
-    k3_heads = sorted(set(spies["heads"]))
-    ce = sorted(set(spies["ce"]))
-    with torch.no_grad():
-        model.loss(from_jax_params(r["params"], cfg, device="cpu"),
-                   {k: torch.from_numpy(v) for k, v in bs[0].items()})
     paths = [p for p, _ in flatten_with_paths(placed["params"])]
-    out = dict(losses=losses, calls=calls, k3_heads=k3_heads, ce=ce,
-               routes=routes[0], plain_routes=list(spies["routes"]),
+    out = dict(losses=losses, calls=calls, groups=groups, k3_heads=sorted(set(spies["heads"])),
+               ce=sorted(set(spies["ce"])), attn=sorted(set(spies["attn"])),
+               lru=sorted(set(spies["lru"])), gathered=list(spies["gathered"]),
+               partial=[paths[i] for i in (spies["partial"] or [[]])[0]],
+               reduce_groups=[sorted(set(c)) for c in spies["reduce_groups"][:len(paths)]],
                grad={p: g.numpy() for p, g in zip(paths, spies["grads"][0])},
+               reduced={p: g.numpy() for p, g in zip(paths, spies["reduced"][0])},
                bytes={p: x.to_local().numel() * x.element_size()
                       for p, x in flatten_with_paths(placed)},
                state={p: x.full_tensor().numpy() for p, x in flatten_with_paths(placed)})
+    out["routes"] = routes[0]
+    if rows is None:
+        with torch.no_grad():
+            model.loss(from_jax_params(r["params"], cfg, device="cpu"),
+                       {k: torch.from_numpy(v) for k, v in bs[0].items()})
+        out["plain_routes"] = list(spies["routes"])
     sv = r["serve"]
     params = from_jax_params(sv["params"], cfg, device="cpu")
     placed = reshard_state(params, specs(params))
     split = SplitCaches(mesh, model, placed)
     toks = torch.from_numpy(sv["tokens"]).long()
-    spies["heads"].clear()
+    for key in ("heads", "attn", "lru"):
+        spies[key].clear()
     with torch.no_grad(), shardctx.rules({"cache_split": split}):
-        logits, caches = model.prefill(placed, {"tokens": toks}, MP_CACHE)
+        logits, caches = model.prefill(placed, {"tokens": toks}, cache)
         k3_heads = sorted(set(spies["heads"]))
         got, new = [logits.numpy()], []
         for i in range(MP_DECODE):
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             new.append(tok.numpy())
             logits, caches = model.decode_step(placed, tok, caches,
-                                               torch.full((2,), MP_PROMPT + i, dtype=torch.int32))
+                                               torch.full((2,), prompt + i, dtype=torch.int32))
             got.append(logits.numpy())
     out["serve"] = dict(
         logits=got, greedy=np.concatenate(new, axis=1), k3_heads=k3_heads,
+        attn=sorted(set(spies["attn"])), lru=sorted(set(spies["lru"])),
         kinds=dict(split.parallel.kinds), families=sorted(split.parallel.families),
+        blocks={p: x.to_local().numpy() for p, x in flatten_with_paths(caches)},
         cache={p: (tuple(x.to_local().shape), x.to_local().numel() * x.element_size(),
                    x.numel() * x.element_size(), str(tuple(x.placements)))
                for p, x in flatten_with_paths(caches)})
@@ -1072,7 +1362,7 @@ def save_world1(ref, out_dir: Path) -> None:
 def port(out_dir: Path, world: int = 2, timeout: float = 150.0, tag: str = "") -> None:
     import multiprocessing as mp
 
-    if tag not in ("_megatron", "_vocab"):
+    if tag not in ("_megatron", "_vocab", "_recurrent", "_mesh22"):
         with open(out_dir / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
         if tag == "_placed":
@@ -1097,10 +1387,12 @@ def port(out_dir: Path, world: int = 2, timeout: float = 150.0, tag: str = "") -
 if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
     tag = f"_{sys.argv[3]}" if sys.argv[3:] else ""
+    world = 4 if tag == "_mesh22" else 2
     if mode == "reference":
         os.environ["JAX_PLATFORMS"] = "cpu"
-        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+        os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={world}"
         {"": reference, "_placed": reference_placed, "_megatron": reference_megatron,
-         "_vocab": reference_vocab}[tag](out)
+         "_vocab": reference_vocab, "_recurrent": reference_recurrent,
+         "_mesh22": reference_mesh22}[tag](out)
     else:
-        port(out, tag=tag)
+        port(out, world=world, tag=tag)
