@@ -110,7 +110,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              (f) granite-moe-1b (B=4 x T=1024) and recurrentgemma-2b (B=1 x
              T=4096, past its 2048-token window) at full width and depth, 6
              launcher steps each as (c), and a 4-layer gradient hold each as
-             (b) (granite's routing replayed, RouteTape); (g)
+             (b) (granite's routing replayed, RouteTape); xlstm-125m (B=4 x
+             T=1024: the chunkwise mLSTM, the sLSTM's loop) 3 launcher
+             steps as (c), its loss finite and lower at the last; (g)
              deepseek-v2 at 1 of 60 layers: one loss and gradient (B=1 x
              T=1024) through K3 and K3-bwd padded to 256 held to the plain
              route, the first gradients waiting in host memory;
@@ -178,12 +180,27 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              window (2048 + 256 tokens) partitioned, the RG-LRU states
              held on their width: the plain run's greedy tokens, logits
              error 0; and (i4)'s bytes a rank at 2, 4, 5 and 8 model
-             ranks with the families each partitions (arithmetic); and
+             ranks with the families each partitions (arithmetic); (i10)
+             xlstm-125m partitioned on its heads (the mLSTM's products
+             and channels, the sLSTM's recurrent weights, norm and
+             w_ff_up's rows; w_in and w_ff_down replicated; the
+             vocabulary): at full width and depth (B=4 x T=1024) 3
+             steps against as many plain steps, bit for bit, with the
+             collectives a step predicted before the run; its live
+             requests on states split on their heads, the plain tokens,
+             logits error 0; hubert-xlarge placed Megatron-style with
+             its head's vocabulary split: 4 layers, 2 steps on frames
+             and its 4 forwards over 1000 frames at full depth, and
+             llava's request with 1152 image tokens at full depth, each
+             bit for bit against plain, K3 / K3-bwd launches predicted
+             before the runs; and
              K3 (B=1, T=1280)
              and K3-bwd (B=4, T=1024) at each rank's heads of 2 and 4
              model ranks (qwen3's H=8 KV=4, H=4 KV=2; MLA's H=64 and H=32,
-             192/128 padded to 256) against their plain versions, timed
-             beside their bounds and SDPA;
+             192/128 padded to 256; at 2 ranks hubert's H=8 (80 padded
+             to 128, non-causal, T=1000) and llava's H=16 KV=4, K3 only)
+             against their plain versions, timed beside their bounds
+             and SDPA;
 10. launch   the launch modules through a one-rank NCCL group (a file://
              store in a temporary directory, no TCP port) and a (data=1,
              model=1) mesh: (a) qwen3-1.7b at full width and depth serves
@@ -353,7 +370,7 @@ KERNELS = {
     "flash_attention_bwd": dict(
         fn=flash_attention_bwd,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/models/attention.py:123",
+        replaces="src/repro/models/attention.py:113",
     ),
     # not a Pallas kernel: the reference's XLA lane engine (_drive_impl;
     # _drive_batched_impl at :364)
@@ -410,6 +427,10 @@ class Sizes:
     # phase 9 (i9): recurrentgemma-2b's layers in its partitioned steps (its
     # pattern of three twice and a tail of two RG-LRU layers)
     rec_layers: int = 8
+    # phase 9 (f), (i10): xlstm-125m's training sequence (train_batch of
+    # them; T >= 512 takes the chunkwise mLSTM), each token a step of its
+    # sLSTM's loop forward and backward
+    xlstm_seq: int = 1024
 
     def arch_config(self, name: str = ""):
         cfg = get_config(name or self.arch)
@@ -1763,6 +1784,20 @@ def _train_batch(cfg, sizes: Sizes, seed: int, device, batch: int = 0, seq: int 
     return {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
 
 
+def _modality_batch(cfg, batch: dict, gen) -> dict:
+    """A training ``batch`` of tokens and labels for ``cfg``'s modality: an
+    audio model's frames (B, T, d_model), drawn from ``gen``, in place of
+    its tokens, and a mask of the frames it predicts (three in ten; the
+    loss is taken there and the frontend replaces them)."""
+    if cfg.modality != "audio":
+        return batch
+    labels = batch["labels"]
+    dev = labels.device
+    return {"frames": _randn(gen, tuple(labels.shape) + (cfg.d_model,), torch.float32, dev),
+            "labels": labels, "mask": torch.rand(tuple(labels.shape), generator=gen,
+                                                 device=dev) < 0.3}
+
+
 def _allocated_gb(device) -> float:
     return torch.cuda.memory_allocated() / 1e9 if device.type == "cuda" else 0.0
 
@@ -1835,9 +1870,10 @@ def phase_train_grads(device, sizes: Sizes, seed: int, arch: str = "", layers: i
 
 
 def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
-                    profiled: bool = True) -> dict:
+                    profiled: bool = True, n_steps: int = 0) -> dict:
     """(c), and (f): the launcher's training run of ``arch`` (sizes.arch)
-    at full width and depth (--remat) on its training batch
+    at full width and depth (--remat), ``n_steps`` (sizes.train_steps)
+    steps on its training batch
     (``train_shape``): the loss, host-clock ms, tokens/s and K3 / K3-bwd
     launches of each step, the peak device memory, and (``profiled``) step
     PROFILED_STEP under torch.profiler (started and stopped around it by
@@ -1846,8 +1882,9 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
     from torch.profiler import ProfilerActivity, profile
 
     arch = arch or sizes.arch
+    n_steps = n_steps or sizes.train_steps
     B, T = train_shape(sizes, arch)
-    argv = ["--arch", arch, "--steps", str(sizes.train_steps), "--batch",
+    argv = ["--arch", arch, "--steps", str(n_steps), "--batch",
             str(B), "--seq", str(T), "--lr", "3e-3", "--remat",
             "--seed", str(seed), "--data-seed", str(seed), "--log-every", "1"]
     argv += ["--reduced"] * sizes.reduced + ["--device", device.type]
@@ -1887,7 +1924,7 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
     run_launches = launches()                         # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
     losses = [r["loss"] for r in steps]
-    if rc != 0 or len(steps) != sizes.train_steps:
+    if rc != 0 or len(steps) != n_steps:
         _fail(f"train run: the launcher returned {rc} after {len(steps)} steps")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         _fail(f"train run: losses {losses} not finite, or not lower at the last step")
@@ -1898,7 +1935,7 @@ def phase_train_run(device, sizes: Sizes, seed: int, card: str, arch: str = "",
                   f"not {per_step}")
     busy, top, groups, ranges = _busy(prof["p"]) if "p" in prof else (None, [], {}, {})
     med = float(np.median([r["ms"] for r in steps[1:]]))
-    _log(f"[train] {cfg.name} on {card}: {sizes.train_steps} steps of {B} x "
+    _log(f"[train] {cfg.name} on {card}: {n_steps} steps of {B} x "
          f"{T} tokens in {wall:.2f} s (host clock, set-up included); loss "
          f"{losses[0]:.5f} -> {losses[-1]:.5f}; median step {med:.2f} ms ({tokens / med * 1e3:.1f}"
          f" tokens/s; the first {steps[0]['ms']:.2f} ms); peak device memory "
@@ -1932,13 +1969,16 @@ def train_shape(sizes: Sizes, arch: str) -> tuple:
     """(B, T) of ``arch``'s training batch: sizes.train_batch x
     sizes.train_seq, but recurrentgemma-2b's one sequence of
     sizes.window_seq tokens, past its 2048-token window (its 256,000-wide
-    f32 logits and their gradient take 8.4 GB at 4096 tokens), and
+    f32 logits and their gradient take 8.4 GB at 4096 tokens),
+    xlstm-125m's sequences of sizes.xlstm_seq tokens, and
     GRAD_ONLY_ARCH's one sequence (at B=4 its plain route's dense scores,
     128 heads of 1024 x 1024 in f32, do not fit beside its 30 GB of
     masters and gradients)."""
     name = get_config(arch).name
     if name == "recurrentgemma-2b":
         return 1, sizes.window_seq
+    if name == XL_ARCH:
+        return sizes.train_batch, sizes.xlstm_seq
     if name == GRAD_ONLY_ARCH:
         return 1, sizes.train_seq
     return sizes.train_batch, sizes.train_seq
@@ -2024,9 +2064,11 @@ def mesh_vs_plain(device, sizes: Sizes, seed: int, mesh, arch: str, n_steps: int
     step = make_train_step(model, tcfg)
     B, T = train_shape(sizes, arch)
     data = SyntheticLMData(cfg.vocab_size, T, B, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
     losses, calls, kinds = {"mesh": [], "plain": []}, [], []
     for _ in range(n_steps):
-        batch = {k: torch.as_tensor(v, device=device) for k, v in data.next_batch().items()}
+        batch = _modality_batch(cfg, {k: torch.as_tensor(v, device=device)
+                                      for k, v in data.next_batch().items()}, gen)
         placed, m = step(placed, batch)
         losses["mesh"].append(float(m["loss"]))
         calls.append(int(m["collectives"]))
@@ -2429,6 +2471,11 @@ def phase_train_mesh(device, sizes: Sizes, seed: int, card: str) -> dict:
         out[arch]["grads"] = count(lambda: phase_train_grads(
             device, sizes, seed, arch, batch=train_shape(sizes, arch)[0],
             seq=train_shape(sizes, arch)[1]), counted=False)
+    # xlstm-125m: its sLSTM's loop over the sequence, forward and backward
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out[XL_ARCH] = count(lambda: phase_train_run(device, sizes, seed, card, XL_ARCH,
+                                                 profiled=False, n_steps=XL_TRAIN_STEPS))
     _log(f"[train] device memory allocated after each part of (e) and (f): {held_gb} GB")
     B, T = train_shape(sizes, GRAD_ONLY_ARCH)
     out[GRAD_ONLY_ARCH] = phase_train_grads(device, sizes, seed, GRAD_ONLY_ARCH,
@@ -2667,48 +2714,60 @@ def model_group_all_reduces(cfg, remat: bool) -> int:
 def rank_kernels(device, sizes: Sizes, errs: Errors, seed: int, card: str, flush=None) -> dict:
     """(i) K3 and K3-bwd at each rank's heads of partitioned compute
     (rank_heads) of sizes.arch's GQA and of deepseek-v2's MLA (192/128,
-    padded to 256 as the op pads it): K3 with its lse on one prompt of the
-    live length (B=1) and K3-bwd at the training shape, in bf16, against
+    padded to 256 as the op pads it), and (i10) at 2 ranks' of hubert's
+    encoder (80 padded to 128, non-causal, its frames) and llava's GQA (K3
+    only): K3 with its lse on one prompt of the live length (B=1) and
+    K3-bwd at the training shape, in bf16, against
     their plain versions at their tolerances; on the card each also timed
     beside its bound and SDPA's (``flush`` given). Returns the records by
     kernel."""
     gen = torch.Generator(device=device).manual_seed(seed + 11)
     out = {"flash_attention": [], "flash_attention_bwd": []}
     dt = torch.bfloat16
-    for cfg in (sizes.arch_config(), sizes.arch_config(PARTITIONED_ARCHS[1])):
-        _, _, Dqk, Dv, _ = k3_shape(cfg)
+    # (cfg, T of K3, (m, H, KV) per rank, K3-bwd's T or 0 for none)
+    cases = [(cfg, k3_lengths(cfg, sizes)[0], heads, sizes.train_seq)
+             for cfg in (sizes.arch_config(), sizes.arch_config(PARTITIONED_ARCHS[1]))
+             for heads in rank_heads(cfg)]
+    # (i10): hubert's encoder over its frames (non-causal; K3-bwd at its
+    # training shape's frames too) and llava's prompt, at 2 model ranks
+    for arch, bwd in ((AUDIO_ARCH, sizes.audio_frames), (VISION_ARCH, 0)):
+        cfg = sizes.arch_config(arch)
+        cases.append((cfg, k3_lengths(cfg, sizes)[0], rank_heads(cfg)[0], bwd))
+    for cfg, T3, (m, H, KV), T_bwd in cases:
+        _, _, Dqk, Dv, causal = k3_shape(cfg)
         D = kernel_head_dim(max(Dqk, Dv))
-        T3 = k3_lengths(cfg, sizes)[0]
-        for m, H, KV in rank_heads(cfg):
-            widths = f" D={Dqk}/{Dv} (padded to {D})" if (Dqk, Dv) != (D, D) else ""
-            heads = f"H={H} KV={KV}" + widths
-            q, k = (_randn(gen, (1, T3, n, Dqk), dt, device) for n in (H, KV))
-            v = _randn(gen, (1, T3, KV, Dv), dt, device)
-            kw = dict(causal=True, sm_scale=1.0 / Dqk ** 0.5)
-            what = f"K3 per rank of {m}: {cfg.name} B=1 T=S={T3} {heads} causal, bf16"
-            o, lse = flash_attention_fwd(*(_padded(x, D) for x in (q, k, v)), **kw)
-            wo, wl = flash_attention_fwd_plain(*(_padded(x, D) for x in (q, k, v)), **kw)
-            err = errs.check("flash_attention", o, wo, ATOL[dt], what)
-            lse_err = float((lse - wl).abs().max())
-            if not lse_err <= LSE_ATOL[dt]:
-                _fail(f"{what}: lse max abs err {lse_err:.3e} > {LSE_ATOL[dt]:.1e}")
-            _log(f"[train] (i) {what} on {card}: max abs err {err:.3e} (atol {ATOL[dt]:.0e}), "
-                 f"lse {lse_err:.3e} (atol {LSE_ATOL[dt]:.0e})")
-            r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
-            if flush is not None:
-                r.update(_time_k3(q, k, v, flush))
-                _log_timing(f"flash_attention, {cfg.name} per rank of {m} model ranks", r)
-            out["flash_attention"].append(r)
-            del q, k, v, o, wo
-            shape = (sizes.train_batch, sizes.train_seq, H, KV, Dqk, Dv, True)
-            err = check_training_kernels(errs, gen, device, dt, shape)
-            r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
-            if flush is not None:
-                r.update(k3_bwd_times(shape, gen, device, flush))
-                _log(f"[timing] flash_attention_bwd, {cfg.name} per rank of {m} model ranks:")
-                _log_bwd_timing(r)
-                torch.cuda.empty_cache()
-            out["flash_attention_bwd"].append(r)
+        widths = f" D={Dqk}/{Dv} (padded to {D})" if (Dqk, Dv) != (D, D) else ""
+        heads = f"H={H} KV={KV}" + widths
+        q, k = (_randn(gen, (1, T3, n, Dqk), dt, device) for n in (H, KV))
+        v = _randn(gen, (1, T3, KV, Dv), dt, device)
+        kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+        what = (f"K3 per rank of {m}: {cfg.name} B=1 T=S={T3} {heads} "
+                f"{'causal' if causal else 'non-causal'}, bf16")
+        o, lse = flash_attention_fwd(*(_padded(x, D) for x in (q, k, v)), **kw)
+        wo, wl = flash_attention_fwd_plain(*(_padded(x, D) for x in (q, k, v)), **kw)
+        err = errs.check("flash_attention", o, wo, ATOL[dt], what)
+        lse_err = float((lse - wl).abs().max())
+        if not lse_err <= LSE_ATOL[dt]:
+            _fail(f"{what}: lse max abs err {lse_err:.3e} > {LSE_ATOL[dt]:.1e}")
+        _log(f"[train] (i) {what} on {card}: max abs err {err:.3e} (atol {ATOL[dt]:.0e}), "
+             f"lse {lse_err:.3e} (atol {LSE_ATOL[dt]:.0e})")
+        r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
+        if flush is not None:
+            r.update(_time_k3(q, k, v, flush, causal))
+            _log_timing(f"flash_attention, {cfg.name} per rank of {m} model ranks", r)
+        out["flash_attention"].append(r)
+        del q, k, v, o, wo
+        if not T_bwd:
+            continue
+        shape = (sizes.train_batch, T_bwd, H, KV, Dqk, Dv, causal)
+        err = check_training_kernels(errs, gen, device, dt, shape)
+        r = dict(m=m, arch=cfg.name, heads=heads, max_abs_err=err)
+        if flush is not None:
+            r.update(k3_bwd_times(shape, gen, device, flush))
+            _log(f"[timing] flash_attention_bwd, {cfg.name} per rank of {m} model ranks:")
+            _log_bwd_timing(r)
+            torch.cuda.empty_cache()
+        out["flash_attention_bwd"].append(r)
     return out
 
 
@@ -2803,7 +2862,7 @@ def megatron_placed(mesh, experts: str = "column", vocab: bool = False, placemen
 def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
                    experts: str = "column", n_requests: int = 0, vocab: bool = False,
                    plain=None, placement=None, part: str = "") -> dict:
-    """(i3), (i7), (i8), (i9) ``arch`` (sizes.arch) served with the live
+    """(i3), (i7), (i8), (i9), (i10) ``arch`` (sizes.arch) served with the live
     phase's requests (``n_requests``, default sizes.live_requests) twice:
     plain (or ``plain``, an earlier run's (tokens, decode ms) on the same
     requests), then with its parameters placed as Megatron places them on
@@ -2813,12 +2872,14 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
     them: the same greedy tokens; the first request's prefill and one
     decode step on each, the logits equal (error 0: at world 1 every
     product is the whole one); each rank's caches hold KV/(model ranks) of
-    GQA's heads, MLA's latent and MQA's K and V whole, and a partitioned
-    RG-LRU layer's state W/(model ranks) of its channels; the model
-    group's collectives counted (one all-reduce after each block's mixer
-    and one after its MLP or MoE, a layer and pass, and one all-gather a
-    partitioned RG-LRU layer; with the vocabulary split one all-reduce
-    more for the lookup and one all-gather of the logits a pass). Returns
+    GQA's heads, MLA's latent and MQA's K and V whole, a partitioned
+    RG-LRU layer's state W/(model ranks) of its channels and a partitioned
+    xLSTM block's H/(model ranks) of its heads; the model group's
+    collectives counted (two all-reduces a layer and pass: after each
+    block's mixer and its MLP or MoE, or an xLSTM block's norm and its
+    row product; one all-gather a partitioned RG-LRU or mLSTM layer; with
+    the vocabulary split one all-reduce more for the lookup and one
+    all-gather of the logits a pass). Returns
     the prefills made (each launches K3 once a global-attention layer),
     the greedy tokens and the parameters' (path, shape)s."""
     from repro_torch.training.tree import flatten_with_paths as paths_of
@@ -2867,12 +2928,13 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
                 # layer holds it, elements held, elements whole)
                 held = {path: (any(p.is_shard() for p in t.placements), t.to_local().numel(),
                                t.numel()) for path, t in paths_of(caches)}
+                shape_of = {path: tuple(t.shape) for path, t in paths_of(caches)}
             del caches
     want_split = {}
     for path in held:
         kind = flash_decode._kind(model, path)
         want_split[path] = (split.on_heads(model, kind) if path.endswith(("['k']", "['v']"))
-                            else split.on_width(model, kind))
+                            else split.state_dim(model, path, shape_of[path]) is not None)
     bad = [path for path, (sh, n, whole) in held.items()
            if sh != want_split[path] or n * (msz if sh else 1) != whole]
     if not held or bad:
@@ -2889,8 +2951,10 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
     if ("vocab" in fams) != vocab:
         _fail(f"train {part}: the families {sorted(fams)}, the vocabulary "
               f"{'not ' if vocab else ''}among them")
+    # the layers whose step gathers a block (the RG-LRU's conv output, the
+    # mLSTM's (xu, conv output))
     lru = sum(1 for i in range(cfg.n_layers)
-              if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru") if "rglru" in fams else 0
+              if cfg.block_pattern[i % len(cfg.block_pattern)] in fams & {"rglru", "mlstm"})
     want = {"all_reduce": 2 * (cfg.n_layers * 2 + (VOCAB_SERVE_ALL_REDUCES if vocab else 0))}
     if vocab or lru:
         want["all_gather"] = 2 * (lru + int(vocab))
@@ -2901,7 +2965,7 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
         "(i3)" if cfg.name == sizes.arch_config().name else "(i7)")
     n_split = sum(1 for sh, _, _ in held.values() if sh)
     _log(f"[train] {name} {cfg.name} with "
-         f"its parameters placed as " + ("(i9) places them" if placement else
+         f"its parameters placed as " + (f"{part} places them" if placement else
                                          "Megatron places them")
          + (" and its embedding and head on their vocabulary" if vocab else "")
          + f" on mesh {tuple(mesh.shape)} "
@@ -3011,7 +3075,9 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
     (VOCAB_ALL_REDUCES more a step), deepseek-v2's one-layer loss and
     gradient (in (i6)'s call) and sizes.arch's live requests (against
     (i3)'s tokens), each bit for bit; (i9) recurrentgemma-2b with the
-    RG-LRU on its width and MQA's query heads split (recurrent_partitioned).
+    RG-LRU on its width and MQA's query heads split (recurrent_partitioned);
+    (i10) xlstm-125m on its heads (xlstm_partitioned), hubert's encoder
+    and llava's image request (frontend_partitioned).
     ``count`` is phase_train_mesh's: the parts' launches count on the
     path."""
     mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device=device)
@@ -3059,6 +3125,8 @@ def phase_train_partitioned(device, sizes: Sizes, seed: int, card: str, count) -
         del out[key[0]]["tokens"], out[key[0]]["shapes"]
     out["i6"] = count(lambda: partitioned_grad_hold(device, sizes, seed, mesh))
     out.update(recurrent_partitioned(device, sizes, seed, mesh, count))
+    out.update(xlstm_partitioned(device, sizes, seed, mesh, count))
+    out.update(frontend_partitioned(device, sizes, seed, mesh, count))
     return out
 
 
@@ -3073,9 +3141,7 @@ def recurrent_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
     (i4)'s arithmetic for it at REC_SPLITS model ranks."""
     out = {}
     cfg = dataclasses.replace(sizes.arch_config(REC_ARCH), n_layers=sizes.rec_layers)
-    # the leaves of that tree: its structure at the reduced widths
-    small = dataclasses.replace(get_config(REC_ARCH).reduced(), n_layers=cfg.n_layers)
-    n_leaves = len(flatten_with_paths(make_model(small).init(torch.Generator().manual_seed(0))))
+    n_leaves = _n_leaves(cfg)
     want = recurrent_collectives(cfg, n_leaves)
     _log(f"[train] (i9) predicted, before the steps: {cfg.name} at {cfg.n_layers} layers "
          f"({n_leaves} parameter leaves) placed as recurrent_spec places it, collectives a step "
@@ -3101,6 +3167,268 @@ def recurrent_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
     out["i9_serve"] = sv
     out["i9_bytes"] = recurrent_rank_bytes(sv["cfg"], shapes)
     return out
+
+
+# (i10): xlstm-125m partitioned on its heads: the mLSTM's column products,
+# its conv and both blocks' norm channels on their last dim, the mLSTM's
+# w_down and the sLSTM's w_ff_up on their rows, the sLSTM's recurrent
+# weights (H, dh, dh) on H, its w_in and w_ff_down replicated; the tied
+# embedding on its vocabulary
+XL_ARCH = "xlstm-125m"
+XLSTM_LAST = ("['core']['w_up']", "['core']['w_gate_up']", "['core']['wq']", "['core']['wk']",
+              "['core']['wv']", "['core']['w_igate']", "['core']['w_fgate']",
+              "['core']['conv']['w']", "['core']['conv']['b']", "['core']['out_norm']['scale']")
+XLSTM_ROW = ("['core']['w_down']", "['core']['w_ff_up']")
+XLSTM_HEAD = ("['core']['r_i']", "['core']['r_f']", "['core']['r_z']", "['core']['r_o']")
+XLSTM_REPLICATED = ("['core']['w_in']", "['core']['w_ff_down']")
+# (f): the steps of xlstm-125m's launcher run
+XL_TRAIN_STEPS = 3
+# (i10): the models whose frontends feed a partitioned GQA stack (audio
+# frames, an image's projected tokens), placed by megatron_spec with the
+# vocabulary split; hubert's layers in its partitioned steps, and the
+# decode steps of llava's image request
+AUDIO_ARCH, VISION_ARCH = "hubert-xlarge", "llava-next-mistral-7b"
+FRONT_LAYERS, FRONT_STEPS, IMAGE_DECODE = 4, 2, 4
+
+
+def xlstm_spec(path: str, shape: tuple) -> tuple:
+    """(i10)'s placement of the state leaf at ``path``: the xLSTM blocks on
+    their heads (XLSTM_LAST on the last dim, XLSTM_ROW on the dim before
+    it, XLSTM_HEAD on H, XLSTM_REPLICATED replicated), the embedding on its
+    vocabulary (megatron_spec with the vocabulary split)."""
+    nd = len(shape)
+    if path.endswith(XLSTM_REPLICATED):
+        return ()
+    if nd and path.endswith(XLSTM_LAST):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(XLSTM_ROW):
+        return (None,) * (nd - 2) + ("model", None)
+    if nd >= 3 and path.endswith(XLSTM_HEAD):
+        return (None,) * (nd - 3) + ("model", None, None)
+    return megatron_spec(path, shape, vocab=True)
+
+
+def xlstm_collectives(cfg, n_leaves: int) -> Dict[str, int]:
+    """(i10) the collectives a step (one microbatch, --remat) of xlstm-125m
+    placed by xlstm_spec, predicted: all-reduces one a gradient leaf, the
+    loss's 3, the global norm's one, the packed sum of the sLSTM's w_in
+    gradient, the vocabulary's 4, and per block the model group's 2
+    forward (out_norm's mean of squares, the row product's sum) and 2
+    backward (out_norm's gradient, the input's); per mLSTM layer one
+    all-gather of (xu, conv output) and one reduce-scatter of its
+    gradient. Each tile's forward runs again in the backward, every sum
+    and all-gather of it: the tile ends with the sLSTM, whose GLU reads
+    its last sum, so the recomputation reaches that too."""
+    G = len(cfg.block_pattern)
+    kinds = [cfg.block_pattern[i % G] for i in range(cfg.n_layers)]
+    tiled = kinds[:cfg.n_layers // G * G]
+    m, m_tiled = kinds.count("mlstm"), tiled.count("mlstm")
+    all_reduce = (n_leaves + 3 + 1 + 1 + VOCAB_ALL_REDUCES + 4 * cfg.n_layers + 2 * len(tiled))
+    return dict(all_reduce=all_reduce, reduce_scatter=m, all_gather=m + m_tiled)
+
+
+def _n_leaves(cfg) -> int:
+    """The parameter leaves of ``cfg``'s tree (its structure at the
+    reduced widths)."""
+    small = dataclasses.replace(get_config(cfg.name).reduced(), n_layers=cfg.n_layers)
+    return len(flatten_with_paths(make_model(small).init(torch.Generator().manual_seed(0))))
+
+
+def xlstm_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
+    """(i10) xlstm-125m placed by xlstm_spec on ``mesh``: at full width and
+    depth (--remat) sizes.mesh_steps steps against as many plain steps,
+    bit for bit, with the collectives a step predicted (xlstm_collectives,
+    logged before the steps); its live requests (sizes.more_requests)
+    partitioned against plain: the same greedy tokens, logits error 0, its
+    states held on their heads (the mLSTM's conv inputs on their
+    channels)."""
+    cfg = sizes.arch_config(XL_ARCH)
+    n_leaves = _n_leaves(cfg)
+    want = xlstm_collectives(cfg, n_leaves)
+    _log(f"[train] (i10) predicted, before the steps: {cfg.name} at {cfg.n_layers} layers "
+         f"({n_leaves} parameter leaves) placed as xlstm_spec places it, collectives a step "
+         f"{want}")
+    r = count(lambda: mesh_vs_plain(
+        device, sizes, seed, mesh, XL_ARCH, sizes.mesh_steps, xlstm_spec, False,
+        "(i10) partitioned (the mLSTM and sLSTM on their heads, the vocabulary)",
+        layers=cfg.n_layers))
+    del r["plain"], r["placed"]
+    if r["kinds"] != want:
+        _fail(f"train (i10): collectives a step {r['kinds']}, not the predicted {want}")
+    sv = count(lambda: megatron_serve(device, sizes, seed, mesh, XL_ARCH,
+                                      n_requests=sizes.more_requests, vocab=True,
+                                      placement=xlstm_spec, part="(i10)"))
+    del sv["shapes"], sv["tokens"]
+    return {"i10_xlstm_steps": r, "i10_xlstm_serve": sv}
+
+
+def vocab_all_reduces(cfg) -> int:
+    """VOCAB_ALL_REDUCES of ``cfg``'s training microbatch: an audio model
+    reads frames, so it has no lookup to sum."""
+    return VOCAB_ALL_REDUCES - int(cfg.modality == "audio")
+
+
+def frontend_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
+    """(i10) the frontends' models placed by megatron_spec with the
+    vocabulary split on ``mesh``: hubert-xlarge at full width and
+    FRONT_LAYERS layers (--remat, its frames masked three in ten)
+    FRONT_STEPS steps against as many plain steps, bit for bit, the
+    all-reduces predicted; its sizes.more_requests forwards over
+    sizes.audio_frames frames at full depth partitioned against plain
+    (hubert_forwards); llava's request with an image at full depth
+    partitioned against plain (image_partitioned). K3's and K3-bwd's
+    launches predicted before the runs (--remat: the forward twice a
+    step), and held on the card."""
+    hub = dataclasses.replace(sizes.arch_config(AUDIO_ARCH), n_layers=FRONT_LAYERS)
+    full_hub, llava = sizes.arch_config(AUDIO_ARCH), sizes.arch_config(VISION_ARCH)
+    n_leaves = _n_leaves(hub)
+    want = dict(all_reduce=partitioned_all_reduces(hub, n_leaves, False) + vocab_all_reduces(hub),
+                reduce_scatter=0, all_gather=0)
+    n, steps = sizes.more_requests, 2 * FRONT_STEPS               # placed and plain
+    k3 = {"steps": (steps * 2 * attn_layers(hub), steps * attn_layers(hub)),
+          "forwards": (2 * n * attn_layers(full_hub), 0), "image": (2 * attn_layers(llava), 0)}
+    _log(f"[train] (i10) predicted, before the runs: {hub.name} at {hub.n_layers} layers "
+         f"({n_leaves} parameter leaves) placed as megatron_spec(vocab=True) places it, "
+         f"collectives a step {want}; K3 / K3-bwd launches: its steps {k3['steps']}, its {n} "
+         f"forwards partitioned and plain at {full_hub.n_layers} layers {k3['forwards']}, "
+         f"{llava.name}'s image request partitioned and plain {k3['image']}")
+    out, got = {}, {}
+    for key, fn in (
+            ("steps", lambda: mesh_vs_plain(
+                device, sizes, seed, mesh, AUDIO_ARCH, FRONT_STEPS,
+                megatron_placement(mesh, vocab=True), False,
+                "(i10) partitioned (attention, the MLP, the head's vocabulary; audio frames in)",
+                layers=FRONT_LAYERS)),
+            ("forwards", lambda: hubert_forwards(device, sizes, seed, mesh)),
+            ("image", lambda: image_partitioned(device, sizes, seed, mesh))):
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        out[key] = count(fn)
+        got[key] = (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1])
+    del out["steps"]["plain"], out["steps"]["placed"]
+    if out["steps"]["kinds"] != want:
+        _fail(f"train (i10): {hub.name}'s collectives a step {out['steps']['kinds']}, not the "
+              f"predicted {want}")
+    _log(f"[train] (i10) K3 / K3-bwd launches: {got} (predicted {k3})")
+    if device.type == "cuda" and got != k3:
+        _fail(f"train (i10): K3 / K3-bwd launched {got}, not the predicted {k3}")
+    return {"i10_hubert_steps": out["steps"], "i10_hubert_forwards": out["forwards"],
+            "i10_image": out["image"], "i10_k3": got}
+
+
+def _front_placed(device, sizes: Sizes, seed: int, mesh, arch: str):
+    """``arch`` at full width and depth in bf16, drawn from the seed, and
+    its parameters placed by megatron_spec(vocab=True) on ``mesh`` (at
+    world 1 wrapped as they are, no copy) with the SplitCaches they serve
+    under."""
+    cfg = sizes.arch_config(arch)
+    model, params, n_params = _init_model(device, cfg, seed, "train")
+    specs = place_specs(params, mesh, megatron_placement(mesh, vocab=True))
+    placed = world1_view(params, specs) if mesh.size() == 1 else reshard_state(params, specs)
+    return cfg, model, params, placed, flash_decode.SplitCaches(mesh, model, placed)
+
+
+def hubert_forwards(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(i10) hubert-xlarge's sizes.more_requests forwards over
+    sizes.audio_frames frames, each plain and partitioned (attention on
+    its heads, the MLP, the head's vocabulary, the frontend replicated):
+    the logits equal (error 0 at world 1); per forward 2 all-reduces a
+    layer and one all-gather of the logits."""
+    cfg, model, params, placed, split = _front_placed(device, sizes, seed, mesh, AUDIO_ARCH)
+    local, rules = split.params(model, placed)
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    errs_, ms = [], {"plain": [], "partitioned": []}
+    with torch.inference_mode():
+        for _ in range(sizes.more_requests):
+            batch = {"frames": _randn(gen, (1, sizes.audio_frames, cfg.d_model), torch.bfloat16,
+                                      device)}
+            got = {}
+            for name, p, r in (("plain", params, {}), ("partitioned", local, rules)):
+                t0 = time.perf_counter()
+                with shardctx.rules(r):
+                    got[name] = model.forward_logits(p, batch).float()
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+            if not torch.isfinite(got["partitioned"]).all() or (
+                    got["partitioned"].shape != (1, sizes.audio_frames, cfg.vocab_size)):
+                _fail(f"train (i10): {cfg.name}'s partitioned logits "
+                      f"{tuple(got['partitioned'].shape)} not finite or not whole")
+            errs_.append(float((got["partitioned"] - got["plain"]).abs().max()))
+    kinds, fams = dict(split.parallel.kinds), sorted(split.parallel.families)
+    want = {"all_reduce": sizes.more_requests * 2 * cfg.n_layers,
+            "all_gather": sizes.more_requests}
+    _log(f"[train] (i10) {cfg.name} at {cfg.n_layers} layers placed as megatron_spec(vocab=True) "
+         f"places it on mesh {tuple(mesh.shape)} (families {fams}): {sizes.more_requests} "
+         f"forwards over {sizes.audio_frames} frames, logits max abs err against plain {errs_} "
+         f"(0 required); {kinds} (predicted {want}); forward ms partitioned "
+         f"{[round(x, 2) for x in ms['partitioned']]}, plain {[round(x, 2) for x in ms['plain']]}"
+         f" (host clock)")
+    if max(errs_) != 0.0 or kinds != want or fams != ["attn", "mlp", "vocab"]:
+        _fail(f"train (i10): {cfg.name}'s partitioned forwards: errors {errs_}, collectives "
+              f"{kinds}, families {fams}")
+    return dict(logits_err=max(errs_), kinds=kinds, families=fams,
+                forward_ms=float(np.median(ms["partitioned"])),
+                plain_forward_ms=float(np.median(ms["plain"])))
+
+
+def image_partitioned(device, sizes: Sizes, seed: int, mesh) -> dict:
+    """(i10) llava's request with an image (its n_image_tokens projected
+    tokens, then a prompt of the live phase's length), plain and
+    partitioned (attention on its heads, the MLP, the vocabulary, the
+    projector replicated): its prefill and IMAGE_DECODE greedy decode
+    steps from position n_image_tokens + len(prompt), the logits equal
+    (error 0 at world 1) and the same tokens; K and V held on their heads;
+    per pass 2 all-reduces a layer, one for the lookup and one all-gather
+    of the logits."""
+    from repro_torch.training.tree import flatten_with_paths as paths_of
+
+    cfg, model, params, placed, split = _front_placed(device, sizes, seed, mesh, VISION_ARCH)
+    dev = params["embed"].device
+    rng = np.random.default_rng(seed + 3)
+    tokens = rng.integers(0, cfg.vocab_size, sizes.prefix_tokens + sizes.user_tokens)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=dev),
+             "image_embeds": _randn(gen, (1, cfg.n_image_tokens, cfg.vision_dim),
+                                    torch.bfloat16, dev)}
+    T = cfg.n_image_tokens + len(tokens)
+    out, held = {}, {}
+    with torch.inference_mode():
+        for name, p, rules in (("plain", params, {}), ("partitioned", placed,
+                                                      {"cache_split": split})):
+            with shardctx.rules(rules):
+                logits, caches = model.prefill(p, batch, T + IMAGE_DECODE)
+                seq, toks = [logits[0, -1].float()], []
+                for i in range(IMAGE_DECODE):
+                    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                    toks.append(int(tok))
+                    logits, caches = model.decode_step(
+                        p, tok, caches, torch.full((1,), T + i, dtype=torch.int32, device=dev))
+                    seq.append(logits[0, -1].float())
+            out[name] = (seq, toks)
+            if name == "partitioned":
+                held = {path: (str(tuple(t.placements)), t.to_local().numel(), t.numel(),
+                               t.ndim) for path, t in paths_of(caches)}
+            del caches
+    errs_ = [float((a - b).abs().max()) for a, b in zip(*(out[k][0] for k in out))]
+    # each K and V (..., B, S, KV, D) split on its KV heads
+    msz = launch_mesh.axis_size(mesh, "model")
+    on_heads = all(f"Shard(dim={nd - 2})" in pl and n * msz == whole
+                   for pl, n, whole, nd in held.values())
+    passes = 1 + IMAGE_DECODE
+    want = {"all_reduce": passes * (2 * cfg.n_layers + VOCAB_SERVE_ALL_REDUCES),
+            "all_gather": passes}
+    kinds = dict(split.parallel.kinds)
+    _log(f"[train] (i10) {cfg.name} at {cfg.n_layers} layers placed as "
+         f"megatron_spec(vocab=True) places it on mesh {tuple(mesh.shape)} (families "
+         f"{sorted(split.parallel.families)}): a request of {cfg.n_image_tokens} image tokens + "
+         f"{len(tokens)} text tokens, prefill and {IMAGE_DECODE} decode steps from position {T}: "
+         f"greedy tokens {out['partitioned'][1]} partitioned, {out['plain'][1]} plain; logits "
+         f"max abs err {errs_} (0 required); K and V held on their heads: {on_heads}; {kinds} "
+         f"(predicted {want})")
+    if (max(errs_) != 0.0 or out["partitioned"][1] != out["plain"][1] or not on_heads
+            or not held or kinds != want):
+        _fail(f"train (i10): {cfg.name}'s partitioned image request differs from plain")
+    return dict(logits_err=max(errs_), tokens=out["partitioned"][1], kinds=kinds, T=T)
 
 
 def bwd_timing_shapes(sizes: Sizes) -> List[tuple]:

@@ -31,6 +31,8 @@ q and the valid lengths are the whole batch's on every rank.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -139,10 +141,13 @@ class SplitCaches:
     all of it: 576 values a token a layer of MLA at full width). Where they
     partition the RG-LRU on its width, each RG-LRU layer's state (``h`` (B,
     W) and ``conv`` (B, K-1, W)) is split on its last dim, rank r holding
-    the channels it computes; every other recurrent state is whole on every
-    rank. The batch rows of a cache split on its heads or its width are
-    whole on every rank (every rank computes every row). Cached as
-    DTensors.
+    the channels it computes; where they partition the xLSTM blocks on
+    their heads, each mLSTM layer's C (B, H, dh, dh), n and m and each
+    sLSTM layer's c, n, m and h (B, H, dh) are split on H, and the mLSTM's
+    ``conv`` (B, 3, 2d) on its channels; every other recurrent state is
+    whole on every rank. The batch rows of a cache split on its heads or
+    its width are whole on every rank (every rank computes every row).
+    Cached as DTensors.
 
     Installed as the ``models.shardctx`` rule ``"cache_split"``, it makes
     the model's ``init_cache`` and ``prefill`` allocate and keep only this
@@ -153,10 +158,10 @@ class SplitCaches:
     (a recurrent state, a latent cache or a non-partitioned layer's
     attention cache split on any dim; a partitioned layer's K and V held
     otherwise than on their heads, or its state otherwise than on its
-    width) is gathered whole for the step, and the rank keeps its block of
-    what the step wrote. Parameters on the
-    mesh come to the model through :meth:`params`: a partitioned leaf's
-    block, every other leaf whole."""
+    width or heads) is gathered whole for the step, and the rank keeps its
+    block of what the step wrote. Parameters on the mesh come to the model
+    through :meth:`params`: a partitioned leaf's block, every other leaf
+    whole."""
 
     def __init__(self, mesh, model=None, params=None) -> None:
         from torch.distributed.tensor import DTensor
@@ -215,6 +220,30 @@ class SplitCaches:
         W = model.cfg.lru_width
         return W // self.parallel.size if self.on_width(model, kind) else W
 
+    def xlstm_parted(self, model, kind: str) -> bool:
+        """Whether a ``kind`` layer is an xLSTM block partitioned over
+        ``"model"`` on its heads (its state held split on them)."""
+        return (kind in ("mlstm", "slstm") and self.parallel is not None
+                and kind in self.parallel.families)
+
+    def state_heads(self, model, kind: str) -> int:
+        """The heads this rank holds of a ``kind`` xLSTM layer's state."""
+        H = model.cfg.n_heads
+        return H // self.parallel.size if self.xlstm_parted(model, kind) else H
+
+    def state_dim(self, model, path: str, shape) -> Optional[int]:
+        """The dim a partitioned layer's recurrent state leaf at ``path``
+        (of ``shape``) is held split on over ``"model"``: an RG-LRU's state
+        and the mLSTM's conv inputs on their last dim (channels), every
+        other xLSTM state on H (the dim after the batch); None for any
+        other leaf."""
+        kind = _kind(model, path)
+        if self.on_width(model, kind) or self.xlstm_parted(model, kind) and _leaf(path) == "conv":
+            return len(shape) - 1
+        if self.xlstm_parted(model, kind):
+            return _lead(path) + 1
+        return None
+
     def slot_split(self, model, kind: str) -> bool:
         """Whether a ``kind`` layer's attention cache is held split on its
         slots (and read through :class:`CacheBlock`)."""
@@ -267,8 +296,10 @@ class SplitCaches:
         lead, kind = _lead(path), _kind(model, path)
         if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
             return Sharding(self.mesh, (None,) * lead + (None, None, "model", None))
-        if self.on_width(model, kind):
-            return Sharding(self.mesh, (None,) * (len(shape) - 1) + ("model",))
+        d = self.state_dim(model, path, shape)
+        if d is not None:
+            return Sharding(self.mesh, tuple("model" if i == d else None
+                                             for i in range(len(shape))))
         if _leaf(path) in SLOT_LEAVES and self.latent_whole(model, kind):
             return Sharding(self.mesh)
         if _leaf(path) in SLOT_LEAVES:
@@ -321,9 +352,9 @@ class SplitCaches:
         rank's KV heads; each rank writes only its heads of the new row,
         so the step's end all-gathers the new rows' heads over ``"model"``
         (B x KV x D values a leaf) before the rank that holds the slot
-        keeps them. A partitioned RG-LRU layer's state gathered so is
-        handed to it as this rank's channels, and the step's end
-        all-gathers the new state over ``"model"``."""
+        keeps them. A partitioned recurrent layer's state gathered so is
+        handed to it as this rank's channels or heads (:meth:`state_dim`),
+        and the step's end all-gathers the new state over ``"model"``."""
         from torch.distributed.tensor import DTensor
 
         flat = flatten_with_paths(caches)
@@ -345,13 +376,13 @@ class SplitCaches:
             kind = _kind(model, path)
             if path in gather or (_leaf(path) in SLOT_LEAVES and _layer(path) in gather):
                 whole = t.full_tensor()
-                if self.on_width(model, kind):
-                    # the rank's channels for its step; the whole new state
-                    # gathered from the ranks' at the step's end
-                    n = whole.shape[-1] // self.parallel.size
-                    out.append(whole[..., self.parallel.index * n:
-                                     (self.parallel.index + 1) * n].contiguous())
-                    states.append((whole, out[-1]))
+                d = self.state_dim(model, path, tuple(t.shape))
+                if d is not None:
+                    # the rank's channels or heads for its step; the whole
+                    # new state gathered from the ranks' at the step's end
+                    n = whole.shape[d] // self.parallel.size
+                    out.append(whole.narrow(d, self.parallel.index * n, n).contiguous())
+                    states.append((whole, out[-1], d))
                     back.append((t, whole))
                     continue
                 if _leaf(path) in ("k", "v") and self.on_heads(model, kind):
@@ -374,8 +405,8 @@ class SplitCaches:
             """Each gathered leaf's block of what the step wrote, kept."""
             for whole, mine, window in rows:
                 self._new_rows(whole, mine, window, position)
-            for whole, mine in states:
-                whole.copy_(self.parallel.gather(mine, dim=-1))
+            for whole, mine, d in states:
+                whole.copy_(self.parallel.gather(mine, dim=d))
             for t, whole in back:
                 off, loc = local_block(tuple(t.shape), self.mesh, t.placements)
                 t.to_local().copy_(whole[tuple(slice(o, o + n) for o, n in zip(off, loc))])

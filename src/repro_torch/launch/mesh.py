@@ -238,16 +238,26 @@ class Sharding:
 # experts, (E, d, f) and (E, f, d) after the tiles' dim, which may also be
 # split on E (the "expert" role); "shared" an MoE layer's shared experts,
 # a dense MLP; "core" an RG-LRU layer's (wx, wgate, and the gates' dense
-# (W, W) w_input_gate, w_rec_gate; w_out), whose per-channel leaves
-# (:data:`WIDTH`: log_lambda, and the depthwise conv's w (K, W) and b (W)
-# in its nested ``conv`` dict) split on their last dim too (the "width"
-# role). Beside them, the vocabulary leaves at the top of the tree (the
-# "vocab" role): ``embed`` (V, d) split on its rows, ``lm_head`` (d, V) on
-# its columns, each rank V/m of the vocabulary.
+# (W, W) w_input_gate, w_rec_gate; w_out), an mLSTM block's (w_up,
+# w_gate_up, wq, wk, wv, and the gates' (2d, H) w_igate, w_fgate; w_down)
+# or an sLSTM block's (w_ff_up (d, 2ff) on its rows), whose per-channel
+# leaves (:data:`WIDTH`: log_lambda, the depthwise conv's w (K, W) and b
+# (W) in its nested ``conv`` dict, the xLSTM's ``out_norm`` scale) split on
+# their last dim too (the "width" role), and the sLSTM's block-diagonal
+# recurrent weights (:data:`HEAD`, (H, dh, dh)) on H (the "head" role).
+# Beside them, the vocabulary leaves at the top of the tree (the "vocab"
+# role): ``embed`` (V, d) split on its rows, ``lm_head`` (d, V) on its
+# columns, each rank V/m of the vocabulary.
 COLUMN = {"attn": ("wq", "wk", "wv", "wq_b", "w_uk", "w_uv"), "ffn": ("w_gate", "w_up"),
-          "shared": ("w_gate", "w_up"), "core": ("wx", "wgate", "w_input_gate", "w_rec_gate")}
-ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",), "core": ("w_out",)}
-WIDTH = ("log_lambda", "conv.w", "conv.b")     # a core leaf's name in its group
+          "shared": ("w_gate", "w_up"),
+          "core": ("wx", "wgate", "w_input_gate", "w_rec_gate", "w_up", "w_gate_up", "wq", "wk",
+                   "wv", "w_igate", "w_fgate")}
+ROW = {"attn": ("wo",), "ffn": ("w_down",), "shared": ("w_down",),
+       "core": ("w_out", "w_down", "w_ff_up")}
+# a core leaf's name in its group
+WIDTH = ("log_lambda", "conv.w", "conv.b", "out_norm.scale")
+HEAD = ("r_i", "r_f", "r_z", "r_o")
+NESTED = ("conv", "out_norm")                 # the dicts a core holds its nested leaves in
 EXPERTS = ("w_gate", "w_up", "w_down")
 VOCAB = {"embed": 0, "lm_head": 1}            # the leaf and its vocabulary dim
 # the keys a train state puts before a parameter's own path
@@ -270,28 +280,30 @@ def _vocab_leaf(keys: list) -> bool:
 def _group_of(path: str, keys: list) -> Optional[Tuple[str, str, str]]:
     """The group of the leaf at ``path`` (``keys``): the path of the dict
     of :data:`COLUMN` that holds it, that dict's key and the leaf's name in
-    the group (a ``conv`` leaf of a ``core`` dict as ``"conv.w"``); None
-    for a leaf of no such dict."""
-    if len(keys) >= 3 and keys[-3] == "core" and keys[-2] == "conv":
-        return path[:path.rindex("['conv']")], "core", "conv." + keys[-1]
+    the group (a ``conv`` or ``out_norm`` leaf of a ``core`` dict as
+    ``"conv.w"``, ``"out_norm.scale"``); None for a leaf of no such dict."""
+    if len(keys) >= 3 and keys[-3] == "core" and keys[-2] in NESTED:
+        return path[:path.rindex(f"['{keys[-2]}']")], "core", f"{keys[-2]}.{keys[-1]}"
     if len(keys) >= 2 and keys[-2] in COLUMN:
         return path[:path.rindex("[")], keys[-2], keys[-1]
     return None
 
 
 def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optional[str]:
-    """``"column"``, ``"row"``, ``"expert"``, ``"width"`` or ``"vocab"``
-    where the parameter at ``path`` (a ``flatten_with_paths`` path, with or
-    without a state's prefix: ``['params']``, the moments, the residuals),
-    of global ``shape`` and placed on ``mesh`` by the DTensor
-    ``placements``, is a :data:`COLUMN` leaf split over ``"model"`` on its
-    last dim, a :data:`ROW` leaf split on its dim before the last, an MoE
-    layer's routed expert (``(E, d, f)`` after the tiles' dim) split on E,
-    an RG-LRU layer's per-channel leaf (:data:`WIDTH`) split on its last
-    dim, or the top-level ``embed`` (V, d) split on its rows or ``lm_head``
-    (d, V) on its columns (:data:`VOCAB`); split evenly, and replicated over
-    every other mesh dim; else None. A ``model`` axis of size 1 counts: the
-    layout is named by the placement alone."""
+    """``"column"``, ``"row"``, ``"expert"``, ``"width"``, ``"head"`` or
+    ``"vocab"`` where the parameter at ``path`` (a ``flatten_with_paths``
+    path, with or without a state's prefix: ``['params']``, the moments,
+    the residuals), of global ``shape`` and placed on ``mesh`` by the
+    DTensor ``placements``, is a :data:`COLUMN` leaf split over ``"model"``
+    on its last dim, a :data:`ROW` leaf split on its dim before the last,
+    an MoE layer's routed expert (``(E, d, f)`` after the tiles' dim) split
+    on E, a recurrent block's per-channel leaf (:data:`WIDTH`) split on its
+    last dim, an sLSTM's recurrent weight (:data:`HEAD`, ``(H, dh, dh)``
+    after the tiles' dim) split on H, or the top-level ``embed`` (V, d)
+    split on its rows or ``lm_head`` (d, V) on its columns
+    (:data:`VOCAB`); split evenly, and replicated over every other mesh
+    dim; else None. A ``model`` axis of size 1 counts: the layout is named
+    by the placement alone."""
     names = tuple(mesh.mesh_dim_names)
     keys = path_keys(path)
     vocab = _vocab_leaf(keys)
@@ -303,7 +315,8 @@ def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optio
     nd = len(shape)
     experts = kind == "ffn" and leaf in EXPERTS and nd == lead + 3
     width = kind == "core" and leaf in WIDTH and nd in (lead + 1, lead + 2)
-    if nd != lead + 2 and not (experts or width):
+    head = kind == "core" and leaf in HEAD and nd == lead + 3
+    if nd != lead + 2 and not (experts or width or head):
         return None
     km = names.index("model")
     if any(not p.is_replicate() for k, p in enumerate(placements) if k != km):
@@ -318,6 +331,8 @@ def partition_role(path: str, shape: Tuple[int, ...], placements, mesh) -> Optio
         return "expert"
     if width:
         return "width" if dim == nd - 1 else None
+    if head:
+        return "head" if dim == lead else None
     if leaf in COLUMN[kind] and dim == nd - 1:
         return "column"
     if leaf in ROW[kind] and dim == nd - 2:
@@ -332,13 +347,17 @@ def _replicated(placements) -> bool:
 def _family(got: dict, kind: str) -> Optional[str]:
     """The family of a group of leaves ``got`` held by a dict ``kind`` of
     :data:`COLUMN`: "attn" (GQA), "mla", "mlp" (a dense MLP), "moe" (an MoE
-    layer's routed experts with their router, or its shared experts) or
-    "rglru"; None for an ``attn`` dict of neither attention and for an
-    xLSTM block's ``core``."""
+    layer's routed experts with their router, or its shared experts),
+    "rglru", "mlstm" or "slstm" (a ``core`` with w_rec_gate, w_igate or
+    r_i); None for an ``attn`` dict of neither attention and for a ``core``
+    of none of the three."""
     if kind == "attn":
         return "mla" if "w_uk" in got else "attn" if "wk" in got else None
     if kind == "core":
-        return "rglru" if "w_rec_gate" in got else None
+        for fam, leaf in (("rglru", "w_rec_gate"), ("mlstm", "w_igate"), ("slstm", "r_i")):
+            if leaf in got:
+                return fam
+        return None
     if kind == "shared":
         return "moe"
     return "moe" if "router" in got else "mlp"
@@ -347,7 +366,10 @@ def _family(got: dict, kind: str) -> Optional[str]:
 # the roles a whole group takes: for each family, the choices of
 # {leaf: role}; every other leaf of the group replicated. Attention's
 # second choice is MQA's: the query heads split, the one KV head (wk, wv
-# and a k_norm) replicated on every rank
+# and a k_norm) replicated on every rank. The sLSTM's w_in and w_ff_down
+# stay replicated: w_in's columns are gate-major and w_ff_up's are two GLU
+# halves, so no contiguous column block of either is a rank's heads'
+# gates or whole GLU pairs
 ROLES = {
     "attn": ({"wq": "column", "wk": "column", "wv": "column", "wo": "row"},
              {"wq": "column", "wo": "row"}),
@@ -358,6 +380,11 @@ ROLES = {
     "rglru": ({"wx": "column", "wgate": "column", "w_input_gate": "column",
                "w_rec_gate": "column", "w_out": "row", "log_lambda": "width",
                "conv.w": "width", "conv.b": "width"},),
+    "mlstm": ({"w_up": "column", "w_gate_up": "column", "wq": "column", "wk": "column",
+               "wv": "column", "w_igate": "column", "w_fgate": "column", "w_down": "row",
+               "conv.w": "width", "conv.b": "width", "out_norm.scale": "width"},),
+    "slstm": ({"r_i": "head", "r_f": "head", "r_z": "head", "r_o": "head",
+               "out_norm.scale": "width", "w_ff_up": "row"},),
 }
 
 
@@ -373,8 +400,9 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
     A group is one dict of :data:`COLUMN` and :data:`ROW` leaves: GQA's or
     MLA's ``attn``, a dense MLP's ``ffn`` (w_gate, w_up, w_down; or w_up,
     w_down), an MoE layer's ``ffn`` (its routed experts and router) or its
-    ``shared`` experts, an RG-LRU layer's ``core`` (with its ``conv``). A
-    family ("attn", "mla", "mlp", "moe", "rglru") is partitioned when the
+    ``shared`` experts, an RG-LRU, mLSTM or sLSTM block's ``core`` (with
+    its ``conv`` and ``out_norm``). A family ("attn", "mla", "mlp", "moe",
+    "rglru", "mlstm", "slstm") is partitioned when the
     model has one of its groups at least and every group of it is whole in
     its roles (:data:`ROLES`, each leaf's by :func:`partition_role`; every
     other leaf of the group, the norms, MLA's down-projections and the
@@ -385,7 +413,13 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
     replicated: attention's second choice) ``cfg.n_heads`` alone, every
     rank reading the one KV head; MLA's ``cfg.n_heads``; the RG-LRU's
     ``cfg.lru_width`` (rank r holds the channels [r W/m, (r+1) W/m) of every
-    product's output, of the conv and of the recurrence). A KV wider than
+    product's output, of the conv and of the recurrence); the xLSTM
+    blocks' ``cfg.n_heads`` (rank r holds heads [r H/m, (r+1) H/m): the
+    mLSTM's columns of them in every product, and its channels of the conv
+    and the norm; the sLSTM's recurrent weights, norm channels and
+    w_ff_up's rows of them, with w_in and w_ff_down replicated; a
+    placement that splits w_in or w_ff_up on its columns is not the
+    family). A KV wider than
     one head with replicated wk and wv is not MQA: its heads would pair
     with the wrong query heads, so it stays gathered. An MoE layer's
     experts are split on E (rank r holds experts [r E/m, (r+1) E/m)) or on
@@ -435,6 +469,8 @@ def partitioned_leaves(cfg, mesh, items, agree=None, gathered=()) -> Tuple[froze
         if fam == "mla" and cfg.n_heads % m:
             continue
         if fam == "rglru" and cfg.lru_width % m:
+            continue
+        if fam in ("mlstm", "slstm") and cfg.n_heads % m:
             continue
         if all(_group_ok(g, fam, choices) for g in gs):
             families.add(fam)

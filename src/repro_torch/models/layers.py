@@ -110,14 +110,17 @@ def model_parallel(family: str):
     """The ``shardctx`` rule ``"model_parallel"`` (a
     ``training.data_parallel.ModelParallel``) where it partitions
     ``family`` ("attn": GQA, "mla", "mlp": the dense MLP, "moe": the MoE
-    layer, "vocab": the embedding and the head) over the ``model`` ranks,
-    else None. Partitioned, a block's weights are this rank's columns (wq,
-    wk, wv; wq_b, w_uk, w_uv; w_gate, w_up; the head's vocabulary), rows
-    (wo, w_down; the embedding's vocabulary) or experts: its code calls the
-    rule's ``enter`` on the replicated tensors the column products read
-    and ``leave`` on the output of the row product or the masked lookup
-    (the sum of the ranks' parts). The norms, the router and MLA's
-    down-projections stay replicated."""
+    layer, "rglru": the RG-LRU on its width, "mlstm" and "slstm": the xLSTM
+    blocks on their heads, "vocab": the embedding and the head) over the
+    ``model`` ranks, else None. Partitioned, a block's weights are this
+    rank's columns (wq, wk, wv; wq_b, w_uk, w_uv; w_gate, w_up; the
+    RG-LRU's and the mLSTM's products; the head's vocabulary), rows (wo,
+    w_down, w_out, w_ff_up; the embedding's vocabulary), channels, heads
+    or experts: its code calls the rule's ``enter`` on the replicated
+    tensors the column products read and ``leave`` on the output of the
+    row product or the masked lookup (the sum of the ranks' parts). The
+    norms, the router, MLA's down-projections, MQA's KV head and the
+    sLSTM's w_in and w_ff_down stay replicated."""
     mp = shardctx.get("model_parallel")
     return mp if mp is not None and family in mp.families else None
 

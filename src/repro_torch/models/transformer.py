@@ -44,7 +44,8 @@ under the same rule, made with them: where they partition GQA over
 and holds its own KV heads of the cache, read with no merge; partitioned
 MLA reads its latent cache held whole on every rank, as MQA (one KV
 head: recurrentgemma's local blocks) its K and V; a partitioned RG-LRU
-layer computes and holds its channels of the state; partitioned MoE
+layer computes and holds its channels of the state, a partitioned xLSTM
+block its heads of it; partitioned MoE
 experts (split on their expert dim or on their columns) serve in prefill
 and in the drop-free decode alike; an embedding and head split on their
 vocabulary look each token up on the rank that owns it (one all-reduce)
@@ -432,12 +433,12 @@ class TransformerLM(nn.Module):
         return split.block(batch, self._slots(kind, cache_len), f"a {kind!r} layer's cache")
 
     def _cache_one(self, kind: str, batch: int, cache_len: int, dev, lead: tuple = (),
-                   block=None, kv_heads: int = 0, width: int = 0):
+                   block=None, kv_heads: int = 0, width: int = 0, heads: int = 0):
         cfg, cdt = self.cfg, self.compute_dtype
         if kind == "mlstm":
-            return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead)
+            return xlstm_mod.mlstm_state_init(batch, cfg, cdt, dev, lead, heads)
         if kind == "slstm":
-            return xlstm_mod.slstm_state_init(batch, cfg, dev, lead)
+            return xlstm_mod.slstm_state_init(batch, cfg, dev, lead, heads)
         if kind == "rglru":
             W = width or cfg.lru_width
             return {"h": torch.zeros(lead + (batch, W), dtype=torch.float32, device=dev),
@@ -461,7 +462,8 @@ class TransformerLM(nn.Module):
         (their stabilizers ``m`` at -1e30) and the mLSTM's conv inputs.
         Under the ``"cache_split"`` rule, DTensors of which each rank
         allocates its attention caches' block only (and its channels of a
-        partitioned RG-LRU layer's state)."""
+        partitioned RG-LRU layer's state, its heads of a partitioned xLSTM
+        block's)."""
         dev = resolve_device(device)
         split = shardctx.get("cache_split")
         caches = self._caches(batch, cache_len, dev, split)
@@ -474,10 +476,12 @@ class TransformerLM(nn.Module):
 
     def _caches(self, batch: int, cache_len: int, dev: torch.device, split=None):
         def one(kind, lead):
+            if split is None:
+                return self._cache_one(kind, batch, cache_len, dev, lead)
             return self._cache_one(kind, batch, cache_len, dev, lead,
                                    self._split_block(kind, batch, cache_len, split),
-                                   split.kv_heads(self, kind) if split is not None else 0,
-                                   split.lru_width(self, kind) if split is not None else 0)
+                                   split.kv_heads(self, kind), split.lru_width(self, kind),
+                                   split.state_heads(self, kind))
 
         caches = {}
         if self.n_tiles > 0:

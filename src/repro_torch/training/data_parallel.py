@@ -43,8 +43,9 @@ Partitioned compute over ``model`` (Megatron's column/row split, what
 GSPMD derives from the same placements): where a family is placed so
 (``launch.mesh.partitioned_leaves``: GQA's wq, wk, wv (MQA's wq alone) or
 MLA's wq_b, w_uk, w_uv split on their output dim and wo on its input dim;
-the RG-LRU's products so and its per-channel leaves on their width; the dense MLP's
-w_gate, w_up and w_down likewise; an MoE layer's routed experts on their
+the RG-LRU's products so and its per-channel leaves on their width; the
+xLSTM blocks' on their heads; the dense MLP's w_gate, w_up and w_down
+likewise; an MoE layer's routed experts on their
 expert dim or on their f columns, its shared experts as a dense MLP; the
 embedding on its vocabulary rows and the head on its vocabulary columns,
 "vocab"), its leaves are not gathered. Each rank computes its own heads
@@ -59,17 +60,21 @@ combine or lookup (:class:`ModelParallel`, the ``shardctx`` rule
 partitioned leaf's gradient is its block already and is averaged over the
 data group only (a tied embedding's two uses both land in the rank's own
 rows). The q and k norms of GQA, replicated but applied to each rank's
-heads only, and MQA's replicated wk and wv (every rank's query heads read
-the one KV head), get their gradient summed over ``model`` (one packed
-all-reduce a step); every other replicated leaf (the norms, the final
-norm, MLA's down-projections, the router) gets its whole gradient on every
-rank, from the ``enter`` calls the models place after it. An RG-LRU layer
-partitioned on its width computes its W/m channels: the x and gate
-branches' columns, the conv and the recurrence on them, the gates' columns
-of the whole conv output (one differentiable all-gather a layer, a
-reduce-scatter backward) and w_out's rows. With every family partitioned,
-only the norms, the router, MLA's down-projections and MQA's KV head stay
-replicated.
+heads only, MQA's replicated wk and wv (every rank's query heads read
+the one KV head) and a partitioned sLSTM's replicated w_in (each rank
+reads its heads' columns), get their gradient summed over ``model`` (one
+packed all-reduce a step); every other replicated leaf (the norms, the
+final norm, MLA's down-projections, the router, the sLSTM's w_ff_down)
+gets its whole gradient on every rank, from the ``enter`` calls the models
+place after it. An RG-LRU layer partitioned on its width computes its W/m
+channels: the x and gate branches' columns, the conv and the recurrence on
+them, the gates' columns of the whole conv output (one differentiable
+all-gather a layer, a reduce-scatter backward) and w_out's rows. An xLSTM
+block partitioned on its heads (``"mlstm"``, ``"slstm"``:
+``models.xlstm``) computes its H/m heads, its out_norm's mean of squares
+summed over ``model`` (an all-reduce each way). With every family
+partitioned, only the norms, the router, MLA's down-projections, MQA's KV
+head and the sLSTM's w_in and w_ff_down stay replicated.
 """
 
 from __future__ import annotations
@@ -97,6 +102,14 @@ Layout = Tuple[Optional[int], ...]
 def layout_of(t) -> Layout:
     """A DTensor's placements as a :data:`Layout`."""
     return tuple(p.dim % t.ndim if p.is_shard() else None for p in t.placements)
+
+
+def _dense_view(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``x`` with its dims in the order of their strides: a contiguous view
+    of its memory where its elements are dense (``x`` itself where it is
+    contiguous), else None."""
+    view = x.permute(sorted(range(x.ndim), key=lambda d: -x.stride(d)))
+    return view if view.is_contiguous() else None
 
 
 def _scatter_sum(x: torch.Tensor, d: int, n: int, group) -> torch.Tensor:
@@ -156,6 +169,22 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumModel(torch.autograd.Function):
+    """The sum over the model group forward, and the sum of the ranks'
+    gradients backward: a total each rank holds a part of (a norm's sum of
+    squares over its channels), read by every rank for its channels only,
+    so that each gives a part of the total's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return mp.sum_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.sum_(g.clone(memory_format=torch.contiguous_format)), None
+
+
 class _GatherModel(torch.autograd.Function):
     """The ranks' blocks concatenated along ``dim`` in the model group's
     order (an all-gather) forward; the transpose backward: the gradient
@@ -170,19 +199,23 @@ class _GatherModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mp.scatter_sum(g, ctx.dim), None, None
+        # contiguous, as the plain route's gradient is: a reduction or a
+        # product downstream then sums in the plain route's order
+        return ctx.mp.scatter_sum(g, ctx.dim).contiguous(), None, None
 
 
 class ModelParallel:
     """Partitioned compute over a mesh's ``model`` axis: the model group,
     its size and this rank's index on it, the families that are
     partitioned (``"attn"``, ``"mla"``, ``"mlp"``, ``"moe"``, ``"rglru"``,
-    ``"vocab"``) and the two functions their code calls around its
+    ``"mlstm"``, ``"slstm"``, ``"vocab"``) and the two functions their code calls around its
     products: :meth:`enter` on a replicated tensor that this rank's columns
     read (the block's input; MLA's normed latents; the MoE's tokens and
     combine weights; the head's normed input) and :meth:`leave` after the
     row product, the combine or the masked lookup. The RG-LRU's gates read
     the whole of a tensor each rank holds a block of: :meth:`gather_blocks`
+    (differentiable), as the mLSTM's q, k, v and gates; the xLSTM blocks'
+    norms sum their means of squares with :meth:`all_sum`
     (differentiable). The vocabulary-parallel cross-entropy reduces with
     :meth:`max_` and :meth:`sum_`; serving gathers the logits with
     :meth:`gather`. Installed as the
@@ -235,6 +268,11 @@ class ModelParallel:
         the ranks' gradients, this rank's block)."""
         return _GatherModel.apply(x, self, dim)
 
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group, differentiable: the backward
+        sums the ranks' gradients (an all-reduce each way)."""
+        return _SumModel.apply(x, self)
+
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(x, self)
 
@@ -274,9 +312,17 @@ class DataParallel:
 
     # -- the data group ---------------------------------------------------
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data group, in place (no gradient)."""
+        """``x`` summed over the data group, in place (no gradient). NCCL
+        sums contiguous tensors only: a dense ``x`` laid out otherwise (a
+        gradient that autograd hands back transposed, as hubert's
+        ``conv_pos`` weight's) is summed through a contiguous view of its
+        own memory, so it keeps its layout and the sums read from it later
+        associate as on the plain step's gradient."""
         self._count("all_reduce")
-        dist.all_reduce(x, group=self.group)
+        view = _dense_view(x)
+        if view is None:
+            x = view = x.contiguous()
+        dist.all_reduce(view, group=self.group)
         return x
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -444,8 +490,9 @@ class Placed:
     config, for the heads), the :class:`ModelParallel` of their families
     (``mp``, None where none is) and the leaves whose gradient each model
     rank holds a part of (``partial``: the q and k norms of partitioned
-    attention, MQA's wk and wv). A leaf is partitioned only where its moments and residual
-    are split over ``model`` as it is (and no data axis splits that dim);
+    attention, MQA's wk and wv, a partitioned sLSTM's w_in). A leaf is
+    partitioned only where its moments and residual are split over
+    ``model`` as it is (and no data axis splits that dim);
     else its family takes the gathered route, as do the families named in
     ``gathered``."""
 
@@ -480,13 +527,15 @@ class Placed:
             return
         self.parted = [path in paths for path, _ in params]
         self.mp = ModelParallel(dp.mesh, families, dp._count)
-        # the q and k norms of a partitioned attention group, and MQA's
-        # replicated wk and wv (each rank's query heads read the one KV head)
+        # the q and k norms of a partitioned attention group, MQA's
+        # replicated wk and wv (each rank's query heads read the one KV
+        # head) and a partitioned sLSTM's replicated w_in (each rank reads
+        # its heads' columns of it)
         groups = {path.rsplit("[", 1)[0] for path in paths}
         self.partial = [i for i, (path, _) in enumerate(params) if path not in paths and (
             path.endswith(("['q_norm']['scale']", "['k_norm']['scale']"))
             and path.rsplit("[", 2)[0] in groups
-            or path.endswith(("['attn']['wk']", "['attn']['wv']"))
+            or path.endswith(("['attn']['wk']", "['attn']['wv']", "['core']['w_in']"))
             and path.rsplit("[", 1)[0] in groups)]
 
     def _rel(self, i: int, lay: Layout) -> Layout:

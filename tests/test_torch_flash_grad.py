@@ -135,18 +135,20 @@ KW = {"qwen3-1.7b": {"n_kv_heads": 2}}
 B, T = 2, 24
 
 
-def _models(name):
-    jcfg = dataclasses.replace(jget_config(name).reduced(), **KW.get(name, {}))
-    cfg = dataclasses.replace(get_config(name).reduced(), **KW.get(name, {}))
+def _models(name, **changes):
+    changes = {**KW.get(name, {}), **changes}
+    jcfg = dataclasses.replace(jget_config(name).reduced(), **changes)
+    cfg = dataclasses.replace(get_config(name).reduced(), **changes)
     jm = jmake_model(jcfg, param_dtype=jnp.float32, compute_dtype=jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
     m = make_model(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
     return jcfg, jm, jp, m, from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 
-def _batch(cfg, seed=0):
+def _batch(cfg, seed=0, batch_size=B, seq=T):
     """Numpy arrays: tokens (or an audio model's frames), labels and a
     mask with some positions off; a vision model's image embeddings."""
+    B, T = batch_size, seq
     rng = np.random.default_rng(seed)
     b = {"labels": rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
          "mask": rng.random((B, T)) < 0.8}
@@ -184,15 +186,36 @@ def _leaves_with_paths(tree, prefix=""):
 
 
 @pytest.mark.parametrize("name", ["qwen3-1.7b", "granite-moe-1b-a400m", "recurrentgemma-2b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "xlstm-125m", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
 @pytest.mark.parametrize("remat", [False, True])
 def test_parameter_grads_match_reference(name, remat):
     """Every parameter's gradient of the loss (f32) against ``jax.grad``:
     atol 2e-4 on gradients scaled to their largest magnitude (1 or more);
-    recomputing each tile (``remat``) changes no number."""
-    jcfg, jm, jp, m, p = _models(name)
+    recomputing each tile (``remat``) changes no number. xlstm-125m runs
+    its sLSTM's time loop and, at T = 24, the quadratic mLSTM; hubert-xlarge
+    its audio frontend and non-causal encoder; llava its projector's image
+    tokens before the text."""
+    _hold_grads(name, remat, B, T)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_xlstm_chunkwise_grads_match_reference(remat):
+    """xlstm-125m at T = 512 (B = 1), a length at which both sides' mLSTM
+    takes its chunkwise form (two chunks of 256, the scaled state carried
+    between them) and the sLSTM loops 512 steps: every parameter's
+    gradient as above, on one tile of the pattern (five mLSTM layers and
+    the sLSTM). Over both tiles the two f32 sides part by up to 2.2e-4 on
+    the embedding, each about 1e-4 from a float64 run of the port
+    (``scripts/xlstm_grad_rounding.py``): the exponential gates amplify
+    f32 rounding with depth, where one tile keeps it near 2e-5."""
+    _hold_grads("xlstm-125m", remat, 1, 512, n_layers=6)
+
+
+def _hold_grads(name, remat, batch_size, seq, **changes):
+    jcfg, jm, jp, m, p = _models(name, **changes)
     m.remat = remat
-    batch = _batch(jcfg, seed=1)
+    batch = _batch(jcfg, seed=1, batch_size=batch_size, seq=seq)
     jgrads = jax.grad(lambda q: jm.loss(q, {k: jnp.asarray(v) for k, v in batch.items()})[0])(jp)
     tp = jax.tree.map(lambda t: t, p)
     flat = list(_leaves_with_paths(tp))

@@ -329,8 +329,9 @@ import torch.distributed as dist
 import chip_smoke as cs
 torch.set_num_threads(1)
 sizes = cs.Sizes(reduced=True, train_batch=2, train_seq=32, train_steps=5, grad_layers=2,
-                 audio_frames=24, window_seq=48, pool_blocks=256, block_tokens=4,
-                 prefix_tokens=16, user_tokens=8, new_tokens=4, live_requests=4)
+                 audio_frames=24, window_seq=48, xlstm_seq=256, pool_blocks=256,
+                 block_tokens=4, prefix_tokens=16, user_tokens=8, new_tokens=4,
+                 live_requests=4)
 errs = cs.Errors()
 out = cs.phase_train(torch.device("cpu"), sizes, errs, seed=0, card="cpu")
 mesh = out["mesh"]
@@ -362,6 +363,11 @@ print(json.dumps(dict(
     recurrent=dict(steps={f: mesh["i9_steps"][f] for f in ("losses", "calls", "kinds", "split")},
                    serve={k: v for k, v in mesh["i9_serve"].items() if k != "cfg"},
                    bytes={str(m): r for m, r in mesh["i9_bytes"].items()}),
+    xlstm_run=dict(losses=[r["loss"] for r in mesh[cs.XL_ARCH]["steps"]],
+                   launches=mesh[cs.XL_ARCH]["launches"]),
+    i10={k: ({f: x for f, x in v.items() if f not in ("cfg", "plain", "placed")}
+             if isinstance(v, dict) else v)
+         for k, v in mesh.items() if k.startswith("i10_")},
     per_rank=out["per_rank"],
     rank_bytes={name: {str(n): r for n, r in v.items()}
                 for name, v in mesh["rank_bytes"].items()})), flush=True)
@@ -491,7 +497,8 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
     plain ones, 7 model-group all-reduces (MLA 1 + 3, the MoE 1 + 2); (i7)
     granite's and deepseek-v2's live requests partitioned, the logits
     equal; the layer arithmetic of (i4); and K3 and K3-bwd at each rank's
-    heads (GQA's and MLA's) against their plain versions. (i8) the
+    heads (GQA's and MLA's; (i10)'s hubert and llava at 2 ranks) against
+    their plain versions. (i8) the
     embedding and the head split on their vocabulary too: qwen3's steps
     equal to the plain ones with 4 more all-reduces (the lookup's, the
     loss's 2, the head's input gradient) and its embedding split too,
@@ -545,9 +552,14 @@ def test_chip_smoke_train_phase_partitions_over_model(train_phase):
     # at 1 rank nothing splits; the reduced vocabulary (512) divides over 8
     assert q["1"]["partitioned + vocab"] == q["1"]["partitioned"] == q["1"]["replicated"]
     gqa, mla = " D=16/16 (padded to 64)", " D=24/16 (padded to 64)"
+    # then (i10)'s at 2 ranks: hubert's encoder (K3 and K3-bwd), llava's K3
+    front = {"flash_attention": ["hubert-xlarge", "llava-next-mistral-7b"],
+             "flash_attention_bwd": ["hubert-xlarge"]}
     for name in ("flash_attention", "flash_attention_bwd"):
-        assert [r["heads"] for r in out["per_rank"][name]] == [
+        assert [r["heads"] for r in out["per_rank"][name]][:4] == [
             "H=2 KV=2" + gqa, "H=1 KV=1" + gqa, "H=2 KV=2" + mla, "H=1 KV=1" + mla]
+        assert [(r["arch"], r["heads"], r["m"]) for r in out["per_rank"][name]][4:] == [
+            (arch, "H=2 KV=2" + gqa, 2) for arch in front[name]]
         assert all(r["max_abs_err"] == 0.0 for r in out["per_rank"][name])
 
 
@@ -582,6 +594,54 @@ def test_chip_smoke_train_phase_partitions_recurrentgemma(train_phase):
     assert b["2"]["families"] == b["4"]["families"] == ["attn", "mlp", "rglru", "vocab"]
     assert b["8"]["families"] == ["mlp", "rglru", "vocab"] and b["5"]["families"] == []
     assert b["2"]["held_gb"] > b["4"]["held_gb"] > b["8"]["held_gb"]
+
+
+def test_chip_smoke_train_phase_trains_xlstm(train_phase):
+    """Phase 9 (f) at a small size: the reduced xlstm-125m takes 3
+    launcher steps of 2 x 256 tokens (its sLSTM's loop forward and
+    backward, remat's forward again) with a falling loss, and launches no
+    kernel (no attention; on the CPU nothing launches)."""
+    r = train_phase["xlstm_run"]
+    assert len(r["losses"]) == 3 and r["losses"][-1] < r["losses"][0]
+    assert r["launches"]["flash_attention"] == r["launches"]["flash_attention_bwd"] == 0
+
+
+def test_chip_smoke_train_phase_partitions_xlstm_and_the_frontends(train_phase):
+    """Phase 9 (i10) at a small size, in the one-rank gloo group: the
+    reduced xlstm-125m (12 layers: two tiles of five mLSTM blocks and an
+    sLSTM) placed on its heads and vocabulary, equal to the plain steps
+    (checked in the phase), with the collectives predicted: 71 gradient
+    leaves, the loss's 3, the norm's 1, w_in's sum, the vocabulary's 4, 4
+    a layer of the model group and at --remat 2 a layer again (the
+    recomputation reaches each tile's last sum, which the sLSTM's GLU
+    reads); an all-gather an mLSTM layer (twice at --remat) and a
+    reduce-scatter each; its live requests partitioned, logits equal, 2
+    all-reduces a layer and pass and one for the lookup, an all-gather an
+    mLSTM layer and one of the logits; hubert's 4-layer steps (its frames
+    in: the vocabulary's 3, no lookup) and 4 forwards, and llava's image
+    request, partitioned and equal to plain; no K3 on the CPU."""
+    r = train_phase["i10"]
+    steps = r["i10_xlstm_steps"]
+    assert len(steps["losses"]) == 3
+    assert steps["kinds"] == dict(all_reduce=71 + 3 + 1 + 1 + 4 + 4 * 12 + 2 * 12,
+                                  reduce_scatter=10, all_gather=10 + 10)
+    # params, mu, nu of the split leaves: 11 in each of 5 mLSTM groups, 6 in
+    # the sLSTM's, the embedding
+    assert steps["split"] == 3 * (11 * 5 + 6 + 1)
+    sv = r["i10_xlstm_serve"]
+    assert sv["logits_err"] == 0.0 and sv["prefills"] == 2 * 4 + 2
+    assert sv["kinds"] == {"all_reduce": 2 * (2 * 12 + 1), "all_gather": 2 * (10 + 1)}
+    hub = r["i10_hubert_steps"]
+    assert hub["kinds"] == dict(all_reduce=15 + 3 + 1 + 3 + 4 * (2 * 2 + 2) - 4,
+                                reduce_scatter=0, all_gather=0)
+    assert hub["losses"][0] > 0 and len(hub["losses"]) == 2
+    fw = r["i10_hubert_forwards"]
+    assert fw["logits_err"] == 0.0 and fw["families"] == ["attn", "mlp", "vocab"]
+    assert fw["kinds"] == {"all_reduce": 4 * 2 * 2, "all_gather": 4}
+    image = r["i10_image"]
+    assert image["logits_err"] == 0.0 and len(image["tokens"]) == 4
+    assert image["T"] == 8 + 16 + 8
+    assert r["i10_k3"] == {"steps": [0, 0], "forwards": [0, 0], "image": [0, 0]}
 
 
 _LAUNCH_PHASE = """

@@ -70,6 +70,24 @@ script in a process of its own.
         steps, greedy serving) at sequences and a prompt past its window,
         the RG-LRU states placed on their width (DIR/reference_recurrent.pkl;
         DIR/port_recurrent_<rank>.pkl, with each rank's cache blocks).
+    python tests/torch_train_ranks.py reference DIR xlstm
+    python tests/torch_train_ranks.py port DIR xlstm
+        The reduced xlstm-125m (12 layers, d=64, H=4, tied) on (data=1,
+        model=2), placed by ``xlstm_names``: the mLSTM and sLSTM blocks on
+        their heads, the vocabulary split; as an ``MP_MOE_CASES`` case (the
+        first step's gradient, two placed steps, greedy serving), the
+        states placed on their heads (DIR/reference_xlstm.pkl;
+        DIR/port_xlstm_<rank>.pkl, with each rank's cache blocks and the
+        heads and channels its xLSTM blocks computed).
+    python tests/torch_train_ranks.py reference DIR frontend
+    python tests/torch_train_ranks.py port DIR frontend
+        hubert-xlarge (audio frames in, the non-causal encoder) and
+        llava-next-mistral-7b (image embeddings in) reduced, on (data=1,
+        model=2) placed by ``vocab_names`` (``FRONT_CASES``), each as an
+        ``MP_MOE_CASES`` case: the first step's gradient and two placed
+        steps; then hubert's forward, and llava's image request served
+        greedily with K/V on their heads (DIR/reference_frontend.pkl;
+        DIR/port_frontend_<rank>.pkl).
     python tests/torch_train_ranks.py reference DIR mesh22
     python tests/torch_train_ranks.py port DIR mesh22
         A mesh with both axes larger than one: (data=2, model=2) on 4
@@ -116,6 +134,44 @@ def batches(vocab: int, seq: int = T):
         mask = rng.random((B, seq)) < np.linspace(0.3, 1.0, B)[:, None]
         out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask})
     return out
+
+
+def case_batches(cfg, seq: int = T):
+    """``batches`` for ``cfg``'s modality: an audio model's frames (B, seq,
+    d) in place of its tokens, a vision model's image embeddings (B,
+    n_image_tokens, vision_dim) beside them (drawn after the tokens, from
+    a generator of their own)."""
+    out = batches(cfg.vocab_size, seq)
+    if cfg.modality not in ("audio", "vision_text"):
+        return out
+    rng = np.random.default_rng(12)
+    for b in out:
+        if cfg.modality == "audio":
+            del b["tokens"]
+            b["frames"] = rng.standard_normal((B, seq, cfg.d_model)).astype(np.float32)
+        else:
+            b["image_embeds"] = rng.standard_normal(
+                (B, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32)
+    return out
+
+
+def serve_inputs(cfg, prompt: int) -> dict:
+    """The serving request of two rows: ``prompt`` tokens (a vision model's
+    image embeddings before them), or an audio model's ``prompt`` frames."""
+    rng = np.random.default_rng(9)
+    if cfg.modality == "audio":
+        return {"frames": rng.standard_normal((2, prompt, cfg.d_model)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (2, prompt)).astype(np.int32)}
+    if cfg.modality == "vision_text":
+        out["image_embeds"] = np.random.default_rng(10).standard_normal(
+            (2, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32)
+    return out
+
+
+def first_position(cfg, inputs: dict) -> int:
+    """The position of the first decode step after a prefill of ``inputs``
+    (a vision model's image tokens come first)."""
+    return inputs["tokens"].shape[1] + (cfg.n_image_tokens if "image_embeds" in inputs else 0)
 
 
 # the placed cases: the mesh of each placement (its axes AXES, but for
@@ -325,7 +381,8 @@ def _port_rank(rank: int, world: int, out_dir: str, tag: str = "") -> None:
             ref = pickle.load(f)
         res = {"": _port_cases, "_placed": _port_placed, "_megatron": _port_megatron,
                "_vocab": _port_vocab, "_recurrent": _port_recurrent,
-               "_mesh22": _port_mesh22}[tag](ref, Path(out_dir))
+               "_mesh22": _port_mesh22, "_xlstm": _port_xlstm,
+               "_frontend": _port_frontend}[tag](ref, Path(out_dir))
         with open(Path(out_dir) / f"port{tag}_{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -527,6 +584,57 @@ def recurrent_names(path: str, shape, experts: str = "column") -> tuple:
     return vocab_names(path, shape, experts)
 
 
+# xlstm-125m partitioned over "model" on its heads (data=1, model=2): the
+# reduced config (12 layers: two tiles of five mLSTM blocks and an sLSTM,
+# d=64, H=4, the vocabulary of 512 tied)
+XL_ARCH, XL_CFG = "xlstm-125m", {"n_layers": 6}
+# the xLSTM's leaves in its "core" dict: split on their last dim (the
+# mLSTM's column products, its conv and both blocks' norm channels), on the
+# dim before it (the mLSTM's w_down, the sLSTM's w_ff_up: rows), on H (the
+# sLSTM's recurrent weights (H, dh, dh)), or replicated (the sLSTM's w_in
+# and w_ff_down)
+XLSTM_LAST = ("['core']['w_up']", "['core']['w_gate_up']", "['core']['wq']", "['core']['wk']",
+              "['core']['wv']", "['core']['w_igate']", "['core']['w_fgate']",
+              "['core']['conv']['w']", "['core']['conv']['b']", "['core']['out_norm']['scale']")
+XLSTM_ROW = ("['core']['w_down']", "['core']['w_ff_up']")
+XLSTM_HEAD = ("['core']['r_i']", "['core']['r_f']", "['core']['r_z']", "['core']['r_o']")
+XLSTM_REPLICATED = ("['core']['w_in']", "['core']['w_ff_down']")
+SLSTM_W_IN = "['core']['w_in']"
+
+
+def xlstm_names(path: str, shape, experts: str = "column") -> tuple:
+    """xlstm-125m's placement: ``vocab_names`` (the tied embedding on its
+    vocabulary) with the xLSTM blocks on their heads: ``XLSTM_LAST`` on
+    their last dim, ``XLSTM_ROW`` on the dim before it, ``XLSTM_HEAD`` on
+    H, the sLSTM's w_in and w_ff_down replicated."""
+    nd = len(shape)
+    if path.endswith(XLSTM_REPLICATED):
+        return ()
+    if nd and path.endswith(XLSTM_LAST):
+        return (None,) * (nd - 1) + ("model",)
+    if nd and path.endswith(XLSTM_ROW):
+        return (None,) * (nd - 2) + ("model", None)
+    if nd >= 3 and path.endswith(XLSTM_HEAD):
+        return (None,) * (nd - 3) + ("model", None, None)
+    return vocab_names(path, shape, experts)
+
+
+def _xlstm_cache_spec(path: str, c):
+    """xlstm-125m's caches as the port holds them: the mLSTM's conv inputs
+    on their channels, every other state on its heads (the dim after the
+    batch), over "model"."""
+    if path.endswith("['conv']"):
+        return (None,) * (c.ndim - 1) + ("model",)
+    lead = 1 if path.startswith("['blocks']") else 0
+    return (None,) * (lead + 1) + ("model",) + (None,) * (c.ndim - lead - 2)
+
+
+# hubert-xlarge's encoder and llava's image request partitioned (data=1,
+# model=2), placed by vocab_names: (name, arch); llava's cache holds its 8
+# image tokens, the prompt and the decode steps
+FRONT_CASES = (("hubert", "hubert-xlarge"), ("llava", "llava-next-mistral-7b"))
+FRONT_CACHE = 24
+
 # (data=2, model=2): (name, arch, config changes, the experts' role, whether
 # the vocabulary is split, the reference's moe_chunks)
 MESH22 = ((2, 2), ("data", "model"))
@@ -681,7 +789,7 @@ def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False
     state = reshard_state(state, specs(state))
     put = lambda b: {k: jax.device_put(v, NamedSharding(mesh, P("data")))  # noqa: E731
                      for k, v in b.items()}
-    bs = batches(cfg.vocab_size, seq)
+    bs = case_batches(cfg, seq)
     with shardctx.rules({"moe_chunks": chunks} if chunks else {}):
         loss_fn = make_loss_fn(model, tcfg)
         grad = jax.jit(jax.grad(lambda p, b: loss_fn(p, b)[0]))(state["params"], put(bs[0]))
@@ -706,20 +814,26 @@ def _reference_moe(mesh, arch: str, role: str, changes=None, vocab: bool = False
             return jax.lax.with_sharding_constraint(c, NamedSharding(mesh, P(*spec)))
         return c
 
-    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, prompt)).astype(np.int32)
-    prefill = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, cache))
+    inputs = serve_inputs(cfg, prompt)
+    if cfg.modality == "audio":            # an encoder: one forward, no decode
+        logits = jax.jit(model.forward_logits)(placed, inputs)
+        out["serve"] = dict(params=jax.tree.map(np.asarray, params), inputs=inputs,
+                            logits=[np.asarray(logits)])
+        return out
+    start = first_position(cfg, inputs)
+    prefill = jax.jit(lambda p, b: model.prefill(p, b, cache))
     decode = jax.jit(model.decode_step)
-    logits, caches = prefill(placed, toks)
+    logits, caches = prefill(placed, inputs)
     caches = jax.tree_util.tree_map_with_path(heads, caches)
     got, new = [np.asarray(logits)], []
     for i in range(MP_DECODE):
         tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
         new.append(np.asarray(tok))
-        logits, caches = decode(placed, tok, caches, jnp.full((2,), prompt + i, jnp.int32))
+        logits, caches = decode(placed, tok, caches, jnp.full((2,), start + i, jnp.int32))
         caches = jax.tree_util.tree_map_with_path(heads, caches)
         got.append(np.asarray(logits))
-    out["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=toks, logits=got,
-                        greedy=np.concatenate(new, axis=1),
+    out["serve"] = dict(params=jax.tree.map(np.asarray, params), tokens=inputs["tokens"],
+                        inputs=inputs, logits=got, greedy=np.concatenate(new, axis=1),
                         caches=dict(flat(jax.tree.map(np.asarray, caches))))
     return out
 
@@ -798,7 +912,9 @@ def _spied():
     the MoE routings (``routes``), the logits each loss call gets (``ce``:
     the function's name and the logits' shape), the q and KV heads of each
     chunked (windowed) attention call (``attn``), the channels each RG-LRU
-    scan or step computes (``lru``), the leaves whose gradient the step
+    scan or step computes (``lru``), the xLSTM's work (``xlstm``: the
+    channels each out_norm normalises, the heads each sLSTM cell step and
+    each mLSTM sequence form computes), the leaves whose gradient the step
     sums over "model" (``partial``, the first step's), the shapes of the
     parameters the step gathers whole (``gathered``), every all-reduce's
     and all-gather's group (``coll``: the kind and the group's ranks), the
@@ -808,17 +924,19 @@ def _spied():
 
     from repro_torch.kernels import ops
     from repro_torch.launch import flash_decode
-    from repro_torch.models import attention, moe, rglru, transformer
+    from repro_torch.models import attention, moe, rglru, transformer, xlstm
     from repro_torch.training import data_parallel
 
-    spies = dict(heads=[], grads=[], reduced=[], routes=[], ce=[], attn=[], lru=[], partial=[],
-                 gathered=[], coll=[], reduce_groups=[], gather_cat=[])
+    spies = dict(heads=[], grads=[], reduced=[], routes=[], ce=[], attn=[], lru=[], xlstm=[],
+                 partial=[], gathered=[], coll=[], reduce_groups=[], gather_cat=[])
     k3, route = ops.flash_attention, moe.moe_route
     reduce, reduce_one = data_parallel.Placed.reduce_grads, data_parallel.DataParallel.reduce_grad
     sum_partial, full = data_parallel.Placed.sum_partial, data_parallel.DataParallel.full
     plain_ce, vocab_ce = transformer.softmax_cross_entropy, transformer.vocab_parallel_cross_entropy
     chunked, scan, lru_step = attention.chunked_attention, rglru.rglru_scan, rglru.rglru_step
     all_reduce, all_gather, gather_cat = dist.all_reduce, dist.all_gather, flash_decode.gather_cat
+    out_norm, cell = xlstm._out_norm, xlstm._slstm_cell
+    parallel_form, chunkwise = xlstm.mlstm_parallel, xlstm.mlstm_chunkwise
 
     def ranks_of(group):
         return tuple(dist.get_process_group_ranks(group)) if group is not None else tuple(
@@ -875,6 +993,20 @@ def _spied():
         spies["lru"].append(x_t.shape[-1])
         return lru_step(x_t, *args, **kw)
 
+    def norm_spy(h, p, cfg, parallel=None):
+        spies["xlstm"].append(("out_norm", h.shape[-1]))
+        return out_norm(h, p, cfg, parallel)
+
+    def cell_spy(carry, gx, r):
+        spies["xlstm"].append(("slstm", gx.shape[-2]))
+        return cell(carry, gx, r)
+
+    def mlstm_spy(fn):
+        def spy(q, *args, **kw):
+            spies["xlstm"].append(("mlstm", q.shape[2]))
+            return fn(q, *args, **kw)
+        return spy
+
     def all_reduce_spy(t, *args, group=None, **kw):
         spies["coll"].append(("all_reduce", ranks_of(group)))
         return all_reduce(t, *args, group=group, **kw)
@@ -895,7 +1027,11 @@ def _spied():
                (transformer, "softmax_cross_entropy", ce_spy(plain_ce)),
                (transformer, "vocab_parallel_cross_entropy", ce_spy(vocab_ce)),
                (attention, "chunked_attention", chunked_spy), (rglru, "rglru_scan", scan_spy),
-               (rglru, "rglru_step", step_spy), (dist, "all_reduce", all_reduce_spy),
+               (rglru, "rglru_step", step_spy), (xlstm, "_out_norm", norm_spy),
+               (xlstm, "_slstm_cell", cell_spy),
+               (xlstm, "mlstm_parallel", mlstm_spy(parallel_form)),
+               (xlstm, "mlstm_chunkwise", mlstm_spy(chunkwise)),
+               (dist, "all_reduce", all_reduce_spy),
                (dist, "all_gather", all_gather_spy), (flash_decode, "gather_cat", gather_cat_spy)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, spy in patches:
@@ -1017,6 +1153,26 @@ def reference_recurrent(out_dir: Path) -> None:
         pickle.dump(res, f)
 
 
+def reference_xlstm(out_dir: Path) -> None:
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"])
+    res = {"xlstm": _reference_moe(mesh, XL_ARCH, "column", XL_CFG, names=xlstm_names,
+                                   cache_spec=_xlstm_cache_spec)}
+    with open(out_dir / "reference_xlstm.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def reference_frontend(out_dir: Path) -> None:
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"])
+    res = {name: _reference_moe(mesh, arch, "column", vocab=True, cache=FRONT_CACHE)
+           for name, arch in FRONT_CASES}
+    with open(out_dir / "reference_frontend.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
 def reference_mesh22(out_dir: Path) -> None:
     from repro.launch.mesh import make_mesh
 
@@ -1054,6 +1210,25 @@ def _port_recurrent(ref, out_dir: Path) -> dict:
         Sharding(mesh, recurrent_names(p, tuple(x.shape))) for p, x in flatten_with_paths(params)]))
     out["slots"] = _slot_split_decode(model, sv, placed, mesh, REC_PROMPT, REC_CACHE)
     return {"recurrent": out}
+
+
+def _port_xlstm(ref, out_dir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+    with _spied() as spies:
+        return {"xlstm": _port_moe(ref["xlstm"], XL_ARCH, "column", mesh, spies, XL_CFG,
+                                   names=xlstm_names)}
+
+
+def _port_frontend(ref, out_dir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(*MP_MESHES["dm"], device="cpu")
+    with _spied() as spies:
+        return {name: _port_moe(ref[name], arch, "column", mesh, spies, vocab=True,
+                                cache=FRONT_CACHE)
+                for name, arch in FRONT_CASES}
 
 
 def _port_mesh22(ref, out_dir: Path) -> dict:
@@ -1219,7 +1394,7 @@ def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = 
     step = make_train_step(model, tcfg)
     for v in spies.values():
         v.clear()
-    bs = batches(cfg.vocab_size, seq)
+    bs = case_batches(cfg, seq)
     take = (lambda v: v) if rows is None else (lambda v: v[rows])
     losses, calls, routes, groups = [], [], [], []
     for b in bs:
@@ -1233,7 +1408,8 @@ def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = 
     paths = [p for p, _ in flatten_with_paths(placed["params"])]
     out = dict(losses=losses, calls=calls, groups=groups, k3_heads=sorted(set(spies["heads"])),
                ce=sorted(set(spies["ce"])), attn=sorted(set(spies["attn"])),
-               lru=sorted(set(spies["lru"])), gathered=list(spies["gathered"]),
+               lru=sorted(set(spies["lru"])), xlstm=sorted(set(spies["xlstm"])),
+               gathered=list(spies["gathered"]),
                partial=[paths[i] for i in (spies["partial"] or [[]])[0]],
                reduce_groups=[sorted(set(c)) for c in spies["reduce_groups"][:len(paths)]],
                grad={p: g.numpy() for p, g in zip(paths, spies["grads"][0])},
@@ -1251,22 +1427,35 @@ def _port_moe(r, arch: str, role: str, mesh, spies, changes=None, vocab: bool = 
     params = from_jax_params(sv["params"], cfg, device="cpu")
     placed = reshard_state(params, specs(params))
     split = SplitCaches(mesh, model, placed)
-    toks = torch.from_numpy(sv["tokens"]).long()
-    for key in ("heads", "attn", "lru"):
+    inputs = {k: torch.from_numpy(v) for k, v in sv["inputs"].items()}
+    for key in ("heads", "attn", "lru", "xlstm"):
         spies[key].clear()
+    if cfg.modality == "audio":
+        # an encoder's forward: each partitioned leaf's block, every other
+        # leaf whole, under the rule SplitCaches made with them
+        local, rules = split.params(model, placed)
+        with torch.no_grad(), shardctx.rules(rules):
+            logits = model.forward_logits(local, inputs)
+        out["serve"] = dict(logits=[logits.numpy()], k3_heads=sorted(set(spies["heads"])),
+                            kinds=dict(split.parallel.kinds),
+                            families=sorted(split.parallel.families))
+        return out
+    inputs["tokens"] = inputs["tokens"].long()
+    start = first_position(cfg, inputs)
     with torch.no_grad(), shardctx.rules({"cache_split": split}):
-        logits, caches = model.prefill(placed, {"tokens": toks}, cache)
+        logits, caches = model.prefill(placed, inputs, cache)
         k3_heads = sorted(set(spies["heads"]))
         got, new = [logits.numpy()], []
         for i in range(MP_DECODE):
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             new.append(tok.numpy())
             logits, caches = model.decode_step(placed, tok, caches,
-                                               torch.full((2,), prompt + i, dtype=torch.int32))
+                                               torch.full((2,), start + i, dtype=torch.int32))
             got.append(logits.numpy())
     out["serve"] = dict(
         logits=got, greedy=np.concatenate(new, axis=1), k3_heads=k3_heads,
         attn=sorted(set(spies["attn"])), lru=sorted(set(spies["lru"])),
+        xlstm=sorted(set(spies["xlstm"])),
         kinds=dict(split.parallel.kinds), families=sorted(split.parallel.families),
         blocks={p: x.to_local().numpy() for p, x in flatten_with_paths(caches)},
         cache={p: (tuple(x.to_local().shape), x.to_local().numel() * x.element_size(),
@@ -1362,7 +1551,7 @@ def save_world1(ref, out_dir: Path) -> None:
 def port(out_dir: Path, world: int = 2, timeout: float = 150.0, tag: str = "") -> None:
     import multiprocessing as mp
 
-    if tag not in ("_megatron", "_vocab", "_recurrent", "_mesh22"):
+    if tag not in ("_megatron", "_vocab", "_recurrent", "_mesh22", "_xlstm", "_frontend"):
         with open(out_dir / f"reference{tag}.pkl", "rb") as f:
             ref = pickle.load(f)
         if tag == "_placed":
@@ -1393,6 +1582,7 @@ if __name__ == "__main__":
         os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={world}"
         {"": reference, "_placed": reference_placed, "_megatron": reference_megatron,
          "_vocab": reference_vocab, "_recurrent": reference_recurrent,
-         "_mesh22": reference_mesh22}[tag](out)
+         "_mesh22": reference_mesh22, "_xlstm": reference_xlstm,
+         "_frontend": reference_frontend}[tag](out)
     else:
         port(out, world=world, tag=tag)
