@@ -35,9 +35,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              attention (K3), one launch a layer, and their first prefill is
              held to the same prefill with K3's plain version (granite's
              replaying the K3 prefill's MoE routing, RouteTape);
-             recurrentgemma's windowed prefills run the plain chunked
-             attention (no K3 launch), and its prefill of T-1 tokens and one
-             decode step are held to its prefill of T tokens; then 4
+             recurrentgemma's local blocks run K3 with their window of
+             2048 (one launch a local layer: 8 a prefill), its first
+             prefill and a prefill of a prompt past its window held to
+             the plain one as well, and its prefill of T-1
+             tokens and one decode step are held to its prefill of T
+             tokens; then 4
              requests each with deepseek-v2-236b (MLA and 160 experts at
              full width, 4 of its 60 layers: K3 padded 192/128 -> 256, the
              routing replayed in its check), xlstm-125m (no K3; its decode
@@ -82,7 +85,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              gradient shape and the training shapes of qwen3-1.7b (B=4,
              T=1024), granite-moe-1b, deepseek-v2's MLA (192/128 padded to
              256), hubert (80 padded to 128, non-causal), G = 1 and G = 8,
-             and qwen3's at a ragged T=1000;
+             qwen3's at a ragged T=1000, and with a window (keys s > t -
+             window): recurrentgemma-2b's training shape (T=4096, H=10,
+             KV=1, D=256, window 2048), (i9)'s heads a rank at a ragged T
+             and windows below one tile;
              (b) qwen3-1.7b at full width and 4 of its 28 layers, bf16
              compute over f32 masters, B=4 x T=1024: one step's loss and
              gradients through K3 + K3-bwd against the same with both
@@ -97,7 +103,11 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              (flushed, and back to back in a CUDA graph) at qwen3's,
              granite's, MLA's and hubert's shapes (B=4) beside its plain
              version, the backward of SDPA through autograd (median and
-             min) and its bound;
+             min) and its bound, and the windowed K3 and K3-bwd at
+             recurrentgemma-2b's training shape with its window and
+             without (flushed, the pairs the window attends, the bound,
+             the plain versions and SDPA with the band as a boolean
+             attn_mask, forward and backward);
              (e) a one-rank group (NCCL, a file:// store) and a (data=1)
              mesh: qwen3-1.7b at 4 layers, its state placed replicated by
              reshard_state(state, Sharding(mesh)), takes 3 data-parallel
@@ -109,8 +119,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
              way, bit-identical (its aux sums and moe_chunks on the card);
              (f) granite-moe-1b (B=4 x T=1024) and recurrentgemma-2b (B=1 x
              T=4096, past its 2048-token window) at full width and depth, 6
-             launcher steps each as (c), and a 4-layer gradient hold each as
-             (b) (granite's routing replayed, RouteTape); xlstm-125m (B=4 x
+             launcher steps each as (c) (recurrentgemma's 8 local layers:
+             16 K3 and 8 K3-bwd launches a step), and a 4-layer gradient
+             hold each as (b) (granite's routing replayed, RouteTape);
+             xlstm-125m (B=4 x
              T=1024: the chunkwise mLSTM, the sLSTM's loop) 3 launcher
              steps as (c), its loss finite and lower at the last; (g)
              deepseek-v2 at 1 of 60 layers: one loss and gradient (B=1 x
@@ -311,7 +323,7 @@ LIVE_LOGITS_RTOL = 0.05
 # prefill(T): last-token logits within 5% of their largest magnitude. The
 # two paths compute the last token in another order (the RG-LRU's doubling
 # scan against its step, the conv's shifted adds against its einsum, the
-# attention's chunked scan over T keys against one decode step), each
+# attention's K3 with its window against one decode step), each
 # rounded to bf16 per layer: 26 x 2^-9 = 0.051 if none cancelled.
 DECODE_LOGITS_RTOL = 0.05
 # xlstm-125m's decode consistency is held in f32 (an f32 copy of its
@@ -323,7 +335,7 @@ DECODE_LOGITS_RTOL = 0.05
 # to a rounding argument, f32 to 1e-3 (7x what the CPU showed).
 DECODE_IN_F32 = {"xlstm-125m": 1e-3}
 
-# phase 5 serves each in turn: dense, MoE (K3 at D=64), hybrid (no K3) ...
+# phase 5 serves each in turn: dense, MoE (K3 at D=64), hybrid (K3 with a window) ...
 LIVE_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "recurrentgemma-2b")
 # ... then MLA (K3 padded from 192/128 to 256), xLSTM (no K3), the vision
 # model (K3 at D=128; one more request with an image, 1152 tokens first)
@@ -343,7 +355,9 @@ DEPTH = {"deepseek-v2-236b": 4}
 # logits compared) 2^-7 + 48 x 2^-9 = 0.102.
 K3_LOGITS_RTOL = {"deepseek-v2-236b": 2**-7 + 4 * 2**-9,
                   "llava-next-mistral-7b": 2**-7 + 32 * 2**-9,
-                  "hubert-xlarge": 2**-7 + 48 * 2**-9}
+                  "hubert-xlarge": 2**-7 + 48 * 2**-9,
+                  # 26 layers, 8 of them K3 with a window: 2^-7 + 26 x 2^-9 = 0.059
+                  "recurrentgemma-2b": 2**-7 + 26 * 2**-9}
 # the engine's accounting pool in live mode holds at most this many bytes
 # of K+V pages (deepseek-v2's 128 heads of 192 would take 25.8 GB at
 # 16384 blocks); the other models' pools are smaller than this
@@ -574,6 +588,17 @@ K3_GRID = [  # B, T, S, H, KV, D_qk, D_v, causal (tests/test_kernels.py, then ca
     (1, 200, 200, 16, 16, 192, 128, True), (1, 200, 200, 4, 4, 80, 80, False),
     (2, 100, 100, 4, 2, 80, 80, True), (1, 2432, 2432, 4, 1, 128, 128, True),
 ]
+# B, T (= S), H, KV, D, causal, window: K3 with a window (keys s > t - window),
+# recurrentgemma-2b's local blocks: its live prefill (T below the window: the
+# causal kernel), (i9)'s prompts past the window at its heads a rank, windows
+# below a query tile and not a multiple of the key tiles, a non-causal one, and
+# the reduced configs' width (16, padded to 64)
+K3_WINDOWED = [
+    (1, 1280, 10, 1, 256, True, 2048), (1, 2304, 5, 1, 256, True, 2048),
+    (1, 300, 10, 1, 256, True, 48), (1, 500, 5, 1, 256, True, 100),
+    (2, 333, 4, 4, 64, False, 16), (1, 200, 4, 1, 128, True, 1),
+    (2, 40, 4, 1, 16, True, 32),
+]
 # K2's long-prefix, small-group shape (with the model's heads): many chunks
 # of S per (p, h), and in the kernels phase lengths from 0 to S, so that
 # some chunks, or all of a prefix's, are empty
@@ -646,6 +671,16 @@ def phase_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
             _log(f"[kernels] K3 {str(dtype)[6:]:8s} B={B} T={T_:4d} S={S:4d} H={H_:3d} KV={KV_:3d} "
                  f"D={D_:3d}/{Dv:3d}{f' (padded to {pad})' if pad != D_ or pad != Dv else ''} "
                  f"causal={int(causal)}: max abs err {err:.3e}")
+        for B, T_, H_, KV_, D_, causal, window in K3_WINDOWED:
+            q = _randn(gen, (B, T_, H_, D_), dtype, device)
+            k, v = (_randn(gen, (B, T_, KV_, D_), dtype, device) for _ in range(2))
+            err = errs.check("flash_attention",
+                             ops.flash_attention(q, k, v, causal=causal, window=window),
+                             flash_attention_plain(q, k, v, causal=causal, window=window),
+                             ATOL[dtype], f"K3 {dtype} B={B} T=S={T_} H={H_} KV={KV_} D={D_} "
+                             f"causal={causal} window={window}")
+            _log(f"[kernels] K3 {str(dtype)[6:]:8s} B={B} T=S={T_:4d} H={H_:3d} KV={KV_:3d} "
+                 f"D={D_:3d} causal={int(causal)} window={window}: max abs err {err:.3e}")
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -847,8 +882,8 @@ def plain_prefill_attention():
     """Within the block, the models' prefill attention runs K3's plain
     version (this script only; the port has no such switch)."""
     kernel = ops.flash_attention
-    ops.flash_attention = lambda q, k, v, *, causal=True: flash_attention_plain(
-        q, k, v, causal=causal)
+    ops.flash_attention = lambda q, k, v, *, causal=True, window=0: flash_attention_plain(
+        q, k, v, causal=causal, window=window)
     try:
         yield
     finally:
@@ -856,10 +891,21 @@ def plain_prefill_attention():
 
 
 def attn_layers(cfg) -> int:
-    """The layers of global attention: each runs K3 once a prefill (or an
-    encoder's forward)."""
+    """The layers of attention, global or local (windowed): each runs K3
+    once a prefill (or an encoder's forward), and K3-bwd once a backward."""
     G = len(cfg.block_pattern)
-    return sum(cfg.block_pattern[i % G] == "attn" for i in range(cfg.n_layers))
+    return sum(cfg.block_pattern[i % G] in ("attn", "local") for i in range(cfg.n_layers))
+
+
+def k3_window(cfg) -> int:
+    """The window of the model's K3 launches: its local blocks' (a model
+    with local blocks has no global one), else 0."""
+    return cfg.window if "local" in cfg.block_pattern else 0
+
+
+# the block kinds that carry a recurrent state: a model with one has its
+# prefill(T-1) + decode step held to its prefill(T)
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def k3_shape(cfg) -> tuple:
@@ -981,7 +1027,8 @@ def phase_live_models(device, sizes: Sizes, seed: int, card: str,
     from 0 across its requests (the main path: the engine's requests, a
     vision model's request with an image too; an encoder's forwards),
     then its checks (K3 against the plain prefill or forward where it
-    runs K3, else the decode consistency) and a profiled prefill and
+    runs K3, the decode consistency where it carries a recurrent state)
+    and a profiled prefill and
     decode step (an encoder's forward). Returns a summary per model
     (``k3_want``: the K3 launches its path must make); the models'
     tensors are freed between models."""
@@ -1004,7 +1051,7 @@ def phase_live_models(device, sizes: Sizes, seed: int, card: str,
                  decode_ms=1e3 * float(np.median(timed.decode_s)))
         if r["k3_per_request"]:
             r["k3_err"] = check_live_against_plain(live, sizes)
-        else:
+        if set(RECURRENT_KINDS) & set(cfg.block_pattern):
             r["decode_err"] = check_decode_consistency(live, sizes)
         if image is not None:
             r["image_err"] = check_image_against_plain(live, image)
@@ -1211,7 +1258,30 @@ def check_live_against_plain(live: dict, sizes: Sizes) -> float:
             with plain_prefill_attention():
                 want, _ = model.prefill(params, batch, S)
     what = "first prefill, K3 vs plain attention" + (", the routing held" if cfg.moe else "")
-    return _hold_logits(cfg, got, want.float(), int(live["results"][0].output[0, 0]), what)
+    err = _hold_logits(cfg, got, want.float(), int(live["results"][0].output[0, 0]), what)
+    if k3_window(cfg):
+        err = max(err, check_past_window_against_plain(live, sizes))
+    return err
+
+
+def check_past_window_against_plain(live: dict, sizes: Sizes) -> float:
+    """A model with local blocks: one prefill of a prompt past its window
+    (window + sizes.user_tokens tokens, the served prompts joined end to
+    end) with K3 and with K3's plain version, so that the window masks
+    keys in every local layer; the last-token logits held as _hold_logits
+    holds them. Returns the max abs difference."""
+    model, params, cfg = live["model"], live["params"], live["cfg"]
+    T = cfg.window + sizes.user_tokens
+    joined = np.concatenate(live["requests"])
+    tokens = np.resize(joined, T)                     # repeats the prompts if they fall short
+    batch = {"tokens": torch.as_tensor(tokens[None, :], device=params["embed"].device)}
+    with torch.inference_mode():
+        got, _ = model.prefill(params, batch, T + sizes.new_tokens)
+        with plain_prefill_attention():
+            want, _ = model.prefill(params, batch, T + sizes.new_tokens)
+    return _hold_logits(cfg, got.float(), want.float(), None,
+                        f"a prefill of {T} tokens (past the window of {cfg.window}), K3 vs plain "
+                        "attention")
 
 
 def _hold_logits(cfg, got, want, first, what: str) -> float:
@@ -1564,37 +1634,61 @@ def _log_timing(name: str, r: dict) -> None:
     if "kernel_ms" in r:
         seq += (f"; the kernel alone on the padded inputs {r['kernel_ms']:.4f} ms, padded "
                 f"work's bound {r['padded_bound_ms']:.4f} ms")
-    extra = (f" (back to back {r['graph_ms']:.4f} ms, host-inclusive {r['host_ms']:.4f} ms)"
+    extra = (f" (back to back {r['graph_ms']:.4f} ms"
+             + (f", host-inclusive {r['host_ms']:.4f} ms" if "host_ms" in r else "") + ")"
              if "graph_ms" in r else "")
     _log(f"[timing] {name} ({r['shape']}): kernel {r['ms']:.4f} ms{extra}, plain "
          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
          f"({r['bound_by']}){seq}")
 
 
-def _time_k3(q3, k3, v3, flush, causal: bool = True) -> dict:
+def attended_pairs(T: int, S: int, causal: bool, window: int = 0) -> int:
+    """The (t, s) pairs of one head that the mask keeps: s < S, s <= t when
+    causal, s > t - window when window > 0 (recurrentgemma's T = 4096 at
+    window 2048: 6,292,480 of the causal 8,390,656)."""
+    t = np.arange(T)
+    lo = np.maximum(t - window + 1, 0) if window > 0 else np.zeros(T, dtype=np.int64)
+    hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def band_mask(T: int, causal: bool, window: int, device) -> torch.Tensor:
+    """The (T, T) boolean mask of K3 with a window (True: attended), as
+    SDPA's ``attn_mask``."""
+    t = torch.arange(T, device=device)
+    keep = t[None, :] > t[:, None] - window
+    return keep & (t[None, :] <= t[:, None]) if causal else keep
+
+
+def _time_k3(q3, k3, v3, flush, causal: bool = True, window: int = 0) -> dict:
     """K3 through the op (which pads widths the kernel is not built for,
     its copies timed with it), its plain version and an SDPA yardstick on
-    one prefill (T = S) or encoder forward. The bound is the true work's:
-    q, k, v and out once at their own widths, and the (t, s) pairs
-    attended (s <= t when causal), each a D_qk and a D_v product; where
-    the op pads, the kernel alone on the padded inputs is timed too
-    (``kernel_ms``) and the padded work's bound given (``padded_bound_ms``)."""
+    one prefill (T = S) or encoder forward (with a window: the band as a
+    boolean ``attn_mask``). The bound is the true work's: q, k, v and out
+    once at their own widths, and the (t, s) pairs attended
+    (attended_pairs), each a D_qk and a D_v product; where the op pads,
+    the kernel alone on the padded inputs is timed too (``kernel_ms``) and
+    the padded work's bound given (``padded_bound_ms``)."""
     B, T, H, D = q3.shape
     KV, Dv = k3.shape[2], v3.shape[-1]
     es = q3.element_size()
-    pairs = T * (T + 1) / 2 if causal else T * T
+    pairs = attended_pairs(T, T, causal, window)
     k3_bytes = es * (q3.numel() + k3.numel() + v3.numel() + B * T * H * Dv)
     k3_flops = 2.0 * B * H * pairs * (D + Dv)
     Dp = kernel_head_dim(max(D, Dv))
     # yardstick: one SDPA call, layouts permuted beforehand (not timed)
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q3, k3, v3))
+    sdpa = (dict(attn_mask=band_mask(T, causal, window, q3.device)) if window > 0
+            else dict(is_causal=causal))
     r = dict(
-        ms=median_ms(lambda: ops.flash_attention(q3, k3, v3, causal=causal), flush),
-        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=causal), flush),
+        ms=median_ms(lambda: ops.flash_attention(q3, k3, v3, causal=causal, window=window), flush),
+        plain_ms=median_ms(lambda: flash_attention_plain(q3, k3, v3, causal=causal,
+                                                         window=window), flush),
         library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal, enable_gqa=True), flush),
+            qs, ks, vs, enable_gqa=True, **sdpa), flush),
         shape=f"B={B} T=S={T} H={H} KV={KV} D={D}" + (f"/{Dv}" if Dv != D else "")
-        + (" causal" if causal else " non-causal"),
+        + (" causal" if causal else " non-causal") + (f" window={window}" if window else ""),
+        pairs=pairs,
     )
     r["bound_ms"], r["bound_by"] = bound_ms(k3_bytes, k3_flops, q3.dtype)
     if Dp != D or Dp != Dv:
@@ -1660,7 +1754,7 @@ def phase_timing(device, sizes: Sizes, served: dict, grouped: dict, seed: int,
             q3 = _randn(gen, (1, n, H, Dqk), torch.bfloat16, device)
             k3 = _randn(gen, (1, n, KV, Dqk), torch.bfloat16, device)
             v3 = _randn(gen, (1, n, KV, Dv), torch.bfloat16, device)
-            r = _time_k3(q3, k3, v3, flush, causal)
+            r = _time_k3(q3, k3, v3, flush, causal, k3_window(c))
             del q3, k3, v3
             if n != lengths[0]:
                 _log_timing(f"flash_attention, {c.name} prefill with an image", r)
@@ -1698,23 +1792,38 @@ GRAD_LOSS_ATOL = 0.05
 PROFILED_STEP = 4
 
 
+def windowed_shape(sizes: Sizes) -> tuple:
+    """(B, T, H, KV, D_qk, D_v, causal, window) of recurrentgemma-2b's
+    training attention: one sequence of sizes.window_seq tokens, past its
+    window (T=4096, H=10, KV=1, D=256, window 2048 at full size)."""
+    cfg = sizes.arch_config("recurrentgemma-2b")
+    return (1, sizes.window_seq) + k3_shape(cfg) + (k3_window(cfg),)
+
+
 def bwd_shapes(sizes: Sizes) -> List[tuple]:
-    """(B, T, H, KV, D_qk, D_v, causal) of phase 9's K3-bwd checks:
-    tests/test_kernels.py's gradient shape (D=16, padded to 64 by the op),
-    then the training shapes of sizes.arch (sizes.train_batch sequences of
-    sizes.train_seq tokens, the main path's own shape),
+    """(B, T, H, KV, D_qk, D_v, causal[, window]) of phase 9's K3-bwd
+    checks: tests/test_kernels.py's gradient shape (D=16, padded to 64 by
+    the op), then the training shapes of sizes.arch (sizes.train_batch
+    sequences of sizes.train_seq tokens, the main path's own shape),
     granite-moe-1b, deepseek-v2's MLA and hubert's encoder (its frames),
-    then G = 1 and G = 8 at sizes.arch's head size, and sizes.arch's
-    shape at a ragged length (1000 of 1024 tokens: the kernels' last
-    tiles part full)."""
+    then G = 1 and G = 8 at sizes.arch's head size; with a window:
+    recurrentgemma-2b's training shape (windowed_shape), (i9)'s heads a
+    rank (G = 5) at a ragged T and a window of 100, G = 10 at a window of
+    48 (both below one query tile and not a multiple of the key tiles), a
+    non-causal window at D=64; last, sizes.arch's shape at a ragged length
+    (1000 of 1024 tokens: the kernels' last tiles part full)."""
     out = [(2, 32, 4, 2, 16, 16, True)]
     for name in (sizes.arch, "granite-moe-1b-a400m", "deepseek-v2-236b", "hubert-xlarge"):
         cfg = sizes.arch_config(name)
         B = sizes.train_batch if name == sizes.arch else 1
         out.append((B, sizes.audio_frames if cfg.is_encoder else sizes.train_seq) + k3_shape(cfg))
     D = sizes.arch_config().head_dim
+    win = windowed_shape(sizes)
+    H, KV, Dr = win[2], win[3], win[4]
     return out + [(1, sizes.train_seq // 2, 8, 8, D, D, True),
                   (1, sizes.train_seq // 2, 16, 2, D, D, True),
+                  win, (1, sizes.train_seq * 125 // 128, H // 2, KV, Dr, Dr, True, 100),
+                  (1, 300, H, KV, Dr, Dr, True, 48), (2, 333, 4, 4, 64, 64, False, 16),
                   (sizes.train_batch, sizes.train_seq * 125 // 128) + out[1][2:]]
 
 
@@ -1724,16 +1833,18 @@ def _padded(x: torch.Tensor, D: int) -> torch.Tensor:
 
 def check_training_kernels(errs: Errors, gen, device, dtype, shape: tuple) -> float:
     """K3 with its lse and K3-bwd against their plain versions on the same
-    inputs at one (B, T, H, KV, D_qk, D_v, causal) shape, zero-padded as
-    the op pads them (scale 1/sqrt(D_qk)); logged. Returns K3-bwd's
-    largest error."""
-    B, T, H, KV, Dqk, Dv, causal = shape
+    inputs at one (B, T, H, KV, D_qk, D_v, causal[, window]) shape,
+    zero-padded as the op pads them (scale 1/sqrt(D_qk)); logged. Returns
+    K3-bwd's largest error."""
+    B, T, H, KV, Dqk, Dv, causal, *win = shape
+    window = win[0] if win else 0
     D = kernel_head_dim(max(Dqk, Dv))
     q, do = (_padded(_randn(gen, (B, T, H, d), dtype, device), D) for d in (Dqk, Dv))
     k, v = (_padded(_randn(gen, (B, T, KV, d), dtype, device), D) for d in (Dqk, Dv))
-    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5, window=window)
     what = (f"K3-bwd {str(dtype)[6:]} B={B} T={T} H={H} KV={KV} D={Dqk}/{Dv}"
-            f"{f' (padded to {D})' if D != Dqk or D != Dv else ''} causal={int(causal)}")
+            f"{f' (padded to {D})' if D != Dqk or D != Dv else ''} causal={int(causal)}"
+            f"{f' window={window}' if window else ''}")
     out, lse = flash_attention_fwd(q, k, v, **kw)
     want_out, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
     errs.check("flash_attention", out, want_out, ATOL[dtype], what + ": K3 out")
@@ -1766,9 +1877,9 @@ def phase_train_kernels(device, sizes: Sizes, errs: Errors, seed: int) -> None:
 
 @contextmanager
 def plain_training_attention():
-    """Within the block, the autograd function of the models' windowless
-    attention runs K3's and K3-bwd's plain versions (this script only; the
-    port has no such switch)."""
+    """Within the block, the autograd function of the models' attention
+    (global and windowed) runs K3's and K3-bwd's plain versions (this
+    script only; the port has no such switch)."""
     fwd, bwd = k3_module.flash_attention_fwd, k3_module.flash_attention_bwd
     k3_module.flash_attention_fwd = flash_attention_fwd_plain
     k3_module.flash_attention_bwd = flash_attention_bwd_plain
@@ -1816,7 +1927,7 @@ def phase_train_grads(device, sizes: Sizes, seed: int, arch: str = "", layers: i
     replays the first's routing, RouteTape; the first pass's gradients
     wait in host memory); each leaf's relative L2 error, the loss
     difference, the attention parameters' gradients nonzero on the kernel
-    route, and K3 / K3-bwd launched once a global-attention layer."""
+    route, and K3 / K3-bwd launched once an attention layer (global or local)."""
     cfg = dataclasses.replace(sizes.arch_config(arch), n_layers=layers or sizes.grad_layers)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2229,7 +2340,7 @@ def split_cache_serve(device, sizes: Sizes, seed: int, mesh) -> dict:
     last-token logits within LIVE_LOGITS_RTOL of their scale; each rank's
     attention caches hold S / (model ranks) slots; then one decode step
     timed on each cache in turns. Returns the prefills made (each
-    launches K3 once a global-attention layer)."""
+    launches K3 once an attention layer (global or local))."""
     from repro_torch.training.tree import leaves
 
     override = flash_decode.make_decode_attention(mesh)
@@ -2880,7 +2991,7 @@ def megatron_serve(device, sizes: Sizes, seed: int, mesh, arch: str = "",
     row product; one all-gather a partitioned RG-LRU or mLSTM layer; with
     the vocabulary split one all-reduce more for the lookup and one
     all-gather of the logits a pass). Returns
-    the prefills made (each launches K3 once a global-attention layer),
+    the prefills made (each launches K3 once an attention layer (global or local)),
     the greedy tokens and the parameters' (path, shape)s."""
     from repro_torch.training.tree import flatten_with_paths as paths_of
 
@@ -3146,22 +3257,38 @@ def recurrent_partitioned(device, sizes: Sizes, seed: int, mesh, count) -> dict:
     _log(f"[train] (i9) predicted, before the steps: {cfg.name} at {cfg.n_layers} layers "
          f"({n_leaves} parameter leaves) placed as recurrent_spec places it, collectives a step "
          f"{want}")
+    # its local layers' K3 and K3-bwd: each of the placed and the plain
+    # steps runs every local layer's forward twice (--remat) and its
+    # backward once
+    n_local = attn_layers(cfg)
+    want_steps = (2 * sizes.mesh_steps * 2 * n_local, 2 * sizes.mesh_steps * n_local)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
     r = count(lambda: mesh_vs_plain(
         device, sizes, seed, mesh, REC_ARCH, sizes.mesh_steps, recurrent_spec, False,
         "(i9) partitioned (the RG-LRU on its width, MQA's query heads, the MLP and the "
         "vocabulary)", layers=sizes.rec_layers))
+    got = (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1])
     del r["plain"], r["placed"]
     if r["kinds"] != want:
         _fail(f"train (i9): collectives a step {r['kinds']}, not the predicted {want}")
+    if device.type == "cuda" and got != want_steps:
+        _fail(f"train (i9): the steps launched K3 / K3-bwd {got}, not the predicted "
+              f"{want_steps}")
+    r["k3"] = got
     out["i9_steps"] = r
     window = sizes.arch_config(REC_ARCH).window
     rec = dataclasses.replace(sizes, prefix_tokens=window)     # prompts past the window
     before = flash_attention.launches
     sv = count(lambda: megatron_serve(device, rec, seed, mesh, REC_ARCH, vocab=True,
                                       placement=recurrent_spec, part="(i9)"))
-    if device.type == "cuda" and flash_attention.launches != before:
+    want_k3 = attn_layers(sv["cfg"]) * sv["prefills"]
+    if device.type == "cuda" and flash_attention.launches - before != want_k3:
         _fail(f"train (i9): K3 launched {flash_attention.launches - before} times serving "
-              f"{REC_ARCH}, whose windows run the chunked attention")
+              f"{REC_ARCH}, not {attn_layers(sv['cfg'])} local layers x {sv['prefills']} "
+              f"prefills = {want_k3}")
+    sv["k3"] = flash_attention.launches - before
+    _log(f"[train] (i9) K3 / K3-bwd launches: steps {got} (predicted {want_steps}), "
+         f"serving {sv['k3']} (predicted {want_k3})")
     shapes = sv.pop("shapes")
     del sv["tokens"]
     out["i9_serve"] = sv
@@ -3446,29 +3573,33 @@ def bwd_timing_shapes(sizes: Sizes) -> List[tuple]:
 
 
 def k3_bwd_times(shape: tuple, gen, device, flush, plain: bool = True) -> dict:
-    """K3-bwd at one (B, T, H, KV, D_qk, D_v, causal) shape in bf16, on
-    inputs zero-padded as the op pads them: flushed (median_ms) and back
-    to back in a CUDA graph (graph_ms); its plain version (unless not
-    ``plain``); and the backward of SDPA through autograd on the unpadded
-    inputs (the yardstick; the min and median of its flushed times, which
-    moved most between calls). The bound is the true work's: five
-    products of the attended (t, s) pairs (S, dK, dQ of D_qk; dP, dV of
+    """K3-bwd at one (B, T, H, KV, D_qk, D_v, causal[, window]) shape in
+    bf16, on inputs zero-padded as the op pads them: flushed (median_ms)
+    and back to back in a CUDA graph (graph_ms); its plain version (unless
+    not ``plain``); and the backward of SDPA through autograd on the
+    unpadded inputs (the yardstick, a window's band as its boolean
+    ``attn_mask``; the min and median of its flushed times, which moved
+    most between calls). The bound is the true work's: five products of
+    the attended (t, s) pairs (attended_pairs; S, dK, dQ of D_qk; dP, dV of
     D_v) at the bf16 dense peak, against q, k, v, out, dout and lse read
     once and dq, dk, dv written once, at their own widths."""
-    B, T, H, KV, Dqk, Dv, causal = shape
+    B, T, H, KV, Dqk, Dv, causal, *win = shape
+    window = win[0] if win else 0
     D = kernel_head_dim(max(Dqk, Dv))
     dt = torch.bfloat16
     q, do = (_randn(gen, (B, T, H, d), dt, device) for d in (Dqk, Dv))
     k, v = (_randn(gen, (B, T, KV, d), dt, device) for d in (Dqk, Dv))
-    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5)
+    kw = dict(causal=causal, sm_scale=1.0 / Dqk ** 0.5, window=window)
     qp, kp, vp, dop = (_padded(x, D) for x in (q, k, v, do))
     out, lse = flash_attention_fwd(qp, kp, vp, **kw)
-    pairs = T * (T + 1) / 2 if causal else T * T
+    pairs = attended_pairs(T, T, causal, window)
     flops = 2.0 * B * H * pairs * (3 * Dqk + 2 * Dv)
     n_bytes = q.element_size() * (2 * (q.numel() + k.numel() + v.numel()) + 2 * do.numel()) \
         + 4 * lse.numel()
     qs, ks, vs = (x.permute(0, 2, 1, 3).detach().requires_grad_() for x in (q, k, v))
-    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+    sdpa = (dict(attn_mask=band_mask(T, causal, window, device)) if window > 0
+            else dict(is_causal=causal))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True, **sdpa)
     dos = do.permute(0, 2, 1, 3)
     lib = times_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True), flush)
     fn = lambda: flash_attention_bwd(qp, kp, vp, out, lse, dop, **kw)  # noqa: E731
@@ -3480,7 +3611,8 @@ def k3_bwd_times(shape: tuple, gen, device, flush, plain: bool = True) -> dict:
         library="the backward of F.scaled_dot_product_attention (enable_gqa) through autograd",
         shape=f"B={B} T=S={T} H={H} KV={KV} D={Dqk}" + (f"/{Dv}" if Dv != Dqk else "")
         + (f" (padded to {D})" if D != Dqk or D != Dv else "")
-        + (" causal" if causal else " non-causal") + ", bf16",
+        + (" causal" if causal else " non-causal") + (f" window={window}" if window else "")
+        + ", bf16", pairs=pairs,
     )
     r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, dt)
     return r
@@ -3506,13 +3638,47 @@ def time_k3_bwd(device, sizes: Sizes, seed: int, flush) -> dict:
     return times[0]
 
 
+def time_windowed(device, sizes: Sizes, errs: Errors, seed: int, flush) -> dict:
+    """(d) K3 and K3-bwd at recurrentgemma-2b's training shape
+    (windowed_shape) with its window and, beside it, without one (causal):
+    each held to its plain version in bf16 (K3's output at ATOL, K3-bwd
+    through check_training_kernels), then timed flushed and back to back
+    in a CUDA graph beside the plain version, SDPA (the band as a boolean attn_mask; its backward through
+    autograd) and the bound of the pairs attended. Returns the records by
+    kernel, the windowed first."""
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    dt = torch.bfloat16
+    out = {"flash_attention": [], "flash_attention_bwd": []}
+    full = windowed_shape(sizes)
+    for window in (full[-1], 0):
+        shape = full[:-1] + (window,)
+        B, T, H, KV, D, _, causal, _ = shape
+        bwd_err = check_training_kernels(errs, gen, device, dt, shape)
+        q = _randn(gen, (B, T, H, D), dt, device)
+        k, v = (_randn(gen, (B, T, KV, D), dt, device) for _ in range(2))
+        what = f"K3 bf16 B={B} T=S={T} H={H} KV={KV} D={D} window={window}"
+        err = errs.check("flash_attention", ops.flash_attention(q, k, v, window=window),
+                         flash_attention_plain(q, k, v, window=window), ATOL[dt], what)
+        r = dict(_time_k3(q, k, v, flush, causal, window), window=window, max_abs_err=err,
+                 graph_ms=graph_ms(lambda: ops.flash_attention(q, k, v, window=window)))
+        _log_timing("flash_attention, recurrentgemma-2b's training shape"
+                    + (" with its window" if window else " without a window"), r)
+        out["flash_attention"].append(r)
+        del q, k, v
+        r = dict(k3_bwd_times(shape, gen, device, flush), window=window, max_abs_err=bwd_err)
+        _log_bwd_timing(r)
+        out["flash_attention_bwd"].append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dict:
     """Phase 9: (a) the kernels, (b) the gradient hold, (c) the training
     run (its launches: the training path's), (e)-(i) training state on a
     mesh, placed leaf by leaf, the split KV cache, the other families and
     partitioned compute (phase_train_mesh; its paths' launches too), (d)
-    K3-bwd's timing, and (i) K3 and K3-bwd at each rank's heads
-    (rank_kernels)."""
+    K3-bwd's timing and the windowed K3 and K3-bwd's (time_windowed), and
+    (i) K3 and K3-bwd at each rank's heads (rank_kernels)."""
     t0 = time.perf_counter()
     phase_train_kernels(device, sizes, errs, seed)
     grads = phase_train_grads(device, sizes, seed)
@@ -3522,13 +3688,15 @@ def phase_train(device, sizes: Sizes, errs: Errors, seed: int, card: str) -> dic
     if device.type == "cuda":
         torch.cuda.empty_cache()
     mesh = phase_train_mesh(device, sizes, seed, card)
-    timing, flush = None, None
+    timing, flush, windowed = None, None, None
     if device.type == "cuda":
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
         timing = time_k3_bwd(device, sizes, seed, flush)
+        windowed = time_windowed(device, sizes, errs, seed, flush)
     per_rank = rank_kernels(device, sizes, errs, seed, card, flush)
     _log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
-    return dict(grads=grads, run=run, mesh=mesh, timing=timing, per_rank=per_rank)
+    return dict(grads=grads, run=run, mesh=mesh, timing=timing, per_rank=per_rank,
+                windowed=windowed)
 
 
 # -- phase 10: launch --------------------------------------------------------
@@ -4171,7 +4339,7 @@ def main(argv=None) -> int:
         got = m["launches"]["flash_attention"]
         if got != m["k3_want"]:
             _fail(f"live: {m['name']}: K3 launched {got} times, not {m['k3_per_request']} "
-                  f"global-attention layers x {m['k3_want'] // max(m['k3_per_request'], 1)} "
+                  f"attention layers x {m['k3_want'] // max(m['k3_per_request'], 1)} "
                   f"prefills or forwards = {m['k3_want']}")
     live_k3 = sum(m["launches"]["flash_attention"] for m in models)
     _log(f"[live] K3 launches: {live_k3} ("
@@ -4216,6 +4384,16 @@ def main(argv=None) -> int:
     path_launches = dict(main_launches, flash_attention=live_k3 + train_k3 + launch_k3,
                          flash_attention_bwd=train_launches["flash_attention_bwd"],
                          lane_engine=est_launches["lane_engine"])
+    # of those, the windowed forms': recurrentgemma-2b's local layers in the
+    # live phase, in (f)'s launcher run and in (i9)'s steps and serving
+    rg_run, mesh = train["mesh"][REC_ARCH]["launches"], train["mesh"]
+    windowed_launches = {
+        "flash_attention": (next(m["launches"]["flash_attention"] for m in models
+                                 if m["name"] == REC_ARCH)
+                            + rg_run["flash_attention"] + mesh["i9_steps"]["k3"][0]
+                            + mesh["i9_serve"]["k3"]),
+        "flash_attention_bwd": rg_run["flash_attention_bwd"] + mesh["i9_steps"]["k3"][1]}
+    _log(f"[train] windowed K3 / K3-bwd launches on the paths: {windowed_launches}")
 
     rows = []
     for name, k in KERNELS.items():
@@ -4233,6 +4411,11 @@ def main(argv=None) -> int:
                 {k: r[k] for k in ("m", "arch", "heads", "max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in train["per_rank"][name]]
+        if name in windowed_launches:       # with recurrentgemma's window, and without
+            rows[-1]["windowed"] = dict(launches=windowed_launches[name], at=[
+                {k: r[k] for k in ("shape", "window", "pairs", "max_abs_err", "ms", "graph_ms",
+                                   "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for r in train["windowed"][name]])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

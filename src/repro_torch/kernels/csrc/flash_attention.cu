@@ -8,6 +8,21 @@
 // keys at or past S are masked and their V rows are zeroed, and the
 // output is acc / max(l, 1e-30) in q's dtype, as in the TPU kernel.
 //
+// A window (window > 0) keeps only the keys s > t - window, the mask of the
+// reference's `_chunk_bias` (src/repro/models/attention.py:41), whose
+// `_flash_fwd` (:56, XLA) runs it for the local blocks (recurrentgemma's
+// window of 2048): with causal, the last `window` keys up to t; without,
+// every key past t - window. Each block starts at the first tile its first
+// row's window reaches and each warpgroup at its own: recurrentgemma's
+// T = 4096 at window 2048 attends 6.29 M pairs a head against the causal
+// mask's 8.39 M (0.162 against 0.197 ms on an H100, chip_smoke.py). Rows of one
+// block no longer share their first key: a tile can lie wholly before the
+// window of a block's later rows, which must take nothing from it, so masked
+// scores are -inf, not the reference's -1e30: a row that has seen no key
+// yet (m = -1e30) then adds exp(-inf) = 0, not exp(0) = 1, and its (m, l)
+// stay as they were. No row that sees a key differs from a -1e30 mask, and
+// a window of at least T is the causal kernel bit for bit.
+//
 // Bound: operations. A causal prefill does 4 * D flops for each of the
 // T (T + 1) / 2 (query, key) pairs of each head, and reads each q, k, v
 // element once: at T = 1280, D = 128 that is about 430 flops per byte,
@@ -74,7 +89,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int Tq, int S, int H, int KV, int D, int causal,
-                 float sm_scale) {
+                 int window, float sm_scale) {
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * K3F_ROWS;   // heaviest tiles first
@@ -102,7 +117,9 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int t_last = (min(r0 + K3F_ROWS, R) - 1) / G;
   const int kv_end = causal ? min(S, t_last + 1) : S;
-  const int n_blocks = (kv_end + K3F_KEYS - 1) / K3F_KEYS;
+  // a window starts the keys at the first row's (rows r = t G + g rise in t)
+  const int kv_begin = window > 0 ? max(0, r0 / G - window + 1) / K3F_KEYS * K3F_KEYS : 0;
+  const float masked = __int_as_float(0xff800000u);   // -inf: adds exp(-inf) = 0 to any row
 
   int t_row[K3F_WARP_ROWS];
 #pragma unroll
@@ -120,8 +137,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < K3F_MAX_COLS; ++c) acc[rr][c] = 0.f;
   }
 
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    const int s0 = blk * K3F_KEYS;
+  for (int s0 = kv_begin; s0 < kv_end; s0 += K3F_KEYS) {
     const int rows = min(K3F_KEYS, S - s0);       // keys < S: staged; the rest zero
     const int used = min(K3F_KEYS, kv_end - s0);  // keys any row of the tile may see
     const long long base = (((long long)b * S + s0) * KV + kvh) * D;
@@ -147,14 +163,17 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < K3F_LANE_KEYS; ++c) sc[rr][c] = fmaf(qv[rr], kv[c], sc[rr][c]);
     }
 
-    // online softmax; key j is masked past S and, if causal, past the row's t
+    // online softmax; key j is masked past S, if causal past the row's t,
+    // and with a window at or before t - window
 #pragma unroll
     for (int rr = 0; rr < K3F_WARP_ROWS; ++rr) {
       float mx = NEG_INF;
 #pragma unroll
       for (int c = 0; c < K3F_LANE_KEYS; ++c) {
         const int j = lane + 32 * c;
-        if (j >= rows || (causal && s0 + j > t_row[rr])) sc[rr][c] = NEG_INF;
+        if (j >= rows || (causal && s0 + j > t_row[rr]) ||
+            (window > 0 && s0 + j <= t_row[rr] - window))
+          sc[rr][c] = masked;
         mx = fmaxf(mx, sc[rr][c]);
       }
       const float m_new = fmaxf(m_run[rr], warp_max(mx));
@@ -240,7 +259,7 @@ __global__ void __launch_bounds__(K3TLayout<D, BK, NC>::THREADS, 1)
 flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, int Tq, int S, int H, int KV, int causal,
-                 float scale2) {
+                 int window, float scale2) {
   using L = K3TLayout<D, BK, NC>;
   constexpr int NS = L::NS;
   extern __shared__ unsigned char smem_raw[];
@@ -261,7 +280,10 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int kvh = h / (H / KV);
   const int q_last = min(q0 + L::BQ, Tq) - 1;
   const int kv_end = causal ? min(S, q_last + 1) : S;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  // tiles [tb, tb + n_tiles): a window starts them at the first row's
+  // first key; the ring's stages and parities count from tile tb
+  const int tb = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_tiles = (kv_end + BK - 1) / BK - tb;
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);   // warp-uniform to the compiler
 
   if (threadIdx.x == 0) {
@@ -290,10 +312,10 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         __nv_bfloat16* vs = v_s + (size_t)st * BK * D;
         mbar_expect_tx(&k_full[st], (uint32_t)L::KV_TILE);
         for (int bx = 0; bx < L::NB; ++bx)
-          tma_load_4d(ks + bx * BK * 64, &tm_k, &k_full[st], bx * 64, kvh, i * BK, b);
+          tma_load_4d(ks + bx * BK * 64, &tm_k, &k_full[st], bx * 64, kvh, (tb + i) * BK, b);
         mbar_expect_tx(&v_full[st], (uint32_t)L::KV_TILE);
         for (int bx = 0; bx < L::NB; ++bx)
-          tma_load_4d(vs + bx * BK * 64, &tm_v, &v_full[st], bx * 64, kvh, i * BK, b);
+          tma_load_4d(vs + bx * BK * 64, &tm_v, &v_full[st], bx * 64, kvh, (tb + i) * BK, b);
       }
     }
   } else {
@@ -303,8 +325,13 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const int row_base = q0 + 64 * wg;
     const int row_a = row_base + 16 * w + (lane >> 2), row_b = row_a + 8;
     const __nv_bfloat16* qw = q_s + (size_t)wg * 64 * D;
-    // the tiles this warpgroup reads: the rest lie wholly above its diagonal
-    const int n_wg = causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK) : n_tiles;
+    // the tiles [lo, n_wg) this warpgroup reads (counted from tb): the rest
+    // lie wholly above its diagonal or before its first row's window (a
+    // warpgroup of rows past T only keeps one, which it reads and drops)
+    const int n_wg =
+        causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK - tb) : n_tiles;
+    const int lo = window > 0 ? min(max(0, row_base - window + 1) / BK - tb, n_wg - 1) : 0;
+    const float masked = __int_as_float(0xff800000u);   // -inf: adds exp(-inf) = 0 to any row
 
     float o[D / 2];        // O (64 x D), f32
     float s[BK / 2];       // S = Q K^T of one tile, then its probabilities
@@ -322,23 +349,28 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       wgmma_commit();
     };
     // online softmax (base 2) of tile i in s: rows a (elements 4j, 4j + 1)
-    // and b (4j + 2, 4j + 3). Keys past S and, if causal, past the row are
-    // masked, on the tiles where that can happen. Leaves exp2 values in s
+    // and b (4j + 2, 4j + 3). Keys past S, if causal past the row, and with
+    // a window before the row's first key are masked to -inf, so a row
+    // that sees none of the tile keeps its m and l. Leaves exp2 values in s
     // and returns the factors by which the older O rows shrink.
     auto softmax = [&](int i, float& al_a, float& al_b) {
-      const int s0 = i * BK;
-      // key s0 + 2 tq + c (c = 8 j + e) is masked for row a when c > lim_a:
-      // past S, or past the row if causal; interior tiles mask nothing.
-      // Selects, not branches: s is a wgmma operand.
+      const int s0 = (tb + i) * BK;
+      // key s0 + 2 tq + c (c = 8 j + e) is masked for row a when c > lim_a
+      // (past S, or past the row if causal) or c < first_a (before its
+      // window); interior tiles mask nothing. Selects, not branches: s is
+      // a wgmma operand.
       const int last_a = causal ? min(S - 1, row_a) : S - 1;
       const int last_b = causal ? min(S - 1, row_b) : S - 1;
       const int lim_a = last_a - s0 - 2 * tq, lim_b = last_b - s0 - 2 * tq;
+      const int first_a = window > 0 ? row_a - window + 1 - s0 - 2 * tq : -BK;
+      const int first_b = window > 0 ? row_b - window + 1 - s0 - 2 * tq : -BK;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[4 * j + e] = j * 8 + e > lim_a ? NEG_INF : s[4 * j + e];
-          s[4 * j + 2 + e] = j * 8 + e > lim_b ? NEG_INF : s[4 * j + 2 + e];
+          const int c = j * 8 + e;
+          s[4 * j + e] = c > lim_a || c < first_a ? masked : s[4 * j + e];
+          s[4 * j + 2 + e] = c > lim_b || c < first_b ? masked : s[4 * j + 2 + e];
         }
       float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
@@ -389,21 +421,28 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_rs<D>(o, pa[kc], gmma_desc(vs + kc * 16 * 64, BK * 128, 1024));
       wgmma_commit();
     };
-    // S > 0 here, so the warpgroup reads tile 0 at least. No wgmma and no
-    // register it touches sits under a branch: the compiler would serialise
-    // the wgmmas.
+    for (int i = 0; i < lo; ++i) {   // before this warpgroup's window: loaded for the other
+      const int st = i % NS;
+      mbar_wait(&k_full[st], (i / NS) & 1);
+      mbar_wait(&v_full[st], (i / NS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    // S > 0 here, so the warpgroup reads one tile at least (lo < n_wg). No
+    // wgmma and no register it touches sits under a branch: the compiler
+    // would serialise the wgmmas.
     float al_a, al_b;
     mbar_wait(q_full, 0);
-    mbar_wait(&k_full[0], 0);
+    mbar_wait(&k_full[lo % NS], (lo / NS) & 1);
     wgmma_fence();
-    issue_s(0);
+    issue_s(lo);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax(0, al_a, al_b);   // O is still zero
+    softmax(lo, al_a, al_b);   // O is still zero
     pack_p();
     // Tile i: S of tile i + 1 and O += P_i V_i go to the tensor cores
     // together, and the softmax of tile i + 1 runs while P_i V_i does.
-    for (int i = 0; i + 1 < n_wg; ++i) {
+    for (int i = lo; i + 1 < n_wg; ++i) {
       const int st = i % NS;
       mbar_wait(&k_full[(i + 1) % NS], ((i + 1) / NS) & 1);
       mbar_wait(&v_full[st], (i / NS) & 1);
@@ -484,8 +523,8 @@ void k3t_plan(int (&v)[5]) {
 
 template <int D, int BK, int NC>
 cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out, float* lse,
-                          int B, int T, int S, int H, int KV, int causal, float sm_scale,
-                          cudaStream_t stream) {
+                          int B, int T, int S, int H, int KV, int causal, int window,
+                          float sm_scale, cudaStream_t stream) {
   using L = K3TLayout<D, BK, NC>;
   CUtensorMap tm_q, tm_k, tm_v;
   // per batch (4-D): a box never runs from batch b into b + 1, and rows
@@ -506,21 +545,21 @@ cudaError_t launch_k3_tma(const void* q, const void* k, const void* v, void* out
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (T + L::BQ - 1) / L::BQ);
   flash_tma_kernel<D, BK, NC><<<grid, L::THREADS, L::smem_bytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, T, S, H, KV, causal,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, T, S, H, KV, causal, window,
       sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
 inline cudaError_t launch_k3_fma(const void* q, const void* k, const void* v, void* out,
                                  float* lse, int B, int T, int S, int H, int KV, int D,
-                                 int causal, float sm_scale, cudaStream_t stream) {
+                                 int causal, int window, float sm_scale, cudaStream_t stream) {
   const size_t smem = k3f_smem_bytes(D);
   cudaError_t err = prepare_smem(flash_fma_kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (T * (H / KV) + K3F_ROWS - 1) / K3F_ROWS;
   flash_fma_kernel<<<dim3(tiles, KV, B), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, T, S, H, KV, D, causal, sm_scale);
+      static_cast<float*>(out), lse, T, S, H, KV, D, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
@@ -534,19 +573,23 @@ __global__ void fill_kernel(float* __restrict__ x, long long n, float value) {
 
 // Plain C entry point, bound with ctypes. q (B, T, H, D), k/v (B, S, KV, D)
 // and out (B, T, H, D), contiguous; lse (B, H, T) f32 or null (not
-// written). Returns the cudaError_t of the launch (0 on success); it does
-// not synchronise.
+// written); window 0 (none) or the keys s > t - window (then T <= S, so
+// that every row sees a key). Returns the cudaError_t of the launch (0 on
+// success); it does not synchronise.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse_, int B, int T, int S, int H, int KV, int D,
-                                     int causal, float sm_scale, int dtype, void* stream) {
+                                     int causal, int window, float sm_scale, int dtype,
+                                     void* stream) {
   float* lse = static_cast<float*>(lse_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV != 0 || S < 0) return cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && T > S)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   switch (dtype) {
     case repro::F32:
-      return repro::launch_k3_fma(q, k, v, out, lse, B, T, S, H, KV, D, causal, sm_scale, st);
+      return repro::launch_k3_fma(q, k, v, out, lse, B, T, S, H, KV, D, causal, window,
+                                  sm_scale, st);
     case repro::BF16:
       if (S == 0) {   // no key: out = acc / max(l, 1e-30) = 0, lse = -1e30 + log(1e-30)
         cudaError_t err =
@@ -557,12 +600,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       }
       if (D == 64)
         return repro::launch_k3_tma<64, 128, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
-                                                sm_scale, st);
+                                                window, sm_scale, st);
       if (D == 128)
         return repro::launch_k3_tma<128, 128, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
-                                                 sm_scale, st);
+                                                 window, sm_scale, st);
       return repro::launch_k3_tma<256, 64, 2>(q, k, v, out, lse, B, T, S, H, KV, causal,
-                                              sm_scale, st);
+                                              window, sm_scale, st);
     default:
       return cudaErrorInvalidValue;
   }

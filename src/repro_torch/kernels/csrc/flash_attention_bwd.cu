@@ -14,8 +14,12 @@
 //   dQ    = scale * dS K,   dK = scale * dS^T Q
 //
 // with the forward's masks: the top-left causal rule (key s is seen by
-// query t when s <= t) and keys at or past S. Query head h reads kv head
-// h / G; dK and dV sum over the G heads of a group.
+// query t when s <= t), keys at or past S and, with a window (window > 0,
+// the reference's `_chunk_bias`: recurrentgemma's local blocks), only the
+// keys s > t - window. Query head h reads kv head h / G; dK and dV sum
+// over the G heads of a group. A window bounds both loops: a key tile's
+// queries end at the last that still sees one of its keys (s0 + 127 +
+// window - 1), a query tile's keys start at its first row's window.
 //
 // The reference takes delta from its f32 output; K3 returns O in q's
 // dtype, so in bf16 delta is read from the bf16 output. That gap (one
@@ -84,7 +88,11 @@
 // delta 0.013, dK/dV 0.081 and dQ 0.059 ms, each near 480 TFLOP/s on the
 // products it issues (3.8x the bound; the seven products and the
 // diagonal tiles' masked half are 1.6x of it). D = 64 0.107 ms (0.26);
-// MLA's 256 3.57 ms (6.9); ptxas: no spills at any D.
+// MLA's 256 3.57 ms (6.9); ptxas: no spills at any D. recurrentgemma's
+// windowed shape (B = 1, T = 4096, H = 10, KV = 1, D = 256, window 2048;
+// chip_smoke.py): 1.32 ms against its bound 0.163 (2.25 ms without the
+// window): at MQA the dK/dV grid is 32 key tiles x 2 column chunks, 64
+// blocks on 132 SMs, each walking all 10 heads.
 //
 // The outputs are written in the input dtype, as the reference casts its
 // f32 gradients back.
@@ -150,7 +158,7 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dk, float* __restrict__ dv, int Tq, int S, int H, int KV,
-                    int causal, float scale) {
+                    int causal, int window, float scale) {
   constexpr int LD = D + 1, PER = BF * D / THREADS;
   extern __shared__ float smem[];
   float* k_s = smem;                // (BF, LD) keys of the block
@@ -169,9 +177,11 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int m = 0; m < PER; ++m) acc_k[m] = acc_v[m] = 0.f;
 
+  // with a window, the last query that sees a key of the block
+  const int t_end = window > 0 ? min(Tq, s0 + BF - 1 + window) : Tq;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    for (int t0 = causal ? s0 : 0; t0 < Tq; t0 += BF) {
+    for (int t0 = causal ? s0 : 0; t0 < t_end; t0 += BF) {
       __syncthreads();   // the previous step's tiles are no longer read
       stage_f32(q_s, LD, q + (long long)b * Tq * H * D, t0, Tq, H, h, D);
       stage_f32(do_s, LD, dout + (long long)b * Tq * H * D, t0, Tq, H, h, D);
@@ -189,7 +199,8 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dp = fmaf(v_s[j * LD + d], do_s[i * LD + d], dp);
         }
         const int key = s0 + j, t = t0 + i;
-        const bool ok = key < S && t < Tq && (!causal || key <= t);
+        const bool ok = key < S && t < Tq && (!causal || key <= t) &&
+                        (window == 0 || key > t - window);
         const float p = ok ? expf(s * scale - lse_s[i]) : 0.f;
         p_s[j * (BF + 1) + i] = p;
         ds_s[j * (BF + 1) + i] = p * (dp - dl_s[i]);
@@ -225,7 +236,8 @@ __global__ void __launch_bounds__(THREADS)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int Tq, int S, int H, int KV, int causal, float scale) {
+                  float* __restrict__ dq, int Tq, int S, int H, int KV, int causal, int window,
+                  float scale) {
   constexpr int LD = D + 1, PER = BF * D / THREADS;
   extern __shared__ float smem[];
   float* q_s = smem;                // (BF, LD) queries of the block
@@ -248,7 +260,8 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int m = 0; m < PER; ++m) acc[m] = 0.f;
   const int kv_end = causal ? min(S, min(t0 + BF, Tq)) : S;
-  for (int s0 = 0; s0 < kv_end; s0 += BF) {
+  const int kv_begin = window > 0 ? max(0, t0 - window + 1) / BF * BF : 0;
+  for (int s0 = kv_begin; s0 < kv_end; s0 += BF) {
     __syncthreads();
     stage_f32(k_s, LD, k + (long long)b * S * KV * D, s0, S, KV, kvh, D);
     stage_f32(v_s, LD, v + (long long)b * S * KV * D, s0, S, KV, kvh, D);
@@ -261,7 +274,8 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dp = fmaf(do_s[i * LD + d], v_s[j * LD + d], dp);
       }
       const int key = s0 + j, t = t0 + i;
-      const bool ok = key < S && t < Tq && (!causal || key <= t);
+      const bool ok = key < S && t < Tq && (!causal || key <= t) &&
+                      (window == 0 || key > t - window);
       const float p = ok ? expf(s * scale - lse_s[i]) : 0.f;
       ds_s[i * (BF + 1) + j] = p * (dp - dl_s[i]);
     }
@@ -365,15 +379,18 @@ __device__ __forceinline__ void issue_xb(float (&c)[D / 2], const uint32_t (&x)[
 // dK/dV: block (kv head, b, key tile x column chunk), key tile 0 first
 // (when causal it sees every query). Step i is query tile j0 + i %
 // per_head of head kvh G + i / per_head: the G heads of the group in
-// turn, from the tile's diagonal on when causal. The producer's warp 0 issues the TMA loads;
-// its warp 1 stages the step's lse (times log2 e) and delta.
-template <int D>
+// turn, from the tile's diagonal on when causal, up to the last query
+// tile its window reaches. The producer's warp 0 issues the TMA loads;
+// its warp 1 stages the step's lse (times log2 e) and delta. WIN: built
+// apart for a window (its per-key upper bounds take registers that the
+// windowless kernel, at D = 128 on the edge of its 168, spills for).
+template <int D, bool WIN>
 __global__ void __launch_bounds__(384, 1)
 bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq, int S,
-                    int H, int KV, int causal, float scale) {
+                    int H, int KV, int causal, int window, float scale) {
   using L = BwdTLayout<D>;
   constexpr int NS = L::NS, NB = L::NB, BQ = L::STEP, DC = L::DC;
   extern __shared__ unsigned char smem_raw[];
@@ -393,7 +410,10 @@ bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   const int G = H / KV;
   const int n_t = (Tq + BQ - 1) / BQ;
   const int j0 = causal ? min(s0 / BQ, n_t) : 0;
-  const int per_head = n_t - j0;
+  // with a window, the last query that sees a key of the tile is
+  // s0 + TILE - 1 + window - 1
+  const int j1 = WIN ? min(n_t, (s0 + L::TILE + window - 2) / BQ + 1) : n_t;
+  const int per_head = max(j1 - j0, 0);
   const int n_steps = G * per_head;
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);   // warp-uniform to the compiler
 
@@ -471,9 +491,12 @@ bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       issue_abt<D, BQ>(s, kw, qs);     // S^T = K Q^T
       issue_abt<D, BQ>(dp, vw, dos);   // dP^T = V dO^T
       // query t0 + 2 tq + c (c = 8 j + e) is kept for key k when c >= lo
-      // (causal: k <= t) and c <= hi (t < T); a key at or past S keeps
-      // nothing. Selects, not branches: s and dp are wgmma operands.
+      // (causal: k <= t) and c <= hi (t < T and, with a window, t < k +
+      // window); a key at or past S keeps nothing. Selects, not branches:
+      // s and dp are wgmma operands.
       const int hi = Tq - 1 - t0 - 2 * tq;
+      const int hi_a = WIN ? min(hi, key_a + window - 1 - t0 - 2 * tq) : hi;
+      const int hi_b = WIN ? min(hi, key_b + window - 1 - t0 - 2 * tq) : hi;
       const int lo_a = key_a >= S ? BIG : causal ? key_a - t0 - 2 * tq : -BIG;
       const int lo_b = key_b >= S ? BIG : causal ? key_b - t0 - 2 * tq : -BIG;
       wgmma_wait<1>();
@@ -485,8 +508,8 @@ bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + e;
           const float le = e ? l2.y : l2.x;
-          s[4 * j + e] = ex2_sel(c >= lo_a && c <= hi, fmaf(s[4 * j + e], scale2, -le));
-          s[4 * j + 2 + e] = ex2_sel(c >= lo_b && c <= hi, fmaf(s[4 * j + 2 + e], scale2, -le));
+          s[4 * j + e] = ex2_sel(c >= lo_a && c <= hi_a, fmaf(s[4 * j + e], scale2, -le));
+          s[4 * j + 2 + e] = ex2_sel(c >= lo_b && c <= hi_b, fmaf(s[4 * j + 2 + e], scale2, -le));
         }
       }
       pack_frags<BQ>(pa, s);
@@ -539,15 +562,16 @@ bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 
 // dQ: block (head, b, query tile), the last query tile first (when causal
 // it sees every key). The producer's one thread streams the K and V tiles
-// up to the block's last diagonal; a warpgroup skips the tiles wholly past
-// its rows' diagonal (it still frees their stages).
+// up to the block's last diagonal, from its first row's window on; a
+// warpgroup skips the tiles wholly past its rows' diagonal or before its
+// rows' window (it still frees their stages).
 template <int D>
 __global__ void __launch_bounds__(384, 1)
 bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int Tq, int S, int H, int KV, int causal,
-                  float scale) {
+                  int window, float scale) {
   using L = BwdTLayout<D>;
   constexpr int NS = L::NS, NB = L::NB, BK = L::STEP;
   extern __shared__ unsigned char smem_raw[];
@@ -566,7 +590,9 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
   const int kvh = h / (H / KV);
   const int q_last = min(q0 + L::TILE, Tq) - 1;
   const int kv_end = causal ? min(S, q_last + 1) : S;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  // key tiles [tb, tb + n_tiles); the ring counts from tb
+  const int tb = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_tiles = (kv_end + BK - 1) / BK - tb;
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
   if (threadIdx.x == 0) {
@@ -595,8 +621,10 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
         if (i >= NS) mbar_wait(&empty[st], ((i / NS) - 1) & 1);
         mbar_expect_tx(&full[st], (uint32_t)(2 * L::RING));
         for (int bx = 0; bx < NB; ++bx) {
-          tma_load_4d(k_s + ((size_t)st * NB + bx) * BK * 64, &tm_k, &full[st], bx * 64, kvh, i * BK, b);
-          tma_load_4d(v_s + ((size_t)st * NB + bx) * BK * 64, &tm_v, &full[st], bx * 64, kvh, i * BK, b);
+          tma_load_4d(k_s + ((size_t)st * NB + bx) * BK * 64, &tm_k, &full[st], bx * 64, kvh,
+                      (tb + i) * BK, b);
+          tma_load_4d(v_s + ((size_t)st * NB + bx) * BK * 64, &tm_v, &full[st], bx * 64, kvh,
+                      (tb + i) * BK, b);
         }
       }
     }
@@ -615,9 +643,15 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     const float scale2 = scale * LOG2E;
     const __nv_bfloat16* qw = q_s + (size_t)wg * 64 * D;
     const __nv_bfloat16* dow = do_s + (size_t)wg * 64 * D;
-    const int n_wg = causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK) : n_tiles;
+    // the tiles [lo, n_wg) (counted from tb) this warpgroup reads
+    const int n_wg =
+        causal ? min(n_tiles, (min(S, row_base + 64) + BK - 1) / BK - tb) : n_tiles;
+    const int lo = window > 0 ? min(max(0, row_base - window + 1) / BK - tb, n_wg) : 0;
     const int last_a = causal ? min(S - 1, row_a) : S - 1;
     const int last_b = causal ? min(S - 1, row_b) : S - 1;
+    constexpr int BIG = 1 << 30;
+    const int first_a = window > 0 ? row_a - window + 1 : -BIG;
+    const int first_b = window > 0 ? row_b - window + 1 : -BIG;
 
     float acc[D / 2];                // dQ (64 queries x D), f32
     float s[BK / 2], dp[BK / 2];     // S, dP (64 queries x BK keys), then P, dS
@@ -625,7 +659,13 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     mbar_wait(own_full, 0);
-    for (int i = 0; i < n_wg; ++i) {
+    for (int i = 0; i < lo; ++i) {   // before the rows' window: loaded for the other warpgroup
+      const int st = i % NS;
+      mbar_wait(&full[st], (i / NS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    for (int i = lo; i < n_wg; ++i) {
       const int st = i % NS;
       const __nv_bfloat16* ks = k_s + (size_t)st * BK * D;
       const __nv_bfloat16* vs = v_s + (size_t)st * BK * D;
@@ -633,9 +673,12 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       wgmma_fence();
       issue_abt<D, BK>(s, qw, ks);     // S = Q K^T
       issue_abt<D, BK>(dp, dow, vs);   // dP = dO V^T
-      // key i BK + 2 tq + c (c = 8 j + e) is kept for a row when c <= lim:
-      // before S, and (causal) at or before the row
-      const int lim_a = last_a - i * BK - 2 * tq, lim_b = last_b - i * BK - 2 * tq;
+      // key s0 + 2 tq + c (c = 8 j + e) is kept for a row when lo_ <= c
+      // <= lim: before S, (causal) at or before the row, and (window) past
+      // the row's t - window
+      const int s0 = (tb + i) * BK;
+      const int lim_a = last_a - s0 - 2 * tq, lim_b = last_b - s0 - 2 * tq;
+      const int lo_a = first_a - s0 - 2 * tq, lo_b = first_b - s0 - 2 * tq;
       wgmma_wait<1>();
       fence_regs(s);
 #pragma unroll
@@ -643,8 +686,9 @@ bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + e;
-          s[4 * j + e] = ex2_sel(c <= lim_a, fmaf(s[4 * j + e], scale2, -lse_a));
-          s[4 * j + 2 + e] = ex2_sel(c <= lim_b, fmaf(s[4 * j + 2 + e], scale2, -lse_b));
+          s[4 * j + e] = ex2_sel(c <= lim_a && c >= lo_a, fmaf(s[4 * j + e], scale2, -lse_a));
+          s[4 * j + 2 + e] =
+              ex2_sel(c <= lim_b && c >= lo_b, fmaf(s[4 * j + 2 + e], scale2, -lse_b));
         }
       wgmma_wait<0>();
       fence_regs(dp);
@@ -714,18 +758,18 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, i
 template <int D>
 cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                            const float* lse, const float* delta, float* dq, float* dk, float* dv,
-                           int B, int T, int S, int H, int KV, int causal, float scale,
-                           cudaStream_t st) {
+                           int B, int T, int S, int H, int KV, int causal, int window,
+                           float scale, cudaStream_t st) {
   const size_t smem = bwd_f32_smem_bytes<D>();
   cudaError_t err = prepare_smem(bwd_dkdv_f32_kernel<D>, smem);
   if (err == cudaSuccess) err = prepare_smem(bwd_dq_f32_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   bwd_dkdv_f32_kernel<D><<<dim3((S + BF - 1) / BF, KV, B), THREADS, smem, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, T, S, H, KV, causal, scale);
+      q, k, v, dout, lse, delta, dk, dv, T, S, H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_f32_kernel<D><<<dim3((T + BF - 1) / BF, H, B), THREADS, smem, st>>>(
-      q, k, v, dout, lse, delta, dq, T, S, H, KV, causal, scale);
+      q, k, v, dout, lse, delta, dq, T, S, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -733,7 +777,7 @@ template <int D>
 cudaError_t launch_bwd_tma(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, __nv_bfloat16* dq,
                            __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int T, int S, int H,
-                           int KV, int causal, float scale, cudaStream_t st) {
+                           int KV, int causal, int window, float scale, cudaStream_t st) {
   using L = BwdTLayout<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   // per batch (4-D: D, heads, rows, batch): a box never runs from batch b
@@ -750,17 +794,22 @@ cudaError_t launch_bwd_tma(const void* q, const void* k, const void* v, const vo
     err = make_tensor_map_bf16(&tm_k, k, 4, kd, kst, box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
     err = make_tensor_map_bf16(&tm_v, v, 4, kd, kst, box, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess) err = allow_smem_once<bwd_dkdv_tma_kernel<D>>(L::smem_bytes);
+  if (err == cudaSuccess) err = allow_smem_once<bwd_dkdv_tma_kernel<D, false>>(L::smem_bytes);
+  if (err == cudaSuccess) err = allow_smem_once<bwd_dkdv_tma_kernel<D, true>>(L::smem_bytes);
   if (err == cudaSuccess) err = allow_smem_once<bwd_dq_tma_kernel<D>>(L::smem_bytes);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_tma_kernel<D><<<dim3(KV, B, (S + L::TILE - 1) / L::TILE * (D / L::DC)), L::THREADS,
-                           L::smem_bytes, st>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, T, S, H, KV,
-                                 causal, scale);
+  const dim3 grid(KV, B, (S + L::TILE - 1) / L::TILE * (D / L::DC));
+  if (window > 0)
+    bwd_dkdv_tma_kernel<D, true><<<grid, L::THREADS, L::smem_bytes, st>>>(
+        tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, T, S, H, KV, causal, window, scale);
+  else
+    bwd_dkdv_tma_kernel<D, false><<<grid, L::THREADS, L::smem_bytes, st>>>(
+        tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, T, S, H, KV, causal, 0, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_tma_kernel<D><<<dim3(H, B, (T + L::TILE - 1) / L::TILE), L::THREADS, L::smem_bytes,
                          st>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, T, S, H, KV, causal,
-                               scale);
+                               window, scale);
   return cudaGetLastError();
 }
 
@@ -777,18 +826,20 @@ void bwd_tma_plan(int (&v)[13]) {
 
 // Plain C entry point, bound with ctypes. q, o, dout and dq (B, T, H, D);
 // k, v, dk and dv (B, S, KV, D), all contiguous in one dtype; lse and the
-// scratch delta (B, H, T) f32. Writes dq, dk and dv (and delta); returns
-// the cudaError_t of the launches (0 on success); it does not synchronise.
+// scratch delta (B, H, T) f32; window 0 (none) or the forward's (then T <=
+// S). Writes dq, dk and dv (and delta); returns the cudaError_t of the
+// launches (0 on success); it does not synchronise.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* lse_, const void* dout,
                                          void* delta_, void* dq, void* dk, void* dv, int B,
                                          int T, int S, int H, int KV, int D, int causal,
-                                         float sm_scale, int dtype, void* stream) {
+                                         int window, float sm_scale, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse = static_cast<const float*>(lse_);
   float* delta = static_cast<float*>(delta_);
   if (KV <= 0 || H % KV != 0 || S < 0 || T < 0) return cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && T > S)) return cudaErrorInvalidValue;
   if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
   if (dtype != F32 && dtype != BF16) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || (T == 0 && S == 0)) return cudaSuccess;
@@ -809,23 +860,23 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
           *dvf = static_cast<float*>(dv);
     if (D == 64)
       return launch_bwd_f32<64>(qf, kf, vf, df, lse, delta, dqf, dkf, dvf, B, T, S, H, KV,
-                                causal, sm_scale, st);
+                                causal, window, sm_scale, st);
     if (D == 128)
       return launch_bwd_f32<128>(qf, kf, vf, df, lse, delta, dqf, dkf, dvf, B, T, S, H, KV,
-                                 causal, sm_scale, st);
+                                 causal, window, sm_scale, st);
     return launch_bwd_f32<256>(qf, kf, vf, df, lse, delta, dqf, dkf, dvf, B, T, S, H, KV,
-                               causal, sm_scale, st);
+                               causal, window, sm_scale, st);
   }
   using bf = __nv_bfloat16;
   bf *dqb = static_cast<bf*>(dq), *dkb = static_cast<bf*>(dk), *dvb = static_cast<bf*>(dv);
   if (D == 64)
     return launch_bwd_tma<64>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
-                              sm_scale, st);
+                              window, sm_scale, st);
   if (D == 128)
     return launch_bwd_tma<128>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
-                               sm_scale, st);
+                               window, sm_scale, st);
   return launch_bwd_tma<256>(q, k, v, dout, lse, delta, dqb, dkb, dvb, B, T, S, H, KV, causal,
-                             sm_scale, st);
+                             window, sm_scale, st);
 }
 
 // The launches a call of head size D and this dtype gets: out = {tensor

@@ -5,7 +5,12 @@ K3 is FA2's forward with GQA (query head h reads kv head h // G): a
 top-left causal mask (key s is seen by query t when s <= t, with no S - T
 offset), keys at or past S masked, and the output acc / max(l, 1e-30) in
 q's dtype, as the reference's Pallas ``_flash_kernel`` computes it; asked
-for it, it also writes each row's log-sum-exp (B, H, T) in f32.
+for it, it also writes each row's log-sum-exp (B, H, T) in f32. A
+``window`` > 0 keeps only the keys s > t - window, the mask of the
+reference's ``_chunk_bias`` that its ``_flash_grouped`` custom VJP runs
+for the local blocks (recurrentgemma-2b's): K3 and K3-bwd skip the tiles
+wholly outside it, so the models' local attention runs the same two
+kernels, in prefill and in training, as their global attention.
 
 The CUDA kernels are ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu`` (their notes say what bounds them and how
@@ -51,20 +56,21 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: dense masked softmax in f32,
-    top-left causal, out in q's dtype."""
-    return ref.reference_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    top-left causal, keys within ``window`` (if > 0), out in q's dtype."""
+    return ref.reference_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None, window: int = 0):
     """The plain version of K3 with its lse: (out in q's dtype, contiguous
     as the kernel's, lse (B, H, T) f32), from one pass of the reference's
     scores. The out is :func:`flash_attention_plain`'s; lse is the
     kernel's m + log(l), -1e30 where there is no key."""
     out, lse = ref.reference_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                       return_lse=True)
+                                       return_lse=True, window=window)
     lse = torch.clamp(lse, min=NEG_INF).permute(0, 2, 1).contiguous()
     return out.contiguous(), lse
 
@@ -76,10 +82,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     PyTorch: delta = rowsum(dO * O) in f32, then per chunk of ``kv_chunk``
     keys P = exp(scale q k - lse) recomputed from the saved lse (B, H, T),
     dV = P^T dO, dS = P (dO V^T - delta), dQ += scale dS K, dK = scale dS^T
-    Q. Returns (dq, dk, dv) in the inputs' dtypes. ``window`` > 0 (keys
-    within ``window`` of the query) and ``q_offset`` (the position of q[0])
-    serve the models' windowed attention (``models.attention.FlashGrouped``),
-    which no kernel runs."""
+    Q. Returns (dq, dk, dv) in the inputs' dtypes. ``window`` > 0 keeps
+    the keys within ``window`` of the query, as K3-bwd does; ``q_offset``
+    (the position of q[0]) serves ``models.attention.FlashGrouped``, the
+    port of the reference's chunked VJP, which no model's prefill or
+    training forward runs."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G, Dv = H // KV, v.shape[-1]
@@ -119,7 +126,7 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 5                 # q, k, v, out, lse (or null)
-            + [ctypes.c_int] * 7                  # B, T, S, H, KV, D, causal
+            + [ctypes.c_int] * 8                  # B, T, S, H, KV, D, causal, window
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, dtype, stream
         )
     return lib
@@ -132,7 +139,7 @@ def _bwd_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 10                # q, k, v, o, lse, dout, delta, dq, dk, dv
-            + [ctypes.c_int] * 7                  # B, T, S, H, KV, D, causal
+            + [ctypes.c_int] * 8                  # B, T, S, H, KV, D, causal, window
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, dtype, stream
         )
     return lib
@@ -176,7 +183,7 @@ def bwd_launch_plan(D: int, dtype: torch.dtype) -> dict:
             "dkdv": dict(zip(keys, out[1:7])), "dq": dict(zip(keys, out[7:13]))}
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, window: int = 0) -> None:
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
@@ -195,6 +202,9 @@ def _check(q, k, v) -> None:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes D in {_HEAD_DIMS}; got D={D}")
+    if window < 0 or (window > 0 and T > S):
+        raise ValueError(f"window={window}: the kernel takes a window >= 0, and with one "
+                         f"T <= S (every row then sees a key); got T={T}, S={S}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -212,8 +222,9 @@ def _device(q: torch.Tensor) -> bool:
     return True
 
 
-def _launch_k3(q, k, v, causal: bool, sm_scale: Optional[float], with_lse: bool):
-    _check(q, k, v)
+def _launch_k3(q, k, v, causal: bool, sm_scale: Optional[float], with_lse: bool,
+               window: int = 0):
+    _check(q, k, v, window)
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -225,7 +236,7 @@ def _launch_k3(q, k, v, causal: bool, sm_scale: Optional[float], with_lse: bool)
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, T, S, H, KV, D, int(causal),
+            B, T, S, H, KV, D, int(causal), int(window),
             float(sm_scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -242,28 +253,32 @@ def flash_attention(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
-    """(B, T, H, D) x (B, S, KV, D) -> (B, T, H, D) in q's dtype. CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    """(B, T, H, D) x (B, S, KV, D) -> (B, T, H, D) in q's dtype, over the
+    keys within ``window`` of each query if it is > 0. CUDA tensors launch
+    the kernel; CPU tensors run the plain version."""
     if not _device(q):
-        return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
-    return _launch_k3(q, k, v, causal, sm_scale, with_lse=False)[0]
+        return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
+    return _launch_k3(q, k, v, causal, sm_scale, with_lse=False, window=window)[0]
 
 
 flash_attention.launches = 0
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: Optional[float] = None):
+def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: Optional[float] = None,
+                        window: int = 0):
     """K3 with its lse: (out (B, T, H, D) in q's dtype, lse (B, H, T) f32),
     the residuals of the backward. One K3 launch, counted in
     ``flash_attention.launches``; CPU tensors run the plain version."""
     if not _device(q):
-        return flash_attention_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale)
-    return _launch_k3(q, k, v, causal, sm_scale, with_lse=True)
+        return flash_attention_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                                         window=window)
+    return _launch_k3(q, k, v, causal, sm_scale, with_lse=True, window=window)
 
 
-def _check_bwd(q, k, v, out, lse, dout) -> None:
-    _check(q, k, v)
+def _check_bwd(q, k, v, out, lse, dout, window: int) -> None:
+    _check(q, k, v, window)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not match q")
@@ -276,16 +291,17 @@ def _check_bwd(q, k, v, out, lse, dout) -> None:
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None, window: int = 0):
     """K3-bwd: (dq, dk, dv) of K3's output (q's, k's and v's shapes and
     dtype) from the forward's inputs, its output ``out`` and ``lse``
-    (B, H, T) f32, and ``dout``, the output's gradient. CUDA tensors launch
-    the kernel (counted in ``flash_attention_bwd.launches``); CPU tensors
-    run :func:`flash_attention_bwd_plain`."""
+    (B, H, T) f32, and ``dout``, the output's gradient; ``window`` is the
+    forward's. CUDA tensors launch the kernel (counted in
+    ``flash_attention_bwd.launches``); CPU tensors run
+    :func:`flash_attention_bwd_plain`."""
     if not _device(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
-                                         sm_scale=sm_scale)
-    _check_bwd(q, k, v, out, lse, dout)
+                                         sm_scale=sm_scale, window=window)
+    _check_bwd(q, k, v, out, lse, dout, window)
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -297,7 +313,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         rc = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, T, S, H, KV, D, int(causal), float(sm_scale), _DTYPES[q.dtype],
+            B, T, S, H, KV, D, int(causal), int(window), float(sm_scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -312,20 +328,22 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """K3 under autograd: the forward keeps (q, k, v, out, lse) and the
     backward recomputes P from them, as the reference's ``_flash_grouped``
-    custom VJP does. CUDA tensors run K3 (with its lse) and K3-bwd, and
-    raise where a kernel cannot run; CPU tensors run both plain versions.
-    ``FlashAttention.apply(q, k, v, causal, sm_scale)``."""
+    custom VJP does, with or without its window. CUDA tensors run K3 (with
+    its lse) and K3-bwd, and raise where a kernel cannot run; CPU tensors
+    run both plain versions.
+    ``FlashAttention.apply(q, k, v, causal, sm_scale, window)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float], window: int = 0):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.window = causal, sm_scale, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         causal=ctx.causal, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, sm_scale=ctx.sm_scale,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None

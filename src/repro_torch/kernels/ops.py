@@ -21,10 +21,11 @@ from .paged_attention import paged_attention as _paged
 from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B,T,H,Dqk) x (B,S,KV,Dqk) x (B,S,KV,Dv) -> (B,T,H,Dv); FA2 with
     GQA, top-left causal mask, kv tiles past the diagonal skipped; scores
-    scaled by 1/sqrt(Dqk).
+    scaled by 1/sqrt(Dqk). A ``window`` > 0 keeps the keys s > t - window
+    (the local blocks' attention), kv tiles wholly before it skipped.
 
     The kernel is built for a few head sizes (``kernel_head_dim``); other
     widths, and Dv != Dqk (MLA: 192 and 128), are padded with zero
@@ -44,9 +45,9 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if D != Dqk or D != Dv:
         q, k, v = (F.pad(x, (0, D - x.shape[-1])) for x in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(q, k, v, causal, scale)
+        out = FlashAttention.apply(q, k, v, causal, scale, window)
     else:
-        out = _flash(q, k, v, causal=causal, sm_scale=scale)
+        out = _flash(q, k, v, causal=causal, sm_scale=scale, window=window)
     return out if out.shape[-1] == Dv else out[..., :Dv]
 
 

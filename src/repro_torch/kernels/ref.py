@@ -29,9 +29,12 @@ def reference_attention(
     sm_scale: Optional[float] = None,
     kv_valid_len: Optional[torch.Tensor] = None,   # (B,)
     return_lse: bool = False,
+    window: int = 0,
 ):
     """Dense masked softmax attention with GQA broadcast; with
-    ``return_lse``, (out, the rows' logsumexp (B, T, H) in f32)."""
+    ``return_lse``, (out, the rows' logsumexp (B, T, H) in f32). A
+    ``window`` > 0 keeps only the keys s > t - window (the reference's
+    ``_chunk_bias``)."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -41,8 +44,11 @@ def reference_attention(
     s = torch.einsum("btkgd,bskd->btkgs", qf, k.float())
     mask = torch.ones((B, T, S), dtype=torch.bool, device=q.device)
     pos = torch.arange(S, device=q.device)
+    t_pos = torch.arange(T, device=q.device)[None, :, None]
     if causal:
-        mask &= pos[None, None, :] <= torch.arange(T, device=q.device)[None, :, None]
+        mask &= pos[None, None, :] <= t_pos
+    if window > 0:
+        mask &= pos[None, None, :] > t_pos - window
     if kv_valid_len is not None:
         mask &= pos[None, None, :] < kv_valid_len.to(q.device)[:, None, None]
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)

@@ -1,7 +1,7 @@
 """The reference's model zoo in PyTorch, all ten of its models: GQA
-attention (windowless full-sequence attention through the K3
-flash-attention kernel, causal or an encoder's bidirectional; local
-windows through the plain chunked attention), MLA (the expanded prefill
+attention (full-sequence attention through the K3 flash-attention
+kernel, causal or an encoder's bidirectional, local blocks with their
+window; decode through the plain chunked attention), MLA (the expanded prefill
 through K3, the absorbed decode over the latent cache), SwiGLU MLP, the
 MoE feed-forward, RG-LRU and xLSTM blocks, the vision projector and the
 audio frontend, RMSNorm and RoPE, with dense KV caches, latent caches

@@ -3,23 +3,27 @@ granite-moe-1b, llava's mistral backbone, hubert's encoder and
 recurrentgemma-2b's local blocks) and MLA (deepseek-v2-236b):
 projections, qk-norm, RoPE, and three attention paths.
 
-* Full-sequence attention without a window (prefill, and the forward of
-  an encoder or of a whole sequence), causal or not, runs K3, the Hopper
-  flash-attention kernel, through :func:`repro_torch.kernels.ops.flash_attention`
-  (its plain version for CPU tensors; the op pads head sizes the kernel
-  is not built for, MLA's 192/128 and hubert's 80). The reference
+* Full-sequence attention (prefill, and the forward of an encoder or of
+  a whole sequence), causal or not, with a window or without, runs K3,
+  the Hopper flash-attention kernel, through
+  :func:`repro_torch.kernels.ops.flash_attention` (its plain version for
+  CPU tensors; the op pads head sizes the kernel is not built for, MLA's
+  192/128, hubert's 80 and the reduced configs' 16). The reference
   computes the same function with its chunked online-softmax scan; its
   docstring names the Pallas flash kernel as what plugs in there. Under
   autograd (training) the op's backward is K3-bwd, the port of the
-  reference's ``_flash_grouped_bwd``.
-* Windowed prefill and decode (MLA's absorbed decode too) run
-  :func:`chunked_attention`, the reference's chunked online-softmax
-  attention in plain PyTorch, as the reference runs them outside any
-  Pallas kernel. In the reference's own case for its memory-safe VJP (no
-  ``kv_valid_len``, an int ``q_offset``: a window's training forward and
-  prefill) it runs through :class:`FlashGrouped`, whose backward
+  reference's ``_flash_grouped_bwd``. recurrentgemma-2b's local blocks
+  take the same two kernels with their window (the keys s > t - window,
+  the reference's ``_chunk_bias``): its ``_flash_grouped`` VJP with a
+  window runs on the card's kernels too.
+* Decode (MLA's absorbed decode too) runs :func:`chunked_attention`, the
+  reference's chunked online-softmax attention in plain PyTorch, as the
+  reference runs it outside any Pallas kernel. In the reference's own
+  case for its memory-safe VJP (no ``kv_valid_len``, an int
+  ``q_offset``) it runs through :class:`FlashGrouped`, whose backward
   recomputes P per chunk from the saved (q, k, v, out, lse) instead of
-  keeping the (T, S) probabilities. Its chunk is ``kv_chunk``, or the
+  keeping the (T, S) probabilities; no model's prefill or training
+  forward reaches it. Its chunk is ``kv_chunk``, or the
   ``REPRO_KV_CHUNK`` knob (:func:`repro_torch.launch.tuning.kv_chunk`)
   read at call time, as the reference reads it.
 * Decode (GQA, the local ring buffer and MLA's latent MQA) first asks
@@ -169,8 +173,10 @@ class FlashGrouped(torch.autograd.Function):
     chunked scan (:func:`_flash_fwd`) and keeps (q, k, v, out, lse); the
     backward (``_flash_grouped_bwd``: K3-bwd's plain version, with the
     window) recomputes p = exp(s - lse) chunk by chunk, so no (T, S)
-    matrix is kept for it. Plain PyTorch: it serves windowed attention,
-    which no kernel runs. Unlike the reference, which
+    matrix is kept for it. Plain PyTorch, the port of the reference's
+    chunked function: the models' windowed prefill and training forward
+    run K3 and K3-bwd instead (``ops.flash_attention(window=)``). Unlike
+    the reference, which
     pads an S that is not a multiple of ``kv_chunk`` and then falls back to
     plain AD through ``_flash_fwd``, it covers that case too (the short last
     chunk sliced): the same function, the same gradient.
@@ -300,11 +306,10 @@ def _project_qkv(x, p, cfg, positions, parallel=None):
 
 
 def _sequence_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
-    """A whole sequence's attention: K3 without a window, else the chunked
-    scan."""
-    if window > 0:
-        return chunked_attention(q, k, v, causal=causal, window=window)
-    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    """A whole sequence's attention: K3 (and K3-bwd under autograd), with
+    the local blocks' window where they have one."""
+    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                               window=window)
 
 
 def gqa_forward(
@@ -331,7 +336,7 @@ def gqa_prefill(
     x: torch.Tensor, p: Params, cfg, cache_len: int, *, window: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: forward + the KV cache padded/trimmed to ``cache_len``, in
-    k's dtype. Windowless causal attention runs K3."""
+    k's dtype. The causal attention runs K3, with the window if any."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     mp = model_parallel("attn")

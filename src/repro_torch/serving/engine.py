@@ -11,8 +11,9 @@ the shared paged KV pool. Requests flow:
   3. write-back (``set`` per new block) — may ripple-evict other
      tenants' blocks exactly per Section III;
   4. decode (live mode only): the model prefills the whole prompt into
-     dense per-request KV caches, its windowless causal attention running
-     K3 (:func:`repro_torch.kernels.ops.flash_attention`), and
+     dense per-request KV caches, its causal attention (local blocks'
+     within their window) running K3
+     (:func:`repro_torch.kernels.ops.flash_attention`), and
      :func:`~repro_torch.serving.sampler.greedy_decode` decodes
      ``max_new_tokens`` tokens on them.
 

@@ -152,28 +152,39 @@ def test_padded_flash_attention_kernel_matches_plain(monkeypatch, cuda_device, B
 
 
 @pytest.mark.cuda
-def test_model_prefill_on_the_card_runs_k3_in_every_layer(cuda_device):
-    """A reduced qwen3 (head_dim 64, G = 2) prefilled on the card in f32:
-    one K3 launch per layer, logits and caches as on the CPU (K3 within
-    2e-5 of its plain version; the products in full f32, no TF32)."""
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "recurrentgemma-2b"])
+def test_model_prefill_on_the_card_runs_k3_in_every_layer(cuda_device, name):
+    """A reduced qwen3 (head_dim 64, G = 2) and the reduced recurrentgemma
+    (its local layers' window of 32, head_dim 16 padded to 64, MQA)
+    prefilled on the card in f32 with a prompt past the window: one K3
+    launch per attention layer (every layer of qwen3, each local layer of
+    recurrentgemma), logits and caches as on the CPU (K3 within 2e-5 of
+    its plain version; the products in full f32, no TF32)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import make_model
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), n_kv_heads=2, head_dim=64)
+    cfg = get_config(name).reduced()
+    if name == "qwen3-1.7b":
+        cfg = dataclasses.replace(cfg, n_kv_heads=2, head_dim=64)
+    G = len(cfg.block_pattern)
+    n_attn = sum(cfg.block_pattern[i % G] in ("attn", "local") for i in range(cfg.n_layers))
     model = make_model(cfg, compute_dtype=torch.float32)
     params = model.init(torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40)))
+    assert tokens.shape[1] > cfg.window
     want, want_c = model.prefill(params, {"tokens": tokens}, 48)
     on_card = _to(params, cuda_device)
     before = flash_attention.launches
     got, got_c = model.prefill(on_card, {"tokens": tokens.to(cuda_device)}, 48)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + cfg.n_layers
+    assert flash_attention.launches == before + n_attn
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
-    np.testing.assert_allclose(got_c["blocks"]["g0"]["k"].cpu().numpy(),
-                               want_c["blocks"]["g0"]["k"].numpy(), atol=1e-4)
+    for g in want_c["blocks"]:
+        for leaf, w in want_c["blocks"][g].items():
+            np.testing.assert_allclose(got_c["blocks"][g][leaf].cpu().numpy(), w.numpy(),
+                                       atol=1e-4, err_msg=f"{g} {leaf}")
 
 
 @pytest.mark.cuda

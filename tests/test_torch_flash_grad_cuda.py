@@ -1,6 +1,11 @@
 """K3-bwd and K3's lse on the card, against their plain versions; no JAX
 (this file is collected on the card's machine).
 
+With a window (recurrentgemma's local blocks: the keys s > t - window)
+the same kernels are held at windows below a query tile, MQA at G = 10
+and 5, windows of T or more (the causal kernels bit for bit), ragged T
+and recurrentgemma's training shape (T = 4096, window 2048).
+
 Every case is marked ``cuda`` and skips without a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_grad_cuda.py
@@ -42,6 +47,21 @@ GRID = [  # B, T, S, H, KV, D, causal
 ]
 PADDED = [  # B, T, H, KV, Dqk, Dv, causal: widths the op pads (D=16 of the reduced configs)
     (2, 32, 4, 2, 16, 16, True), (1, 96, 4, 4, 192, 128, True), (2, 80, 4, 4, 80, 80, False),
+]
+# B, T, H, KV, D, causal, window (keys s > t - window; T = S): recurrentgemma's
+# local blocks. Windows below a query tile (128 rows), where a key tile lies
+# wholly before the window of a block's later rows; windows that are not a
+# multiple of the key tiles; MQA at G = 10 and at a rank's G = 5 at D = 256;
+# windows of T or more (the causal kernel); ragged T; recurrentgemma's
+# training shape
+WINDOWED = [
+    (1, 300, 4, 1, 64, True, 1), (1, 300, 4, 2, 128, True, 16),
+    (1, 300, 10, 1, 256, True, 48), (1, 500, 5, 1, 256, True, 100),
+    (2, 333, 4, 4, 64, False, 100), (1, 300, 4, 1, 128, False, 16),
+    (1, 1000, 10, 1, 256, True, 200), (1, 1000, 5, 1, 256, True, 129),
+    (2, 200, 4, 2, 128, True, 2048), (1, 1280, 10, 1, 256, True, 2048),
+    (3, 130, 4, 2, 128, True, 64), (1, 1000, 8, 1, 64, True, 300),
+    (1, 4096, 10, 1, 256, True, 2048),
 ]
 
 
@@ -85,15 +105,17 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, T, S, H, KV, D
 
 
 @pytest.mark.cuda
-def test_flash_attention_bwd_is_deterministic(cuda_device):
-    """Two calls at qwen3-1.7b's training shape (bf16, causal) give
-    bit-identical dq, dk and dv: no atomics, sums in a fixed order."""
-    B, T, H, KV, D = 4, 1024, 16, 8, 128
+@pytest.mark.parametrize("B,T,H,KV,D,window", [(4, 1024, 16, 8, 128, 0),
+                                               (1, 4096, 10, 1, 256, 2048)])
+def test_flash_attention_bwd_is_deterministic(cuda_device, B, T, H, KV, D, window):
+    """Two calls at qwen3-1.7b's training shape and at recurrentgemma-2b's
+    with its window (bf16, causal) give bit-identical dq, dk and dv: no
+    atomics, sums in a fixed order."""
     q, k, v, do = _inputs(5, [(B, T, H, D), (B, T, KV, D), (B, T, KV, D), (B, T, H, D)],
                           torch.bfloat16, cuda_device)
-    out, lse = k3.flash_attention_fwd(q, k, v)
-    first = k3.flash_attention_bwd(q, k, v, out, lse, do)
-    second = k3.flash_attention_bwd(q, k, v, out, lse, do)
+    out, lse = k3.flash_attention_fwd(q, k, v, window=window)
+    first = k3.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    second = k3.flash_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
     for a, b, name in zip(first, second, ("dq", "dk", "dv")):
         assert torch.equal(a, b), name
@@ -131,18 +153,86 @@ def test_flash_attention_lse_matches_plain(cuda_device, B, T, S, H, KV, D, causa
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,KV,D,causal,window", [s[:2] + s[1:] for s in WINDOWED])
+def test_windowed_flash_attention_matches_plain(cuda_device, B, T, S, H, KV, D, causal,
+                                                window, dtype):
+    """Windowed K3 with its lse against its plain version: out within 2e-5
+    (f32) and 2e-2 (bf16) as K3's own checks, lse within 1e-4 and 5e-2;
+    the launch without the lse gives the same out."""
+    q, k, v = _inputs(6, [(B, T, H, D), (B, S, KV, D), (B, S, KV, D)], dtype, cuda_device)
+    before = k3.flash_attention.launches
+    out, lse = k3.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k3.flash_attention.launches == before + 1
+    want_out, want_lse = k3.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want_out.float().cpu().numpy(),
+                               atol=2e-5 if dtype == torch.float32 else 2e-2, rtol=0)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-4 if dtype == torch.float32 else 5e-2, rtol=0)
+    torch.testing.assert_close(out, k3.flash_attention(q, k, v, causal=causal, window=window),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,D,causal,window", WINDOWED)
+def test_windowed_flash_attention_bwd_matches_plain(cuda_device, B, T, H, KV, D, causal, window,
+                                                    dtype):
+    """Windowed K3-bwd against its plain version on the kernel's own out
+    and lse, at the tolerances of the windowless cases."""
+    q, k, v, do = _inputs(7, [(B, T, H, D), (B, T, KV, D), (B, T, KV, D), (B, T, H, D)], dtype,
+                          cuda_device)
+    out, lse = k3.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = k3.flash_attention_bwd.launches
+    got = k3.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k3.flash_attention_bwd.launches == before + 1
+    want = k3.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        if window == 1 and name != "dv":
+            # each row sees its own key alone: P = 1 and dS = P (dP - delta)
+            # = 0, so dq and dk are zero but for f32 rounding on both sides
+            # (about 1e-6 here), which a bound relative to them cannot hold
+            np.testing.assert_allclose(g.float().cpu().numpy(), 0.0, atol=1e-5, err_msg=name)
+            continue
+        _hold(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_window_of_at_least_t_is_the_causal_kernel(cuda_device, dtype):
+    """recurrentgemma's live prompt (1280 tokens) against its window of
+    2048: K3's out and lse and K3-bwd's gradients equal the windowless
+    causal kernels' bit for bit."""
+    B, T, H, KV, D = 1, 1280, 10, 1, 256
+    q, k, v, do = _inputs(8, [(B, T, H, D), (B, T, KV, D), (B, T, KV, D), (B, T, H, D)], dtype,
+                          cuda_device)
+    runs = []
+    for window in (0, 2048):
+        out, lse = k3.flash_attention_fwd(q, k, v, window=window)
+        runs.append((out, lse) + k3.flash_attention_bwd(q, k, v, out, lse, do, window=window))
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("out", "lse", "dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,KV,Dqk,Dv,causal", PADDED)
+@pytest.mark.parametrize("window", [0, 16])
 def test_op_gradients_on_the_card_never_run_plain(monkeypatch, cuda_device, B, T, H, KV, Dqk,
-                                                  Dv, causal, dtype):
-    """``ops.flash_attention`` under autograd on CUDA tensors: one K3 and one
-    K3-bwd launch, through the op's padding, never a plain version; the
-    gradients are the plain route's (the same op on the CPU)."""
+                                                  Dv, causal, window, dtype):
+    """``ops.flash_attention`` under autograd on CUDA tensors, with a
+    window and without: one K3 and one K3-bwd launch, through the op's
+    padding, never a plain version; the gradients are the plain route's
+    (the same op on the CPU)."""
     arrays = [np.random.default_rng(2).standard_normal(s).astype(np.float32)
               for s in ((B, T, H, Dqk), (B, T, KV, Dqk), (B, T, KV, Dv))]
 
     def grads(device):
         ts = [torch.from_numpy(a).to(device, dtype).requires_grad_() for a in arrays]
-        (ops.flash_attention(*ts, causal=causal).float() ** 2).sum().backward()
+        (ops.flash_attention(*ts, causal=causal, window=window).float() ** 2).sum().backward()
         return [t.grad for t in ts]
 
     want = grads("cpu")

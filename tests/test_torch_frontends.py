@@ -89,9 +89,9 @@ def test_encoder_forward_matches_reference_and_runs_k3_bidirectional(monkeypatch
     seen = []
     op = ops.flash_attention
 
-    def record(q, k, v, *, causal=True):
+    def record(q, k, v, *, causal=True, window=0):
         seen.append((q.shape[-1], causal))
-        return op(q, k, v, causal=causal)
+        return op(q, k, v, causal=causal, window=window)
 
     monkeypatch.setattr(ops, "flash_attention", record)
     got = m.forward_logits(p, tb)

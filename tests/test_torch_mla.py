@@ -139,9 +139,9 @@ def test_padded_flash_attention_equals_the_unpadded_function(monkeypatch, B, T, 
     calls = []
     wrapper = k3_module.flash_attention
 
-    def record(q, k, v, *, causal=True, sm_scale=None):
+    def record(q, k, v, *, causal=True, sm_scale=None, window=0):
         calls.append((q.shape[-1], k.shape[-1], v.shape[-1], sm_scale))
-        return wrapper(q, k, v, causal=causal, sm_scale=sm_scale)
+        return wrapper(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
 
     monkeypatch.setattr(ops, "_flash", record)
     rng = np.random.default_rng(7)

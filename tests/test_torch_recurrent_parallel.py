@@ -19,9 +19,9 @@ partitions the same products. Held, in f32:
   split one, wk's and wv's whole: summed over "model") within 1e-5 of
   ``jax.grad`` of the placed loss; the two ranks identical;
 * each rank's RG-LRU scans its W/2 channels and its windowed attention
-  reads H/2 query heads over the one KV head, in the steps and in
-  serving; no parameter is gathered; wk and wv are the leaves the step
-  sums over "model";
+  (K3 in the steps and the prefill) reads H/2 query heads over the one KV
+  head, in the steps and in serving; no parameter is gathered; wk and wv
+  are the leaves the step sums over "model";
 * the collectives a step, predicted: per RG-LRU layer one all-gather of
   the conv output and one reduce-scatter of its gradient;
 * the split leaves, their gradients and moments, and the RG-LRU states at
@@ -143,14 +143,16 @@ def test_ranks_agree(results):
 def test_each_rank_computes_its_channels_and_heads(results):
     """Every RG-LRU scan and step runs on W/2 channels and every windowed
     attention call on H/2 query heads over the one KV head, in the steps
-    and in serving; no K3 launch (the windows run the chunked scan) and no
-    parameter gathered whole."""
+    and in serving: the windows of the steps and the prefill through K3
+    (``ops.flash_attention``, never the chunked scan), the decode steps'
+    through the chunked attention; no parameter gathered whole."""
     _, port = results
     for got in port:
         for part in (got, got["serve"]):
             assert part["lru"] == [CFG.lru_width // WORLD]
-            assert part["attn"] == [(CFG.n_heads // WORLD, 1)]
-            assert part["k3_heads"] == []
+            assert part["k3_heads"] == [(CFG.n_heads // WORLD, 1)]
+        assert got["attn"] == []
+        assert got["serve"]["attn"] == [(CFG.n_heads // WORLD, 1)]
         assert got["gathered"] == []
 
 

@@ -182,9 +182,10 @@ def test_chip_smoke_live_phase_on_cpu_at_small_size():
 def test_chip_smoke_live_phase_serves_three_models_on_cpu_at_small_size():
     """The extended live phase: the reduced qwen3, granite-moe-1b and
     recurrentgemma-2b in turn, each with its check (K3 against the plain
-    prefill; recurrentgemma's decode consistency, its prompts longer than
-    its window of 32). On the CPU the wrappers run their plain versions
-    and count no launch."""
+    prefill, recurrentgemma's local layers with their window of 32; and
+    recurrentgemma's decode consistency, its prompts longer than its
+    window). On the CPU the wrappers run their plain versions and count no
+    launch."""
     import chip_smoke as cs
 
     sizes = cs.Sizes(reduced=True, pool_blocks=256, block_tokens=4, prefix_tokens=32,
@@ -192,9 +193,9 @@ def test_chip_smoke_live_phase_serves_three_models_on_cpu_at_small_size():
     models = cs.phase_live_models(torch.device("cpu"), sizes, seed=0, card="cpu")
     assert [m["name"] for m in models] == ["qwen3-1.7b", "granite-moe-1b-a400m",
                                            "recurrentgemma-2b"]
-    assert [m["k3_per_request"] for m in models] == [2, 2, 0]
+    assert [m["k3_per_request"] for m in models] == [2, 2, 2]
     assert all(m["launches"] == dict.fromkeys(cs.KERNELS, 0) for m in models)
-    assert models[0]["k3_err"] == models[1]["k3_err"] == 0.0    # plain against itself here
+    assert all(m["k3_err"] == 0.0 for m in models)              # plain against itself here
     assert 0.0 < models[2]["decode_err"] < 1.0
     assert all(m["prefill_ms"] > 0 and m["decode_ms"] > 0 and m["n_params"] > 0
                for m in models)
@@ -279,7 +280,8 @@ def test_chip_smoke_route_tape_replays_an_moe_prefill():
         got, _ = m.prefill(p, batch, 44)
     assert torch.equal(got, want)
     kernel = ops.flash_attention
-    ops.flash_attention = lambda q, k, v, *, causal=True: 1.01 * kernel(q, k, v, causal=causal)
+    ops.flash_attention = lambda q, k, v, *, causal=True, window=0: 1.01 * kernel(
+        q, k, v, causal=causal, window=window)
     try:
         own = cs.RouteTape()
         with shardctx.rules({"moe_apply": own}):
@@ -399,7 +401,7 @@ def test_chip_smoke_train_phase_on_cpu_at_small_size(train_phase):
     (2 layers of the reduced qwen3), the launcher's run with its per-step
     records and the profiled step."""
     out = train_phase
-    assert out["n_bwd_shapes"] == 8
+    assert out["n_bwd_shapes"] == 12
     assert out["bwd_err"] == 0.0 and out["worst_rel"] == 0.0
     steps = out["steps"]
     assert [r["step"] for r in steps] == [0, 1, 2, 3, 4]
@@ -707,6 +709,11 @@ def test_chip_smoke_bwd_timing_shapes():
                       (4, 1024, 128, 128, 192, 128, True), (4, 1000, 16, 16, 80, 80, False)]
     assert sorted({cs.kernel_head_dim(max(s[4:6])) for s in shapes}) == [64, 128, 256]
     assert cs.bwd_shapes(full)[-1] == (4, 1000, 16, 8, 128, 128, True)
+    # recurrentgemma-2b's local attention: its training shape with its window
+    assert cs.windowed_shape(full) == (1, 4096, 10, 1, 256, 256, True, 2048)
+    assert cs.windowed_shape(full) in cs.bwd_shapes(full)
+    assert cs.attended_pairs(4096, 4096, True, 2048) == 6_292_480
+    assert cs.attended_pairs(4096, 4096, True) == 4096 * 4097 // 2
 
 
 def test_chip_smoke_estimator_phase_on_cpu_at_small_size():
