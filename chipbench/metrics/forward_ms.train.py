@@ -1,0 +1,9 @@
+"""forward_ms.train: device ms a step of the kernels launched in the
+``train_step.forward`` range (the loss's forward; the profiled steps)."""
+
+
+def read(rec):
+    if rec.profile is None or rec.kind != "train":
+        return None
+    s = rec.profile.range_s("train_step.forward", "step")
+    return 1e3 * s / rec.counters["profiled_steps"] if s > 0 else None

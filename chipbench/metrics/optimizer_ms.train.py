@@ -1,0 +1,9 @@
+"""optimizer_ms.train: device ms a step of the kernels launched in the
+``train_step.optimizer`` range (the profiled steps)."""
+
+
+def read(rec):
+    if rec.profile is None or rec.kind != "train":
+        return None
+    s = rec.profile.range_s("train_step.optimizer", "step")
+    return 1e3 * s / rec.counters["profiled_steps"] if s > 0 else None
