@@ -62,8 +62,6 @@ class BlockPool:
         )
         self.v_pages = torch.zeros_like(self.k_pages)
         self._free: List[int] = list(range(n_blocks))
-        self.n_alloc_calls = 0
-        self.n_free_calls = 0
         self.high_water = 0
 
     # -- host-side accounting -------------------------------------------
@@ -80,13 +78,11 @@ class BlockPool:
             raise MemoryError(
                 f"pool exhausted: want {n}, free {len(self._free)}"
             )
-        self.n_alloc_calls += 1
         out = [self._free.pop() for _ in range(n)]
         self.high_water = max(self.high_water, self.used_blocks)
         return out
 
     def free(self, ids: Sequence[int]) -> None:
-        self.n_free_calls += 1
         self._free.extend(int(i) for i in ids)
         assert len(self._free) <= self.n_blocks
 

@@ -17,6 +17,10 @@ Residency and fairness are delegated 1:1 to the paper's
   back to the :class:`BlockPool` via the eviction hook;
 * ripple evictions, ghost retention, RRE slack, admission — all inherited
   behaviors, measured by the serving benchmarks.
+
+``lookup``, ``insert`` and their key hashing are the spans
+``cache.lookup``, ``cache.insert`` and ``cache.keys`` of
+:mod:`repro_torch.tracing`, which lists their counters.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.shared_lru import EvictionEvent, GetResult, SharedLRUCache
+from repro_torch.tracing import count, span
 
 from .block_pool import BlockPool
 from .kv_layout import KVLayout
@@ -120,33 +125,39 @@ class SharedPrefixCache:
             self.pool.free([page])
 
     def _keys_for(self, token_ids: Sequence[int]) -> List[bytes]:
-        bt = self.layout.block_tokens
-        keys = []
-        prev = b"root"
-        for i in range(len(token_ids) // bt):
-            prev = _chain_hash(prev, token_ids[i * bt : (i + 1) * bt])
-            keys.append(prev)
+        with span("cache.keys"):
+            bt = self.layout.block_tokens
+            keys = []
+            prev = b"root"
+            for i in range(len(token_ids) // bt):
+                prev = _chain_hash(prev, token_ids[i * bt : (i + 1) * bt])
+                keys.append(prev)
+        count("cache.blocks_hashed", len(keys))
         return keys
 
     # ------------------------------------------------------------------
     def lookup(self, tenant: str, token_ids: Sequence[int]) -> PrefixLookup:
         """Chained get: usable cached prefix + sharing/eviction stats."""
-        ti = self.tenant_idx[tenant]
-        keys = self._keys_for(token_ids)
-        out = PrefixLookup(0, 0, [], keys)
-        for key in keys:
-            st = self.manager.get(ti, key)
-            if st.result is GetResult.MISS:
-                break
-            if st.result is GetResult.HIT_LIST:
-                out.hit_list += 1
-            else:
-                out.hit_cache += 1
-                out.evictions += st.n_evictions
-                out.ripple_evictions += st.n_ripple
-            out.cached_blocks += 1
-            out.block_ids.append(self.pages[key])
-        out.cached_tokens = out.cached_blocks * self.layout.block_tokens
+        with span("cache.lookup"):
+            ti = self.tenant_idx[tenant]
+            keys = self._keys_for(token_ids)
+            out = PrefixLookup(0, 0, [], keys)
+            for key in keys:
+                st = self.manager.get(ti, key)
+                if st.result is GetResult.MISS:
+                    break
+                if st.result is GetResult.HIT_LIST:
+                    out.hit_list += 1
+                else:
+                    out.hit_cache += 1
+                    out.evictions += st.n_evictions
+                    out.ripple_evictions += st.n_ripple
+                out.cached_blocks += 1
+                out.block_ids.append(self.pages[key])
+            out.cached_tokens = out.cached_blocks * self.layout.block_tokens
+        # the chain stops at its first miss, which is a get too
+        count("cache.gets", out.cached_blocks + (out.cached_blocks < len(keys)))
+        count("cache.hit_cache", out.hit_cache)
         return out
 
     def insert(
@@ -155,25 +166,28 @@ class SharedPrefixCache:
         """Write-back after prefill: ``set`` each block object from
         ``start_block`` on; allocates physical pages for new objects.
         Returns (page ids for the inserted range, aggregate stats)."""
-        ti = self.tenant_idx[tenant]
-        keys = self._keys_for(token_ids)
-        pages: List[int] = []
-        stats = InsertStats(GetResult.MISS)
-        for key in keys[start_block:]:
-            # the manager accounts in block units: every object = 1 block.
-            # set() FIRST: its ghost evictions free pool pages (via the
-            # physical-evict hook) before we allocate the new one — the
-            # __init__ capacity check guarantees resident blocks fit the
-            # pool, so a fresh block always gets a page.
-            last = self.manager.set(ti, key, 1)
-            stats.result = last.result
-            stats.evictions = last.evictions
-            stats.total_evictions += last.n_evictions
-            stats.total_ripple += last.n_ripple
-            if key not in self.pages:
-                self.pages[key] = self.pool.alloc(1)[0]
-                stats.new_pages += 1
-            pages.append(self.pages[key])
+        with span("cache.insert"):
+            ti = self.tenant_idx[tenant]
+            keys = self._keys_for(token_ids)
+            pages: List[int] = []
+            stats = InsertStats(GetResult.MISS)
+            for key in keys[start_block:]:
+                # the manager accounts in block units: every object = 1 block.
+                # set() FIRST: its ghost evictions free pool pages (via the
+                # physical-evict hook) before we allocate the new one — the
+                # __init__ capacity check guarantees resident blocks fit the
+                # pool, so a fresh block always gets a page.
+                last = self.manager.set(ti, key, 1)
+                stats.result = last.result
+                stats.evictions = last.evictions
+                stats.total_evictions += last.n_evictions
+                stats.total_ripple += last.n_ripple
+                if key not in self.pages:
+                    self.pages[key] = self.pool.alloc(1)[0]
+                    stats.new_pages += 1
+                pages.append(self.pages[key])
+        count("cache.sets", len(pages))
+        count("cache.new_pages", stats.new_pages)
         return pages, stats
 
     def block_table(self, tenant: str, token_ids: Sequence[int]) -> np.ndarray:

@@ -10,6 +10,10 @@ run the plain PyTorch path). The prompts are drawn from
 launchers serve the same request stream; ``--live`` draws the reduced
 model's parameters with a ``torch.Generator`` seeded from ``--seed``, in
 f32 as the reference does.
+
+After the engine's stats it prints the requests' spans and counters
+(:mod:`repro_torch.tracing`): each span's count and its mean and p90 ms a
+request, and each counter's total a request.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from repro_torch import tracing
     from repro_torch.cacheblocks import layout_for
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
@@ -75,7 +80,23 @@ def main(argv=None) -> int:
     print("engine stats:")
     for k, v in engine.stats().items():
         print(f"  {k}: {v:.4g}" if isinstance(v, float) else f"  {k}: {v}")
+    print_request_spans(tracing.records(args.requests))
     return 0
+
+
+def print_request_spans(records) -> None:
+    """Each span's count and its mean and p90 ms a request (a request's
+    spans of one name summed), then each counter's total a request."""
+    if not records:
+        return
+    print(f"request spans ({len(records)} requests; count, mean ms, p90 ms):")
+    for name in sorted({n for r in records for n in r.spans}):
+        ms = [1e3 * r.seconds(name) for r in records]
+        n = sum(len(r.spans.get(name, ())) for r in records)
+        print(f"  {name}: {n}, {np.mean(ms):.4g}, {np.percentile(ms, 90):.4g}")
+    print("request counters (total a request):")
+    for name in sorted({n for r in records for n in r.counts}):
+        print(f"  {name}: {sum(r.counts.get(name, 0) for r in records) / len(records):.4g}")
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ import torch
 from repro_torch.cacheblocks import BlockPool, SharedPrefixCache, layout_for
 from repro_torch.core.admission import AdmissionController
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tracing import request
 
 from .sampler import greedy_decode
 
@@ -151,42 +152,45 @@ class ServingEngine:
         """Process one request: prefix lookup, write-back of its blocks and,
         in live mode, prefill + greedy decode of ``max_new_tokens`` tokens
         (``output``: (1, max_new_tokens) int32). In accounting mode
-        ``new_tokens`` is 0 and ``output`` is None."""
+        ``new_tokens`` is 0 and ``output`` is None. Each request opens one
+        :func:`repro_torch.tracing.request` record, which takes the cache's
+        ``cache.*`` spans and counters."""
         if tenant not in self.tenants:
             raise KeyError(f"tenant {tenant!r} not admitted")
-        tokens = np.asarray(tokens, dtype=np.int64)
-        self._next_id += 1
-        look = self.cache.lookup(tenant, tokens)
-        cached = look.cached_tokens
-        suffix = len(tokens) - cached
-        # write back the blocks we will prefill
-        _, st = self.cache.insert(tenant, tokens, start_block=look.cached_blocks)
-        evict = look.evictions + st.total_evictions
-        ripple = look.ripple_evictions + st.total_ripple
+        with request():
+            tokens = np.asarray(tokens, dtype=np.int64)
+            self._next_id += 1
+            look = self.cache.lookup(tenant, tokens)
+            cached = look.cached_tokens
+            suffix = len(tokens) - cached
+            # write back the blocks we will prefill
+            _, st = self.cache.insert(tenant, tokens, start_block=look.cached_blocks)
+            evict = look.evictions + st.total_evictions
+            ripple = look.ripple_evictions + st.total_ripple
 
-        output = None
-        if self.model is not None and self.params is not None:
-            with torch.inference_mode():
-                batch = {"tokens": torch.as_tensor(tokens[None, :], device=self.device)}
-                cache_len = len(tokens) + max_new_tokens
-                logits, caches = self.model.prefill(self.params, batch, cache_len)
-                output = greedy_decode(
-                    self.model, self.params, logits, caches,
-                    start_pos=len(tokens), n_steps=max_new_tokens,
-                ).cpu().numpy()
-        res = RequestResult(
-            req_id=self._next_id,
-            tenant=tenant,
-            cached_tokens=cached,
-            prefill_tokens=suffix,
-            new_tokens=max_new_tokens if output is not None else 0,
-            flops_saved=cached * self.flops_per_token_prefill(),
-            evictions=evict,
-            ripple_evictions=ripple,
-            output=output,
-        )
-        self.results.append(res)
-        return res
+            output = None
+            if self.model is not None and self.params is not None:
+                with torch.inference_mode():
+                    batch = {"tokens": torch.as_tensor(tokens[None, :], device=self.device)}
+                    cache_len = len(tokens) + max_new_tokens
+                    logits, caches = self.model.prefill(self.params, batch, cache_len)
+                    output = greedy_decode(
+                        self.model, self.params, logits, caches,
+                        start_pos=len(tokens), n_steps=max_new_tokens,
+                    ).cpu().numpy()
+            res = RequestResult(
+                req_id=self._next_id,
+                tenant=tenant,
+                cached_tokens=cached,
+                prefill_tokens=suffix,
+                new_tokens=max_new_tokens if output is not None else 0,
+                flops_saved=cached * self.flops_per_token_prefill(),
+                evictions=evict,
+                ripple_evictions=ripple,
+                output=output,
+            )
+            self.results.append(res)
+            return res
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, float]:

@@ -19,9 +19,10 @@ attention, the MLPs or the MoE experts over ``model`` (Megatron's
 column/row split; experts also on their expert dim), those leaves stay
 split and each rank computes its own heads, MLP columns or experts.
 
-Two profiler ranges name the step's parts for ``torch.profiler``:
-``train_step.forward`` (the loss) and ``train_step.optimizer`` (the
-update); the backward runs on autograd's own thread, outside both.
+Two spans (:mod:`repro_torch.tracing`) name the step's parts, each a
+range for ``torch.profiler`` while one is collecting: ``train_step.forward``
+(the loss) and ``train_step.optimizer`` (the update); the backward runs on
+autograd's own thread, outside both.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models import shardctx
+from repro_torch.tracing import span
 
 from .compression import CompressionConfig, compress_grads, compression_init
 from .data_parallel import DataParallel, Placed, state_mesh
@@ -68,7 +69,7 @@ def make_grad_fn(model, train_cfg: TrainConfig) -> Callable:
     def one(params, batch):
         with torch.enable_grad():
             inputs = [p.detach().requires_grad_() for p in leaves(params)]
-            with record_function("train_step.forward"):
+            with span("train_step.forward"):
                 loss, metrics = loss_fn(unflatten(params, inputs), batch)
             grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         # a parameter the loss does not reach (an image projector without
@@ -153,7 +154,7 @@ def make_train_step(model, train_cfg: TrainConfig) -> Callable:
             grads, comp_state, comp_metrics = compress_grads(grads, residuals,
                                                              train_cfg.compression, splits)
             metrics = {**metrics, **comp_metrics}
-        with record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             update, opt, opt_metrics = adamw_update(update, grads, opt, train_cfg.optimizer,
                                                     splits)
         if placed is not None:      # the updated blocks back on the parameters' placements

@@ -1,6 +1,7 @@
 """The port's ``launch/`` modules against the reference's, on the CPU:
 the tuning knobs (and ``REPRO_KV_CHUNK`` read by ``chunked_attention``),
-the serving CLI's printed stats, the mesh helpers (in a subprocess that
+the serving CLI's printed stats (and the request spans it prints after
+them), the mesh helpers (in a subprocess that
 opens a one-rank gloo group: importing ``launch.mesh`` starts nothing),
 and the meta-device input specs of every config x shape cell. The
 two-rank programs are ``tests/test_torch_launch_dist.py``'s."""
@@ -111,7 +112,12 @@ def test_serve_prints_the_reference_stats(capsys, seed):
     assert serve.main(args + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out
     assert got.startswith("engine stats:\n") and "prefix_hit_token_ratio" in got
-    assert got == want
+    # the engine's stats as the reference prints them, then the port's spans
+    assert got[:len(want)] == want
+    spans = got[len(want):]
+    assert spans.startswith("request spans (60 requests; count, mean ms, p90 ms):\n")
+    assert "  cache.lookup: 60, " in spans and "  cache.keys: 120, " in spans
+    assert "  cache.blocks_hashed: 16\n" in spans
 
 
 _MESH_PROBE = """
