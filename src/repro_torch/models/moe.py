@@ -2,11 +2,16 @@
 experts), in PyTorch: the reference's ``repro.models.moe`` step for step.
 
 Dispatch is gather based, as in the reference: capacity positions from
-running per-expert counts, an int32 slot -> token table with a sentinel
-slot, one gather into (E, C, d) expert buffers, the expert SwiGLU batched
-over E, and one gather per routing choice back, accumulated in f32. The
+running per-expert counts, the routing inverted into a slot -> choice
+table with a sentinel slot, one gather into (E, C, d) expert buffers,
+the expert SwiGLU batched over E, and one gather per routing choice
+back, accumulated in f32. The
 reference computes all of it in XLA outside any Pallas kernel, so its
-plain torch is the port.
+plain torch is the port. Dispatch and combine are two autograd functions,
+each one's backward a gather like the other's forward (the sentinel slot
+a zero row): autograd's backward of a gather, a sorted scatter-add, would
+add every empty slot into token 0 and every dropped choice into one slot,
+one row after another.
 
 The layer may be partitioned over the ``model`` ranks (the ``shardctx``
 rule ``"model_parallel"`` with the family ``"moe"``): every rank routes
@@ -33,6 +38,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import shardctx
 from .layers import Params, dense_init, matmul, mlp_apply, mlp_init, model_parallel
 
@@ -104,18 +110,15 @@ def moe_route(xf: torch.Tensor, p: Params, cfg, *, capacity_factor: float = 1.25
     chunks //= ranks                                                 # this rank's chunks
     C, Nc = Cc * chunks, N // chunks
 
-    ti = top_i.reshape(chunks, Nc, k)
-    pos = torch.zeros((chunks, Nc, k), dtype=torch.int64, device=dev)
-    counts = torch.zeros((chunks, E), dtype=torch.int64, device=dev)
-    for j in range(k):                                               # choice j, token order
-        oh = shardctx.constrain("moe_cne", F.one_hot(ti[:, :, j], E))  # (ch, Nc, E)
-        # the count before this token; scanned along the last axis, which
-        # the card scans far faster than an outer one
-        within = torch.cumsum(oh.transpose(1, 2), dim=2).transpose(1, 2) - oh
-        pos[:, :, j] = (within.gather(2, ti[:, :, j:j + 1])[:, :, 0]
-                        + counts.gather(1, ti[:, :, j]))
-        counts = counts + oh.sum(dim=1)
-    pos = pos.reshape(N, k)
+    # choice j of a token comes after every choice j' < j of its chunk and
+    # choice j of every earlier token: one scan over the chunk's choices
+    # in (j, token) order gives the reference's k scans at once
+    ti = top_i.reshape(chunks, Nc, k).transpose(1, 2).reshape(chunks, k * Nc)
+    oh = shardctx.constrain("moe_cne", F.one_hot(ti, E))            # (ch, k Nc, E)
+    # the count before each choice; scanned along the last axis, which the
+    # card scans far faster than an outer one
+    within = torch.cumsum(oh.transpose(1, 2), dim=2).transpose(1, 2) - oh
+    pos = within.gather(2, ti[:, :, None]).reshape(chunks, k, Nc).transpose(1, 2).reshape(N, k)
     keep = pos < Cc                                                  # (N, k)
     chunk_of = torch.arange(N, device=dev)[:, None] // Nc
     slot_in_e = chunk_of * Cc + pos
@@ -174,20 +177,62 @@ def held_routing(r: Dict[str, torch.Tensor], first: int, held: int) -> Dict[str,
     return {**r, "keep": keep, "dest": torch.where(keep, r["dest"] - first * C, held * C)}
 
 
+def moe_slots(dest: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The routing ``dest`` (N, k) inverted: for each of the E * C slots
+    the choice ``n * k + j`` that fills it, or ``N * k`` when it is empty
+    (int64). Kept slots are unique; dropped choices all land on the
+    sentinel slot ``E * C``, which is cut off."""
+    N, k = dest.shape
+    slot_nj = torch.full((E * C + 1,), N * k, dtype=torch.int64, device=dest.device)
+    slot_nj[dest.reshape(-1)] = torch.arange(N * k, device=dest.device)
+    return slot_nj[: E * C]
+
+
 def moe_dispatch(xf: torch.Tensor, r: Dict[str, torch.Tensor], E: int) -> torch.Tensor:
     """The (E, C, d) expert buffers of the tokens ``xf`` (N, d): the
-    routing inverted into slot -> token (int32), then one gather. Kept
-    slots are unique; dropped choices all land on the sentinel slot,
-    which is cut off. Empty slots read token 0 and are never gathered
-    back."""
+    routing inverted into slot -> token, then one gather. Empty slots read
+    token 0 and are never gathered back; the backward
+    (:class:`_Dispatch`) gathers by choice and never reads them."""
     N = xf.shape[0]
     C, dest = r["C"], r["dest"]
-    token_ids = torch.arange(N, dtype=torch.int32, device=xf.device)
-    slot_tok = torch.zeros((E * C + 1,), dtype=torch.int32, device=xf.device)
-    for j in range(dest.shape[1]):
-        slot_tok[dest[:, j]] = token_ids
-    slot_tok = shardctx.constrain("moe_ec", slot_tok[: E * C].reshape(E, C))
-    return shardctx.constrain("moe_ecd", xf[slot_tok.long()])
+    slot_tok = torch.remainder(moe_slots(dest, E, C) // dest.shape[1], N)   # empty: N -> 0
+    slot_tok = shardctx.constrain("moe_ec", slot_tok.reshape(E, C))
+    return shardctx.constrain("moe_ecd", _Dispatch.apply(xf, slot_tok, dest))
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the combine and the dispatch's backward accumulate in:
+    f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _padded(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` (S, d) with one zero row appended at index S."""
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[-1]))])
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xf[slot_tok]``: (N, d) tokens into (E, C, d) slots. Its backward
+    is the combine's gather without weights: token n's gradient sums its
+    k choices' slot rows (``dest``; the sentinel ``E * C`` reads a zero
+    row), in f32, so no slot is added into a token it did not hold."""
+
+    @staticmethod
+    def forward(ctx, xf, slot_tok, dest):
+        E, C = slot_tok.shape
+        ctx.save_for_backward(dest)
+        ctx.dtype = xf.dtype
+        return xf.index_select(0, slot_tok.reshape(-1)).reshape(E, C, xf.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dxe):
+        (dest,) = ctx.saved_tensors
+        tracing.count("moe.transposed_backward")
+        rows = _padded(dxe.reshape(-1, dxe.shape[-1]))
+        dxf = rows.index_select(0, dest[:, 0]).to(_acc_dtype(ctx.dtype))
+        for j in range(1, dest.shape[1]):
+            dxf += rows.index_select(0, dest[:, j])
+        return dxf.to(ctx.dtype), None, None
 
 
 def expert_ffn(xe: torch.Tensor, p: Params) -> torch.Tensor:
@@ -200,13 +245,48 @@ def expert_ffn(xe: torch.Tensor, p: Params) -> torch.Tensor:
 
 def moe_gather(ye: torch.Tensor, r: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
     """The combine: one gather from the expert outputs ``ye`` (E, C, d) per
-    routing choice, weighted and accumulated in f32, in ``dtype``: (N, d)."""
-    E, C, d = ye.shape
-    keep, dest, top_w = r["keep"], r["dest"], r["top_w"]
-    out = torch.zeros((dest.shape[0], d), dtype=torch.float32, device=ye.device)
-    for j in range(dest.shape[1]):
-        w_j = (top_w[:, j] * keep[:, j]).float()                     # 0 if dropped
-        slot = torch.clamp(dest[:, j], max=E * C - 1)
-        g = shardctx.constrain("moe_nd", ye[slot // C, slot % C])
-        out = out + g.float() * w_j[:, None]
-    return out.to(dtype)
+    routing choice, weighted and accumulated in f32, in ``dtype``: (N, d).
+    A dropped choice (``dest`` on the sentinel ``E * C``) reads a zero row
+    and weighs 0. The backward (:class:`_Combine`) is a gather too."""
+    E, C, _ = ye.shape
+    dest = r["dest"]
+    w = (r["top_w"] * r["keep"]).to(_acc_dtype(ye.dtype))           # 0 if dropped
+    return _Combine.apply(ye, w, dest, moe_slots(dest, E, C), dtype)
+
+
+class _Combine(torch.autograd.Function):
+    """``out[n] = sum_j w[n, j] * ye[dest[n, j]]`` in f32, j in order, in
+    ``dtype``. Its backward is the dispatch's gather, weighted: slot s of
+    choice (n, j) (``slot_nj``) gets ``w[n, j] * dout[n]``, an empty slot
+    0, each slot written once; ``w`` gets each choice's row dot
+    ``<dout[n], ye[dest[n, j]]>`` in f32."""
+
+    @staticmethod
+    def forward(ctx, ye, w, dest, slot_nj, dtype):
+        rows = _padded(ye.reshape(-1, ye.shape[-1]))                 # sentinel: a zero row
+        acc = _acc_dtype(ye.dtype)
+        out = torch.zeros((dest.shape[0], rows.shape[-1]), dtype=acc, device=ye.device)
+        for j in range(dest.shape[1]):
+            g = shardctx.constrain("moe_nd", rows.index_select(0, dest[:, j]))
+            out = out + g * w[:, j, None]                              # in f32
+        ctx.save_for_backward(rows, w, dest, slot_nj)
+        ctx.shape = ye.shape
+        return out.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, w, dest, slot_nj = ctx.saved_tensors
+        tracing.count("moe.transposed_backward")
+        N, k = dest.shape
+        acc = w.dtype
+        dye = dw = None
+        if ctx.needs_input_grad[0]:
+            # an empty slot (N k) reads token N, a zero row, at weight 0
+            w_slot = torch.cat([w.reshape(-1), w.new_zeros(1)]).index_select(0, slot_nj)
+            g = _padded(dout).index_select(0, slot_nj // k)
+            dye = torch.mul(g, w_slot[:, None], out=torch.empty_like(rows[:-1])).reshape(ctx.shape)
+        if ctx.needs_input_grad[1]:
+            dout = dout.to(acc)
+            dw = torch.stack([(dout * rows.index_select(0, dest[:, j])).sum(-1)
+                              for j in range(k)], dim=1)
+        return dye, dw, None, None, None

@@ -27,7 +27,9 @@ The port's spans and counters:
   and its update (device work: ranges for the profiler's device time);
 * counters ``cache.blocks_hashed``, ``cache.gets``, ``cache.sets``,
   ``cache.hit_cache`` (gets that attached to an object another tenant
-  holds) and ``cache.new_pages`` (pool pages a write-back allocated).
+  holds) and ``cache.new_pages`` (pool pages a write-back allocated);
+* counter ``moe.transposed_backward``: one a backward of the MoE's
+  dispatch or combine (``models/moe.py``), two a layer a backward.
 
 ``ServingEngine.submit`` opens one request record around each request.
 """

@@ -145,3 +145,190 @@ def test_transformer_honours_the_moe_apply_override():
     with shardctx.rules({"moe_apply": lambda h, p, c, **kw: (torch.zeros_like(h),
                                                              torch.zeros(()))}):
         assert not torch.allclose(m.forward_logits(params, toks), base)
+
+
+# ----------------------------------------------------------------------
+# dispatch and combine as autograd functions against the plain gathers
+# ----------------------------------------------------------------------
+
+def _gather_dispatch(xf, r, E):
+    """The dispatch as plain autograd sees it: an int32 slot -> token
+    table (empty slots token 0), one gather; its backward a scatter-add."""
+    N = xf.shape[0]
+    C, dest = r["C"], r["dest"]
+    slot_tok = torch.zeros((E * C + 1,), dtype=torch.int32)
+    for j in range(dest.shape[1]):
+        slot_tok[dest[:, j]] = torch.arange(N, dtype=torch.int32)
+    return xf[slot_tok[: E * C].reshape(E, C).long()]
+
+
+def _gather_combine(ye, r, dtype):
+    """The combine as plain autograd sees it: dropped choices clamped onto
+    the last slot at weight 0, one gather a choice, summed in f32 (f64 for
+    f64 inputs)."""
+    E, C, d = ye.shape
+    acc = torch.promote_types(ye.dtype, torch.float32)
+    out = torch.zeros((r["dest"].shape[0], d), dtype=acc)
+    for j in range(r["dest"].shape[1]):
+        w_j = (r["top_w"][:, j] * r["keep"][:, j]).to(acc)
+        slot = torch.clamp(r["dest"][:, j], max=E * C - 1)
+        out = out + ye[slot // C, slot % C].to(acc) * w_j[:, None]
+    return out.to(dtype)
+
+
+CASES = {  # name: (capacity factor, no_drop, moe_chunks, held experts from)
+    "drops": (0.5, False, 1, None),
+    "empty": (8.0, False, 1, None),
+    "no_drop": (1.25, True, 1, None),
+    "held": (1.25, False, 1, 4),
+    "chunks": (0.75, False, 4, None),
+}
+
+
+def _moe_grads(cfg, p, x, ct, case, plain):
+    """The MoE layer's output on ``x`` and the gradients of <out, ct> + aux
+    with respect to x, the router and the three expert weights: through
+    ``moe_apply``, or (``held``) through the held experts' dispatch and
+    combine alone; with the port's functions or the plain gathers."""
+    cf, no_drop, chunks, first = CASES[case]
+    p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    x = x.clone().requires_grad_(True)
+    dispatch, combine = (_gather_dispatch, _gather_combine) if plain else \
+        (moe.moe_dispatch, moe.moe_gather)
+    with shardctx.rules({"moe_chunks": chunks}):
+        xf = x.reshape(-1, x.shape[-1])
+        r = moe.moe_route(xf, p, cfg, capacity_factor=cf, no_drop=no_drop)
+    E = cfg.n_experts
+    w = p
+    if first is not None:
+        E -= first
+        r = moe.held_routing(r, first, E)
+        w = {k: v[first:] for k, v in p.items() if k != "router"}
+    out = combine(moe.expert_ffn(dispatch(xf, r, E), w), r, x.dtype)
+    loss = (out.to(ct.dtype) * ct.reshape(out.shape)).sum() + r["aux"]
+    names = ["router", "w_gate", "w_up", "w_down"]
+    grads = torch.autograd.grad(loss, [x] + [p[n] for n in names])
+    return out, dict(zip(["x"] + names, grads)), r
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16], ids=["f64", "bf16"])
+def test_dispatch_and_combine_functions_match_the_plain_gathers(name, case, dtype):
+    """The combine's output bit for bit, and the gradients of x, the
+    router (through ``top_w``) and the experts: at 1e-12 in f64, at ATOL in
+    bf16. ``empty``, ``no_drop`` and ``held`` leave slots empty; ``drops``,
+    ``chunks`` and ``held`` drop choices (``held`` routes to experts 4..
+    alone, the others' choices on the sentinel)."""
+    cfg = get_config(name).reduced()
+    p = {k: v.to(dtype) if k != "router" else v.double() if dtype == torch.float64 else v
+         for k, v in moe.moe_init(torch.Generator().manual_seed(0), cfg).items()
+         if k != "shared"}
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 24, cfg.d_model), generator=gen).to(dtype)
+    ct = torch.randn((2, 24, cfg.d_model), generator=gen, dtype=torch.float64)
+    out, grads, r = _moe_grads(cfg, p, x, ct, case, plain=False)
+    want, want_grads, _ = _moe_grads(cfg, p, x, ct, case, plain=True)
+    assert out.dtype == want.dtype == dtype and torch.equal(out, want)
+    atol = 1e-12 if dtype == torch.float64 else ATOL
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.double().numpy(), want_grads[key].double().numpy(),
+                                   atol=atol, err_msg=key)
+        assert float(g.abs().max()) > 0, key
+    E = cfg.n_experts - (4 if case == "held" else 0)
+    if case in ("empty", "no_drop", "held"):
+        assert int((r["dest"] < E * r["C"]).sum()) < E * r["C"]         # empty slots
+    assert bool((~r["keep"]).any()) == (case in ("drops", "chunks", "held"))
+
+
+def _scan_positions(top_i, E, chunks):
+    """Each choice's position in its expert, one scan a choice j in token
+    order on top of the counts of choices j' < j, chunk by chunk."""
+    N, k = top_i.shape
+    ti = top_i.reshape(chunks, N // chunks, k)
+    pos = torch.zeros_like(ti)
+    counts = torch.zeros((chunks, E), dtype=ti.dtype)
+    for j in range(k):
+        oh = torch.nn.functional.one_hot(ti[:, :, j], E)
+        within = torch.cumsum(oh, dim=1) - oh
+        pos[:, :, j] = within.gather(2, ti[:, :, j:j + 1])[:, :, 0] + counts.gather(1, ti[:, :, j])
+        counts = counts + oh.sum(dim=1)
+    return pos.reshape(N, k)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("case", ["drops", "empty", "no_drop", "chunks"])
+def test_route_positions_match_the_per_choice_scan(name, case):
+    """``moe_route``'s one scan over all choices places every choice where
+    k scans, one a choice, place it: the same ``keep`` and ``dest``."""
+    cf, no_drop, chunks, _ = CASES[case]
+    jcfg, cfg, jp, p = _setup(name)
+    x = _x(cfg, 2, 24, seed=6)
+    with shardctx.rules({"moe_chunks": chunks}):
+        r = _route(cfg, p, x, capacity_factor=cf, no_drop=no_drop)
+    pos = _scan_positions(r["top_i"], cfg.n_experts, chunks)
+    Cc = r["C"] // chunks
+    chunk_of = torch.arange(pos.shape[0])[:, None] // (pos.shape[0] // chunks)
+    assert torch.equal(r["keep"], pos < Cc)
+    assert torch.equal(r["dest"], torch.where(pos < Cc, r["top_i"] * r["C"] + chunk_of * Cc + pos,
+                                              cfg.n_experts * r["C"]))
+
+
+def _graph_nodes(t):
+    """Every autograd node ``t`` reaches."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo.extend(f for f, _ in fn.next_functions)
+    return seen
+
+
+INDEX_NODES = {"IndexBackward0", "IndexPutBackward0"}
+
+
+def test_the_moe_backward_has_no_index_scatter():
+    """Neither ``moe_apply``'s graph nor a tiny granite's loss graph holds
+    an index node of the MoE (whose backward is a sorted scatter-add): the
+    dispatch and the combine are the two functions, and the loss's one
+    index node is the embedding's row gather."""
+    jcfg, cfg, jp, p = _setup("granite-moe-1b-a400m")
+    x = torch.from_numpy(_x(cfg, 2, 24)).requires_grad_(True)
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    out, aux = moe.moe_apply(x, p, cfg, capacity_factor=0.5)
+    names = {type(fn).__name__ for fn in _graph_nodes(out + aux)}
+    assert {"_DispatchBackward", "_CombineBackward"} <= names
+    assert not names & INDEX_NODES
+    m = make_model(cfg, compute_dtype=torch.float32)
+    params = m.init(torch.Generator().manual_seed(0))
+    for v in jax.tree.leaves(params):
+        v.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    loss, _ = m.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    nodes = _graph_nodes(loss)
+    names = [type(fn).__name__ for fn in nodes]
+    assert names.count("_CombineBackward") == names.count("_DispatchBackward") == cfg.n_layers
+    index = [fn for fn in nodes if type(fn).__name__ in INDEX_NODES]
+    assert [type(fn).__name__ for fn in index] == ["IndexBackward0"]
+    assert index[0].next_functions[0][0].variable is params["embed"]
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_a_backward_counts_two_transposed_backwards_a_moe_layer(remat):
+    """``moe.transposed_backward`` counts one backward of the dispatch and
+    one of the combine a layer, with remat's recomputed forward too."""
+    from repro_torch import tracing
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    m = make_model(cfg, compute_dtype=torch.float32, remat=remat)
+    params = m.init(torch.Generator().manual_seed(0))
+    leaves = jax.tree.leaves(params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    for v in leaves:
+        v.requires_grad_(True)
+    before = tracing.counter_totals.get("moe.transposed_backward", 0)
+    loss, _ = m.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert tracing.counter_totals.get("moe.transposed_backward", 0) == before
+    torch.autograd.grad(loss, leaves)
+    assert tracing.counter_totals["moe.transposed_backward"] - before == 2 * cfg.n_layers
