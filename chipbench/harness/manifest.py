@@ -8,9 +8,11 @@ from __future__ import annotations
 
 import importlib.util
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
+
+from .ranks import Ranks
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -25,6 +27,7 @@ class Cell:
     config: dict
     traffic: dict
     limits: dict
+    ranks: Ranks = field(default_factory=Ranks)     # set by the run for its rank
 
 
 def load(root: Path = ROOT) -> dict:

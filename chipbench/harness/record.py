@@ -4,7 +4,9 @@ counts, and, in a traced run, the profile."""
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import math
 import sys
 import time
 from dataclasses import dataclass, field
@@ -40,6 +42,47 @@ def check(rec: Record, name: str, value: float, limit: float, note: str = "") ->
 
 def passed(rec: Record) -> bool:
     return bool(rec.checks) and all(c["value"] <= c["limit"] for c in rec.checks.values())
+
+
+def merge(recs: List[Record], split_work: bool) -> Record:
+    """One record of a cell's ranks (``recs`` in rank order; one rank: its
+    own record). The longest set-up and window; the fullest card's memory
+    peak, and of each counter with "peak" in its name the largest; the
+    other counters, ``attempted`` and the spans summed (spans joined) where
+    the ranks do different work (``split_work``), rank 0's where they do
+    the same; ``failed`` summed or the most; ``work`` and the profile rank
+    0's. Each check holds its worst value over the ranks (NaN if any reads
+    NaN), and the run is correct only if every rank's is."""
+    if len(recs) == 1:
+        return recs[0]
+    r0 = recs[0]
+    counters: Dict[str, float] = {}
+    for k in dict.fromkeys(k for r in recs for k in r.counters):
+        vals = [r.counters[k] for r in recs if k in r.counters]
+        counters[k] = (max(vals) if "peak" in k else sum(vals) if split_work
+                       else r0.counters.get(k, vals[0]))
+    spans = r0.spans
+    if split_work:
+        spans = {k: [x for r in recs for x in r.spans.get(k, [])]
+                 for k in dict.fromkeys(k for r in recs for k in r.spans)}
+    out = dataclasses.replace(
+        r0, setup_s=max(r.setup_s for r in recs), window_s=max(r.window_s for r in recs),
+        counters=counters, spans=spans, checks={}, notes={},
+        attempted=sum(r.attempted for r in recs) if split_work else r0.attempted,
+        failed=sum(r.failed for r in recs) if split_work else max(r.failed for r in recs),
+        memory_peak_bytes=max(r.memory_peak_bytes for r in recs))
+    for name in dict.fromkeys(k for r in recs for k in r.checks):
+        have = [(i, r) for i, r in enumerate(recs) if name in r.checks]
+        vals = [r.checks[name]["value"] for _, r in have]
+        if any(math.isnan(v) for v in vals):
+            at = next(j for j, v in enumerate(vals) if math.isnan(v))
+        else:
+            at = max(range(len(vals)), key=vals.__getitem__)
+        i, worst = have[at]
+        out.checks[name] = {"value": vals[at], "limit": worst.checks[name]["limit"]}
+        out.notes[name] = f"{worst.notes[name]}, rank {i}" if name in worst.notes else f"rank {i}"
+    out.correct = all(r.correct for r in recs) and passed(out)
+    return out
 
 
 def log(msg: str, t_start: float) -> None:

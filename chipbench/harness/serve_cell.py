@@ -28,7 +28,12 @@ the reference's (``kv_row_gap``: a decode step that leaves its cache
 unchanged, or writes a wrong row, shows here, where one missing row in
 four thousand barely moves a logit). The reference runs in f32 with TF32
 off on the prompt and the served tokens, once the program's state is
-freed.
+freed. The mix's ``min_window_requests`` (default 1) is the least number
+of requests a window serves, whatever ``--seconds``.
+
+A cell on more than one chip runs this on every rank: set-up and the
+window start and end at a barrier, and every rank ends the window on the
+same request.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import port, traffic, weights, yardstick
+from chipbench import archs
+
+from . import traffic, weights, yardstick
 from .profiling import Profile, Session
 from .record import Record, check, free, log, passed
 
@@ -52,11 +59,13 @@ class TimedModel:
     ``profile`` set, each prefill and each request's first
     ``profiled_steps`` decode steps inside a profiler session. After a
     request's last step (``decode_steps`` of them), ``rows`` holds its
-    caches' key and value rows from the last prompt token's on, (layers,
-    decode_steps + 1, kv heads, head_dim) each, copied on the card."""
+    caches' rows from the last prompt token's on (``cache_rows``: the
+    architecture's, decode_steps + 1 of each layer), copied on the card."""
 
-    def __init__(self, model, device, profiled_steps: int, decode_steps: int) -> None:
+    def __init__(self, model, device, profiled_steps: int, decode_steps: int,
+                 cache_rows: Callable) -> None:
         self.model, self.device, self.profiled_steps = model, device, profiled_steps
+        self.cache_rows = cache_rows
         self.decode_steps = decode_steps
         self.rows: Optional[tuple] = None
         self._prompt = 0
@@ -86,9 +95,7 @@ class TimedModel:
         return out
 
     def _keep_rows(self, caches) -> None:
-        g = caches["blocks"]["g0"]
-        lo = self._prompt - 1
-        self.rows = tuple(g[n][:, 0, lo:lo + self.decode_steps + 1].clone() for n in ("k", "v"))
+        self.rows = self.cache_rows(caches, self._prompt - 1, self.decode_steps + 1)
 
     def decode_step(self, params, tokens, caches, position):
         if self.profile is not None and self._steps == 0:
@@ -109,12 +116,6 @@ def allocations(mix: dict) -> List[int]:
     return [int(f * mix["pool_blocks"]) for f in mix["tenants"]]
 
 
-def bytes_per_block(c: dict, block_tokens: int) -> int:
-    """K and V of every layer for one block of tokens, bf16."""
-    return (c["num_hidden_layers"] * 2 * c["num_key_value_heads"] * c["head_dim"] * 2
-            * block_tokens)
-
-
 class Server:
     """The engine in live mode on the seed's bf16 weights, its model the
     :class:`TimedModel`, and the mix's request stream. Set-up fills the
@@ -125,22 +126,22 @@ class Server:
 
     def __init__(self, cell, seed: int, device, hooks: Optional[Dict[str, Callable]] = None
                  ) -> None:
-        from repro_torch.models import make_model
         from repro_torch.serving import EngineConfig, ServingEngine, TenantSpec
 
         hooks = hooks or {}
-        c, mix = cell.config, cell.traffic
+        c, mix, arch = cell.config, cell.traffic, archs.of(cell.config)
         self.mix, self.new = mix, mix["new_tokens"]
-        model = make_model(port.arch_config(c), param_dtype=torch.bfloat16,
-                           compute_dtype=torch.bfloat16)
+        model = arch.make_model(c, cell.ranks, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
         if "model" in hooks:
             model = hooks["model"](model)
-        params = weights.nest(weights.flat(c, seed, device, torch.bfloat16))
+        params = weights.nest(weights.flat(c, seed, device, torch.bfloat16,
+                                           rank=cell.ranks.rank, world=cell.ranks.world))
         self.timed = TimedModel(model, device, min(mix["profiled_decode_steps"], self.new - 1),
-                                self.new - 1)
-        bpb = bytes_per_block(c, mix["block_tokens"])
+                                self.new - 1, arch.cache_rows)
+        bpb = arch.bytes_per_block(c, mix["block_tokens"])
         self.engine = ServingEngine(
-            port.arch_config(c),
+            arch.arch_config(c),
             [TenantSpec(f"tenant{t}", float(a * bpb)) for t, a in enumerate(allocations(mix))],
             EngineConfig(block_tokens=mix["block_tokens"], pool_blocks=mix["pool_blocks"]),
             model=self.timed, params=params, device=device)
@@ -173,17 +174,19 @@ class Server:
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         hooks: Optional[Dict[str, Callable]] = None) -> Record:
-    c, mix = cell.config, cell.traffic
+    c, mix, ranks = cell.config, cell.traffic, cell.ranks
     rec = Record(cell.name, "serve")
     srv = Server(cell, seed, device, hooks)
+    ranks.barrier()
     rec.setup_s = time.perf_counter() - t_start
     log(f"set-up {rec.setup_s:.2f} s", t_start)
-    n_warm = len(srv.served)
+    n_warm, n_min = len(srv.served), mix.get("min_window_requests", 1)
     w0 = time.perf_counter()
     while True:
         srv.serve()
-        if time.perf_counter() - w0 >= seconds:
+        if ranks.any(time.perf_counter() - w0 >= seconds and len(srv.served) - n_warm >= n_min):
             break
+    ranks.barrier()
     rec.window_s = time.perf_counter() - w0
     window = srv.served[n_warm:]
     log(f"window {rec.window_s:.2f} s, {len(window)} requests; traced {trace}", t_start)
@@ -201,10 +204,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     if device.type == "cuda":
         rec.memory_peak_bytes = torch.cuda.max_memory_allocated(device)
     T = mix["prompt_tokens"] + mix["suffix_tokens"]
-    kb, kf = yardstick.k3_work(1, T, c["num_attention_heads"], c["num_key_value_heads"],
-                               c["head_dim"], lse=False)
-    rec.work.update(prefill_flops=yardstick.prefill_flops(c, T),
-                    k3_bound_ms=yardstick.bound_ms(kb, kf)[0])
+    arch = archs.of(c)
+    k3 = arch.attention_work(c, 1, T, lse=False)["k3"]
+    rec.work.update(prefill_flops=arch.prefill_flops(c, T), k3_bound_ms=yardstick.bound_ms(*k3)[0])
 
     outputs, first = srv.outputs(), len(srv.filled) + n_warm
     del srv
@@ -227,8 +229,8 @@ def judge(rec: Record, cell, seed: int, device, outputs, first: int, n_window: i
     check(rec, "cache_mismatches", cache_mismatches(mix, outputs), cell.limits["cache_mismatches"],
           f"over {len(outputs)} requests")
     sample = sample_requests(seed, first, n_window, mix["sampled_requests"])
-    gap, kv = (math.inf, math.inf) if bad else reference_gaps(c, seed, device,
-                                                               [outputs[i] for i in sample])
+    gap, kv = (math.inf, math.inf) if bad else reference_gaps(
+        c, seed, device, [outputs[i] for i in sample], cell.ranks.rank, cell.ranks.world)
     check(rec, "logit_gap", gap, cell.limits["logit_gap"],
           f"over {len(sample) * new} served tokens of {len(sample)} requests")
     check(rec, "kv_row_gap", kv, cell.limits["kv_row_gap"],
@@ -257,18 +259,19 @@ def sample_requests(seed: int, first: int, n: int, k: int) -> List[int]:
     return sorted(first + int(i) for i in rng.choice(n, size=min(k, n), replace=False))
 
 
-def reference_params(c: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The served (bf16) parameters, in f32."""
-    return {n: t.float() for n, t in weights.leaves(c, seed, device, torch.bfloat16)}
+def reference_params(c: dict, seed: int, device, rank: int = 0, world: int = 1
+                     ) -> Dict[str, torch.Tensor]:
+    """The served (bf16) parameters, in f32 (rank ``rank``'s share)."""
+    return {n: t.float() for n, t in weights.leaves(c, seed, device, torch.bfloat16, rank, world)}
 
 
-def reference_gaps(c: dict, seed: int, device, sampled) -> tuple:
+def reference_gaps(c: dict, seed: int, device, sampled, rank: int = 0, world: int = 1) -> tuple:
     """(logit_gap, kv_row_gap) over the sampled requests: the widest gap
     between the reference's best logit and its logit of a served token,
     and the widest relative gap of a kept key or value row."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = reference_params(c, seed, device)
+    params = reference_params(c, seed, device, rank, world)
     worst = [0.0, 0.0]
     for req, res, rows in sampled:
         served = torch.as_tensor(res.output[0], dtype=torch.int64, device=device)
@@ -279,7 +282,7 @@ def reference_gaps(c: dict, seed: int, device, sampled) -> tuple:
 
 def row_gap(prog: torch.Tensor, ref: torch.Tensor) -> float:
     """The widest ||prog - ref|| / ||ref|| over the rows of every layer,
-    each row's norm taken over its kv heads and head_dim."""
+    each row's norm taken over all but its first two dims (layer, row)."""
     d = torch.linalg.vector_norm((prog.float() - ref).flatten(2), dim=-1)
     return float((d / torch.linalg.vector_norm(ref.flatten(2), dim=-1).clamp_min(1e-30)).max())
 
@@ -287,18 +290,18 @@ def row_gap(prog: torch.Tensor, ref: torch.Tensor) -> float:
 def request_gaps(params, c: dict, prompt, served, rows, device, quant=None):
     """(gaps, kv) of one request: the reference's best logit less its logit
     of each served token, at each served position, and the widest
-    :func:`row_gap` of ``rows`` (the kept (k, v); None: infinite) from the
-    reference's. With ``quant``, the control's: the gaps of the tokens the
-    reference computed through ``quant`` puts first, and its own rows."""
-    from chipbench.reference import model as ref_model
-
+    :func:`row_gap` of ``rows`` (the kept cache rows, ``cache_rows``'; None:
+    infinite) from the reference's. With ``quant``, the control's: the gaps
+    of the tokens the reference computed through ``quant`` puts first, and
+    its own rows."""
+    ref_model = archs.of(c).reference
     P = len(prompt)
     seq = torch.cat([torch.as_tensor(prompt, dtype=torch.int64, device=device), served[:-1]])
     pos = torch.arange(P - 1, P - 1 + len(served), device=device)
-    ref, rk, rv = ref_model.logits_at(params, c, seq, pos, kv=True)
+    ref, *ref_rows = ref_model.logits_at(params, c, seq, pos, kv=True)
     pick = served
     if quant is not None:
         logits, *rows = ref_model.logits_at(params, c, seq, pos, quant=quant, kv=True)
         pick = torch.argmax(logits, dim=-1)
-    kv = math.inf if rows is None else max(row_gap(rows[0], rk), row_gap(rows[1], rv))
+    kv = math.inf if rows is None else max(row_gap(p, r) for p, r in zip(rows, ref_rows))
     return ref.max(dim=-1).values - ref.gather(1, pick[:, None])[:, 0], kv

@@ -2,7 +2,8 @@
 
 Training (``"kind": "train"``): :class:`TokenFeed`, batch k of B
 sequences of T + 1 tokens drawn on the device from (seed, k) under a Zipf
-unigram law; every batch is new, so no two steps see the same rows.
+unigram law, the same on every run; every batch is new, so no two steps
+see the same rows.
 
 Serving (``"kind": "serve"``): :class:`ServeStream`, the request stream
 of a multi-tenant shared-prefix workload. The sampling of (tenant,
@@ -21,6 +22,7 @@ are fixed by the mix: the seed draws token ids, tenants and order only.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -29,6 +31,21 @@ import torch
 
 # requests per canonical sampling batch (trace.py's REQUEST_BATCH)
 REQUEST_BATCH = 65536
+
+
+@contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms within the block. The draw's
+    cumulative sum over the vocabulary needs them: on a card the default
+    scan over more than one tile (qwen3's 151,936 ids) adds in an order
+    that changes from run to run, and so does the batch."""
+    was, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
 class TokenFeed:
@@ -44,8 +61,9 @@ class TokenFeed:
     def batch(self, k: int) -> dict:
         gen = torch.Generator(device=self.device).manual_seed(
             (self.seed * 1_000_003 + 7919 * k + 17) % (1 << 63))
-        toks = torch.multinomial(self.p, self.B * (self.T + 1), replacement=True,
-                                 generator=gen).reshape(self.B, self.T + 1)
+        with deterministic():
+            toks = torch.multinomial(self.p, self.B * (self.T + 1), replacement=True,
+                                     generator=gen).reshape(self.B, self.T + 1)
         return {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
 
     def next(self) -> dict:

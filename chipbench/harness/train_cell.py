@@ -14,6 +14,10 @@ passed, each read to the host as the launcher reads it (``float(loss)``).
 After it, a traced run profiles ``profiled_steps`` more; then the
 program's state is freed and the reference runs its steps in f32 with
 TF32 off.
+
+A cell on more than one chip runs this on every rank: set-up and the
+window start and end at a barrier, and every rank ends the window on the
+same step.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from . import compare, port, traffic, weights, yardstick
+from chipbench import archs
+
+from . import compare, traffic, weights, yardstick
 from .profiling import Profile, Session
 from .record import Record, check, free, log, passed
 
@@ -45,7 +51,7 @@ def first_grad_norms(state, metrics, o: dict) -> Dict[str, float]:
             for n, t in mu.items()}
 
 
-def change_readings(state, c: dict, seed: int, device) -> tuple:
+def change_readings(state, c: dict, seed: int, device, rank: int = 0, world: int = 1) -> tuple:
     """Each leaf's distance from its starting values (drawn again), and
     the elements of its change that the reference's are held to
     (:func:`compare.kept_change`)."""
@@ -53,7 +59,7 @@ def change_readings(state, c: dict, seed: int, device) -> tuple:
     keep = compare.kept_change(seed, device)
     norms, kept = {}, {}
     with torch.no_grad():
-        for i, (n, p0) in enumerate(weights.leaves(c, seed, device)):
+        for i, (n, p0) in enumerate(weights.leaves(c, seed, device, rank=rank, world=world)):
             d = now[n].double() - p0.double()
             norms[n], kept[n] = float(torch.linalg.vector_norm(d)), keep(i, d)
     return norms, kept
@@ -63,18 +69,17 @@ def start(cell, seed: int, device, hooks: Optional[Dict[str, Callable]] = None):
     """Set-up: the parameters drawn from the seed, the one train step and
     its state, driven through the mix's ``setup_steps`` on the window's
     feed. Returns (state, step_fn, feed, prog: the compared readings)."""
-    from repro_torch.models import make_model
-    from repro_torch.training import AdamWConfig, TrainConfig, make_train_step
+    from repro_torch.training import AdamWConfig, TrainConfig
     from repro_torch.training.optimizer import adamw_init
 
     hooks = hooks or {}
-    c, mix = cell.config, cell.traffic
-    o, n_cmp = mix["optimizer"], mix["compared_steps"]
-    model = make_model(port.arch_config(c), remat=mix["remat"])
-    step_fn = make_train_step(model, TrainConfig(optimizer=AdamWConfig(**o)))
+    c, mix, share = cell.config, cell.traffic, dict(rank=cell.ranks.rank, world=cell.ranks.world)
+    arch, o, n_cmp = archs.of(c), mix["optimizer"], mix["compared_steps"]
+    model = arch.make_model(c, cell.ranks, remat=mix["remat"])
+    step_fn = arch.make_train_step(model, TrainConfig(optimizer=AdamWConfig(**o)), cell.ranks)
     if "step" in hooks:
         step_fn = hooks["step"](step_fn)
-    params = weights.nest(weights.flat(c, seed, device))
+    params = weights.nest(weights.flat(c, seed, device, **share))
     state = {"params": params, "opt": adamw_init(params)}
     feed = traffic.TokenFeed(seed, c["vocab_size"], mix["batch"], mix["seq"], mix["zipf_alpha"],
                              device)
@@ -87,18 +92,20 @@ def start(cell, seed: int, device, hooks: Optional[Dict[str, Callable]] = None):
         if k == 0:
             prog["grad_norm"] = first_grad_norms(state, m, o)
         if k == n_cmp - 1:
-            prog["change_norm"], prog["change_sample"] = change_readings(state, c, seed, device)
+            prog["change_norm"], prog["change_sample"] = change_readings(state, c, seed, device,
+                                                                         **share)
     return state, step_fn, feed, prog
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         hooks: Optional[Dict[str, Callable]] = None) -> Record:
     hooks = hooks or {}
-    c, mix = cell.config, cell.traffic
+    c, mix, ranks = cell.config, cell.traffic, cell.ranks
     B, T = mix["batch"], mix["seq"]
     rec = Record(cell.name, "train")
     state, step_fn, feed, prog = start(cell, seed, device, hooks)
     _sync(device)
+    ranks.barrier()
     rec.setup_s = time.perf_counter() - t_start
     log(f"set-up {rec.setup_s:.2f} s", t_start)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -111,8 +118,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         state, m = step_fn(state, feed.next())
         losses.append(float(m["loss"]))
         steps += 1
-        if time.perf_counter() - w0 >= seconds:
+        if ranks.any(time.perf_counter() - w0 >= seconds):
             break
+    ranks.barrier()
     rec.window_s = time.perf_counter() - w0
     rec.counters.update(window_steps=steps, window_tokens=steps * B * T,
                         window_peak_bytes=(torch.cuda.max_memory_allocated(device)
@@ -129,18 +137,16 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         rec.memory_peak_bytes = max(peak, torch.cuda.max_memory_allocated(device))
     rec.attempted = len(losses) + mix["setup_steps"]
     rec.failed = sum(not math.isfinite(x) for x in losses + prog["loss"])
-    kb, kf = yardstick.k3_work(B, T, c["num_attention_heads"], c["num_key_value_heads"],
-                               c["head_dim"], lse=True)
-    bb, bf = yardstick.k3bwd_work(B, T, c["num_attention_heads"], c["num_key_value_heads"],
-                                  c["head_dim"])
-    rec.work.update(step_flops=yardstick.train_step_flops(c, B, T),
-                    k3_bound_ms=yardstick.bound_ms(kb, kf)[0],
-                    k3bwd_bound_ms=yardstick.bound_ms(bb, bf)[0])
+    arch = archs.of(c)
+    attn = arch.attention_work(c, B, T, lse=True)
+    rec.work.update(step_flops=arch.train_step_flops(c, B, T),
+                    k3_bound_ms=yardstick.bound_ms(*attn["k3"])[0],
+                    k3bwd_bound_ms=yardstick.bound_ms(*attn["k3bwd"])[0])
 
     log(f"window {rec.window_s:.2f} s, {steps} steps; traced {trace}", t_start)
     del state, m, step_fn
     free(device)
-    ref = reference_readings(c, mix, seed, device)
+    ref = reference_readings(c, mix, seed, device, rank=ranks.rank, world=ranks.world)
     for name, (value, where) in compare.train_readings(prog, ref).items():
         if name in cell.limits:
             check(rec, name, value, cell.limits[name], f"at {where}")
@@ -153,10 +159,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
 
 
 def reference_readings(c: dict, mix: dict, seed: int, device, dtype=torch.float32,
-                       rows: slice = slice(None)) -> dict:
+                       rows: slice = slice(None), rank: int = 0, world: int = 1) -> dict:
     """The reference's readings of the compared steps, on the same
     parameters and batches (``rows`` of each), in ``dtype``: f32 with TF32
-    off, or the control's lower precision."""
+    off, or the control's lower precision; rank ``rank``'s share of
+    ``world``."""
     from chipbench.reference import train as ref_train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,9 +171,13 @@ def reference_readings(c: dict, mix: dict, seed: int, device, dtype=torch.float3
     feed = traffic.TokenFeed(seed, c["vocab_size"], mix["batch"], mix["seq"], mix["zipf_alpha"],
                              device)
     batches = [feed.batch(k) for k in range(mix["compared_steps"])]
-    params = {n: t.to(dtype) for n, t in weights.leaves(c, seed, device)}
-    out = ref_train.readings(params, lambda: weights.leaves(c, seed, device), c, mix["optimizer"],
-                             batches, batch_rows=rows, keep=compare.kept_change(seed, device))
+    def initial():
+        return weights.leaves(c, seed, device, rank=rank, world=world)
+
+    params = {n: t.to(dtype) for n, t in initial()}
+    out = ref_train.readings(params, initial, c, mix["optimizer"], batches,
+                             loss=archs.of(c).reference.loss, batch_rows=rows,
+                             keep=compare.kept_change(seed, device))
     del params
     free(device)
     return out

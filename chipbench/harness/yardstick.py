@@ -1,13 +1,15 @@
 """The yardstick: the card's published peaks, the least time a piece of
-work can take on it, and the work of a model step or a kernel launch,
-counted from the configuration's shapes.
+work can take on it, and the work of a K3 launch or K3-bwd call of
+grouped-query attention at one head width, counted from its shapes. A
+model's own work (its parameters, a step's or a prefill's FLOPs, its
+attention's widths) is its architecture module's (:mod:`chipbench.archs`).
 
 Frozen copies, so that a change to the program cannot move them:
 ``HBM_BYTES_PER_S``, ``PEAK_FLOPS``, :func:`bound_ms` and
 :func:`attended_pairs` come from ``chip_smoke.py`` (its constants and
-``bound_ms`` / ``attended_pairs``). The model FLOPs are this file's own
-arithmetic, not ``repro_torch.serving.costs`` (which prices the
-program's own overcompute).
+``bound_ms`` / ``attended_pairs``). The model FLOPs are the architecture
+modules' own arithmetic, not ``repro_torch.serving.costs`` (which prices
+the program's own overcompute).
 """
 
 from __future__ import annotations
@@ -54,43 +56,3 @@ def k3bwd_work(B: int, T: int, H: int, KV: int, D: int, elem: int = 2) -> tuple:
     pairs = attended_pairs(T, T, True)
     n_bytes = elem * (5 * B * T * H * D + 4 * B * T * KV * D) + 4 * B * H * T
     return n_bytes, 10.0 * B * H * pairs * D
-
-
-def param_counts(c: dict) -> tuple:
-    """(total, active) parameters of a configuration file ``c`` (the
-    published keys): the tied embedding counted once (it is the head), an
-    MoE layer's routed experts at top-k of E for the active count."""
-    d, L, V = c["hidden_size"], c["num_hidden_layers"], c["vocab_size"]
-    H, KV, hd = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
-    f = c["intermediate_size"]
-    attn = d * H * hd * 2 + d * KV * hd * 2
-    norms = 2 * d + (2 * hd if c.get("qk_norm") else 0)
-    E = c.get("num_local_experts", 0)
-    if E:
-        k = c["num_experts_per_tok"]
-        experts = E * 3 * d * f
-        layer_total = attn + norms + d * E + experts
-        layer_active = attn + norms + d * E + experts * k // E
-    else:
-        layer_total = layer_active = attn + norms + 3 * d * f
-    head = V * d * (1 if c.get("tie_word_embeddings") else 2)
-    return L * layer_total + head + d, L * layer_active + head + d
-
-
-def train_step_flops(c: dict, B: int, T: int) -> float:
-    """Model FLOPs of one training step: 6 x active parameters x tokens,
-    plus attention at 12 x D x H x L x attended pairs a sequence (remat's
-    second forward not counted)."""
-    _, active = param_counts(c)
-    pairs = attended_pairs(T, T, True)
-    D, H, L = c["head_dim"], c["num_attention_heads"], c["num_hidden_layers"]
-    return 6.0 * active * B * T + 12.0 * D * H * L * pairs * B
-
-
-def prefill_flops(c: dict, T: int) -> float:
-    """Model FLOPs of one prefill of T tokens: 2 x active parameters x
-    tokens plus attention at 4 x D x H x L x attended pairs."""
-    _, active = param_counts(c)
-    pairs = attended_pairs(T, T, True)
-    D, H, L = c["head_dim"], c["num_attention_heads"], c["num_hidden_layers"]
-    return 2.0 * active * T + 4.0 * D * H * L * pairs

@@ -7,16 +7,18 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-from . import model, optimizer
+from . import optimizer
 
 
 Leaves = Iterable[Tuple[str, torch.Tensor]]
 
 
 def readings(params: Dict[str, torch.Tensor], initial: Callable[[], Leaves],
-             c: dict, o: dict, batches: List[dict], *, batch_rows: slice = slice(None),
+             c: dict, o: dict, batches: List[dict], *, loss: Callable,
+             batch_rows: slice = slice(None),
              keep: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None) -> dict:
-    """Steps ``len(batches)`` of AdamW from ``params`` (updated in place;
+    """Steps ``len(batches)`` of AdamW on ``loss(params, c, batch)`` (the
+    architecture's reference loss) from ``params`` (updated in place;
     their dtype is the precision the steps run in). Returns each step's
     loss, the first gradient's norm by leaf (unclipped, as the optimizer
     is handed it) and the norm of each leaf's change after the last step
@@ -33,14 +35,14 @@ def readings(params: Dict[str, torch.Tensor], initial: Callable[[], Leaves],
     for s, batch in enumerate(batches, start=1):
         b = {k: v[batch_rows] for k, v in batch.items()}
         with torch.enable_grad():
-            loss = model.loss(params, c, b)
-            grads = torch.autograd.grad(loss, [params[n] for n in leaves])
+            value = loss(params, c, b)
+            grads = torch.autograd.grad(value, [params[n] for n in leaves])
         g = dict(zip(leaves, grads))
-        losses.append(float(loss.detach()))
+        losses.append(float(value.detach()))
         if s == 1:
             grad_norms = {n: float(torch.linalg.vector_norm(v.double())) for n, v in g.items()}
         optimizer.adamw_step(params, g, mu, nu, o, s)
-        del g, grads, loss
+        del g, grads, value
     change, kept = {}, {}
     with torch.no_grad():
         for i, (n, p0) in enumerate(initial()):

@@ -52,8 +52,10 @@ def test_keys_names_and_units(m):
 
 def test_every_cell_reports_its_metrics(m):
     e2e = {e["name"]: e for e in m["end_to_end"]}
+    chips = [w["chips"] for w in m["workloads"]]    # four only for a quarter of the cells, or one
+    assert set(chips) <= {1, 4} and chips.count(4) <= max(1, len(chips) // 4)
     for w in m["workloads"]:
-        assert w["chips"] == 1 and NAME.match(w["traffic"]) and NAME.match(w["config"])
+        assert NAME.match(w["traffic"]) and NAME.match(w["config"])
         mine = {e["name"] for e in manifest.metrics_of(m, w["name"], "end_to_end")}
         assert "setup_s" in mine and len(mine) >= 2
         assert manifest.metrics_of(m, w["name"], "per_layer")

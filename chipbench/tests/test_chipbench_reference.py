@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from chipbench.tests.tiny import ROOT, tiny_cell  # noqa: I001  (first: puts src/ on the path)
-from chipbench.harness import compare, port, serve_cell, traffic, weights
+from chipbench.archs import gqa
+from chipbench.harness import compare, serve_cell, traffic, weights
 from chipbench.reference import model as ref_model
 from chipbench.reference import optimizer as ref_opt
 from chipbench.reference import train as ref_train
@@ -21,9 +22,9 @@ def test_leaf_specs_are_the_ports_tree():
 
     for name in TRAIN:
         c = tiny_cell(name).config
-        want = weights.unnest(make_model(port.arch_config(c)).init(
+        want = weights.unnest(make_model(gqa.arch_config(c)).init(
             torch.Generator().manual_seed(0)))
-        got = {n: tuple(s) for n, s, _ in weights.leaf_specs(c)}
+        got = {n: tuple(s) for n, s, _ in gqa.leaf_specs(c)}
         assert got == {n: tuple(t.shape) for n, t in want.items()}
 
 
@@ -37,7 +38,7 @@ def test_loss_and_gradients_match_the_port(name):
     c = cell.config
     params = weights.flat(c, 11, CPU)
     batch = traffic.TokenFeed(11, c["vocab_size"], 2, 32, 1.1, CPU).batch(0)
-    model = make_model(port.arch_config(c), compute_dtype=torch.float32)
+    model = make_model(gqa.arch_config(c), compute_dtype=torch.float32)
     loss, _, grads = make_grad_fn(model, TrainConfig(compute_dtype=torch.float32))(
         weights.nest(params), batch)
     grads = weights.unnest(grads)
@@ -63,7 +64,7 @@ def test_train_readings_match_the_ports_f32_steps(name):
     cell = tiny_cell(name)
     c, mix = cell.config, cell.traffic
     o = mix["optimizer"]
-    step = make_train_step(make_model(port.arch_config(c), compute_dtype=torch.float32),
+    step = make_train_step(make_model(gqa.arch_config(c), compute_dtype=torch.float32),
                            TrainConfig(optimizer=AdamWConfig(**o), compute_dtype=torch.float32))
     params = weights.nest(weights.flat(c, 5, CPU))
     state = {"params": params, "opt": adamw_init(params)}
@@ -94,14 +95,13 @@ def test_served_logits_match_the_ports_prefill_and_decode():
 
     c = tiny_cell("qwen3-1.7b.serve_shared").config
     params = weights.flat(c, 3, CPU)
-    model = make_model(port.arch_config(c), compute_dtype=torch.float32)
+    model = make_model(gqa.arch_config(c), compute_dtype=torch.float32)
     prompt = torch.as_tensor(np.random.default_rng(0).integers(0, c["vocab_size"], 40))
     with torch.no_grad():
         logits, caches = model.prefill(weights.nest(params), {"tokens": prompt[None]}, 46)
         out = greedy_decode(model, weights.nest(params), logits, caches, start_pos=40,
                             n_steps=6)[0].long()
-    g = caches["blocks"]["g0"]         # the rows of the last prompt token and the decode steps
-    rows = tuple(g[n][:, 0, 39:45] for n in ("k", "v"))
+    rows = gqa.cache_rows(caches, 39, 6)    # the last prompt token's and the decode steps
     gaps, kv = serve_cell.request_gaps(params, c, prompt.numpy(), out, rows, CPU)
     assert float(gaps.max()) < 1e-4 and kv < 1e-4, (float(gaps.max()), kv)
 
@@ -125,8 +125,8 @@ def test_cache_decisions_match_the_engine(mix):
     cell = tiny_cell(f"qwen3-1.7b.{mix}")
     c, mx = cell.config, cell.traffic
     mx.update(pool_blocks=96, n_prompts=16)
-    bpb = serve_cell.bytes_per_block(c, mx["block_tokens"])
-    eng = ServingEngine(port.arch_config(c),
+    bpb = gqa.bytes_per_block(c, mx["block_tokens"])
+    eng = ServingEngine(gqa.arch_config(c),
                         [TenantSpec(f"tenant{t}", float(a * bpb))
                          for t, a in enumerate(serve_cell.allocations(mx))],
                         EngineConfig(block_tokens=mx["block_tokens"],

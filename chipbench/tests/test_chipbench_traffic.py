@@ -76,3 +76,22 @@ def test_sampling_is_the_programs():
     t, r, _ = sample_request_stream(lay, mx["alphas"], mx["mix"], 500, 77)
     t2, r2 = traffic.sample_request_stream(mx["n_prompts"], mx["alphas"], mx["mix"], 500, 77)
     assert np.array_equal(t, t2) and np.array_equal(r, r2)
+
+
+def test_the_training_draw_runs_in_deterministic_mode(monkeypatch):
+    """On a card the draw's scan over a large vocabulary repeats only in
+    PyTorch's deterministic mode; the mode is the caller's again after it."""
+    seen = []
+    multinomial = torch.multinomial
+
+    def spy(*a, **k):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return multinomial(*a, **k)
+
+    monkeypatch.setattr(torch, "multinomial", spy)
+    assert not torch.are_deterministic_algorithms_enabled()
+    feed = traffic.TokenFeed(3_000_000_007, 151936, 2, 16, 1.1, torch.device("cpu"))
+    a, b = feed.batch(3), feed.batch(3)
+    assert seen == [True, True] and not torch.are_deterministic_algorithms_enabled()
+    assert torch.equal(a["tokens"], b["tokens"]) and torch.equal(a["tokens"][:, 1:],
+                                                                 a["labels"][:, :-1])

@@ -1,8 +1,9 @@
-"""The yardstick's arithmetic against hand values."""
+"""The yardstick's arithmetic, and the GQA architecture's, against hand values."""
 
 import pytest
 
 from chipbench.tests.tiny import ROOT  # noqa: I001  (first: puts src/ on the path)
+from chipbench.archs import gqa
 from chipbench.harness import manifest, yardstick
 
 
@@ -30,21 +31,21 @@ def test_bound_ms_takes_the_longer_of_bytes_and_operations():
 
 
 def test_parameter_counts():
-    total, active = yardstick.param_counts(config("qwen3-1.7b"))
+    total, active = gqa.param_counts(config("qwen3-1.7b"))
     assert total == 1_720_574_976 and active == total
-    total, active = yardstick.param_counts(config("granite-moe-1b-a400m"))
+    total, active = gqa.param_counts(config("granite-moe-1b-a400m"))
     assert total == pytest.approx(1.335e9, rel=2e-3)
     assert active == pytest.approx(4.27e8, rel=5e-3)
 
 
 def test_model_flops():
     # qwen3 at B=4 x T=1024: 6 x 1.7206e9 x 4096 + 12 x 128 x 16 x 28 x 524,800 x 4
-    assert yardstick.train_step_flops(config("qwen3-1.7b"), 4, 1024) == pytest.approx(
+    assert gqa.train_step_flops(config("qwen3-1.7b"), 4, 1024) == pytest.approx(
         6 * 1_720_574_976 * 4096 + 12 * 128 * 16 * 28 * 524_800 * 4)
-    assert yardstick.train_step_flops(config("qwen3-1.7b"), 4, 1024) == pytest.approx(4.37e13,
+    assert gqa.train_step_flops(config("qwen3-1.7b"), 4, 1024) == pytest.approx(4.37e13,
                                                                                        rel=2e-3)
-    assert yardstick.prefill_flops(config("qwen3-1.7b"), 4352) == pytest.approx(1.71e13, rel=3e-3)
-    assert yardstick.train_step_flops(config("granite-moe-1b-a400m"), 4, 1024) == pytest.approx(
+    assert gqa.prefill_flops(config("qwen3-1.7b"), 4352) == pytest.approx(1.71e13, rel=3e-3)
+    assert gqa.train_step_flops(config("granite-moe-1b-a400m"), 4, 1024) == pytest.approx(
         1.11e13, rel=2e-2)
 
 
