@@ -1,0 +1,10 @@
+"""mla_ms.train: device ms a step of the kernels launched in the
+``train_step.mla`` ranges (MLA's forward, and remat's second forward in
+the backward; the profiled steps)."""
+
+
+def read(rec):
+    if rec.profile is None or rec.kind != "train":
+        return None
+    s = rec.profile.range_s("train_step.mla", "step")
+    return 1e3 * s / rec.counters["profiled_steps"] if s > 0 else None

@@ -40,6 +40,15 @@ class ArchConfig:
     moe_d_ff: int = 0
     moe_renormalize: bool = True
     capacity_factor: float = 1.25
+    # deepseek-v2's MoE settings; each default is the plain top-k layer
+    first_k_dense: int = 0         # leading layers with a dense SwiGLU of d_ff
+    n_group: int = 1               # expert groups of the group-limited top-k
+    topk_group: int = 1            # groups a token's experts are taken from
+    routed_scaling: float = 1.0    # the routed experts' weights times this
+    seq_aux: bool = False          # balance loss per sequence (f_i P_i), else Switch's
+    aux_coef: float = 0.01         # the balance loss's weight in the loss
+    expert_first: int = 0          # the first expert a layer holds
+    experts_held: int = 0          # how many it holds (0: all n_experts)
     # MLA (deepseek-v2)
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
@@ -55,6 +64,9 @@ class ArchConfig:
     n_image_tokens: int = 0
     # misc
     rope_theta: float = 10000.0
+    # YaRN's rope_scaling (factor, original_max_position_embeddings, beta_fast,
+    # beta_slow, mscale, mscale_all_dim); () is plain rope
+    rope_yarn: Tuple[float, ...] = ()
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     source: str = ""               # provenance tag from the assignment
@@ -62,6 +74,19 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.moe:
+            E, g = self.n_experts, self.n_group
+            if E % g or not 1 <= self.topk_group <= g or self.top_k > self.topk_group * E // g:
+                raise ValueError(f"{self.name}: {self.top_k} of {E} experts cannot come from "
+                                 f"{self.topk_group} of {g} groups")
+            if not 0 <= self.expert_first < self.expert_first + self.held_experts <= E:
+                raise ValueError(f"{self.name}: experts {self.expert_first} + "
+                                 f"{self.held_experts} are not among its {E}")
+
+    @property
+    def held_experts(self) -> int:
+        """The routed experts a layer holds (from ``expert_first``)."""
+        return self.experts_held or self.n_experts
 
     @property
     def moe(self) -> bool:
@@ -174,8 +199,9 @@ def _param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         shapes["projector.w1"] = (cfg.vision_dim, d)
         shapes["projector.w2"] = (d, d)
 
+    K, G = cfg.first_k_dense, len(cfg.block_pattern)
     for li in range(cfg.n_layers):
-        kind = cfg.block_pattern[li % len(cfg.block_pattern)]
+        kind = "attn" if li < K else cfg.block_pattern[(li - K) % G]
         pre = f"layer{li}.{kind}"
         if kind in ("attn", "local"):
             if cfg.attention == "mla" and kind == "attn":
@@ -193,11 +219,11 @@ def _param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
                 shapes[f"{pre}.wk"] = (d, cfg.n_kv_heads * hd)
                 shapes[f"{pre}.wv"] = (d, cfg.n_kv_heads * hd)
                 shapes[f"{pre}.wo"] = (cfg.n_heads * hd, d)
-            if cfg.moe and kind == "attn":
+            if cfg.moe and kind == "attn" and li >= K:
                 shapes[f"{pre}.router"] = (d, cfg.n_experts)
                 for w, a, b in (("gate", d, cfg.moe_d_ff), ("up", d, cfg.moe_d_ff),
                                 ("down", cfg.moe_d_ff, d)):
-                    shapes[f"{pre}.experts.{w}"] = (cfg.n_experts, a, b)
+                    shapes[f"{pre}.experts.{w}"] = (cfg.held_experts, a, b)
                 if cfg.n_shared_experts:
                     f = cfg.moe_d_ff * cfg.n_shared_experts
                     shapes[f"{pre}.shared.gate"] = (d, f)

@@ -5,6 +5,15 @@ and v_head_dim=128. [arXiv:2405.04434; hf]
 
 Assignment simplification (documented in DESIGN.md): every layer is MoE
 (real DSv2 uses a dense first layer).
+
+This entry is the JAX reference's variant, which the parity tests hold
+the port to, and not the published model: besides every layer being MoE,
+routing is a plain top-6 with renormalised weights, no group limit
+(``n_group`` 8, ``topk_group`` 3), no x16 routed scaling and a
+batch-wide balance loss. The published layout and routing are this
+entry with the ``ArchConfig`` fields ``first_k_dense``, ``n_group``,
+``topk_group``, ``routed_scaling``, ``seq_aux`` and ``moe_renormalize``
+set through ``dataclasses.replace`` (``chipbench/archs/deepseek_v2.py``).
 """
 
 from .base import ArchConfig, register

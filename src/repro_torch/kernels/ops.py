@@ -9,7 +9,7 @@ to build or launch raises.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,10 +21,11 @@ from .paged_attention import paged_attention as _paged
 from .shared_prefix_attention import shared_prefix_attention as _shared_prefix
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """(B,T,H,Dqk) x (B,S,KV,Dqk) x (B,S,KV,Dv) -> (B,T,H,Dv); FA2 with
     GQA, top-left causal mask, kv tiles past the diagonal skipped; scores
-    scaled by 1/sqrt(Dqk). A ``window`` > 0 keeps the keys s > t - window
+    scaled by ``scale``, by default 1/sqrt(Dqk). A ``window`` > 0 keeps the keys s > t - window
     (the local blocks' attention), kv tiles wholly before it skipped.
 
     The kernel is built for a few head sizes (``kernel_head_dim``); other
@@ -41,7 +42,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     serving call) K3 runs without the lse."""
     Dqk, Dv = q.shape[-1], v.shape[-1]
     D = kernel_head_dim(max(Dqk, Dv))
-    scale = 1.0 / math.sqrt(Dqk)
+    scale = 1.0 / math.sqrt(Dqk) if scale is None else scale
     if D != Dqk or D != Dv:
         q, k, v = (F.pad(x, (0, D - x.shape[-1])) for x in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

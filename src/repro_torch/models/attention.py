@@ -67,9 +67,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
 from repro_torch.launch import tuning
 
+from .. import tracing
 from . import shardctx
 from .layers import (Params, apply_rope, dense_init, matmul, model_parallel, rmsnorm,
-                     rmsnorm_init)
+                     rmsnorm_init, yarn_mscale)
 
 NEG_INF = -1e30
 
@@ -433,7 +434,7 @@ def _mla_q(x, p, cfg, positions, parallel=None):
         q_lat = parallel.enter(q_lat)
     q = matmul(q_lat, p["wq_b"]).reshape(B, T, -1, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     q_nope = q[..., : cfg.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta, cfg.rope_yarn)
     return q_nope, q_rope
 
 
@@ -442,8 +443,16 @@ def _mla_latent(x, p, cfg, positions):
     (B,T,1,Dr), one head shared by all."""
     kv = matmul(x, p["wkv_a"])
     c_kv = rmsnorm(kv[..., : cfg.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
-    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta,
+                        cfg.rope_yarn)
     return c_kv, k_rope
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: 1/sqrt(nope + rope), the expanded form's query
+    width, times YaRN's mscale(factor, mscale_all_dim)^2 under ``rope_yarn``."""
+    m = yarn_mscale(cfg.rope_yarn[0], cfg.rope_yarn[5]) if cfg.rope_yarn else 1.0
+    return m * m / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
 
 
 def _mla_expanded(x, p, cfg, causal, positions):
@@ -460,7 +469,9 @@ def _mla_expanded(x, p, cfg, causal, positions):
     v = matmul(c_in, p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, r_in.expand(B, T, H, cfg.qk_rope_head_dim)], dim=-1)
-    out = ops.flash_attention(q, k, v.contiguous(), causal=causal)   # scale 1/sqrt(192)
+    # K3's own scale is 1/sqrt(nope + rope), MLA's unless YaRN raises it
+    yarn = {"scale": mla_scale(cfg)} if cfg.rope_yarn else {}
+    out = ops.flash_attention(q, k, v.contiguous(), causal=causal, **yarn)
     return _out_proj(out.reshape(B, T, -1), p, mp), c_kv, k_rope
 
 
@@ -468,10 +479,11 @@ def mla_forward(
     x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full-sequence forward, expanded K/V."""
+    """Full-sequence forward, expanded K/V (span ``train_step.mla``)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    return _mla_expanded(x, p, cfg, causal, positions)[0]
+    with tracing.span("train_step.mla"):
+        return _mla_expanded(x, p, cfg, causal, positions)[0]
 
 
 def mla_prefill(
@@ -529,13 +541,13 @@ def mla_decode_step(
     k_cat = torch.cat([c_cache, r_cache], dim=-1)[:, :, None, :]
     # the scores are the expanded form's dot products, whose query width
     # is nope + rope, not the latent's
-    mla_scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    scale = mla_scale(cfg)
     if mp is not None:      # this rank's heads over the whole latent: nothing to merge
         o_lat = chunked_attention(q_cat, k_cat, c_cache[:, :, None, :], causal=False,
-                                  kv_valid_len=position + 1, scale=mla_scale)
+                                  kv_valid_len=position + 1, scale=scale)
     else:
         o_lat = _decode_attention(q_cat, k_cat, c_cache[:, :, None, :], position + 1,
-                                  mla_scale, block)                     # (B,1,H,R)
+                                  scale, block)                         # (B,1,H,R)
     w_uv = p["w_uv"].reshape(R, H, cfg.v_head_dim)
     dt = torch.promote_types(o_lat.dtype, w_uv.dtype)
     out = torch.einsum("bhr,rhv->bhv", o_lat[:, 0].to(dt), w_uv.to(dt)).reshape(B, 1, -1)

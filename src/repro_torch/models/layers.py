@@ -73,22 +73,51 @@ def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
-def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's temperature factor 0.1 mscale ln(factor) + 1 (1 unscaled)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None,
+                     yarn: Tuple[float, ...] = ()) -> torch.Tensor:
+    """The rotation's ``head_dim / 2`` frequencies. With ``yarn``
+    (``ArchConfig.rope_yarn``), YaRN's as DeepSeek-V2 takes them
+    (arXiv:2309.00071): a frequency that turns fewer than ``beta_slow``
+    times over the original context is divided by ``factor``, one that
+    turns more than ``beta_fast`` times is kept, and a linear ramp over
+    the frequency index joins the two."""
     half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    if not yarn:
+        return freqs
+    factor, original, fast, slow = yarn[:4]
+
+    def index(turns):   # the dimension at which a frequency turns this often
+        return head_dim * math.log(original / (turns * 2 * math.pi)) / (2 * math.log(theta))
+
+    lo, hi = max(math.floor(index(fast)), 0), min(math.ceil(index(slow)), head_dim - 1)
+    ramp = (torch.arange(half, dtype=torch.float32, device=device) - lo) / max(hi - lo, 0.001)
+    ramp = ramp.clamp(0, 1)
+    return freqs / factor * ramp + freqs * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               yarn: Tuple[float, ...] = ()) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq) integer.
 
     Split-half convention (as Llama/Qwen): rotate (x1, x2) ->
-    (x1 cos - x2 sin, x2 cos + x1 sin).
+    (x1 cos - x2 sin, x2 cos + x1 sin). With ``yarn``, YaRN's frequencies
+    and cos and sin times mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim).
     """
     half = x.shape[-1] // 2
-    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device, yarn=yarn)
     angles = positions.to(x.device)[..., None].float() * freqs   # (..., seq, half)
     cos = torch.cos(angles)[..., None, :]                       # (..., seq, 1, half)
     sin = torch.sin(angles)[..., None, :]
+    if yarn:
+        m = yarn_mscale(yarn[0], yarn[4]) / yarn_mscale(yarn[0], yarn[5])
+        cos, sin = cos * m, sin * m
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
@@ -129,18 +158,22 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype,
                  parallel=None) -> torch.Tensor:
     """The rows of the embedding ``table`` (V, d) at ``tokens``, cast to
     ``dtype`` (the row gather first, then the cast: the same values as the
-    reference's cast-then-gather, without casting the whole table). With
-    ``parallel`` (:func:`model_parallel` of "vocab"), ``table`` is this
-    rank's rows [lo, lo + n) of the vocabulary: the tokens it owns are
-    gathered, the others' rows zeroed, and the ranks' rows summed
-    (``leave``: one all-reduce; exactly one rank gives each token a row
-    that is not zero, so the sum is exact)."""
+    reference's cast-then-gather). The gather is ``F.embedding``: its
+    backward on CUDA sums each row's repeats in f32 and writes the row
+    once, where an index's backward adds them into a bf16 table's row one
+    rounding at a time (a Zipf-hot row's thousand repeats a step then lose
+    about a tenth of its gradient). With ``parallel``
+    (:func:`model_parallel` of "vocab"), ``table`` is this rank's rows
+    [lo, lo + n) of the vocabulary: the tokens it owns are gathered, the
+    others' rows zeroed, and the ranks' rows summed (``leave``: one
+    all-reduce; exactly one rank gives each token a row that is not zero,
+    so the sum is exact)."""
     if parallel is None:
-        return table[tokens].to(dtype)
+        return F.embedding(tokens, table).to(dtype)
     n = table.shape[0]
     local = tokens - parallel.index * n
     owned = (local >= 0) & (local < n)
-    rows = table[local.clamp(0, n - 1)].to(dtype)
+    rows = F.embedding(local.clamp(0, n - 1), table).to(dtype)
     return parallel.leave(torch.where(owned[..., None], rows, 0.0))
 
 

@@ -1,5 +1,11 @@
 """Mixture-of-Experts FFN (granite-moe-1b-a400m; deepseek-v2-236b's shared
 experts), in PyTorch: the reference's ``repro.models.moe`` step for step.
+DeepSeek-V2's routing, which the reference lacks, is the port's own:
+group-limited greedy top-k, weights left unnormalised and scaled, the
+sequence-wise balance loss, and a layer that holds one chip's share of
+the experts (``ArchConfig``'s ``n_group``, ``topk_group``,
+``routed_scaling``, ``seq_aux``, ``expert_first`` and ``experts_held``;
+each default is the reference's layer).
 
 Dispatch is gather based, as in the reference: capacity positions from
 running per-expert counts, the routing inverted into a slot -> choice
@@ -46,11 +52,12 @@ from .layers import Params, dense_init, matmul, mlp_apply, mlp_init, model_paral
 def moe_init(gen: torch.Generator, cfg, dtype=torch.float32, device=None,
              lead: tuple = ()) -> Params:
     E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    held = lead + (cfg.held_experts,)
     p: Params = {
         "router": dense_init(gen, d, E, torch.float32, device, lead),   # router in f32
-        "w_gate": dense_init(gen, d, f, dtype, device, lead + (E,)),
-        "w_up": dense_init(gen, d, f, dtype, device, lead + (E,)),
-        "w_down": dense_init(gen, f, d, dtype, device, lead + (E,)),
+        "w_gate": dense_init(gen, d, f, dtype, device, held),
+        "w_up": dense_init(gen, d, f, dtype, device, held),
+        "w_down": dense_init(gen, f, d, dtype, device, held),
     }
     if cfg.n_shared_experts > 0:
         p["shared"] = mlp_init(gen, d, cfg.moe_d_ff * cfg.n_shared_experts, dtype, device,
@@ -65,33 +72,85 @@ def top_k_lower_index(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.
     return vals[..., :k], idx[..., :k]
 
 
+def group_limited_top_k(probs: torch.Tensor, k: int, n_group: int, topk_group: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's group-limited greedy top-k over the last axis: the
+    experts in ``n_group`` equal groups in index order, a group scored by
+    its best expert; the ``topk_group`` best groups are kept and the k
+    best of their experts taken. Ties go to the lower index, among groups
+    and among experts (:func:`top_k_lower_index`)."""
+    N, E = probs.shape
+    size = E // n_group
+    _, groups = top_k_lower_index(probs.reshape(N, n_group, size).amax(-1), topk_group)
+    kept = torch.zeros((N, n_group), dtype=torch.bool, device=probs.device)
+    kept.scatter_(1, groups, True)
+    # a score is at least 0, so an expert of a dropped group is never taken
+    return top_k_lower_index(probs.masked_fill(~kept.repeat_interleave(size, 1), -1.0), k)
+
+
+def sequence_aux(probs: torch.Tensor, top_i: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """DeepSeek-V2's sequence-wise balance loss: sum_i f_i P_i of each
+    sequence of ``seq_len`` tokens, averaged over the sequences, with f_i
+    = E / (k T) x the sequence's choices of expert i among its k T and P_i
+    the sequence's mean score of expert i."""
+    N, E = probs.shape
+    k, S = top_i.shape[1], N // seq_len
+    ids = top_i.reshape(S, seq_len * k)
+    counts = torch.zeros((S, E), dtype=probs.dtype, device=probs.device)
+    counts.scatter_add_(1, ids, torch.ones(ids.shape, dtype=probs.dtype, device=probs.device))
+    f = counts * (E / (k * seq_len))
+    return (f * probs.reshape(S, seq_len, E).mean(dim=1)).sum(-1).mean()
+
+
 def moe_route(xf: torch.Tensor, p: Params, cfg, *, capacity_factor: float = 1.25,
-              no_drop: bool = False) -> Dict[str, torch.Tensor]:
-    """The routing of ``N`` tokens ``xf`` (N, d): the router's top-k weights
-    ``top_w`` and experts ``top_i`` (N, k), the aux loss, the capacity
-    ``C``, ``keep`` (N, k: the choice fits its expert's capacity) and
-    ``dest`` (N, k: the slot ``e * C + position``, or ``E * C`` when
-    dropped)."""
+              no_drop: bool = False, seq_len: int = 0) -> Dict[str, torch.Tensor]:
+    """The routing of ``N`` tokens ``xf`` (N, d), sequences of ``seq_len``
+    tokens (0: one sequence): the router's top-k weights ``top_w`` and
+    experts ``top_i`` (N, k), the aux loss, the capacity ``C``, ``keep``
+    (N, k: the choice fits its expert's capacity) and ``dest`` (N, k: the
+    slot ``e * C + position``, or ``E * C`` when dropped).
+
+    The top k are taken from ``cfg.topk_group`` of ``cfg.n_group`` groups
+    where that is fewer than all (:func:`group_limited_top_k`, counter
+    ``moe.group_limited``), renormalised if ``cfg.moe_renormalize`` and
+    scaled by ``cfg.routed_scaling``; the aux loss is the sequence-wise
+    one with ``cfg.seq_aux`` (:func:`sequence_aux`; under data parallel
+    this rank's sequences, whose gradients the step averages), else
+    Switch's over the global batch."""
+    with tracing.span("train_step.moe_route"):
+        return _route(xf, p, cfg, capacity_factor, no_drop, seq_len)
+
+
+def _route(xf, p, cfg, capacity_factor, no_drop, seq_len):
     N = xf.shape[0]
     E, k = cfg.n_experts, cfg.top_k
     dev = xf.device
     logits = matmul(xf.float(), p["router"])                         # (N, E) f32
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_i = top_k_lower_index(probs, k)                       # (N, k)
+    if cfg.topk_group < cfg.n_group:
+        tracing.count("moe.group_limited")
+        top_w, top_i = group_limited_top_k(probs, k, cfg.n_group, cfg.topk_group)
+    else:
+        top_w, top_i = top_k_lower_index(probs, k)                   # (N, k)
     if cfg.moe_renormalize:
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if cfg.routed_scaling != 1.0:
+        top_w = top_w * cfg.routed_scaling
 
     # Under a data-parallel train step these N tokens are this rank's rows
     # of ranks x N: the means and the capacity are the global batch's
     dp = shardctx.get("data_parallel")
     ranks = 1 if dp is None else dp.size
 
-    # Load-balance aux loss (Switch-style): E * sum_e f_e * m_e
-    f_e = F.one_hot(top_i[:, 0], E).float().mean(dim=0)              # top-1 fraction
-    m_e = probs.mean(dim=0)
-    if dp is not None:
-        f_e, m_e = dp.sum_(f_e * (1.0 / ranks)), dp.all_sum(m_e * (1.0 / ranks))
-    aux = E * torch.sum(f_e * m_e)
+    if cfg.seq_aux:
+        aux = sequence_aux(probs, top_i, seq_len or N)
+    else:
+        # Load-balance aux loss (Switch-style): E * sum_e f_e * m_e
+        f_e = F.one_hot(top_i[:, 0], E).float().mean(dim=0)          # top-1 fraction
+        m_e = probs.mean(dim=0)
+        if dp is not None:
+            f_e, m_e = dp.sum_(f_e * (1.0 / ranks)), dp.all_sum(m_e * (1.0 / ranks))
+        aux = E * torch.sum(f_e * m_e)
 
     # --- capacity + positions, per chunk of tokens (the reference's
     # per-shard capacity; one chunk unless the launcher installs more) --
@@ -141,7 +200,7 @@ def moe_apply(
     """
     B, T, d = x.shape
     xf = shardctx.constrain("moe_nd", x.reshape(B * T, d))
-    r = moe_route(xf, p, cfg, capacity_factor=capacity_factor, no_drop=no_drop)
+    r = moe_route(xf, p, cfg, capacity_factor=capacity_factor, no_drop=no_drop, seq_len=T)
     return moe_combine(xf, p, cfg, r).reshape(B, T, d), r["aux"]
 
 
@@ -149,18 +208,22 @@ def moe_combine(xf: torch.Tensor, p: Params, cfg, r: Dict[str, torch.Tensor]) ->
     """The expert outputs of the tokens ``xf`` (N, d) under the routing
     ``r`` of :func:`moe_route`, weighted and summed, plus the shared
     experts: (N, d). Partitioned (:func:`~.layers.model_parallel`), the
-    experts ``p`` holds: E/m of them (``w_gate`` holds fewer than
-    ``cfg.n_experts``: this rank's, from expert ``index`` E/m) or f/m
-    columns of each; the ranks' parts summed."""
+    experts ``p`` holds: E/m of them or f/m columns of each; the ranks'
+    parts summed. A layer whose ``w_gate`` holds fewer than
+    ``cfg.n_experts`` experts (this rank's E/m, from expert ``index`` E/m;
+    or, on one chip, ``cfg.experts_held`` from ``cfg.expert_first``, one
+    chip's share of an expert-parallel layer: counter ``moe.held_only``)
+    computes their part alone, the other experts' choices left out."""
     mp = model_parallel("moe")
-    E = cfg.n_experts
     if mp is not None:
         xf = mp.enter(xf)
         r = {**r, "top_w": mp.enter(r["top_w"])}
-        E = p["w_gate"].shape[-3]
-        if E != cfg.n_experts:
-            r = held_routing(r, mp.index * E, E)
-    out = moe_gather(expert_ffn(moe_dispatch(xf, r, E), p), r, xf.dtype)
+    held = p["w_gate"].shape[-3]
+    if held != cfg.n_experts:
+        if mp is None:
+            tracing.count("moe.held_only")
+        r = held_routing(r, cfg.expert_first + (mp.index * held if mp is not None else 0), held)
+    out = moe_gather(expert_ffn(moe_dispatch(xf, r, held), p), r, xf.dtype)
     if cfg.n_shared_experts > 0:
         out = out + mlp_apply(xf, p["shared"])
     return out if mp is None else mp.leave(out)

@@ -14,10 +14,13 @@ of tensors and every method takes it explicitly, so the serving engine
 passes ``model`` and ``params`` as the reference's does. Parameters keep
 the reference's tree: ``embed`` (an audio model has ``frontend_proj``,
 ``conv_pos`` and ``mask_embed`` instead; a vision one ``projector`` too);
-``blocks["g0".."g{G-1}"]``, one entry per
-kind of ``cfg.block_pattern``, stacked with a leading ``n_tiles =
-n_layers // G`` axis; ``tail``, a list of the ``n_layers % G`` blocks
-left over (the pattern's first kinds); ``final_norm`` and, untied,
+``dense`` (the port's own), the ``cfg.first_k_dense`` leading layers
+(global attention with a dense SwiGLU of ``d_ff`` ahead of an MoE
+model's expert layers, as deepseek-v2's first), stacked with a leading
+axis, each its own remat tile; ``blocks["g0".."g{G-1}"]``, one entry per
+kind of ``cfg.block_pattern``, stacked with a leading ``n_tiles`` axis
+over the layers after them; ``tail``, a list of the blocks left over
+(the pattern's first kinds); ``final_norm`` and, untied,
 ``lm_head``. Weights are ``(in, out)`` for ``x @ W``.
 :mod:`repro_torch.models.convert` carries the reference's parameters
 across. The reference's ``lax.scan`` over tiles is a loop over layers
@@ -93,6 +96,7 @@ from .layers import (
 )
 
 KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+DENSE = "dense"                     # a leading global-attention layer with a dense SwiGLU
 XLSTM = ("mlstm", "slstm")          # self-contained blocks: no ln2, no FFN
 _SUPPORTED = {"attention": ("full", "mla"), "modality": ("text", "vision_text", "audio")}
 
@@ -145,15 +149,16 @@ class TransformerLM(nn.Module):
         self.compute_dtype = compute_dtype
         self.remat = remat
         G = len(cfg.block_pattern)
-        self.n_tiles = cfg.n_layers // G
-        self.n_tail = cfg.n_layers % G
+        self.n_dense = cfg.first_k_dense
+        self.n_tiles = (cfg.n_layers - self.n_dense) // G
+        self.n_tail = (cfg.n_layers - self.n_dense) % G
         self.tail_kinds = cfg.block_pattern[: self.n_tail]
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
     def _mla(self, kind: str) -> bool:
-        return self.cfg.attention == "mla" and kind == "attn"
+        return self.cfg.attention == "mla" and kind in ("attn", DENSE)
 
     def _block_init(self, gen, device, kind: str, lead: tuple = ()) -> Params:
         cfg, dt = self.cfg, self.param_dtype
@@ -192,6 +197,8 @@ class TransformerLM(nn.Module):
         if cfg.modality == "vision_text":
             params["projector"] = {"w1": dense_init(gen, cfg.vision_dim, d, dt, dev),
                                    "w2": dense_init(gen, d, d, dt, dev)}
+        if self.n_dense:
+            params[DENSE] = self._block_init(gen, dev, DENSE, (self.n_dense,))
         if self.n_tiles > 0:
             params["blocks"] = {f"g{g}": self._block_init(gen, dev, kind, (self.n_tiles,))
                                 for g, kind in enumerate(cfg.block_pattern)}
@@ -211,9 +218,15 @@ class TransformerLM(nn.Module):
                   for g in range(len(self.cfg.block_pattern))]
         return [[grp[i] for grp in groups] for i in range(self.n_tiles)]
 
+    def _dense(self, tree) -> list:
+        """The leading dense layers' subtrees of ``tree`` (views)."""
+        return _unstack(tree[DENSE], self.n_dense) if self.n_dense else []
+
     def _layers(self, tree) -> Iterator[Tuple[str, object]]:
         """(kind, layer's subtree) of ``tree`` in the order the layers run:
-        tile by tile, then the tail."""
+        the leading dense layers, tile by tile, then the tail."""
+        for p in self._dense(tree):
+            yield DENSE, p
         for tile in self._tiles(tree):
             yield from zip(self.cfg.block_pattern, tile)
         for i, kind in enumerate(self.tail_kinds):
@@ -222,11 +235,14 @@ class TransformerLM(nn.Module):
     def _collect(self, per_layer):
         """Per-layer trees in :meth:`_layers` order, as the reference's
         ``blocks`` (stacked over tiles) and ``tail``."""
-        out, G = {}, len(self.cfg.block_pattern)
+        out, G, K = {}, len(self.cfg.block_pattern), self.n_dense
+        if K:
+            out[DENSE] = _stack(per_layer[:K])
         if self.n_tiles > 0:
-            out["blocks"] = {f"g{g}": _stack(per_layer[g:self.n_tiles * G:G]) for g in range(G)}
+            out["blocks"] = {f"g{g}": _stack(per_layer[K + g:K + self.n_tiles * G:G])
+                             for g in range(G)}
         if self.n_tail:
-            out["tail"] = list(per_layer[self.n_tiles * G:])
+            out["tail"] = list(per_layer[K + self.n_tiles * G:])
         return out
 
     # ------------------------------------------------------------------
@@ -380,12 +396,14 @@ class TransformerLM(nn.Module):
         x = self._embed(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.remat and torch.is_grad_enabled()
-        for tile in self._tiles(params):
+        tiles = [([p], (DENSE,)) for p in self._dense(params)]
+        tiles += [(tile, cfg.block_pattern) for tile in self._tiles(params)]
+        for tile, kinds in tiles:
             if remat:
-                x, aux = checkpoint(self._blocks_forward, x, aux, tile, cfg.block_pattern,
+                x, aux = checkpoint(self._blocks_forward, x, aux, tile, kinds,
                                     use_reentrant=False)
             else:
-                x, aux = self._blocks_forward(x, aux, tile, cfg.block_pattern)
+                x, aux = self._blocks_forward(x, aux, tile, kinds)
         if self.n_tail:
             x, aux = self._blocks_forward(x, aux, params["tail"], self.tail_kinds)
         return x, aux
@@ -397,8 +415,8 @@ class TransformerLM(nn.Module):
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         """Mean next-token cross-entropy over ``batch["labels"]`` (masked by
         ``batch["mask"]`` where given: an encoder's masked frames), plus
-        0.01 x the MoE aux loss; a vision model's image positions carry no
-        loss. Returns (loss, {"ce", "aux", "loss"}). With the vocabulary
+        ``cfg.aux_coef`` (0.01 unless set) x the MoE aux loss; a vision
+        model's image positions carry no loss. Returns (loss, {"ce", "aux", "loss"}). With the vocabulary
         split over ``model``, each rank's block of the logits goes to the
         vocabulary-parallel cross-entropy: no rank builds the whole."""
         cfg = self.cfg
@@ -411,7 +429,7 @@ class TransformerLM(nn.Module):
             ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
         else:
             ce = vocab_parallel_cross_entropy(logits, batch["labels"], vp, batch.get("mask"))
-        loss = ce + (0.01 if cfg.moe else 0.0) * aux
+        loss = ce + (cfg.aux_coef if cfg.moe else 0.0) * aux
         return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     forward = forward_logits
@@ -484,6 +502,8 @@ class TransformerLM(nn.Module):
                                    split.state_heads(self, kind))
 
         caches = {}
+        if self.n_dense:
+            caches[DENSE] = one(DENSE, (self.n_dense,))
         if self.n_tiles > 0:
             caches["blocks"] = {f"g{g}": one(kind, (self.n_tiles,))
                                 for g, kind in enumerate(self.cfg.block_pattern)}

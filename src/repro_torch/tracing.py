@@ -29,7 +29,19 @@ The port's spans and counters:
   ``cache.hit_cache`` (gets that attached to an object another tenant
   holds) and ``cache.new_pages`` (pool pages a write-back allocated);
 * counter ``moe.transposed_backward``: one a backward of the MoE's
-  dispatch or combine (``models/moe.py``), two a layer a backward.
+  dispatch or combine (``models/moe.py``), two a layer a backward;
+* ``train_step.mla``: MLA's full-sequence forward (``models/attention.py``
+  ``mla_forward``: the projections, norms, RoPE and the K3 launch), and
+  ``train_step.moe_route``: the MoE's routing (``models/moe.py``
+  ``moe_route``: router, softmax, top k, aux loss, capacity slots). Both
+  are device work, named under ``train_step.`` as the step's own ranges
+  are, since a reading of a profiled step keeps the device time of ranges
+  of that prefix; under remat each runs again in the backward. They run
+  outside a train step too (a forward's logits; serving's routing);
+* counters ``moe.group_limited``, one a routing that took its top k from
+  a limited set of expert groups, and ``moe.held_only``, one an MoE layer
+  that computed the part of the experts it holds, one chip's share, with
+  no model-parallel group (both in ``models/moe.py``).
 
 ``ServingEngine.submit`` opens one request record around each request.
 """
